@@ -1,0 +1,125 @@
+"""Evaluation core (counterpart of ``porous_cfd_tpu/pipelines/evaluation.py``):
+verbose prediction of every case, batch by batch, timed with a real device
+synchronization, then per-batch error and residual extraction on the host.
+
+Plots, ``Errors.csv`` and dataset loading from OpenFOAM cases are not ported
+yet; the caller passes the stacked cases and their normalizers.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from porous_cfd_tpu_torch.data.foam_data import FoamData
+from porous_cfd_tpu_torch.models.base import PinnModel
+from porous_cfd_tpu_torch.train.engine import gather_cases, make_predict_functions
+from porous_cfd_tpu_torch.utils import profiling
+
+
+def _inverse(scaler, x: np.ndarray) -> np.ndarray:
+    return scaler.to("cpu").inverse_transform(torch.as_tensor(x)).numpy()
+
+
+def get_normalized_signed_distance(points: np.ndarray, target: np.ndarray
+                                   ) -> np.ndarray:
+    """Min distance of each point from the target cloud, max-normalized."""
+    d = np.linalg.norm(points[..., :, None, :] - target[..., None, :, :],
+                       axis=-1)
+    d = np.min(d, axis=-1)[..., None]
+    return d / np.max(d)
+
+
+def get_common_data(normalizers: dict, predicted: FoamData, target: FoamData,
+                    extras: FoamData) -> dict[str, Any]:
+    """Per-batch error/residual extraction on numpy containers
+    (``FoamData.numpy()``)."""
+    predicted_u, predicted_p = np.asarray(predicted["U"]), np.asarray(predicted["p"])
+    target_u, target_p = np.asarray(target["U"]), np.asarray(target["p"])
+    if "U" in normalizers:
+        predicted_u = _inverse(normalizers["U"], predicted_u)
+        target_u = _inverse(normalizers["U"], target_u)
+    if "p" in normalizers:
+        predicted_p = _inverse(normalizers["p"], predicted_p)
+        target_p = _inverse(normalizers["p"], target_p)
+
+    u_error = np.abs(predicted_u - target_u)
+    p_error = np.abs(predicted_p - target_p)
+
+    predicted_div = np.asarray(extras["div"])
+    predicted_momentum = np.asarray(extras["Momentum"])
+    target_div = np.zeros_like(predicted_div)
+    target_momentum = np.zeros_like(predicted_momentum)
+    if "momentError" in target and "div(phi)" in target:
+        target_div = np.asarray(target["internal"]["div(phi)"])
+        target_momentum = np.asarray(target["internal"]["momentError"])
+
+    if "interface" in target.domain:
+        all_points = np.asarray(target["C"])
+        interface_points = np.asarray(target["interface"]["C"])
+        if "C" in normalizers:
+            all_points = _inverse(normalizers["C"], all_points)
+            interface_points = _inverse(normalizers["C"], interface_points)
+        interface_dist = get_normalized_signed_distance(all_points,
+                                                        interface_points)
+    else:
+        interface_dist = None
+
+    return {"U error": u_error,
+            "p error": p_error,
+            "Predicted momentum": predicted_momentum,
+            "Predicted divergence": predicted_div,
+            "Target momentum": target_momentum,
+            "Target divergence": target_div,
+            "Region id": np.asarray(target["cellToRegion"]),
+            "Interface distance": interface_dist}
+
+
+@dataclasses.dataclass
+class Evaluation:
+    results: dict
+    inference_time: float       # seconds for all cases, ending in a sync
+    avg_inference_time: float   # seconds per case
+    predictions: list           # per batch: (predicted FoamData, extras FoamData)
+
+
+SampleFn = Callable[[dict, FoamData, FoamData, FoamData], dict]
+
+
+def evaluate(model: PinnModel, dataset: FoamData, batch_size: int,
+             normalizers: dict,
+             sample_process_fn: SampleFn | None = None) -> Evaluation:
+    """Verbose prediction of every case of ``dataset`` (stacked (C, N, F)),
+    in batches of ``batch_size``, on the model's device. The timing covers
+    the prediction of all batches and ends in ``torch.cuda.synchronize()``."""
+    device = model.device
+    fns = make_predict_functions(model)
+    stacked = dataset.to(device)
+    n = len(stacked)
+    batches = [torch.arange(s, min(s + batch_size, n), device=device)
+               for s in range(0, n, batch_size)]
+
+    profiling.sync(device)
+    start = time.perf_counter()
+    predictions = [fns.predict_batch(gather_cases(stacked, idx), True)
+                   for idx in batches]
+    profiling.sync(device)
+    inference_time = time.perf_counter() - start
+
+    results: dict | None = None
+    for idx, (pde, extras) in zip(batches, predictions):
+        target = gather_cases(stacked, idx)
+        sample = get_common_data(normalizers, pde.numpy(), target.numpy(),
+                                 extras.numpy())
+        if sample_process_fn:
+            sample.update(sample_process_fn(normalizers, pde, target, extras))
+        if results is None:
+            results = {k: [] for k in sample}
+        for k, v in sample.items():
+            if v is not None:
+                results[k].append(np.asarray(v))
+    results = {k: np.concatenate(v) if v else None for k, v in results.items()}
+    return Evaluation(results, inference_time, inference_time / n, predictions)

@@ -1,0 +1,100 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on the
+card. Skipped without a CUDA device. On the GPU machine (no JAX there):
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_cuda_kernels.py
+"""
+import pytest
+import torch
+
+from porous_cfd_tpu_torch.data.synthetic import make_foam_batch, make_scalers
+from porous_cfd_tpu_torch.models.mlp import MLP
+from porous_cfd_tpu_torch.models.pipn import pipn_foam
+from porous_cfd_tpu_torch.ops import decoder_cuda, pointnet_cuda
+from porous_cfd_tpu_torch.physics import analytic
+
+pytestmark = pytest.mark.gpu
+
+# |kernel - plain| <= RTOL * max|plain|: f32 on both sides, sums in another
+# order (the kernels' FMA chains against cuBLAS).
+RTOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def assert_close(got, ref):
+    assert got.shape == ref.shape
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= RTOL * scale
+
+
+@pytest.mark.parametrize("act", ["silu", "tanh"])
+@pytest.mark.parametrize("b,n,layers", [(2, 64, [16, 24, 32]), (3, 301, [21, 16, 32, 200]),
+                                        (1, 7, [5, 130])])
+def test_pointnet_kernel_matches_plain(cuda, act, b, n, layers):
+    gen = torch.Generator().manual_seed(n)
+    mlp = MLP(layers, activation=act, generator=gen).to(cuda)
+    x = torch.randn((b, n, layers[0]), generator=gen).to(cuda)
+    with torch.no_grad():
+        m, a = pointnet_cuda.pointnet_global(mlp.linears, x, act)
+        torch.cuda.synchronize()
+        rm, ra = pointnet_cuda.pointnet_global_plain(mlp.linears, x, act)
+        g = analytic.mlp_value(mlp.linears, x, act)
+    assert_close(m, rm)
+    assert a.dtype == torch.int32
+    top2 = torch.topk(g, 2, dim=-2).values
+    decided = (top2[:, 0] - top2[:, 1]) > RTOL * rm.abs().max()
+    assert torch.equal(a[:, 0][decided], ra[:, 0][decided])
+
+
+def test_pointnet_kernel_ties_take_the_first_row(cuda):
+    """Rows repeat across tiles (64 rows each): the first copy must win."""
+    gen = torch.Generator().manual_seed(0)
+    mlp = MLP([3, 8, 16], activation="silu", generator=gen).to(cuda)
+    base = torch.randn((1, 10, 3), generator=gen)
+    x = base.repeat(1, 30, 1).to(cuda)                     # 300 rows, period 10
+    with torch.no_grad():
+        _, a = pointnet_cuda.pointnet_global(mlp.linears, x, "silu")
+        _, ra = pointnet_cuda.pointnet_global_plain(mlp.linears, x[:, :10], "silu")
+    assert torch.equal(a, ra)
+
+
+@pytest.mark.parametrize("act,dims,boundary", [("silu", 2, True), ("tanh", 2, False),
+                                               ("silu", 3, True), ("tanh", 1, True)])
+def test_decoder_kernel_matches_plain(cuda, act, dims, boundary):
+    gen = torch.Generator().manual_seed(dims)
+    n_local, layers = 24, [24 + 40, 136, 72, 20, 3]
+    dec = MLP(layers, activation=act, last_activation=False, generator=gen).to(cuda)
+    rnd = lambda *s: (torch.randn(s, generator=gen) * 0.5).to(cuda)  # noqa: E731
+    v, jt, ht = rnd(2, 37, n_local), rnd(2, dims, 37, n_local), rnd(2, dims, 37, n_local)
+    v_b = rnd(2, 45, n_local) if boundary else None
+    g = rnd(2, 1, layers[0] - n_local)
+    with torch.no_grad():
+        got = decoder_cuda.decoder_prop(dec.linears, n_local, v, jt, ht, v_b, g, act)
+        torch.cuda.synchronize()
+        ref = decoder_cuda.decoder_prop_plain(dec.linears, n_local, v, jt, ht, v_b, g, act)
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+
+def test_slice_on_card_matches_cpu(cuda):
+    cfg = dict(nu=1e-3, d=100.0, f=1.0, fe_local_layers=[2, 32, 32],
+               fe_global_layers=[37, 48, 64, 256], seg_layers=[288, 128, 64, 32, 3],
+               scalers=make_scalers())
+    gpu = pipn_foam(**cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    cpu = pipn_foam(**cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    batch = make_foam_batch(3, 200, 96, 20, seed=2)
+    launches = (pointnet_cuda.pointnet_global.launches, decoder_cuda.decoder_prop.launches)
+    with torch.no_grad():
+        out_g = gpu.derivative_apply(batch.to(cuda))
+        out_c = cpu.derivative_apply(batch)
+    assert (pointnet_cuda.pointnet_global.launches - launches[0],
+            decoder_cuda.decoder_prop.launches - launches[1]) == (1, 2)
+    for a, r in zip(out_g, out_c):
+        assert_close(a.cpu(), r)
