@@ -43,7 +43,7 @@ def _library() -> ctypes.CDLL:
     lib = build.library("decoder_prop")
     if lib.decoder_prop_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.decoder_prop_forward.argtypes = [i, i, i, p, p, p, i, i, p, i, p, p, p, i,
+        lib.decoder_prop_forward.argtypes = [i, i, i, p, p, p, i, i, p, i, p, p, p,
                                              p, i, i, p, p, p]
         lib.decoder_prop_forward.restype = i
     return lib
@@ -100,11 +100,13 @@ def decoder_prop(linears: Sequence, n_local: int, v, jt, ht, v_b, g,
     ov = torch.empty((b_cases, n_int + n_bnd, n_out), dtype=torch.float32, device=dev)
     oj = torch.empty((b_cases, n_int, n_out, d_dims), dtype=torch.float32, device=dev)
     oh = torch.empty_like(oj)
-    ws = [lin.weight for lin in linears]
+    # the kernel reads weights as (in, out): nn.Linear's weight transposed,
+    # for layer 0 only its local block
+    ws = ([w0[:, :n_local].t().contiguous()]
+          + [lin.weight.t().contiguous() for lin in linears[1:]])
     bs = [lin.bias for lin in linears]
     lib = _library()
-    args = (build.pointer_array(ws), build.pointer_array(bs), build.int_array(widths),
-            w0.shape[1])
+    args = (build.pointer_array(ws), build.pointer_array(bs), build.int_array(widths))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.decoder_prop_forward(

@@ -73,9 +73,10 @@ def pointnet_global(linears: Sequence, x: torch.Tensor, activation: str):
     _check_inputs(linears, x, activation)
     lib = _library()
     n_cases, n_pts, _ = x.shape
-    ws = [lin.weight for lin in linears]
+    # the kernel reads weights as (in, out): nn.Linear's weight transposed
+    ws = [lin.weight.t().contiguous() for lin in linears]
     bs = [lin.bias for lin in linears]
-    widths = [x.shape[-1]] + [w.shape[0] for w in ws]
+    widths = [x.shape[-1]] + [w.shape[1] for w in ws]
     f = widths[-1]
     tile_rows = lib.pointnet_global_tile_rows()
     n_tiles = -(-n_pts // tile_rows)
