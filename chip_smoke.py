@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero:
   4. slice: verbose prediction (fields + PDE residuals) of 52 synthetic cases
      at 1500/1000/700 internal/boundary/observation points, in 4 batches of 13,
      through the full-width duct_fixed_boundary ``pipn`` model; launch counts,
-     finiteness, and one batch against the same module on the CPU.
+     finiteness, and one batch against the same module on the CPU; the
+     prediction time per batch is the median of 7 runs of the 52 cases.
 The second-to-last lines are the ``{"kernels": [...]}`` JSON and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import copy
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -36,6 +38,7 @@ SEG = [1024 + 64, 512, 256, 128, 3]
 SEG_DROPOUT = [0.05, 0.05, 0, 0]
 BATCH, N_INT, N_BND, N_OBS, N_CASES = 13, 1500, 1000, 700, 52
 SEED = 8421
+SLICE_RUNS = 7
 
 # Tolerance of every comparison on the card: |a - b| <= RTOL * max|ref|.
 # The kernels, cuBLAS and the CPU's BLAS sum the 512- and 1024-wide rows in
@@ -268,9 +271,15 @@ def main() -> int:
     for key, val in ev.results.items():
         if val is not None and not bool(torch.isfinite(torch.as_tensor(val)).all()):
             fail(f"evaluation result {key!r} is not finite")
-    ms_batch = ev.inference_time / n_batches * 1e3
-    cases_s = N_CASES / ev.inference_time
-    log(f"slice: verbose prediction {ms_batch:.3f} ms per batch of {BATCH}, "
+    # the host-clock window is short, so the run is repeated and the median
+    # reported with the spread
+    runs_ms = sorted(t / n_batches * 1e3 for t in [ev.inference_time] + [
+        evaluate(model, data, BATCH, scalers).inference_time
+        for _ in range(SLICE_RUNS - 1)])
+    ms_batch = statistics.median(runs_ms)
+    cases_s = BATCH / ms_batch * 1e3
+    log(f"slice: verbose prediction {ms_batch:.3f} ms per batch of {BATCH} "
+        f"(median of {SLICE_RUNS} runs, {runs_ms[0]:.3f} to {runs_ms[-1]:.3f}), "
         f"{cases_s:.1f} cases/s ({name}; {smi})")
 
     # one batch on the card against the same module and batch on the CPU
@@ -296,6 +305,7 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(json.dumps({"slice": {"ms_per_batch": ms_batch, "cases_per_s": cases_s,
+                              "runs_ms_per_batch": runs_ms,
                               "batches": n_batches, "batch_size": BATCH,
                               "points": [N_INT, N_BND, N_OBS]}}))
     log(json.dumps({"kernels": kernels}))

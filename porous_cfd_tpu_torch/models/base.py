@@ -57,7 +57,8 @@ def error_labels(dims: int) -> list[str]:
 
 @dataclasses.dataclass(frozen=True)
 class PinnModel:
-    """A model family member: module + losses + optimizer recipe.
+    """A model family member: module + physics losses (the optimizer recipe
+    comes with training).
 
     :param derivative_apply: analytic fast path
         ``(batch, deterministic) -> (out_full, jac, lap)`` with jac/lap shaped
@@ -71,9 +72,6 @@ class PinnModel:
     enable_data_loss: bool = True
     u_scaler: Optional[StandardScaler] = None
     p_scaler: Optional[StandardScaler] = None
-    learning_rate: float = 1e-3
-    lr_gamma: float = 0.999
-    adam_eps: float = 1e-8
     derivative_apply: Optional[Any] = None
 
     def with_precision(self, precision: str) -> "PinnModel":
@@ -86,20 +84,12 @@ class PinnModel:
         return next(self.module.parameters()).device
 
     @property
-    def out_features(self) -> int:
-        return self.dims + 1
-
-    @property
     def predicted_labels(self) -> dict:
         return predicted_labels(self.dims)
 
     @property
     def extra_labels(self) -> dict:
         return extra_labels(self.dims)
-
-    @property
-    def num_losses(self) -> int:
-        return 1 + self.dims + (self.dims + 1) * (2 if self.enable_data_loss else 1)
 
     def postprocess_out(self, u, p):
         """Denormalize outputs before error metrics."""

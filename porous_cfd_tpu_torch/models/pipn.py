@@ -61,8 +61,6 @@ def _decoder_prop_dispatch(decoder: MLP, n_local, v, jt, ht, v_b, g,
     if (not deterministic and dropout is not None
             and any(float(r) > 0 for r in dropout)):
         raise not_ported("decoder dropout (deterministic=False, training)")
-    if not decoder_cuda.supported(activation):
-        raise ValueError(f"decoder_prop: unsupported activation {activation!r}")
     return decoder_cuda.decoder_prop(
         decoder.linears, n_local, v.contiguous(), jt.contiguous(),
         ht.contiguous(), None if v_b is None else v_b.contiguous(),
@@ -72,8 +70,6 @@ def _decoder_prop_dispatch(decoder: MLP, n_local, v, jt, ht, v_b, g,
 def _pointnet_global_dispatch(global_feature: MLP, x, activation):
     """Max-pooled value MLP over points: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. Returns the (B, 1, F) max."""
-    if not pointnet_cuda.supported(activation):
-        raise ValueError(f"pointnet_global: unsupported activation {activation!r}")
     return pointnet_cuda.pointnet_global(global_feature.linears, x.contiguous(),
                                          activation)[0]
 
@@ -138,5 +134,4 @@ def pipn_foam(nu: float, d: float, f: float,
         continuity_loss=ContinuityLossStandardized(u_s, c_s),
         enable_data_loss=True,
         u_scaler=u_s, p_scaler=p_s,
-        learning_rate=1e-3, lr_gamma=0.999,
         derivative_apply=pipn_apply_with_derivatives(module, coupled_context))

@@ -27,10 +27,6 @@ ACT_CODES = {"silu": 0, "tanh": 1}
 MAX_DIMS = 3
 
 
-def supported(activation: str) -> bool:
-    return activation in ACT_CODES
-
-
 def decoder_prop_plain(linears: Sequence, n_local: int, v, jt, ht, v_b, g,
                        activation: str):
     """``analytic.decoder_prop`` in the transposed layout."""

@@ -20,10 +20,6 @@ from porous_cfd_tpu_torch.physics import analytic
 ACT_CODES = {"silu": 0, "tanh": 1}
 
 
-def supported(activation: str) -> bool:
-    return activation in ACT_CODES
-
-
 def pointnet_global_plain(linears: Sequence, x: torch.Tensor, activation: str):
     """``analytic.mlp_value`` then ``torch.max`` over the point axis, whose
     index is the first maximal row (never ``amax``, which splits ties).

@@ -14,12 +14,10 @@ the transpose of the flax kernel. Activations are named: ``"silu"`` or
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
-
-from porous_cfd_tpu_torch.device import not_ported
 
 
 def tanh_rules(v):
@@ -115,21 +113,16 @@ def activation_prop_merged(activation: str, v, j, h, n_int: int):
 
 
 def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
-                 activation: str,
-                 dropout: Optional[Sequence[float]] = None,
-                 last_activation: bool = False,
-                 deterministic: bool = True):
+                 activation: str):
     """Decoder-stack propagation over ``[local || context]`` inputs with the
-    internal and boundary value rows merged into one matmul per layer.
+    internal and boundary value rows merged into one matmul per layer; the
+    last layer is linear.
 
     :param v/j/h: internal local features + derivatives ((..., Ni, L),
         (..., Ni, D, L)); ``v_b``: boundary local features (..., Nb, L) or
         None; ``g``: pooled context (..., 1, G).
     :return: (values over [internal || boundary] rows, J, H).
     """
-    if (not deterministic and dropout is not None
-            and any(float(r) > 0 for r in dropout)):
-        raise not_ported("decoder dropout (deterministic=False, training)")
     n_int = v.shape[-2]
     v, j, h, v_b = context_dense_prop(linears[0], n_local, v, j, h, v_b, g)
     if v_b is not None:
@@ -141,6 +134,6 @@ def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
             v = F.linear(v, lin.weight, lin.bias)
             j = F.linear(j, lin.weight)
             h = F.linear(h, lin.weight)
-        if i < n_out - 1 or last_activation:
+        if i < n_out - 1:
             v, j, h = activation_prop_merged(activation, v, j, h, n_int)
     return v, j, h

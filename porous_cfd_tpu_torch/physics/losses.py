@@ -53,10 +53,6 @@ class ContinuityLossStandardized:
         r = self.residual(u_jac)
         return mse(r, torch.zeros_like(r))
 
-    def to(self, device) -> "ContinuityLossStandardized":
-        return ContinuityLossStandardized(self.u_scaler.to(device),
-                                          self.points_scaler.to(device))
-
 
 @dataclasses.dataclass(frozen=True)
 class MomentumLossFixed:
@@ -85,9 +81,3 @@ class MomentumLossFixed:
     def __call__(self, internal, u, u_jac, u_lap, p_grad):
         r = self.residual(internal, u, u_jac, u_lap, p_grad)
         return vector_loss(r, torch.zeros_like(r))
-
-    def to(self, device) -> "MomentumLossFixed":
-        return MomentumLossFixed(self.nu, self.d, self.f,
-                                 self.u_scaler.to(device),
-                                 self.points_scaler.to(device),
-                                 self.p_scaler.to(device))

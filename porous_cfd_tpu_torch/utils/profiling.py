@@ -3,9 +3,6 @@
 finished, so a host clock must end in ``torch.cuda.synchronize()``."""
 from __future__ import annotations
 
-import time
-from typing import Callable
-
 import torch
 
 
@@ -16,18 +13,3 @@ def sync(device=None) -> None:
         if torch.cuda.is_available():
             torch.cuda.synchronize(device)
 
-
-def timed(fn: Callable, *args, n: int = 10, warmup: int = 1, device=None,
-          **kwargs):
-    """Mean wall time of ``fn(*args)`` over ``n`` calls after ``warmup``
-    calls, each timing ending in a device sync. :return: (seconds_per_call,
-    last_result)."""
-    out = None
-    for _ in range(warmup):
-        out = fn(*args, **kwargs)
-    sync(device)
-    t0 = time.perf_counter()
-    for _ in range(n):
-        out = fn(*args, **kwargs)
-    sync(device)
-    return (time.perf_counter() - t0) / n, out
