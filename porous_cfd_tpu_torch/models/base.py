@@ -57,13 +57,17 @@ def error_labels(dims: int) -> list[str]:
 
 @dataclasses.dataclass(frozen=True)
 class PinnModel:
-    """A model family member: module + physics losses (the optimizer recipe
-    comes with training).
+    """A model family member: module + physics losses + optimizer recipe.
 
+    :param learning_rate/lr_gamma/adam_eps: Adam with a per-epoch
+        exponential learning-rate decay (every reference model's recipe).
     :param derivative_apply: analytic fast path
-        ``(batch, deterministic) -> (out_full, jac, lap)`` with jac/lap shaped
-        (..., Ni, O, D). The exact autodiff operator is not ported, so a model
-        without one cannot run verbose prediction yet.
+        ``(batch, deterministic, seed) -> (out_full, jac, lap)`` with jac/lap
+        shaped (..., Ni, O, D). The exact autodiff operator is not ported, so
+        a model without one cannot predict verbosely or train yet.
+    :param microbatch/remat: gradient accumulation and rematerialisation
+        (the U-Net variants' memory knobs); not ported, and training raises
+        when either is set.
     """
     module: nn.Module
     dims: int
@@ -72,7 +76,12 @@ class PinnModel:
     enable_data_loss: bool = True
     u_scaler: Optional[StandardScaler] = None
     p_scaler: Optional[StandardScaler] = None
+    learning_rate: float = 1e-3
+    lr_gamma: float = 0.999
+    adam_eps: float = 1e-8
     derivative_apply: Optional[Any] = None
+    remat: bool = False
+    microbatch: Optional[int] = None
 
     def with_precision(self, precision: str) -> "PinnModel":
         if str(precision).startswith("bf16"):
@@ -82,6 +91,10 @@ class PinnModel:
     @property
     def device(self) -> torch.device:
         return next(self.module.parameters()).device
+
+    @property
+    def num_losses(self) -> int:
+        return 1 + self.dims + (self.dims + 1) * (2 if self.enable_data_loss else 1)
 
     @property
     def predicted_labels(self) -> dict:

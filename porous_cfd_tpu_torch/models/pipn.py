@@ -5,7 +5,8 @@ analytic derivative path that carries verbose prediction.
 Per-point features + a pooled global geometry embedding, decoded by a shared
 segmentation MLP. The analytic path runs two CUDA kernels on the card:
 ``pointnet_global`` (pooled global feature) and ``decoder_prop`` (fused
-(v, J, H) decoder, internal and boundary launches).
+(v, J, H) decoder with dropout, internal and boundary launches); under
+autograd their backward kernels carry the gradients.
 """
 from __future__ import annotations
 
@@ -53,18 +54,16 @@ class PipnModule(nn.Module):
 
 
 def _decoder_prop_dispatch(decoder: MLP, n_local, v, jt, ht, v_b, g,
-                           activation, dropout, deterministic):
+                           activation, dropout, deterministic, seed):
     """Decoder-stack propagation: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (``decoder_cuda.decoder_prop`` goes by the
-    tensors' device). Returns (out_merged, jac, lap) with jac/lap
-    (..., Ni, O, D)."""
-    if (not deterministic and dropout is not None
-            and any(float(r) > 0 for r in dropout)):
-        raise not_ported("decoder dropout (deterministic=False, training)")
+    tensors' device). Dropout runs unless ``deterministic``, with masks fixed
+    by ``seed``. Returns (out_merged, jac, lap) with jac/lap (..., Ni, O,
+    D)."""
     return decoder_cuda.decoder_prop(
         decoder.linears, n_local, v.contiguous(), jt.contiguous(),
         ht.contiguous(), None if v_b is None else v_b.contiguous(),
-        g.contiguous(), activation)
+        g.contiguous(), activation, dropout, deterministic, seed)
 
 
 def _pointnet_global_dispatch(global_feature: MLP, x, activation):
@@ -76,14 +75,17 @@ def _pointnet_global_dispatch(global_feature: MLP, x, activation):
 
 def pipn_apply_with_derivatives(module: PipnModule, coupled: bool = True):
     """The analytic derivative path of a PipnModule:
-    ``fn(batch, deterministic=True) -> (out_full, jac, lap)`` with jac/lap
-    shaped (..., Ni, O, D). Only the decoupled-context mode
-    (``coupled=False``: the pooled global feature is held constant per case)
-    is ported; the max-pool-coupled mode raises."""
+    ``fn(batch, deterministic=True, seed=None) -> (out_full, jac, lap)`` with
+    jac/lap shaped (..., Ni, O, D). With ``deterministic=False`` the decoder
+    applies its dropout, with masks that are a pure function of ``seed``
+    (a 64-bit integer; the training step derives it from the run's seed and
+    the step). Only the decoupled-context mode (``coupled=False``: the pooled
+    global feature is held constant per case) is ported; the
+    max-pool-coupled mode raises."""
     if coupled:
         raise not_ported("the max-pool-coupled derivative path (coupled=True)")
 
-    def fn(batch: FoamData, deterministic: bool = True):
+    def fn(batch: FoamData, deterministic: bool = True, seed=None):
         internal_view, boundary_view = split_contiguous(batch)
         x_int = internal_view["C"]
         x_bnd = boundary_view["C"]
@@ -101,7 +103,7 @@ def pipn_apply_with_derivatives(module: PipnModule, coupled: bool = True):
             fe.global_feature, torch.cat([local_all, feats], dim=-1), act)
         return _decoder_prop_dispatch(
             module.decoder, lv_i.shape[-1], lv_i, lj, lh, lv_b, g, act,
-            module.seg_dropout, deterministic)
+            module.seg_dropout, deterministic, seed)
 
     return fn
 
@@ -134,4 +136,5 @@ def pipn_foam(nu: float, d: float, f: float,
         continuity_loss=ContinuityLossStandardized(u_s, c_s),
         enable_data_loss=True,
         u_scaler=u_s, p_scaler=p_s,
+        learning_rate=1e-3, lr_gamma=0.999,
         derivative_apply=pipn_apply_with_derivatives(module, coupled_context))

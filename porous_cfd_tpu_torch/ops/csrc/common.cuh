@@ -192,4 +192,248 @@ inline int max_shared_bytes() {
   return bytes;
 }
 
+// ---------------------------------------------------------------------------
+// Backward pieces
+
+// value and first three derivatives of the activation (the TPU kernel's
+// _silu_rules3 / _tanh_rules3, decoder_pallas.py:46-59)
+template <int ACT>
+__device__ __forceinline__ void act_rules3(float z, float& d1, float& d2, float& d3) {
+  if (ACT == kSilu) {
+    const float s = 1.f / (1.f + expf(-z));
+    const float s1 = s * (1.f - s);
+    const float s2 = s1 * (1.f - 2.f * s);
+    const float s3 = s2 * (1.f - 2.f * s) - 2.f * s1 * s1;
+    d1 = s + z * s1;
+    d2 = 2.f * s1 + z * s2;
+    d3 = 3.f * s2 + z * s3;
+  } else {
+    const float t = tanhf(z);
+    d1 = 1.f - t * t;
+    d2 = -2.f * t * d1;
+    d3 = -2.f * d1 * d1 - 2.f * t * d2;
+  }
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_d1(float z) {
+  float d1, d2, d3;
+  act_rules3<ACT>(z, d1, d2, d3);
+  return d1;
+}
+
+// Philox4x32-10 (Salmon et al., SC'11), the counter-based generator of the
+// dropout masks; ops/dropout.py computes the same function in torch.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// Inverted dropout after the activation of layer i, where on[i] is set. The
+// keep bit of (layer, case, merged row, column) is output column % 4 of
+// philox(counter (column / 4, row, case, layer), key (k0, k1)), compared with
+// the threshold as an UNSIGNED integer (a signed compare turns rate 0.05
+// into about 55% dropped).
+struct Dropout {
+  unsigned k0, k1;
+  unsigned thresh[kMaxLayers];
+  float scale[kMaxLayers];
+  int on[kMaxLayers];
+};
+
+inline Dropout make_dropout(unsigned k0, unsigned k1, int n_layers, const unsigned* thresh,
+                            const float* scale, const int* on) {
+  Dropout d{};
+  d.k0 = k0;
+  d.k1 = k1;
+  for (int i = 0; i < n_layers && i < kMaxLayers; ++i) {
+    d.thresh[i] = thresh ? thresh[i] : 0u;
+    d.scale[i] = scale ? scale[i] : 1.f;
+    d.on[i] = on ? on[i] : 0;
+  }
+  return d;
+}
+
+// the factors (0 or 1 / keep) of columns 4 * col4 .. 4 * col4 + 3 of one
+// merged row; all 1 where layer i has no dropout
+__device__ __forceinline__ void keep4(const Dropout& dr, int layer, int case_, int row,
+                                      int col4, float (&m)[4]) {
+  if (!dr.on[layer]) {
+    m[0] = m[1] = m[2] = m[3] = 1.f;
+    return;
+  }
+  const uint4 r = philox4x32_10(make_uint4((unsigned)col4, (unsigned)row, (unsigned)case_,
+                                           (unsigned)layer),
+                                dr.k0, dr.k1);
+  const unsigned t = dr.thresh[layer];
+  const float s = dr.scale[layer];
+  m[0] = r.x < t ? s : 0.f;
+  m[1] = r.y < t ? s : 0.f;
+  m[2] = r.z < t ? s : 0.f;
+  m[3] = r.w < t ? s : 0.f;
+}
+
+// Weight gradient C (K x N) = sum over rows r of A[r][k] G[r][n], the
+// contraction over all rows that Hopper's parallel blocks cannot carry across
+// the grid as the TPU does. Each block computes one 64 x 64 tile of C over
+// one chunk of rows into parts[chunk]; sum_partials then adds the chunks in
+// order, so the result does not depend on the schedule. 256 threads, each
+// with a 4 x 4 register tile; 16 rows of A and G staged per step.
+// A_ACT >= 0 applies that activation to A as it is loaded (A holds
+// pre-activations).
+constexpr int kGradTile = 64;
+constexpr int kGradRows = 16;
+
+template <int A_ACT>
+__global__ void __launch_bounds__(256)
+    weight_grad_partial(const float* __restrict__ A, int lda, const float* __restrict__ G,
+                        int ldg, int rows, int K, int N, int rows_per_chunk,
+                        float* __restrict__ parts) {
+  __shared__ __align__(16) float As[kGradRows][kGradTile];
+  __shared__ __align__(16) float Gs[kGradRows][kGradTile];
+  const int n0 = blockIdx.x * kGradTile;
+  const int k0 = blockIdx.y * kGradTile;
+  const int chunk = blockIdx.z;
+  const int r_begin = chunk * rows_per_chunk;
+  const int r_end = min(rows, r_begin + rows_per_chunk);
+  const int tk = threadIdx.x >> 4;
+  const int tn = threadIdx.x & 15;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += kGradRows) {
+    for (int e = threadIdx.x; e < kGradRows * kGradTile; e += 256) {
+      const int rr = e / kGradTile;
+      const int c = e % kGradTile;
+      const int r = r0 + rr;
+      float a = 0.f, g = 0.f;
+      if (r < r_end) {
+        if (k0 + c < K) {
+          a = A[(size_t)r * lda + k0 + c];
+          if constexpr (A_ACT >= 0) a = act_value<A_ACT>(a);
+        }
+        if (n0 + c < N) g = G[(size_t)r * ldg + n0 + c];
+      }
+      As[rr][c] = a;
+      Gs[rr][c] = g;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int rr = 0; rr < kGradRows; ++rr) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[rr][tk * 4]);
+      const float4 g = *reinterpret_cast<const float4*>(&Gs[rr][tn * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + tk * 4 + i;
+    if (k >= K) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tn * 4 + j;
+      if (n < N) parts[((size_t)chunk * K + k) * N + n] = acc[i][j];
+    }
+  }
+}
+
+// out[j] += sum over p < n_parts of parts[p * len + j], in order of p
+__global__ void sum_partials(const float* __restrict__ parts, int n_parts, int len,
+                            float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= len) return;
+  float s = 0.f;
+  for (int p = 0; p < n_parts; ++p) s += parts[(size_t)p * len + j];
+  out[j] += s;
+}
+
+// Column sums of the value rows in groups: out[g][n] (+)= sum over value
+// rows p in [g * per_group, min((g + 1) * per_group, n_rows)) of
+// G[p * stride][n] (stride = rows per point, so only value rows count).
+// Block (32 columns, 8 row lanes), the lanes added in a fixed order.
+__global__ void group_colsum(const float* __restrict__ G, int ldg, int stride, int per_group,
+                             int n_rows, int N, float* __restrict__ out, int accumulate) {
+  __shared__ float red[8][33];
+  const int n = blockIdx.x * 32 + threadIdx.x;
+  const int g = blockIdx.y;
+  const int p_end = min(n_rows, (g + 1) * per_group);
+  float s = 0.f;
+  if (n < N)
+    for (int p = g * per_group + threadIdx.y; p < p_end; p += 8)
+      s += G[(size_t)p * stride * ldg + n];
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && n < N) {
+    float t = 0.f;
+    for (int y = 0; y < 8; ++y) t += red[y][threadIdx.x];
+    float* o = out + (size_t)g * N + n;
+    *o = accumulate ? *o + t : t;
+  }
+}
+
+inline int grad_chunks(int rows, int K, int N) {
+  const int tiles = ((N + kGradTile - 1) / kGradTile) * ((K + kGradTile - 1) / kGradTile);
+  int chunks = (4 * 132 + tiles - 1) / tiles;  // about 4 blocks per SM
+  const int most = (rows + 511) / 512;        // at least 512 rows a chunk
+  if (chunks > most) chunks = most;
+  return chunks < 1 ? 1 : chunks;
+}
+
+inline size_t grad_scratch_floats(int rows, int K, int N) {
+  return (size_t)grad_chunks(rows, K, N) * K * N;
+}
+
+// out (K x N) += A^T G over all rows; scratch holds grad_scratch_floats
+template <int A_ACT>
+cudaError_t weight_grad(const float* A, int lda, const float* G, int ldg, int rows, int K,
+                        int N, float* scratch, float* out, cudaStream_t s) {
+  if (rows < 1) return cudaSuccess;
+  const int chunks = grad_chunks(rows, K, N);
+  int per = (rows + chunks - 1) / chunks;
+  per = (per + kGradRows - 1) / kGradRows * kGradRows;
+  const dim3 grid((N + kGradTile - 1) / kGradTile, (K + kGradTile - 1) / kGradTile, chunks);
+  weight_grad_partial<A_ACT><<<grid, 256, 0, s>>>(A, lda, G, ldg, rows, K, N, per, scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int len = K * N;
+  sum_partials<<<(len + 255) / 256, 256, 0, s>>>(scratch, chunks, len, out);
+  return cudaGetLastError();
+}
+
+// out (N) += column sums of the value rows of G (n_rows value rows, stride
+// rows apart); scratch holds ceil(n_rows / 256) * N floats
+inline cudaError_t value_colsum(const float* G, int ldg, int stride, int n_rows, int N,
+                                float* scratch, float* out, cudaStream_t s) {
+  const int per = 256;
+  const int groups = (n_rows + per - 1) / per;
+  group_colsum<<<dim3((N + 31) / 32, groups), dim3(32, 8), 0, s>>>(G, ldg, stride, per, n_rows,
+                                                                   N, scratch, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_partials<<<(N + 255) / 256, 256, 0, s>>>(scratch, groups, N, out);
+  return cudaGetLastError();
+}
+
+inline size_t colsum_scratch_floats(int n_rows, int N) {
+  return (size_t)((n_rows + 255) / 256) * N;
+}
+
 }  // namespace pct

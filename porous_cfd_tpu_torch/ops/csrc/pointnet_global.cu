@@ -23,6 +23,22 @@
 // limit); two blocks fit on an SM. Rows past n_pts are masked in the
 // kernel (they never win); nothing is padded. Ties go to the lowest row in a
 // tile and to the lowest tile, i.e. the first maximal row, as on the TPU.
+//
+// Backward: replaces porous_cfd_tpu/ops/pointnet_pallas.py:_bwd_kernel
+// (pallas_call at :146). The pooled cotangent is non-zero at one row per
+// (case, channel), the argmax row. The TPU kernel recomputes the whole chain
+// per tile and multiplies a dense, mostly-zero cotangent through the
+// 1024-wide last layer, because Mosaic has no scatter. Here the last layer's
+// backward touches only the winners: per (case, channel) one 128-long dot
+// product recomputes z at the winner, and gz W[:, c] is scattered into the
+// winner row (atomics, as channels share rows), O(B x 128 x 1024) work
+// instead of a dense (N x 1024) pass. The two lower layers (87% less work
+// per row) run densely over all rows from the pre-activations the training
+// forward stashed (13 x 2500 x 224 floats, 29 MB), in 64-row tiles through
+// block_gemm; their dW contract over all rows in common.cuh's weight_grad
+// (per-chunk partials added in order), and db are column sums. What bounds
+// it: the dense lower layers' operations (about 3.7 GFLOP at the envelope)
+// and the scattered reads of the winner rows.
 // All arithmetic is f32 FMA on the CUDA cores; tensor cores are later work.
 #include "common.cuh"
 
@@ -45,7 +61,8 @@ __device__ __forceinline__ bool beats(float v, int r, float best, int best_row) 
 template <int ACT>
 __global__ void __launch_bounds__(kThreads)
     pointnet_tiles(const float* __restrict__ x, int n_pts, Mlp mlp, int bw0, int bw1,
-                   float* __restrict__ part_max, int* __restrict__ part_arg) {
+                   float* __restrict__ part_max, int* __restrict__ part_arg,
+                   float* __restrict__ stash_z) {
   extern __shared__ __align__(16) float smem[];
   float* buf[2] = {smem, smem + kTileRows * bw0};
   float* w_tiles = buf[1] + kTileRows * bw1;
@@ -74,6 +91,7 @@ __global__ void __launch_bounds__(kThreads)
 
   int cur = 0;
   const int nl = mlp.n_layers;
+  size_t zoff = 0;  // this layer's block of the training stash
   for (int li = 0; li < nl - 1; ++li) {
     const Layer L = mlp.layer[li];
     const float* A = buf[cur];
@@ -91,10 +109,16 @@ __global__ void __launch_bounds__(kThreads)
         const bool in = n < L.n;
         const float bias = in ? L.b[n] : 0.f;
 #pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i)
-          out[(i * kWarps + p) * ldo + n] = in ? act_value<ACT>(acc[i][j] + bias) : 0.f;
+        for (int i = 0; i < kRowsPerThread; ++i) {
+          const int row = i * kWarps + p;
+          const float z = acc[i][j] + bias;
+          out[row * ldo + n] = in ? act_value<ACT>(z) : 0.f;
+          if (stash_z && in && row < valid)
+            stash_z[zoff + ((size_t)b * n_pts + row0 + row) * L.n + n] = z;
+        }
       }
     }
+    zoff += (size_t)gridDim.y * n_pts * L.n;
     cur ^= 1;
   }
 
@@ -181,6 +205,135 @@ __global__ void pointnet_reduce(const float* __restrict__ part_max,
   out_arg[idx] = arg;
 }
 
+
+// Backward of the last layer at the winners: for each (case, channel c) with
+// winner row r = argmax, recompute z = a[r] . W[:, c] + b[c] (a = the last
+// layer's input row), gz = dm * act'(z), and scatter gz W[:, c] into da[r].
+// Channels share winner rows, so the scatter adds with atomics.
+template <int ACT>
+__global__ void pointnet_last_bwd(const float* __restrict__ a_src, bool a_is_z, int K, int F,
+                                  int n_pts, const float* __restrict__ w_t,
+                                  const float* __restrict__ bias, const int* __restrict__ arg,
+                                  const float* __restrict__ dm, float* __restrict__ gz_last,
+                                  float* __restrict__ da) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
+  if (c >= F) return;
+  const int r = arg[(size_t)b * F + c];
+  const float* row = a_src + ((size_t)b * n_pts + r) * K;
+  float z = bias[c];
+  for (int k = 0; k < K; ++k) {
+    const float a = a_is_z ? act_value<ACT>(row[k]) : row[k];
+    z = fmaf(a, w_t[(size_t)k * F + c], z);
+  }
+  const float gz = dm[(size_t)b * F + c] * act_d1<ACT>(z);
+  gz_last[(size_t)b * F + c] = gz;
+  if (gz == 0.f) return;
+  float* dst = da + ((size_t)b * n_pts + r) * K;
+  for (int k = 0; k < K; ++k) atomicAdd(dst + k, gz * w_t[(size_t)k * F + c]);
+}
+
+// dW_last[k][c] += sum over cases of a[r_bc][k] * gz[b][c] (only winner rows
+// carry a cotangent), in case order
+template <int ACT>
+__global__ void pointnet_last_wgrad(const float* __restrict__ a_src, bool a_is_z, int K, int F,
+                                    int n_pts, int n_cases, const int* __restrict__ arg,
+                                    const float* __restrict__ gz_last, float* __restrict__ dw) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= K * F) return;
+  const int k = idx / F;
+  const int c = idx % F;
+  float s = 0.f;
+  for (int b = 0; b < n_cases; ++b) {
+    const int r = arg[(size_t)b * F + c];
+    const float v = a_src[((size_t)b * n_pts + r) * K + k];
+    s = fmaf(a_is_z ? act_value<ACT>(v) : v, gz_last[(size_t)b * F + c], s);
+  }
+  dw[idx] += s;
+}
+
+// Reverse sweep of the lower layers over one 64-row tile: stage da (the
+// scattered cotangent of the last layer's input), GZ = da * act'(Z) with the
+// stashed pre-activations, then GA_i = GZ_i W_i^T through block_gemm (W_i in
+// nn.Linear's (out, in) layout) with the next GZ formed in its epilogue; the
+// first layer's GA is dx. Every GZ_i goes to gz_stash for the weight
+// gradients. Rows past n_pts are zero and never stored.
+template <int ACT>
+__global__ void __launch_bounds__(kThreads)
+    pointnet_lower_bwd(const float* __restrict__ da, int n_pts, Mlp wt,
+                       const float* __restrict__ stash_z, float* __restrict__ gz_stash, int bw0,
+                       int bw1, float* __restrict__ dx) {
+  extern __shared__ __align__(16) float smem[];
+  float* buf[2] = {smem, smem + kTileRows * bw0};
+  float* w_tiles = buf[1] + kTileRows * bw1;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * kTileRows;
+  const int valid = min(kTileRows, n_pts - row0);
+  const int p = row_slot();
+  const int col = first_col();
+  const int nl = wt.n_layers;                 // the hidden layers 0 .. nl-1
+  const size_t rows = (size_t)gridDim.y * n_pts;
+  size_t off[kMaxLayers];
+  {
+    size_t o = 0;
+    for (int i = 0; i < nl; ++i) {
+      off[i] = o;
+      o += rows * wt.layer[i].k;
+    }
+  }
+  // stage GZ of the top hidden layer
+  {
+    const int kt = wt.layer[nl - 1].k;
+    const int ld = padded(kt);
+    for (int e = threadIdx.x; e < kTileRows * ld; e += kThreads) {
+      const int r = e / ld;
+      const int c = e % ld;
+      float g = 0.f;
+      if (r < valid && c < kt) {
+        const size_t gi = ((size_t)b * n_pts + row0 + r) * kt + c;
+        g = da[gi] * act_d1<ACT>(stash_z[off[nl - 1] + gi]);
+        gz_stash[off[nl - 1] + gi] = g;
+      }
+      buf[0][e] = g;
+    }
+  }
+  int cur = 0;
+  for (int li = nl - 1; li >= 0; --li) {
+    const Layer L = wt.layer[li];             // k = n_li, n = k_li
+    const float* A = buf[cur];
+    float* out = buf[cur ^ 1];
+    const int lda = padded(L.k);
+    const int ldo = padded(L.n);
+    const int n_pad = round4(L.n);
+    for (int n0 = 0; n0 < L.n; n0 += kChunkN) {
+      float acc[kRowsPerThread][4];
+      block_gemm<kRowsPerThread>(acc, A, lda, L, n0, w_tiles);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + col + j;
+        if (n >= n_pad) continue;
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i) {
+          const int row = i * kWarps + p;
+          if (li == 0) {
+            if (n < L.n && row < valid)
+              dx[((size_t)b * n_pts + row0 + row) * L.n + n] = acc[i][j];
+            continue;
+          }
+          float g = 0.f;
+          if (n < L.n && row < valid) {
+            const size_t gi = ((size_t)b * n_pts + row0 + row) * L.n + n;
+            g = acc[i][j] * act_d1<ACT>(stash_z[off[li - 1] + gi]);
+            gz_stash[off[li - 1] + gi] = g;
+          }
+          out[row * ldo + n] = g;
+        }
+      }
+    }
+    cur ^= 1;
+  }
+}
+
 }  // namespace
 
 extern "C" int pointnet_global_tile_rows() { return kTileRows; }
@@ -188,12 +341,15 @@ extern "C" int pointnet_global_tile_rows() { return kTileRows; }
 // x (n_cases, n_pts, widths[0]) f32; layer i has weight w[i] given as
 // (widths[i], widths[i+1]) row-major, i.e. nn.Linear's weight transposed, and
 // bias b[i]; part_* (n_cases, ceil(n_pts / 64), F) scratch;
-// out_* (n_cases, F). Returns the CUDA error code of the launches (0 = ok).
+// out_* (n_cases, F). stash_z (null: none) receives the pre-activations of
+// every hidden layer for the backward, (n_cases * n_pts, widths[i+1]) blocks
+// one after another. Returns the CUDA error code of the launches (0 = ok).
 extern "C" int pointnet_global_forward(const float* x, int n_cases, int n_pts,
                                        int n_layers, const float* const* w,
                                        const float* const* b, const int* widths,
                                        int act, float* part_max, int* part_arg,
-                                       float* out_max, int* out_arg, void* stream) {
+                                       float* out_max, int* out_arg, float* stash_z,
+                                       void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || n_cases < 1 || n_pts < 1)
     return (int)cudaErrorInvalidValue;
   const Mlp mlp = make_mlp(n_layers, w, b, widths);
@@ -211,12 +367,12 @@ extern "C" int pointnet_global_forward(const float* x, int n_cases, int n_pts,
     cudaFuncSetAttribute(pointnet_tiles<kSilu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
     pointnet_tiles<kSilu><<<grid, kThreads, smem, s>>>(x, n_pts, mlp, bw0, bw1, part_max,
-                                                       part_arg);
+                                                       part_arg, stash_z);
   } else if (act == kTanh) {
     cudaFuncSetAttribute(pointnet_tiles<kTanh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
     pointnet_tiles<kTanh><<<grid, kThreads, smem, s>>>(x, n_pts, mlp, bw0, bw1, part_max,
-                                                       part_arg);
+                                                       part_arg, stash_z);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -226,4 +382,124 @@ extern "C" int pointnet_global_forward(const float* x, int n_cases, int n_pts,
   pointnet_reduce<<<(total + 255) / 256, 256, 0, s>>>(part_max, part_arg, n_cases, n_tiles,
                                                       f, out_max, out_arg);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <int ACT>
+int backward_act(const float* x, int n_cases, int n_pts, int n_layers, const float* const* w_t,
+                 const float* const* w_orig, const float* const* b, const int* widths,
+                 const float* stash_z, const int* argmax, const float* dm, float* da,
+                 float* gz_last, float* gz_stash, float* dx, float* const* dw,
+                 float* const* db, float* scratch, cudaStream_t s) {
+  const int nl = n_layers;
+  const int K = widths[nl - 1];
+  const int F = widths[nl];
+  const size_t rows = (size_t)n_cases * n_pts;
+  // the last layer's input: x, or act(Z) of the top hidden layer
+  size_t z_top = 0;
+  for (int i = 0; i < nl - 2; ++i) z_top += rows * widths[i + 1];
+  const float* a_src = nl > 1 ? stash_z + z_top : x;
+  const bool a_is_z = nl > 1;
+  float* scatter = nl > 1 ? da : dx;
+  cudaError_t e = cudaMemsetAsync(scatter, 0, sizeof(float) * rows * K, s);
+  if (e != cudaSuccess) return (int)e;
+  pointnet_last_bwd<ACT><<<dim3((F + 127) / 128, n_cases), 128, 0, s>>>(
+      a_src, a_is_z, K, F, n_pts, w_t[nl - 1], b[nl - 1], argmax, dm, gz_last, scatter);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  pointnet_last_wgrad<ACT><<<(K * F + 255) / 256, 256, 0, s>>>(
+      a_src, a_is_z, K, F, n_pts, n_cases, argmax, gz_last, dw[nl - 1]);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  group_colsum<<<dim3((F + 31) / 32, 1), dim3(32, 8), 0, s>>>(gz_last, F, 1, n_cases, n_cases,
+                                                              F, db[nl - 1], 1);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (nl == 1) return 0;
+
+  // the hidden layers 0 .. nl-2 in reverse, one 64-row tile per block
+  Mlp wt{};
+  wt.n_layers = nl - 1;
+  for (int i = 0; i < nl - 1; ++i) {
+    wt.layer[i].w = w_orig[i];
+    wt.layer[i].b = nullptr;
+    wt.layer[i].k = widths[i + 1];
+    wt.layer[i].n = widths[i];
+    wt.layer[i].ldw = widths[i];
+  }
+  int bw[2] = {0, 0};
+  for (int li = nl - 2; li >= 0; --li) {
+    const int in_buf = (nl - 2 - li) & 1;
+    bw[in_buf] = max(bw[in_buf], padded(wt.layer[li].k));
+    if (li > 0) bw[in_buf ^ 1] = max(bw[in_buf ^ 1], padded(wt.layer[li].n));
+  }
+  const size_t smem = sizeof(float) * ((size_t)kTileRows * (bw[0] + bw[1]) + 2 * kWTileFloats);
+  if (smem > (size_t)max_shared_bytes()) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(pointnet_lower_bwd<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const dim3 grid((n_pts + kTileRows - 1) / kTileRows, n_cases);
+  pointnet_lower_bwd<ACT><<<grid, kThreads, smem, s>>>(da, n_pts, wt, stash_z, gz_stash, bw[0],
+                                                       bw[1], dx);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  size_t off = 0;
+  for (int li = 0; li < nl - 1; ++li) {
+    const int k = widths[li], n = widths[li + 1];
+    const float* g = gz_stash + off;
+    if (li == 0) {
+      e = weight_grad<-1>(x, k, g, n, (int)rows, k, n, scratch, dw[0], s);
+    } else {
+      e = weight_grad<ACT>(stash_z + off - rows * k, k, g, n, (int)rows, k, n, scratch, dw[li],
+                           s);
+    }
+    if (e != cudaSuccess) return (int)e;
+    e = value_colsum(g, n, 1, (int)rows, n, scratch, db[li], s);
+    if (e != cudaSuccess) return (int)e;
+    off += rows * n;
+  }
+  return 0;
+}
+
+}  // namespace
+
+// Scratch floats pointnet_global_backward needs.
+extern "C" long long pointnet_global_backward_workspace(int n_cases, int n_pts, int n_layers,
+                                                        const int* widths) {
+  const int rows = n_cases * n_pts;
+  size_t need = 1;
+  for (int i = 0; i < n_layers - 1; ++i) {
+    const size_t g = grad_scratch_floats(rows, widths[i], widths[i + 1]);
+    const size_t c = colsum_scratch_floats(rows, widths[i + 1]);
+    need = need > g ? need : g;
+    need = need > c ? need : c;
+  }
+  return (long long)need;
+}
+
+// Backward of pointnet_global_forward (run with a stash). w_t[i] is layer
+// i's weight as (widths[i], widths[i+1]) row-major, w_orig[i] nn.Linear's
+// (widths[i+1], widths[i]); argmax/dm (n_cases, F) the forward's first
+// maximal rows and the pooled cotangent. da (n_cases * n_pts,
+// widths[n_layers-1]) and gz_last (n_cases, F) are scratch, gz_stash the size
+// of the forward's stash. Writes dx (n_cases, n_pts, widths[0]) at every row
+// (zero where no cotangent arrives) and ADDS dW_i ((in, out) layout) and db_i
+// to dw[i] / db[i].
+extern "C" int pointnet_global_backward(const float* x, int n_cases, int n_pts, int n_layers,
+                                        const float* const* w_t, const float* const* w_orig,
+                                        const float* const* b, const int* widths, int act,
+                                        const float* stash_z, const int* argmax,
+                                        const float* dm, float* da, float* gz_last,
+                                        float* gz_stash, float* dx, float* const* dw,
+                                        float* const* db, float* scratch,
+                                        long long scratch_floats, void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers || n_cases < 1 || n_pts < 1)
+    return (int)cudaErrorInvalidValue;
+  if (pointnet_global_backward_workspace(n_cases, n_pts, n_layers, widths) > scratch_floats)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (act == kSilu)
+    return backward_act<kSilu>(x, n_cases, n_pts, n_layers, w_t, w_orig, b, widths, stash_z,
+                               argmax, dm, da, gz_last, gz_stash, dx, dw, db, scratch, s);
+  if (act == kTanh)
+    return backward_act<kTanh>(x, n_cases, n_pts, n_layers, w_t, w_orig, b, widths, stash_z,
+                               argmax, dm, da, gz_last, gz_stash, dx, dw, db, scratch, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,5 @@
 """Analytic forward propagation of first/second spatial derivatives through
-MLP stacks (counterpart of ``porous_cfd_tpu/physics/analytic.py``,
-deterministic paths only).
+MLP stacks (counterpart of ``porous_cfd_tpu/physics/analytic.py``).
 
 The triple (value, J, H) goes through each layer with closed-form rules:
 
@@ -14,10 +13,12 @@ the transpose of the flax kernel. Activations are named: ``"silu"`` or
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from porous_cfd_tpu_torch.ops.dropout import keep_mask
 
 
 def tanh_rules(v):
@@ -112,8 +113,22 @@ def activation_prop_merged(activation: str, v, j, h, n_int: int):
     return val, j, h
 
 
+def dropout_prop_merged(seed: int, layer: int, rate: float, v, j, h, n_int: int):
+    """Inverted dropout with one mask over the merged [internal || boundary]
+    rows of ``v`` (..., N, F); J/H (..., Ni, D, F) share the mask of their
+    internal rows (the derivative of mask * x / keep is mask * dx / keep).
+    The mask is ``ops/dropout.py``'s counter function of (seed, layer, case,
+    merged row, column), the one the decoder kernel draws."""
+    n_cases = v[..., 0, 0].numel()
+    mask = keep_mask(seed, layer, n_cases, v.shape[-2], v.shape[-1], rate,
+                     v.device).reshape(v.shape).to(v.dtype)
+    mask_i = mask[..., :n_int, None, :]
+    return v * mask, j * mask_i, h * mask_i
+
+
 def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
-                 activation: str):
+                 activation: str, dropout: Optional[Sequence[float]] = None,
+                 deterministic: bool = True, seed: Optional[int] = None):
     """Decoder-stack propagation over ``[local || context]`` inputs with the
     internal and boundary value rows merged into one matmul per layer; the
     last layer is linear.
@@ -121,6 +136,8 @@ def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
     :param v/j/h: internal local features + derivatives ((..., Ni, L),
         (..., Ni, D, L)); ``v_b``: boundary local features (..., Nb, L) or
         None; ``g``: pooled context (..., 1, G).
+    :param dropout: one rate per layer, applied after each layer's
+        activation unless ``deterministic``, with masks fixed by ``seed``.
     :return: (values over [internal || boundary] rows, J, H).
     """
     n_int = v.shape[-2]
@@ -136,4 +153,8 @@ def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
             h = F.linear(h, lin.weight)
         if i < n_out - 1:
             v, j, h = activation_prop_merged(activation, v, j, h, n_int)
+        if dropout is not None and dropout[i] > 0 and not deterministic:
+            if seed is None:
+                raise ValueError("decoder_prop: dropout needs a seed")
+            v, j, h = dropout_prop_merged(seed, i, float(dropout[i]), v, j, h, n_int)
     return v, j, h

@@ -1,12 +1,19 @@
-"""Where the time of verbose prediction goes on the card.
+"""Where the time of verbose prediction, or of a training step, goes on the
+card.
 
-    python -m porous_cfd_tpu_torch.profile_predict [--batches 8] [--trace DIR]
+    python -m porous_cfd_tpu_torch.profile_predict [--mode predict|train]
+                                                   [--batches 8] [--trace DIR]
 
 Builds the full-width duct_fixed_boundary ``pipn`` model (random weights from
 seed 8421) and one batch of 13 synthetic cases at 1500/1000/700 points,
-warms up, then runs ``--batches`` verbose predictions under
+warms up, then runs ``--batches`` verbose predictions (``predict``) or
+training steps with the duct example's fixed loss weights (``train``) under
 ``torch.profiler``. Prints the device time per batch of each kernel (top
-entries), the device busy share of the wall time, and one JSON summary line.
+entries), the device busy share of the wall time, and one JSON summary line
+that also splits the device time into the port's own kernels and the rest.
+The profiler's own cost per launch stretches the wall time of the window;
+compare the device time with an unprofiled step time (``chip_smoke.py``)
+for the busy share of a real run.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -19,15 +26,23 @@ import torch
 
 from porous_cfd_tpu_torch.data.synthetic import make_foam_batch, make_scalers
 from porous_cfd_tpu_torch.models.pipn import pipn_foam
-from porous_cfd_tpu_torch.train.engine import make_predict_functions
+from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
+from porous_cfd_tpu_torch.train.engine import (make_optimizer, make_predict_functions,
+                                               make_train_functions)
 
 CONFIG = dict(nu=1489.4e-6, d=14000.0, f=17.11, fe_local_layers=[2, 64, 64],
               fe_global_layers=[69, 96, 128, 1024],
               seg_layers=[1088, 512, 256, 128, 3], seg_dropout=[0.05, 0.05, 0, 0])
+LOSS_WEIGHTS = (1, 1, 1, 1, 1, 1, 100, 100, 100)
+# device-kernel names of the port's hand-written CUDA kernels
+OWN_KERNELS = ("decoder_fwd", "decoder_bwd_rows", "pointnet_tiles", "pointnet_reduce",
+               "pointnet_last", "pointnet_lower_bwd", "weight_grad_partial",
+               "sum_partials", "group_colsum")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--mode", choices=("predict", "train"), default="predict")
     parser.add_argument("--batches", type=int, default=8)
     parser.add_argument("--trace", default=None,
                         help="directory for a Chrome trace of the window")
@@ -39,42 +54,62 @@ def main(argv=None) -> int:
     model = pipn_foam(**CONFIG, scalers=make_scalers(),
                       generator=torch.Generator().manual_seed(8421), device=dev)
     batch = make_foam_batch(13, 1500, 1000, 700, seed=8421).to(dev)
-    predict = make_predict_functions(model).predict_batch
+    if args.mode == "predict":
+        predict = make_predict_functions(model).predict_batch
+
+        def run():
+            predict(batch, True)
+    else:
+        fns = make_train_functions(model, make_optimizer(model, 4),
+                                   FixedLossScaler(LOSS_WEIGHTS))
+        state = fns.init_state(seed=8421)
+
+        def run():
+            fns.train_step(state, batch)
     for _ in range(3):
-        predict(batch, True)
+        run()
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.batches):
-            predict(batch, True)
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if args.trace:
-        prof.export_chrome_trace(f"{args.trace}/predict_trace.json")
+        prof.export_chrome_trace(f"{args.trace}/{args.mode}_trace.json")
 
     # device-side events only (kernels, copies): the operator rows that
-    # launch them would count the same time twice
+    # launch them would count the same time twice, and so would the ranges
+    # that annotate a span of kernels ("Optimizer.step#Adam.step"; a kernel
+    # name may hold a '#' too, "{lambda(int)#1}", but never without '(')
     rows = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "#" in evt.key and "(" not in evt.key:
             continue
         dev_us = evt.self_device_time_total
         if dev_us > 0:
             rows.append((dev_us / args.batches / 1e3, evt.count // args.batches, evt.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
+    own_ms = sum(r[0] for r in rows if any(k in r[2] for k in OWN_KERNELS))
     wall_ms = wall / args.batches * 1e3
-    print(f"{torch.cuda.get_device_name(0)}: {wall_ms:.3f} ms wall per batch, "
-          f"{device_ms:.3f} ms device time per batch "
-          f"(busy share {device_ms / wall_ms:.3f})")
-    for ms, count, key in rows[:15]:
+    what = "batch" if args.mode == "predict" else "step"
+    print(f"{torch.cuda.get_device_name(0)}: {args.mode}, {wall_ms:.3f} ms wall per {what}, "
+          f"{device_ms:.3f} ms device time per {what} (busy share "
+          f"{device_ms / wall_ms:.3f}); the port's kernels {own_ms:.3f} ms, the rest "
+          f"{device_ms - own_ms:.3f} ms")
+    for ms, count, key in rows[:20]:
         print(f"  {ms:9.4f} ms  x{count:<3d} {key[:90]}")
-    print(json.dumps({"wall_ms_per_batch": wall_ms, "device_ms_per_batch": device_ms,
+    print(json.dumps({"mode": args.mode, f"wall_ms_per_{what}": wall_ms,
+                      f"device_ms_per_{what}": device_ms, "own_kernels_ms": own_ms,
+                      "other_device_ms": device_ms - own_ms,
                       "busy_share": device_ms / wall_ms,
                       "top": [{"ms": ms, "count": c, "name": k[:120]}
-                              for ms, c, k in rows[:15]]}))
+                              for ms, c, k in rows[:20]]}))
     return 0
 
 

@@ -87,3 +87,62 @@ def test_pointnet_global_ties_take_the_first_row(act):
         assert a[0, 0, 0] == 2 and a[1, 0, 0] == 0
         # channel 3 (-3x): the minimum -1.0 first appears at row 0 / row 2
         assert a[0, 0, 3] == 0 and a[1, 0, 3] == 2
+
+
+def grad_tol(ref):
+    """Gradients: sums over rows in another order than the JAX kernel's
+    per-tile accumulation; scale the absolute part by the largest entry."""
+    ref = np.asarray(ref)
+    return dict(rtol=1e-4, atol=1e-4 * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("act", ["silu", "tanh"])
+def test_pointnet_global_gradients_match_jax(act):
+    """d/d(x, W, b) of a scalar of the pooled max, against jax.grad through
+    the Pallas kernel's custom VJP (interpret mode)."""
+    import jax
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 40, LAYERS[0])).astype(np.float32)
+    cot = rng.normal(size=(2, 1, LAYERS[-1])).astype(np.float32)
+    params = make_params(LAYERS)
+
+    def loss(p, xx):
+        m = pointnet_pallas.pointnet_global(p, LAYERS, xx, JAX_ACT[act], tile=8,
+                                            interpret=True)
+        return jnp.sum(m * cot) + jnp.sum(jnp.sin(m))
+
+    jp = {k: {kk: jnp.asarray(vv) for kk, vv in v.items()} for k, v in params.items()}
+    ref_p, ref_x = jax.grad(loss, argnums=(0, 1))(jp, jnp.asarray(x))
+    mlp = port_mlp(params, LAYERS, act)
+    xt = torch.from_numpy(x).requires_grad_()
+    m, _ = pointnet_cuda.pointnet_global(mlp.linears, xt, act)
+    (torch.sum(m * torch.from_numpy(cot)) + torch.sum(torch.sin(m))).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_x), **grad_tol(ref_x))
+    for i, lin in enumerate(mlp.linears):
+        rk = np.asarray(ref_p[f"linear_{i}"]["kernel"])
+        rb = np.asarray(ref_p[f"linear_{i}"]["bias"])
+        np.testing.assert_allclose(lin.weight.grad.numpy().T, rk, **grad_tol(rk))
+        np.testing.assert_allclose(lin.bias.grad.numpy(), rb, **grad_tol(rb))
+
+
+def test_pointnet_global_tie_gradient_goes_to_the_first_row():
+    """Exact ties: the cotangent goes whole to the first maximal row, as in
+    the JAX Pallas kernel (not split the way jnp.max's VJP splits it)."""
+    import jax
+
+    layers = [1, 4]
+    params = {"linear_0": {"kernel": np.array([[100.0, 100.0, 3.0, -3.0]], np.float32),
+                           "bias": np.zeros(4, np.float32)}}
+    col = np.array([-1.0, -0.5, 0.5, 0.2, 0.7, 0.5, -1.0, 0.7, 0.5], np.float32)
+    x = np.stack([col, col[::-1].copy()])[..., None]          # (2, 9, 1)
+    jp = {"linear_0": {k: jnp.asarray(v) for k, v in params["linear_0"].items()}}
+    ref_x = jax.grad(lambda xx: jnp.sum(pointnet_pallas.pointnet_global(
+        jp, layers, xx, nn.tanh, tile=8, interpret=True)))(jnp.asarray(x))
+    mlp = port_mlp(params, layers, "tanh")
+    xt = torch.from_numpy(x).requires_grad_()
+    pointnet_cuda.pointnet_global(mlp.linears, xt, "tanh")[0].sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_x), rtol=1e-5, atol=1e-6)
+    # case 0, channel 2 (3x): rows 4 and 7 tie at 0.7, and only row 4 (the
+    # first) gets the cotangent; row 7 wins no other channel
+    assert float(xt.grad[0, 7, 0]) == 0.0 and float(xt.grad[0, 4, 0]) != 0.0

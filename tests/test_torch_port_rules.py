@@ -79,11 +79,20 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
 
 
 def test_unported_paths_raise():
+    import dataclasses
+
+    from porous_cfd_tpu_torch.train.engine import make_optimizer, make_train_functions
     model = pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
                       seg_dropout=[0.1, 0.0], device="cpu")
-    batch = make_foam_batch(1, 8, 4, 2, seed=0)
+    for knob in (dict(microbatch=1), dict(remat=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_train_functions(dataclasses.replace(model, **knob),
+                                 make_optimizer(model, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.derivative_apply(batch, deterministic=False)
+        make_train_functions(model, make_optimizer(model, 1), mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
+                  fast_derivatives=False, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
                   coupled_context=True, device="cpu")
@@ -140,15 +149,17 @@ def test_kernel_modules_need_no_nvcc_or_gpu(monkeypatch):
     assert build.SOURCES == ("pointnet_global", "decoder_prop")
     for src in build.SOURCES:
         assert (build.CSRC / f"{src}.cu").exists()
-    model = pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(), device="cpu")
-    before = (pointnet_cuda.pointnet_global.launches,
-              decoder_cuda.decoder_prop.launches)
-    with torch.no_grad():
-        out, jac, lap = model.derivative_apply(make_foam_batch(1, 8, 4, 2, seed=0))
+    model = pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
+                      seg_dropout=[0.1, 0.0], device="cpu")
+    counters = (pointnet_cuda.pointnet_global, pointnet_cuda.pointnet_global_backward,
+                decoder_cuda.decoder_prop, decoder_cuda.decoder_prop_backward)
+    before = [c.launches for c in counters]
+    out, jac, lap = model.derivative_apply(make_foam_batch(1, 8, 4, 2, seed=0),
+                                           deterministic=False, seed=5)
     assert out.shape == (1, 12, 3) and jac.shape == lap.shape == (1, 8, 3, 2)
+    sum(o.sum() for o in (out, jac, lap)).backward()
     # the counters count kernel launches only
-    assert (pointnet_cuda.pointnet_global.launches,
-            decoder_cuda.decoder_prop.launches) == before
+    assert [c.launches for c in counters] == before
 
 
 def test_wrappers_reject_other_devices():
