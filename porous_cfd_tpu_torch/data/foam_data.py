@@ -49,8 +49,10 @@ def _arange_like(n: int, like):
 class FoamData:
     """Tensor of shape ``(N, C)`` or ``(B, N, C)`` indexed by field name and
     subdomain. ``domain`` maps a subdomain name to an integer index tensor
-    ``(K,)`` or ``(B, K)``. ``numpy()`` gives the same container over numpy
-    arrays on the host, which indexes the same way."""
+    ``(K,)`` or ``(B, K)``; an entry whose name starts with ``_`` is a
+    model's per-case aux (``PinnModel.attach_neighbors``), kept as given,
+    float or not. ``numpy()`` gives the same container over numpy arrays on
+    the host, which indexes the same way."""
 
     data: torch.Tensor
     labels: Labels
@@ -60,7 +62,8 @@ class FoamData:
         object.__setattr__(self, "data", _as_array(data))
         object.__setattr__(self, "labels", freeze_labels(labels))
         object.__setattr__(self, "domain",
-                           {k: _as_index(v) for k, v in domain.items()})
+                           {k: _as_array(v) if k.startswith("_") else _as_index(v)
+                            for k, v in domain.items()})
 
     @property
     def label_dict(self) -> dict[str, tuple[str, ...] | None]:

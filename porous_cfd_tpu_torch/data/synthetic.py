@@ -34,6 +34,10 @@ FOAM_LABELS = {
                    "boundaryIdoutlet", "boundaryIdwalls"],
 }
 
+# the branch-net inputs of the duct_variable_boundary PI-GANO models
+VARIABLE_BOUNDARIES = {"Subdomains": ["inlet", "internal"],
+                       "Features": ["U-inlet", "d", "f"]}
+
 N_COLS = sum(1 for v in FOAM_LABELS.values() if v is None)
 
 PATCHES = ["inlet", "interface", "outlet", "walls"]

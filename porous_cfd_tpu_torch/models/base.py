@@ -18,6 +18,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from porous_cfd_tpu_torch.data.foam_data import FoamData
 from porous_cfd_tpu_torch.data.scalers import StandardScaler
 from porous_cfd_tpu_torch.device import not_ported
 
@@ -65,6 +66,8 @@ class PinnModel:
         ``(batch, deterministic, seed) -> (out_full, jac, lap)`` with jac/lap
         shaped (..., Ni, O, D). The exact autodiff operator is not ported, so
         a model without one cannot predict verbosely or train yet.
+    :param neighbor_precompute: ``FoamData -> dict`` of per-case aux built
+        once per dataset (``attach_neighbors``), or None.
     :param microbatch/remat: gradient accumulation and rematerialisation
         (the U-Net variants' memory knobs); not ported, and training raises
         when either is set.
@@ -80,6 +83,7 @@ class PinnModel:
     lr_gamma: float = 0.999
     adam_eps: float = 1e-8
     derivative_apply: Optional[Any] = None
+    neighbor_precompute: Optional[Any] = None
     remat: bool = False
     microbatch: Optional[int] = None
 
@@ -87,6 +91,15 @@ class PinnModel:
         if str(precision).startswith("bf16"):
             raise not_ported("--precision bf16-mixed")
         return self
+
+    def attach_neighbors(self, dataset: FoamData) -> FoamData:
+        """Merge the model's precomputed per-case aux (keys starting with
+        ``_``) into the dataset's domain, once per dataset; the dataset as
+        it is when the model has none."""
+        if self.neighbor_precompute is None:
+            return dataset
+        aux = self.neighbor_precompute(dataset)
+        return FoamData(dataset.data, dataset.labels, {**dataset.domain, **aux})
 
     @property
     def device(self) -> torch.device:

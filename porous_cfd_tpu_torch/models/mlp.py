@@ -1,4 +1,6 @@
-"""Core dense building blocks (counterpart of ``porous_cfd_tpu/models/mlp.py``).
+"""Core dense building blocks (counterpart of ``porous_cfd_tpu/models/mlp.py``):
+the MLP, PIPN's PointNet encoder, and PI-GANO's branch net, geometry encoder
+and NeuralOperator trunk.
 
 Layer names follow the flax modules (``linear_0``, ``linear_1``, ...), so a
 state-dict key such as ``decoder.linear_0.weight`` names the flax parameter
@@ -95,3 +97,89 @@ class PointNetFeatureExtract(nn.Module):
         g = self.global_feature(torch.cat([local, x], dim=-1))
         g = torch.max(g, dim=-2, keepdim=True).values
         return local, g
+
+
+class Branch(nn.Module):
+    """PI-GANO branch net: MLP on the variable-boundary features, max-pooled
+    over the point axis -> (B, 1, H)."""
+
+    def __init__(self, hidden_channels: Sequence[int], activation: str = "silu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.linear = MLP(hidden_channels, activation=activation, generator=generator)
+
+    def forward(self, param_features, deterministic: bool = True):
+        return torch.max(self.linear(param_features), dim=-2, keepdim=True).values
+
+
+class GeometryEncoder(nn.Module):
+    """PI-GANO geometry encoder: MLP on [features || pos], max-pooled over
+    the point axis -> (B, 1, K)."""
+
+    def __init__(self, hidden_channels: Sequence[int], activation: str = "silu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.linear = MLP(hidden_channels, activation=activation, generator=generator)
+
+    def forward(self, x, pos, deterministic: bool = True):
+        y = self.linear(torch.cat([x, pos], dim=-1))
+        return torch.max(y, dim=-2, keepdim=True).values
+
+
+class NeuralOperator(nn.Module):
+    """One PI-GANO trunk layer: dense -> activation -> dropout, the output
+    multiplied by the branch embedding. The dense layer is ``Dense_0``, the
+    flax name."""
+
+    def __init__(self, in_channels: int, out_channels: int, dropout: float = 0.0,
+                 activation: Optional[str] = "silu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dropout = float(dropout)
+        self.activation = activation
+        self.Dense_0 = dense(in_channels, out_channels, generator)
+
+    def forward(self, x, par_embedding, deterministic: bool = True):
+        if not deterministic and self.dropout > 0:
+            raise not_ported("NeuralOperator dropout (deterministic=False, training)")
+        y = self.Dense_0(x)
+        if self.activation is not None:
+            y = ACTIVATIONS[self.activation](y)
+        return y * par_embedding
+
+
+class NeuralOperatorSequential(nn.Module):
+    """Stack of ``n_operators`` square NeuralOperator layers (``operator_i``),
+    ``n_features`` wide, with one dropout rate per layer."""
+
+    def __init__(self, n_operators: int, n_features: int,
+                 dropout: Sequence[float], activation: str = "silu",
+                 last_activation: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if len(dropout) != n_operators:
+            raise ValueError(f"{len(dropout)} dropout rates for {n_operators} operators")
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
+        self.n_operators = n_operators
+        self.dropout = tuple(float(r) for r in dropout)
+        self.activation = activation
+        self.last_activation = last_activation
+        for i in range(n_operators):
+            act = None if (i == n_operators - 1 and not last_activation) else activation
+            self.add_module(f"operator_{i}",
+                            NeuralOperator(n_features, n_features, self.dropout[i], act,
+                                           generator))
+
+    @property
+    def operators(self) -> list[NeuralOperator]:
+        return [getattr(self, f"operator_{i}") for i in range(self.n_operators)]
+
+    @property
+    def linears(self) -> list[nn.Linear]:
+        return [op.Dense_0 for op in self.operators]
+
+    def forward(self, x, par_embedding, deterministic: bool = True):
+        for op in self.operators:
+            x = op(x, par_embedding, deterministic)
+        return x

@@ -1,0 +1,100 @@
+// neural_ops_prop: the PI-GANO NeuralOperator trunk on the value, Jacobian
+// and Hessian-diagonal rows of every point, and its fused linear reduction;
+// forward and backward. Each operator is dense -> activation rules ->
+// inverted dropout -> modulation of v, J and H by the pooled branch
+// embedding par (per case, as wide as the trunk); the reduction is linear.
+//
+// Replaces the TPU kernels porous_cfd_tpu/ops/neural_op_pallas.py:_fwd_kernel
+// (:107; pallas_call at :357) and _bwd_kernel (:154; pallas_call at :391).
+// The same kernels serve the internal launch (v, J, H rows) and the
+// value-only boundary launch.
+//
+// What bounds it on an H100: operations. At the duct_variable_boundary
+// envelope the internal launch runs 13 x 1500 x 5 = 97,500 rows through
+// 176 -> 352 -> 352 -> 352 -> 352 -> 3 (434,720 multiply-adds a row, 84.8
+// GFLOP) while reading 80 MB; the boundary launch runs 13,000 value rows
+// (11.3 GFLOP). The backward does about twice the forward's work. All are
+// far above the f32 ridge point, so the f32 CUDA-core rate is the limit.
+//
+// Design: mlp_prop.cuh's kernels with modulation (MOD = true); the TPU
+// kernel's transposed (B, D, N, F) J/H, 128-row tiles and per-tile
+// recompute are not carried over. The first operator's kernel is split by
+// context: ctx = geom W0[176:] + b0 is computed once per case by torch and
+// added to the value rows in place of a bias; J/H skip it. A 352-wide tile
+// needs 40 x 356 floats per buffer: two buffers and two 32 x 128 weight
+// tiles come to 146.7 KB, one block per SM. 176 and 352 are not multiples
+// of the 128-column chunk: every epilogue, stash write, dropout factor and
+// column sum masks the 96-wide tail. The training forward stashes each
+// layer's (modulated) input rows and pre-activations (1.3 GB at the
+// envelope); the backward's row sweep recomputes the pre-modulation triple
+// from the pre-activations and the Philox masks and forms dpar's per-point
+// addends in the epilogue of the same GEMM that carries the cotangent down.
+// dW, db, dctx and dpar are contracted or column-summed in order, without
+// atomics.
+#include "mlp_prop.cuh"
+
+using namespace pct;
+
+namespace pct {
+namespace {
+
+// the hidden layers must all be as wide as par
+bool trunk_widths_ok(int n_layers, const int* widths) {
+  if (n_layers < 2) return false;
+  for (int i = 2; i < n_layers; ++i)
+    if (widths[i] != widths[1]) return false;
+  return true;
+}
+
+}  // namespace
+}  // namespace pct
+
+// Arguments as decoder_prop_forward's (ctx = geom W0[L:] + b0; layer i <
+// n_layers - 1 is operator i, the last layer the reduction F -> O; widths =
+// (L, F, ..., F, O)), then par (n_cases, F). Returns the CUDA error code
+// (0 = ok).
+extern "C" int neural_ops_prop_forward(int d_dims, int act, int with_derivatives,
+                                       const float* v, const float* jt, const float* ht,
+                                       int n_cases, int n_pts, const float* ctx, int n_layers,
+                                       const float* const* w, const float* const* b,
+                                       const int* widths, float* ov, int ov_rows,
+                                       int ov_row0, float* oj, float* oh, unsigned k0,
+                                       unsigned k1, const unsigned* thresh, const float* scale,
+                                       const int* on, float* stash_a, float* stash_z,
+                                       const float* par, void* stream) {
+  if (par == nullptr || !trunk_widths_ok(n_layers, widths)) return (int)cudaErrorInvalidValue;
+  return prop_forward<true>(d_dims, act, with_derivatives != 0, v, jt, ht, n_cases, n_pts,
+                            ctx, par, n_layers, w, b, widths, ov, ov_rows, ov_row0, oj, oh,
+                            make_dropout(k0, k1, n_layers, thresh, scale, on), stash_a,
+                            stash_z, static_cast<cudaStream_t>(stream));
+}
+
+// Scratch floats neural_ops_prop_backward needs for one launch of `rows`
+// stash rows over n_cases cases.
+extern "C" long long neural_ops_prop_backward_workspace(int n_cases, long long rows,
+                                                        int n_layers, const int* widths) {
+  return prop_backward_workspace(n_cases, rows, n_layers, widths);
+}
+
+// Backward of one neural_ops_prop_forward launch (same inputs, dropout, par
+// and stash): arguments as decoder_prop_backward's, then par, dpar_rows
+// (n_cases * n_pts x F * (n_layers - 1) scratch for the per-point dpar
+// addends) and dpar (n_cases, F), to which the per-case cotangent of par is
+// ADDED, operator by operator.
+extern "C" int neural_ops_prop_backward(
+    int d_dims, int act, int with_derivatives, const float* gv, int ov_rows, int ov_row0,
+    const float* gj, const float* gh, int n_cases, int n_pts, int n_layers,
+    const float* const* w_orig, const int* ldw, const int* widths, unsigned k0, unsigned k1,
+    const unsigned* thresh, const float* scale, const int* on, const float* stash_a,
+    const float* stash_z, float* gz_stash, float* dv, float* djt, float* dht,
+    float* const* dw, float* const* db, float* dctx, float* scratch, long long scratch_floats,
+    const float* par, float* dpar_rows, float* dpar, void* stream) {
+  if (par == nullptr || dpar == nullptr || dpar_rows == nullptr ||
+      !trunk_widths_ok(n_layers, widths))
+    return (int)cudaErrorInvalidValue;
+  return prop_backward<true>(d_dims, act, with_derivatives != 0, gv, ov_rows, ov_row0, gj, gh,
+                             n_cases, n_pts, n_layers, w_orig, ldw, widths,
+                             make_dropout(k0, k1, n_layers, thresh, scale, on), par, stash_a,
+                             stash_z, gz_stash, dpar_rows, dv, djt, dht, dw, db, dctx, dpar,
+                             scratch, scratch_floats, static_cast<cudaStream_t>(stream));
+}

@@ -1,0 +1,265 @@
+"""Launching the kernels of ``csrc/mlp_prop.cuh``: the (value, J, H)
+propagation through a dense stack with activated, dropped-out hidden layers
+and a linear last layer, forward and backward, shared by ``decoder_prop``
+(the PIPN decoder, ``csrc/decoder_prop.cu``) and ``neural_ops_prop`` (the
+PI-GANO trunk, ``csrc/neural_op_prop.cu``, whose hidden outputs are also
+multiplied per case by ``par``).
+
+Each call launches twice, once for the internal (v, J, H) rows and once
+value-only for the boundary rows. When a gradient is wanted the kernels run
+inside ``MlpProp``, a ``torch.autograd.Function``: the training forward also
+stashes each layer's input rows and pre-activations, and the backward is the
+backward kernel, again one internal and one boundary launch.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from porous_cfd_tpu_torch.ops import build, dropout as dropout_mod
+
+ACT_CODES = {"silu": 0, "tanh": 1}
+MAX_DIMS = 3
+
+
+def dropout_rates(dropout: Optional[Sequence[float]], n_layers: int,
+                  deterministic: bool, fn: str = "decoder_prop") -> tuple[float, ...]:
+    """Per-layer dropout rates in force: all zero when deterministic."""
+    if dropout is None or deterministic:
+        return (0.0,) * n_layers
+    if len(dropout) != n_layers:
+        raise ValueError(f"{fn}: {len(dropout)} dropout rates for {n_layers} layers")
+    return tuple(float(r) for r in dropout)
+
+
+def check_tensor(label: str, t: torch.Tensor, shape: tuple, device, fn: str) -> None:
+    if (t.device != device or t.dtype != torch.float32 or not t.is_contiguous()
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{fn}: {label} must be a contiguous float32 "
+                         f"{tuple(shape)} tensor on {device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+class Kernels:
+    """One instantiation of ``csrc/mlp_prop.cuh``: the C entry points
+    ``<prefix>_forward``, ``<prefix>_backward_workspace`` and
+    ``<prefix>_backward`` of ``csrc/<source>.cu``. A modulated one takes
+    ``par`` after the forward's other arguments and ``par, dpar_rows, dpar``
+    after the backward's. The launch counts go to the ``launches`` attributes
+    of ``forward_counter`` and ``backward_counter``."""
+
+    def __init__(self, source: str, prefix: str, modulated: bool, forward_counter,
+                 backward_counter):
+        self.source = source
+        self.prefix = prefix
+        self.modulated = modulated
+        self.forward_counter = forward_counter
+        self.backward_counter = backward_counter
+
+    def library(self) -> ctypes.CDLL:
+        lib = build.library(self.source)
+        fwd = getattr(lib, f"{self.prefix}_forward")
+        if fwd.argtypes is None:
+            p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+            fwd.argtypes = ([i, i, i, p, p, p, i, i, p, i, p, p, p, p, i, i, p, p, u, u, p, p,
+                             p, p, p] + [p] * self.modulated + [p])
+            fwd.restype = i
+            ws = getattr(lib, f"{self.prefix}_backward_workspace")
+            ws.argtypes = [i, ll, i, p]
+            ws.restype = ll
+            bwd = getattr(lib, f"{self.prefix}_backward")
+            bwd.argtypes = ([i, i, i, p, i, i, p, p, i, i, i, p, p, p, u, u, p, p, p, p, p, p,
+                             p, p, p, p, p, p, p, ll] + [p, p, p] * self.modulated + [p])
+            bwd.restype = i
+        return lib
+
+
+class Meta:
+    """What one call fixes besides its tensors."""
+
+    def __init__(self, n_local, activation, rates, seed, d_dims, b_cases, n_int, n_bnd,
+                 widths):
+        self.n_local = n_local
+        self.activation = activation
+        self.rates = rates
+        self.seed = 0 if seed is None else int(seed)
+        self.d_dims = d_dims
+        self.b_cases = b_cases
+        self.n_int = n_int
+        self.n_bnd = n_bnd
+        self.widths = widths                     # (L, F1, ..., O)
+
+    @property
+    def n_layers(self):
+        return len(self.widths) - 1
+
+    def dropout_args(self):
+        """(k0, k1, thresholds, scales, on) for the C interface."""
+        nl = self.n_layers
+        on = [int(r > 0) for r in self.rates]
+        thresh = (ctypes.c_uint * nl)(*[dropout_mod.keep_threshold(r) if r > 0 else 0
+                                        for r in self.rates])
+        scale = (ctypes.c_float * nl)(*[1.0 / (1.0 - r) if r > 0 else 1.0
+                                        for r in self.rates])
+        return (self.seed & dropout_mod.MASK32, (self.seed >> 32) & dropout_mod.MASK32,
+                thresh, scale, build.int_array(on))
+
+    def stash_floats(self, rows):
+        w = self.widths
+        return rows * sum(w[:-1]), rows * sum(w[1:-1])
+
+
+def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, stash: bool,
+            par=None):
+    """Both launches; with ``stash`` also the training stash of each.
+    ``weights`` are the layers' nn.Linear weights (layer 0's local block is
+    read), ``biases`` those of layers 1 on; ``ctx`` (B, F1) takes layer 0's
+    bias's place; ``par`` (B, F) for a modulated ``kern``. Returns (ov, oj,
+    oh, [a_int, z_int, a_bnd, z_bnd])."""
+    dev = v.device
+    b_cases, n_int, n_bnd, d_dims = meta.b_cases, meta.n_int, meta.n_bnd, meta.d_dims
+    n_out = meta.widths[-1]
+    ov = torch.empty((b_cases, n_int + n_bnd, n_out), dtype=torch.float32, device=dev)
+    oj = torch.empty((b_cases, n_int, n_out, d_dims), dtype=torch.float32, device=dev)
+    oh = torch.empty_like(oj)
+    # the kernel reads weights as (in, out): nn.Linear's weight transposed,
+    # for layer 0 only its local block
+    ws = ([weights[0].detach()[:, :meta.n_local].t().contiguous()]
+          + [w.detach().t().contiguous() for w in weights[1:]])
+    bs = [ctx] + [b.detach() for b in biases]
+    fn = getattr(kern.library(), f"{kern.prefix}_forward")
+    args = (build.pointer_array(ws), build.pointer_array(bs), build.int_array(meta.widths))
+    drop = meta.dropout_args()
+    mod = [par.data_ptr()] if kern.modulated else []
+    stashes = []
+
+    def stash_for(rows):
+        if not stash:
+            return None, None
+        na, nz = meta.stash_floats(rows)
+        a = torch.empty((na,), dtype=torch.float32, device=dev)
+        z = torch.empty((nz,), dtype=torch.float32, device=dev)
+        stashes.extend([a, z])
+        return a.data_ptr(), z.data_ptr() if nz else None
+
+    act = ACT_CODES[meta.activation]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        sa, sz = stash_for(b_cases * n_int * (1 + 2 * d_dims))
+        code = fn(d_dims, act, 1, v.data_ptr(), jt.data_ptr(), ht.data_ptr(), b_cases, n_int,
+                  ctx.data_ptr(), len(ws), *args, ov.data_ptr(), n_int + n_bnd, 0,
+                  oj.data_ptr(), oh.data_ptr(), *drop, sa, sz, *mod, stream)
+        build.check_launch(f"{kern.prefix} (internal)", code)
+        kern.forward_counter.launches += 1
+        if v_b is not None:
+            sa, sz = stash_for(b_cases * n_bnd)
+            code = fn(d_dims, act, 0, v_b.data_ptr(), None, None, b_cases, n_bnd,
+                      ctx.data_ptr(), len(ws), *args, ov.data_ptr(), n_int + n_bnd, n_int,
+                      None, None, *drop, sa, sz, *mod, stream)
+            build.check_launch(f"{kern.prefix} (boundary)", code)
+            kern.forward_counter.launches += 1
+    return ov, oj, oh, stashes
+
+
+def backward(kern: Kernels, meta: Meta, weights, stashes, gv, gj, gh, par=None):
+    """The backward kernel, internal then boundary launch: (dv, djt, dht,
+    dv_b or None, dctx (B, F1), dW per layer ((in, out), layer 0's local
+    block), db per layer from 1 on, dpar (B, F) or None)."""
+    dev = gv.device
+    b_cases, n_int, n_bnd, d_dims = meta.b_cases, meta.n_int, meta.n_bnd, meta.d_dims
+    widths = meta.widths
+    nl = meta.n_layers
+    lib = kern.library()
+    fn = getattr(lib, f"{kern.prefix}_backward")
+    w_arr = build.int_array(widths)
+    ldw = build.int_array([w.shape[1] for w in weights])
+    w_ptrs = build.pointer_array(weights)
+    dws = [torch.zeros((widths[i], widths[i + 1]), dtype=torch.float32, device=dev)
+           for i in range(nl)]
+    dbs = [torch.zeros((widths[i + 1],), dtype=torch.float32, device=dev) for i in range(nl)]
+    dctx = dbs[0].new_zeros((b_cases, widths[1]))
+    # db[0] is not used: dctx takes its place
+    db_ptrs = build.pointer_array([dctx] + dbs[1:])
+    dw_ptrs = build.pointer_array(dws)
+    drop = meta.dropout_args()
+    act = ACT_CODES[meta.activation]
+    rows_int = b_cases * n_int * (1 + 2 * d_dims)
+    rows_bnd = b_cases * n_bnd
+    n_scratch = max(getattr(lib, f"{kern.prefix}_backward_workspace")(b_cases, r, nl, w_arr)
+                    for r in (rows_int, rows_bnd) if r)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
+    gz = torch.empty((max(rows_int, rows_bnd) * sum(widths[1:]),), dtype=torch.float32,
+                     device=dev)
+    dpar, mod = None, []
+    if kern.modulated:
+        dpar = torch.zeros_like(par)
+        dpar_rows = torch.empty((b_cases * max(n_int, n_bnd) * sum(widths[1:-1]),),
+                                dtype=torch.float32, device=dev)
+        mod = [par.data_ptr(), dpar_rows.data_ptr(), dpar.data_ptr()]
+    dv = torch.empty((b_cases, n_int, widths[0]), dtype=torch.float32, device=dev)
+    djt = torch.empty((b_cases, d_dims, n_int, widths[0]), dtype=torch.float32, device=dev)
+    dht = torch.empty_like(djt)
+    dv_b = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(d_dims, act, 1, gv.data_ptr(), n_int + n_bnd, 0, gj.data_ptr(),
+                  gh.data_ptr(), b_cases, n_int, nl, w_ptrs, ldw, w_arr, *drop,
+                  stashes[0].data_ptr(), stashes[1].data_ptr() if stashes[1].numel() else None,
+                  gz.data_ptr(), dv.data_ptr(), djt.data_ptr(), dht.data_ptr(), dw_ptrs,
+                  db_ptrs, dctx.data_ptr(), scratch.data_ptr(), n_scratch, *mod, stream)
+        build.check_launch(f"{kern.prefix} backward (internal)", code)
+        kern.backward_counter.launches += 1
+        if n_bnd:
+            dv_b = torch.empty((b_cases, n_bnd, widths[0]), dtype=torch.float32, device=dev)
+            code = fn(d_dims, act, 0, gv.data_ptr(), n_int + n_bnd, n_int, None, None, b_cases,
+                      n_bnd, nl, w_ptrs, ldw, w_arr, *drop, stashes[2].data_ptr(),
+                      stashes[3].data_ptr() if stashes[3].numel() else None, gz.data_ptr(),
+                      dv_b.data_ptr(), None, None, dw_ptrs, db_ptrs, dctx.data_ptr(),
+                      scratch.data_ptr(), n_scratch, *mod, stream)
+            build.check_launch(f"{kern.prefix} backward (boundary)", code)
+            kern.backward_counter.launches += 1
+    return dv, djt, dht, dv_b, dctx, dws, dbs[1:], dpar
+
+
+class MlpProp(torch.autograd.Function):
+    """The forward kernels with their stash, and the backward kernels.
+    Inputs: (kern, meta, v, jt, ht, v_b, ctx, par or None, *weights,
+    *biases of layers 1 on)."""
+
+    @staticmethod
+    def forward(ctx, kern, meta, v, jt, ht, v_b, cctx, par, *params):
+        nl = meta.n_layers
+        weights, biases = params[:nl], params[nl:]
+        ov, oj, oh, stashes = forward(kern, meta, v, jt, ht, v_b, cctx, weights, biases,
+                                      True, par)
+        ctx.kern, ctx.meta = kern, meta
+        ctx.save_for_backward(*weights, *stashes, *([par] if kern.modulated else []))
+        return ov, oj, oh
+
+    @staticmethod
+    def backward(ctx, gv, gj, gh):
+        kern, meta = ctx.kern, ctx.meta
+        nl = meta.n_layers
+        saved = list(ctx.saved_tensors)
+        par = saved.pop().detach() if kern.modulated else None
+        weights = [w.detach() for w in saved[:nl]]
+        dv, djt, dht, dv_b, dctx, dws, dbs, dpar = backward(
+            kern, meta, weights, saved[nl:], gv.contiguous(), gj.contiguous(),
+            gh.contiguous(), par)
+        # layer 0's kernel gradient covers its local block; the context block
+        # gets its gradient through ctx's F.linear
+        dw0 = torch.zeros_like(weights[0])
+        dw0[:, :meta.n_local] = dws[0].t()
+        return (None, None, dv, djt, dht, dv_b, dctx, dpar, dw0,
+                *[dw.t() for dw in dws[1:]], *dbs)
+
+
+def run(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, par, weights, biases):
+    """The kernels on validated inputs, inside ``MlpProp`` when a gradient
+    is wanted: (v (B, Ni + Nb, O), jac (B, Ni, O, D), lap)."""
+    tensors = [v, jt, ht, ctx, *weights, *biases] + [t for t in (v_b, par) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return MlpProp.apply(kern, meta, v, jt, ht, v_b, ctx, par, *weights, *biases)
+    return forward(kern, meta, v, jt, ht, v_b, ctx, weights, biases, False, par)[:3]

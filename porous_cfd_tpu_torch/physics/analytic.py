@@ -90,6 +90,12 @@ def mlp_value(linears: Sequence, v, activation: str,
     return v
 
 
+def dense_prop(linear, v, j, h):
+    """(v, J, H) through one ``nn.Linear``: the bias touches values only."""
+    return (F.linear(v, linear.weight, linear.bias), F.linear(j, linear.weight),
+            F.linear(h, linear.weight))
+
+
 def context_dense_prop(linear, n_local: int, v, j, h, v_b, g):
     """First dense layer of a decoder whose input is ``[local || context]``,
     with the per-case context ``g`` (..., 1, G) contracted once per case and
@@ -147,10 +153,7 @@ def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
     n_out = len(linears)
     for i in range(n_out):
         if i > 0:
-            lin = linears[i]
-            v = F.linear(v, lin.weight, lin.bias)
-            j = F.linear(j, lin.weight)
-            h = F.linear(h, lin.weight)
+            v, j, h = dense_prop(linears[i], v, j, h)
         if i < n_out - 1:
             v, j, h = activation_prop_merged(activation, v, j, h, n_int)
         if dropout is not None and dropout[i] > 0 and not deterministic:

@@ -1,10 +1,12 @@
 """Physics residuals and losses (counterpart of
 ``porous_cfd_tpu/physics/losses.py``): continuity div(u) and the standardized
-fixed-coefficient Navier-Stokes-Darcy-Forchheimer momentum residual
+Navier-Stokes-Darcy-Forchheimer momentum residual
 
     (u . grad) u  -  nu lap(u)  +  grad p  +  u (d nu + 1/2 |u| f) * zone
 
-with the chain-rule factors that undo z-score standardization. Each loss has
+with the chain-rule factors that undo z-score standardization, for fixed
+scalar d/f (``MomentumLossFixed``) or per-point d/f fields
+(``MomentumLossVariable``). Each loss has
 ``residual(...)`` and is a callable giving the per-component MSE against 0.
 Scalers must lie on the device of the tensors they meet (``.to(device)``).
 """
@@ -15,7 +17,7 @@ import dataclasses
 import torch
 
 from porous_cfd_tpu_torch.data.foam_data import FoamData
-from porous_cfd_tpu_torch.data.scalers import StandardScaler
+from porous_cfd_tpu_torch.data.scalers import Normalizer, StandardScaler
 
 
 def mse(x, y):
@@ -69,15 +71,44 @@ class MomentumLossFixed:
     def residual(self, internal: FoamData, u, u_jac, u_lap, p_grad):
         u_raw = self.u_scaler.inverse_transform(u)
         source = _u_source(u_raw, self.d, self.f, self.nu)
-        convection = torch.einsum(
-            "...ij,...j->...i", u_jac,
-            u_raw / self.points_scaler.std) * self.u_scaler.std
-        viscosity = self.nu * torch.einsum(
-            "...ij,...j->...i", u_lap,
-            1.0 / self.points_scaler.std ** 2) * self.u_scaler.std
-        pressure = (self.p_scaler.std / self.points_scaler.std) * p_grad
-        return convection - viscosity + pressure + source * internal["cellToRegion"]
+        return _standardized_residual(self, internal, u_raw, source, u_jac, u_lap, p_grad)
 
     def __call__(self, internal, u, u_jac, u_lap, p_grad):
         r = self.residual(internal, u, u_jac, u_lap, p_grad)
         return vector_loss(r, torch.zeros_like(r))
+
+
+@dataclasses.dataclass(frozen=True)
+class MomentumLossVariable:
+    """The same residual with per-point d/f coefficient fields, each put back
+    into raw units through its ``Normalizer``."""
+    nu: float
+    u_scaler: StandardScaler
+    points_scaler: StandardScaler
+    p_scaler: StandardScaler
+    d_scaler: Normalizer
+    f_scaler: Normalizer
+
+    def residual(self, internal: FoamData, u, u_jac, u_lap, p_grad):
+        u_raw = self.u_scaler.inverse_transform(u)
+        d_raw = self.d_scaler.inverse_transform(internal["d"])
+        f_raw = self.f_scaler.inverse_transform(internal["f"])
+        source = _u_source(u_raw, d_raw, f_raw, self.nu)
+        return _standardized_residual(self, internal, u_raw, source, u_jac, u_lap, p_grad)
+
+    def __call__(self, internal, u, u_jac, u_lap, p_grad):
+        r = self.residual(internal, u, u_jac, u_lap, p_grad)
+        return vector_loss(r, torch.zeros_like(r))
+
+
+def _standardized_residual(loss, internal: FoamData, u_raw, source, u_jac, u_lap, p_grad):
+    """Convection, viscosity and pressure in standardized coordinates plus
+    the penalization source in the porous zone."""
+    convection = torch.einsum(
+        "...ij,...j->...i", u_jac,
+        u_raw / loss.points_scaler.std) * loss.u_scaler.std
+    viscosity = loss.nu * torch.einsum(
+        "...ij,...j->...i", u_lap,
+        1.0 / loss.points_scaler.std ** 2) * loss.u_scaler.std
+    pressure = (loss.p_scaler.std / loss.points_scaler.std) * p_grad
+    return convection - viscosity + pressure + source * internal["cellToRegion"]

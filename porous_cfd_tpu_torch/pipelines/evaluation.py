@@ -93,11 +93,12 @@ def evaluate(model: PinnModel, dataset: FoamData, batch_size: int,
              normalizers: dict,
              sample_process_fn: SampleFn | None = None) -> Evaluation:
     """Verbose prediction of every case of ``dataset`` (stacked (C, N, F)),
-    in batches of ``batch_size``, on the model's device. The timing covers
+    in batches of ``batch_size``, on the model's device, with the model's
+    per-dataset aux attached first (``attach_neighbors``). The timing covers
     the prediction of all batches and ends in ``torch.cuda.synchronize()``."""
     device = model.device
     fns = make_predict_functions(model)
-    stacked = dataset.to(device)
+    stacked = model.attach_neighbors(dataset.to(device))
     n = len(stacked)
     batches = [torch.arange(s, min(s + batch_size, n), device=device)
                for s in range(0, n, batch_size)]

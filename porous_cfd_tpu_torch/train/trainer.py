@@ -182,9 +182,9 @@ class Trainer:
     def fit(self, resume_from=None) -> TrainState:
         cfg = self.config
         device = self.model.device
-        dataset = self.train_data.to(device)
+        dataset = self.model.attach_neighbors(self.train_data.to(device))
         if self.val_data is not None:
-            self.val_data = self.val_data.to(device)
+            self.val_data = self.model.attach_neighbors(self.val_data.to(device))
         state = self.fns.init_state(seed=cfg.seed)
         start_epoch = 0
         if resume_from:
@@ -209,7 +209,8 @@ class Trainer:
         while epoch < cfg.epochs:
             if resample and epoch // resample != sample_round:
                 sample_round = epoch // resample
-                dataset = self.resample_fn(sample_round).to(device)
+                dataset = self.model.attach_neighbors(
+                    self.resample_fn(sample_round).to(device))
             k = min(chunk_size, cfg.epochs - epoch,
                     cfg.checkpoint_every - epoch % cfg.checkpoint_every)
             if resample:

@@ -6,10 +6,12 @@ card. Skipped without a CUDA device. On the GPU machine (no JAX there):
 import pytest
 import torch
 
-from porous_cfd_tpu_torch.data.synthetic import make_foam_batch, make_scalers
-from porous_cfd_tpu_torch.models.mlp import MLP
+from porous_cfd_tpu_torch.data.synthetic import (VARIABLE_BOUNDARIES, make_foam_batch,
+                                                 make_scalers)
+from porous_cfd_tpu_torch.models.mlp import MLP, NeuralOperatorSequential, dense
+from porous_cfd_tpu_torch.models.pi_gano import pi_gano
 from porous_cfd_tpu_torch.models.pipn import pipn_foam
-from porous_cfd_tpu_torch.ops import decoder_cuda, pointnet_cuda
+from porous_cfd_tpu_torch.ops import decoder_cuda, neural_op_cuda, pointnet_cuda
 from porous_cfd_tpu_torch.physics import analytic
 
 pytestmark = pytest.mark.gpu
@@ -205,4 +207,95 @@ def test_slice_gradients_on_card_match_cpu(cuda):
         loss = sum((o ** 2).mean() for o in out)
         grads.append(torch.autograd.grad(loss, list(model.module.parameters())))
     for a, r in zip(*grads):
+        assert_close(a.cpu(), r)
+
+
+# ---------------------------------------------------------------------------
+# PI-GANO: the trunk kernel, and pointnet_global at the model's widths
+
+
+@pytest.mark.parametrize("layers", [[7, 64, 176, 176, 176], [8, 128, 352, 352, 352]])
+def test_pointnet_at_pi_gano_widths(cuda, layers):
+    """Last layers 176 and 352 wide (not multiples of 128), winner-row dot
+    products as long, a point count that is not a multiple of 64, and an
+    input without a gradient: forward, argmax and backward."""
+    gen = torch.Generator().manual_seed(layers[-1])
+    mlp = MLP(layers, activation="silu", generator=gen).to(cuda)
+    x = torch.randn((3, 175, layers[0]), generator=gen).to(cuda)
+    cot = torch.randn((3, 1, layers[-1]), generator=gen).to(cuda)
+    m, arg = pointnet_cuda.pointnet_global(mlp.linears, x, "silu")
+    got = torch.autograd.grad((m * cot).sum(), _params(mlp))
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        rm, ra = pointnet_cuda.pointnet_global_plain(mlp.linears, x, "silu")
+        g = analytic.mlp_value(mlp.linears, x, "silu")
+    assert_close(m.detach(), rm)
+    top2 = torch.topk(g, 2, dim=-2).values
+    decided = (top2[:, 0] - top2[:, 1]) > RTOL * rm.abs().max()
+    assert torch.equal(arg[:, 0][decided], ra[:, 0][decided])
+    ref_m = pointnet_cuda.pointnet_global_at(mlp.linears, x, "silu", arg)
+    ref = torch.autograd.grad((ref_m * cot).sum(), _params(mlp))
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("act,dims,boundary,f", [("silu", 2, True, 136), ("tanh", 2, False, 40),
+                                                 ("silu", 3, True, 40), ("tanh", 1, True, 136)])
+def test_neural_ops_kernel_matches_plain(cuda, act, dims, boundary, f, rate):
+    """Forward and backward against the plain version, dropout on and off;
+    widths 40 and 136 leave a tail past the 128-column chunk and 32-deep
+    weight tiles. dpar collects all three streams."""
+    gen = torch.Generator().manual_seed(20 + dims)
+    n_local = f // 2
+    ops = NeuralOperatorSequential(3, f, (0.0,) * 3, act, generator=gen).to(cuda)
+    red = dense(f, 3, gen).to(cuda)
+    rnd = lambda *s: (torch.randn(s, generator=gen) * 0.5).to(cuda).requires_grad_()  # noqa: E731
+    v, jt, ht = rnd(2, 37, n_local), rnd(2, dims, 37, n_local), rnd(2, dims, 37, n_local)
+    v_b = rnd(2, 45, n_local) if boundary else None
+    geom = rnd(2, 1, f - n_local)
+    par = (torch.rand((2, 1, f), generator=gen) + 0.5).to(cuda).requires_grad_()
+    inputs = [t for t in (v, jt, ht, v_b, geom, par) if t is not None] + \
+        _params(ops) + _params(red)
+    args = (ops.linears, red, n_local, v, jt, ht, v_b, geom, par, act, [0.0, rate, rate],
+            False, 1234)
+    before = (neural_op_cuda.neural_ops_prop.launches,
+              neural_op_cuda.neural_ops_prop_backward.launches)
+    out = neural_op_cuda.neural_ops_prop(*args)
+    cots = [torch.randn(o.shape, generator=gen).to(cuda) for o in out]
+    got = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cots)), inputs)
+    torch.cuda.synchronize()
+    n = 2 if boundary else 1
+    assert (neural_op_cuda.neural_ops_prop.launches - before[0],
+            neural_op_cuda.neural_ops_prop_backward.launches - before[1]) == (n, n)
+    ref_out = neural_op_cuda.neural_ops_prop_plain(*args)
+    for a, r in zip(out, ref_out):
+        assert_close(a.detach(), r.detach())
+    ref = torch.autograd.grad(sum((o * c).sum() for o, c in zip(ref_out, cots)), inputs)
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+
+def test_pi_gano_slice_on_card_matches_cpu(cuda):
+    """derivative_apply with dropout on: outputs and parameter gradients on
+    the card equal the CPU's; launches 2 pointnet_global and 2
+    neural_ops_prop per batch."""
+    cfg = dict(nu=1e-3, out_features=3, branch_layers=[8, 32, 80, 80],
+               geometry_layers=[7, 16, 40, 40], local_layers=[2, 16, 40, 40], n_operators=3,
+               operator_dropout=[0, 0.1, 0.1], variable_boundaries=VARIABLE_BOUNDARIES,
+               scalers=make_scalers())
+    gpu = pi_gano(**cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    cpu = pi_gano(**cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    batch = make_foam_batch(3, 200, 96, 20, seed=2)
+    before = (pointnet_cuda.pointnet_global.launches, neural_op_cuda.neural_ops_prop.launches)
+    results = []
+    for model, b in ((gpu, gpu.attach_neighbors(batch.to(cuda))), (cpu, batch)):
+        out = model.derivative_apply(b, deterministic=False, seed=77)
+        loss = sum((o ** 2).mean() for o in out)
+        results.append((out, torch.autograd.grad(loss, list(model.module.parameters()))))
+    assert (pointnet_cuda.pointnet_global.launches - before[0],
+            neural_op_cuda.neural_ops_prop.launches - before[1]) == (2, 2)
+    for a, r in zip(results[0][0], results[1][0]):
+        assert_close(a.detach().cpu(), r.detach())
+    for a, r in zip(results[0][1], results[1][1]):
         assert_close(a.cpu(), r)

@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from porous_cfd_tpu_torch.convert import params_from_flax, params_to_flax
-from porous_cfd_tpu_torch.data.synthetic import make_foam_batch, make_scalers
+from porous_cfd_tpu_torch.data.synthetic import (VARIABLE_BOUNDARIES, make_foam_batch,
+                                                 make_scalers)
 from porous_cfd_tpu_torch.device import resolve_device
+from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp, pi_gano_pp_full
 from porous_cfd_tpu_torch.models.pipn import PipnModule, pipn_foam
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -20,6 +22,9 @@ PORT = ROOT / "porous_cfd_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "porous_cfd_tpu")
 SMALL = dict(fe_local_layers=[2, 8, 8], fe_global_layers=[13, 8, 16],
              seg_layers=[24, 8, 3])
+PI_GANO_SMALL = dict(out_features=3, branch_layers=[8, 16], geometry_layers=[7, 8],
+                     local_layers=[2, 8], n_operators=2, operator_dropout=[0.0, 0.1],
+                     variable_boundaries=VARIABLE_BOUNDARIES)
 
 
 def small_module(seed):
@@ -75,6 +80,8 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -98,6 +105,12 @@ def test_unported_paths_raise():
                   coupled_context=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.with_precision("bf16-mixed")
+    for kwargs in (dict(full=True), dict(fast_derivatives=False)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu", **kwargs)
+    for factory in (pi_gano_pp, pi_gano_pp_full):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            factory(1e-3, 3)
 
 
 def _imports(path: Path):
@@ -124,6 +137,7 @@ def test_port_imports_with_jax_blocked():
         f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
         "import porous_cfd_tpu_torch\n"
         "import porous_cfd_tpu_torch.models.pipn\n"
+        "import porous_cfd_tpu_torch.models.pi_gano\n"
         "for info in pkgutil.walk_packages(porous_cfd_tpu_torch.__path__,"
         " 'porous_cfd_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
@@ -139,25 +153,29 @@ def test_port_imports_with_jax_blocked():
 def test_kernel_modules_need_no_nvcc_or_gpu(monkeypatch):
     """Importing the kernel modules builds nothing; on CPU tensors the
     wrappers take the plain versions and never reach the build."""
-    from porous_cfd_tpu_torch.ops import build, decoder_cuda, pointnet_cuda
+    from porous_cfd_tpu_torch.ops import build, decoder_cuda, neural_op_cuda, pointnet_cuda
 
     def no_build(*args, **kwargs):
         raise AssertionError("the CPU path must not build a kernel")
 
     monkeypatch.setattr(build, "library", no_build)
     monkeypatch.setattr(build, "build_all", no_build)
-    assert build.SOURCES == ("pointnet_global", "decoder_prop")
+    assert build.SOURCES == ("pointnet_global", "decoder_prop", "neural_op_prop")
     for src in build.SOURCES:
         assert (build.CSRC / f"{src}.cu").exists()
-    model = pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
-                      seg_dropout=[0.1, 0.0], device="cpu")
+    for header in build.HEADERS:
+        assert (build.CSRC / header).exists()
     counters = (pointnet_cuda.pointnet_global, pointnet_cuda.pointnet_global_backward,
-                decoder_cuda.decoder_prop, decoder_cuda.decoder_prop_backward)
+                decoder_cuda.decoder_prop, decoder_cuda.decoder_prop_backward,
+                neural_op_cuda.neural_ops_prop, neural_op_cuda.neural_ops_prop_backward)
     before = [c.launches for c in counters]
-    out, jac, lap = model.derivative_apply(make_foam_batch(1, 8, 4, 2, seed=0),
-                                           deterministic=False, seed=5)
-    assert out.shape == (1, 12, 3) and jac.shape == lap.shape == (1, 8, 3, 2)
-    sum(o.sum() for o in (out, jac, lap)).backward()
+    for model in (pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
+                            seg_dropout=[0.1, 0.0], device="cpu"),
+                  pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu")):
+        out, jac, lap = model.derivative_apply(make_foam_batch(1, 8, 4, 2, seed=0),
+                                               deterministic=False, seed=5)
+        assert out.shape == (1, 12, 3) and jac.shape == lap.shape == (1, 8, 3, 2)
+        sum(o.sum() for o in (out, jac, lap)).backward()
     # the counters count kernel launches only
     assert [c.launches for c in counters] == before
 
@@ -174,3 +192,9 @@ def test_wrappers_reject_other_devices():
     g = torch.empty((1, 1, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         decoder_cuda.decoder_prop(mlp.decoder.linears, 8, v, jt, jt, None, g, "silu")
+    from porous_cfd_tpu_torch.ops import neural_op_cuda
+    trunk = pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu").module
+    par = torch.empty((1, 1, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        neural_op_cuda.neural_ops_prop(trunk.neural_ops.linears, trunk.reduction, 8, v, jt,
+                                       jt, None, v, par, "silu")
