@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "porous_cfd_tpu_torch"
-SOURCES = ("pointnet_global", "decoder_prop", "neural_op_prop")
+SOURCES = ("pointnet_global", "decoder_prop", "neural_op_prop", "sa_neighborhood", "fps")
 HEADERS = ("common.cuh", "mlp_prop.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,27 +1,32 @@
 """Where the time of verbose prediction, or of a training step, goes on the
 card.
 
-    python -m porous_cfd_tpu_torch.profile_predict [--model pipn|pi_gano]
+    python -m porous_cfd_tpu_torch.profile_predict [--model pipn|pi_gano|pipn_pp]
                                                    [--mode predict|train]
                                                    [--batches 8] [--trace DIR]
 
 Builds a full-width model (random weights from seed 8421): the
-duct_fixed_boundary ``pipn`` model or the duct_variable_boundary ``pi-gano``
-model, and one batch of 13 synthetic cases at 1500/1000/700 points (with the
-model's per-dataset aux attached), warms up, then runs ``--batches`` verbose
+duct_fixed_boundary ``pipn`` or ``pipn-pp`` model or the
+duct_variable_boundary ``pi-gano`` model, and one batch of 13 synthetic
+cases at 1500/1000/700 points (with the model's per-dataset aux attached),
+warms up, then runs ``--batches`` verbose
 predictions (``predict``) or training steps with the examples' fixed loss
 weights (``train``) under ``torch.profiler``. Prints the device time per
 batch of each kernel (top entries), the device busy share of the wall time,
 and one JSON summary line that also splits the device time into the port's
 own kernels and the rest. The profiler's own cost per launch stretches the
 wall time of the window; compare the device time with an unprofiled step
-time (``chip_smoke.py``) for the busy share of a real run.
+time (``chip_smoke.py``) for the busy share of a real run. Before the
+window, ``--batches`` unprofiled runs, each from an idle card, give the
+host's time to enqueue one run and the wall time to its end (medians): where
+the two are close, the host and not the card sets the pace.
 Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import time
 
 import torch
@@ -29,7 +34,7 @@ import torch
 from porous_cfd_tpu_torch.data.synthetic import (VARIABLE_BOUNDARIES, make_foam_batch,
                                                  make_scalers)
 from porous_cfd_tpu_torch.models.pi_gano import pi_gano
-from porous_cfd_tpu_torch.models.pipn import pipn_foam
+from porous_cfd_tpu_torch.models.pipn import pipn_foam, pipn_foam_pp
 from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
 from porous_cfd_tpu_torch.train.engine import (make_optimizer, make_predict_functions,
                                                make_train_functions)
@@ -45,12 +50,17 @@ CONFIGS = {
                               local_layers=[2, 64, 176, 176, 176], n_operators=4,
                               operator_dropout=[0, 0.1, 0.1, 0],
                               variable_boundaries=VARIABLE_BOUNDARIES)),
+    "pipn_pp": (pipn_foam_pp, dict(nu=NU, d=14000.0, f=17.11, fe_local_layers=[2, 64, 64],
+                                   fe_global_layers=[[8, 64, 64], [66, 128, 128],
+                                                     [130, 256, 1024]],
+                                   fe_radius=[0.5, 1], fe_fraction=[0.5, 0.25],
+                                   seg_layers=[1088, 378, 128, 3], seg_dropout=[0.05, 0, 0])),
 }
 LOSS_WEIGHTS = (1, 1, 1, 1, 1, 1, 100, 100, 100)
 # device-kernel names of the port's hand-written CUDA kernels
 OWN_KERNELS = ("mlp_prop_fwd", "mlp_prop_bwd_rows", "pointnet_tiles", "pointnet_reduce",
                "pointnet_last", "pointnet_lower_bwd", "weight_grad_partial",
-               "sum_partials", "group_colsum")
+               "sum_partials", "group_colsum", "sa_fwd", "sa_bwd", "fps_kernel")
 
 
 def main(argv=None) -> int:
@@ -84,6 +94,16 @@ def main(argv=None) -> int:
     for _ in range(3):
         run()
     torch.cuda.synchronize()
+    enqueue, to_end = [], []
+    for _ in range(args.batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        to_end.append(time.perf_counter() - t0)
+    host_ms = statistics.median(enqueue) * 1e3
+    idle_wall_ms = statistics.median(to_end) * 1e3
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -118,12 +138,16 @@ def main(argv=None) -> int:
           f"{device_ms:.3f} ms device time per {what} (busy share "
           f"{device_ms / wall_ms:.3f}); the port's kernels {own_ms:.3f} ms, the rest "
           f"{device_ms - own_ms:.3f} ms")
+    print(f"unprofiled, from an idle card: the host enqueues a {what} in {host_ms:.3f} ms, "
+          f"which ends after {idle_wall_ms:.3f} ms (medians of {args.batches})")
     for ms, count, key in rows[:20]:
         print(f"  {ms:9.4f} ms  x{count:<3d} {key[:90]}")
     print(json.dumps({"model": args.model, "mode": args.mode, f"wall_ms_per_{what}": wall_ms,
                       f"device_ms_per_{what}": device_ms, "own_kernels_ms": own_ms,
                       "other_device_ms": device_ms - own_ms,
                       "busy_share": device_ms / wall_ms,
+                      f"host_enqueue_ms_per_{what}": host_ms,
+                      f"unprofiled_wall_ms_per_{what}": idle_wall_ms,
                       "top": [{"ms": ms, "count": c, "name": k[:120]}
                               for ms, c, k in rows[:20]]}))
     return 0

@@ -299,3 +299,147 @@ def test_pi_gano_slice_on_card_matches_cpu(cuda):
         assert_close(a.detach().cpu(), r.detach())
     for a, r in zip(results[0][1], results[1][1]):
         assert_close(a.cpu(), r)
+
+
+# ---------------------------------------------------------------------------
+# PIPN++: the SetAbstraction neighbourhood kernel and FPS
+
+
+def _sa_inputs(gen, cuda, b, n, c, k, f_in, d, empty_every):
+    """Random level inputs: idx into n source rows (padding at index 0 with
+    mask False), some neighbourhoods emptied."""
+    x = torch.randn((b, n, f_in), generator=gen)
+    idx = torch.randint(0, n, (b, c, k), generator=gen)
+    mask = torch.rand((b, c, k), generator=gen) > 0.2
+    if empty_every:
+        mask[:, ::empty_every] = False
+    idx = torch.where(mask, idx, torch.zeros_like(idx))
+    rel = torch.rand((b, c, k, d), generator=gen) * 2 - 1
+    xg = torch.gather(x, 1, idx.reshape(b, -1)[..., None].expand(-1, -1, f_in))
+    return [t.to(cuda) for t in (x, idx, mask, rel, xg)]
+
+
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
+@pytest.mark.parametrize("act,b,n,c,k,layers,empty", [
+    ("silu", 2, 40, 13, 8, [8, 16, 24], 3),         # 8 centroids a tile, odd count
+    ("tanh", 2, 40, 13, 8, [8, 24], 0),             # one layer
+    ("silu", 3, 300, 37, 64, [8, 64, 64], 5),       # PIPN++ level 0's stack
+    ("tanh", 2, 200, 11, 48, [7, 136, 200], 0),     # K not dividing 64; widths past 128
+    ("silu", 2, 130, 21, 64, [66, 128, 128], 4),    # PIPN++ level 1's stack
+])
+def test_sa_kernel_matches_plain(cuda, static, act, b, n, c, k, layers, empty):
+    """Forward and backward against the plain version: values, every
+    parameter gradient and, in the dynamic variant, dx through dP."""
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    gen = torch.Generator().manual_seed(c + k)
+    d = 2
+    mlp = MLP(layers, activation=act, generator=gen).to(cuda)
+    x, idx, mask, rel, xg = _sa_inputs(gen, cuda, b, n, c, k, layers[0] - d, d, empty)
+    x.requires_grad_(not static)
+    xg_arg = xg if static else None
+    cot = torch.randn((b, c, layers[-1]), generator=gen).to(cuda)
+    wrt = ([] if static else [x]) + _params(mlp)
+    before = (sa_cuda.sa_neighborhood.launches, sa_cuda.sa_neighborhood_backward.launches)
+    out = sa_cuda.sa_neighborhood(mlp.linears, x, idx, mask, rel, act, xg_arg)
+    got = torch.autograd.grad((out * cot).sum(), wrt)
+    torch.cuda.synchronize()
+    assert (sa_cuda.sa_neighborhood.launches - before[0],
+            sa_cuda.sa_neighborhood_backward.launches - before[1]) == (1, 1)
+    ref_out = sa_cuda.sa_neighborhood_plain(mlp.linears, x, idx, mask, rel, act, xg_arg)
+    assert_close(out.detach(), ref_out.detach())
+    if empty:
+        assert torch.all(out.detach()[~mask.any(-1)] == 0)
+    ref = torch.autograd.grad((ref_out * cot).sum(), wrt)
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+
+def test_sa_backward_alternating_shapes(cuda):
+    """The backward keeps one block count per shape and sets its shared
+    memory on every launch: level 1's widths, then level 0's (less shared
+    memory), then level 1's again on the same inputs, each against the plain
+    version, and the repeat's parameter gradients bit for bit the first's."""
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    runs = []
+    for layers, c in (([66, 128, 128], 21), ([8, 64, 64], 37), ([66, 128, 128], 21)):
+        gen = torch.Generator().manual_seed(c)
+        mlp = MLP(layers, activation="silu", generator=gen).to(cuda)
+        x, idx, mask, rel, xg = _sa_inputs(gen, cuda, 2, 130, c, 64, layers[0] - 2, 2, 0)
+        cot = torch.randn((2, c, layers[-1]), generator=gen).to(cuda)
+        out = sa_cuda.sa_neighborhood(mlp.linears, x, idx, mask, rel, "silu", xg)
+        got = torch.autograd.grad((out * cot).sum(), _params(mlp))
+        ref_out = sa_cuda.sa_neighborhood_plain(mlp.linears, x, idx, mask, rel, "silu", xg)
+        for a, r in zip(got, torch.autograd.grad((ref_out * cot).sum(), _params(mlp))):
+            assert_close(a, r)
+        runs.append(got)
+    for a, r in zip(runs[2], runs[0]):
+        assert torch.equal(a, r)
+
+
+def test_sa_kernel_ties_take_the_first_row(cuda):
+    """Source rows 1 and 4 are equal and reached with equal rel: the two
+    neighbours tie on every channel, and dx goes all to row 1."""
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    gen = torch.Generator().manual_seed(3)
+    mlp = MLP([7, 16, 16], activation="silu", generator=gen).to(cuda)
+    x = torch.randn((1, 6, 5), generator=gen)
+    x[0, 4] = x[0, 1]
+    x = x.to(cuda).requires_grad_()
+    idx = torch.tensor([[[2, 1, 4, 5]]], device=cuda)
+    mask = torch.tensor([[[False, True, True, False]]], device=cuda)
+    rel = torch.zeros((1, 1, 4, 2), device=cuda)
+    out = sa_cuda.sa_neighborhood(mlp.linears, x, idx, mask, rel, "silu")
+    (dx,) = torch.autograd.grad(out.sum(), [x])
+    assert torch.count_nonzero(dx[0, 1]) == 5
+    assert torch.all(dx[0, [0, 2, 3, 4, 5]] == 0)
+
+
+@pytest.mark.parametrize("b,n,d,n_samples", [(52, 1000, 2, 500), (52, 500, 2, 125),
+                                             (2, 57, 3, 19), (3, 300, 1, 50)])
+def test_fps_kernel_equals_plain(cuda, b, n, d, n_samples):
+    """Indices equal, not close: the first two are PIPN++'s levels."""
+    from porous_cfd_tpu_torch.ops import fps_cuda
+    pos = (torch.rand((b, n, d), generator=torch.Generator().manual_seed(n)) * 2 - 1).to(cuda)
+    before = fps_cuda.farthest_point_sampling.launches
+    got = fps_cuda.farthest_point_sampling(pos, n_samples)
+    torch.cuda.synchronize()
+    assert fps_cuda.farthest_point_sampling.launches == before + 1
+    assert torch.equal(got, fps_cuda.farthest_point_sampling_plain(pos, n_samples))
+
+
+def test_fps_kernel_ties_take_the_first_index(cuda):
+    from porous_cfd_tpu_torch.ops import fps_cuda
+    square = torch.tensor([[0, 0], [1, 0], [0, 1], [1, 1]] * 2, dtype=torch.float32,
+                          device=cuda)[None]
+    assert fps_cuda.farthest_point_sampling(square, 4).tolist() == [[0, 3, 1, 2]]
+
+
+def test_pipn_pp_slice_on_card_matches_cpu(cuda):
+    """derivative_apply with dropout on, on one neighbour chain (built on the
+    CPU, copied to the card): outputs and parameter gradients on the card
+    equal the CPU's; launches 2 sa_neighborhood, 1 pointnet_global and 2
+    decoder_prop per batch, their backwards once each, no FPS."""
+    from porous_cfd_tpu_torch.models.pipn import pipn_foam_pp
+    from porous_cfd_tpu_torch.ops import fps_cuda, sa_cuda
+    cfg = dict(nu=1e-3, d=100.0, f=1.0, fe_local_layers=[2, 32, 32],
+               fe_global_layers=[[8, 32, 32], [34, 64, 64], [66, 64, 256]],
+               fe_radius=[0.5, 1.0], fe_fraction=[0.5, 0.25],
+               seg_layers=[288, 96, 32, 3], seg_dropout=[0.1, 0.0, 0.0], scalers=make_scalers())
+    gpu = pipn_foam_pp(**cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    cpu = pipn_foam_pp(**cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    batch = cpu.attach_neighbors(make_foam_batch(3, 200, 96, 20, seed=2))
+    counters = (sa_cuda.sa_neighborhood, sa_cuda.sa_neighborhood_backward,
+                pointnet_cuda.pointnet_global, pointnet_cuda.pointnet_global_backward,
+                decoder_cuda.decoder_prop, decoder_cuda.decoder_prop_backward,
+                fps_cuda.farthest_point_sampling)
+    before = [c.launches for c in counters]
+    results = []
+    for model, b in ((gpu, batch.to(cuda)), (cpu, batch)):
+        out = model.derivative_apply(b, deterministic=False, seed=77)
+        loss = sum((o ** 2).mean() for o in out)
+        results.append((out, torch.autograd.grad(loss, list(model.module.parameters()))))
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 2, 1, 1, 2, 2, 0]
+    for a, r in zip(results[0][0], results[1][0]):
+        assert_close(a.detach().cpu(), r.detach())
+    for a, r in zip(results[0][1], results[1][1]):
+        assert_close(a.cpu(), r)

@@ -15,7 +15,9 @@ from porous_cfd_tpu_torch.data.synthetic import (VARIABLE_BOUNDARIES, make_foam_
                                                  make_scalers)
 from porous_cfd_tpu_torch.device import resolve_device
 from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp, pi_gano_pp_full
-from porous_cfd_tpu_torch.models.pipn import PipnModule, pipn_foam
+from porous_cfd_tpu_torch.models.pipn import (PipnModule, pipn_foam, pipn_foam_pp,
+                                              pipn_foam_pp_full, pipn_foam_pp_mrg,
+                                              pipn_manufactured_pp)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "porous_cfd_tpu_torch"
@@ -25,6 +27,9 @@ SMALL = dict(fe_local_layers=[2, 8, 8], fe_global_layers=[13, 8, 16],
 PI_GANO_SMALL = dict(out_features=3, branch_layers=[8, 16], geometry_layers=[7, 8],
                      local_layers=[2, 8], n_operators=2, operator_dropout=[0.0, 0.1],
                      variable_boundaries=VARIABLE_BOUNDARIES)
+PP_SMALL = dict(fe_local_layers=[2, 8, 8], fe_global_layers=[[8, 8, 8], [10, 8, 8], [10, 8, 16]],
+                fe_radius=[0.5, 1.0], fe_fraction=[0.5, 0.25], seg_layers=[24, 8, 3],
+                max_neighbors=8)
 
 
 def small_module(seed):
@@ -82,6 +87,8 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
         pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers())
     with pytest.raises(RuntimeError, match="CUDA"):
         pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -108,9 +115,13 @@ def test_unported_paths_raise():
     for kwargs in (dict(full=True), dict(fast_derivatives=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu", **kwargs)
-    for factory in (pi_gano_pp, pi_gano_pp_full):
+    for factory in (pi_gano_pp, pi_gano_pp_full, pipn_foam_pp_mrg, pipn_manufactured_pp,
+                    pipn_foam_pp_full):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             factory(1e-3, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(),
+                     fast_derivatives=False, device="cpu")
 
 
 def _imports(path: Path):
@@ -153,27 +164,33 @@ def test_port_imports_with_jax_blocked():
 def test_kernel_modules_need_no_nvcc_or_gpu(monkeypatch):
     """Importing the kernel modules builds nothing; on CPU tensors the
     wrappers take the plain versions and never reach the build."""
-    from porous_cfd_tpu_torch.ops import build, decoder_cuda, neural_op_cuda, pointnet_cuda
+    from porous_cfd_tpu_torch.ops import (build, decoder_cuda, fps_cuda, neural_op_cuda,
+                                          pointnet_cuda, sa_cuda)
 
     def no_build(*args, **kwargs):
         raise AssertionError("the CPU path must not build a kernel")
 
     monkeypatch.setattr(build, "library", no_build)
     monkeypatch.setattr(build, "build_all", no_build)
-    assert build.SOURCES == ("pointnet_global", "decoder_prop", "neural_op_prop")
+    assert build.SOURCES == ("pointnet_global", "decoder_prop", "neural_op_prop",
+                             "sa_neighborhood", "fps")
     for src in build.SOURCES:
         assert (build.CSRC / f"{src}.cu").exists()
     for header in build.HEADERS:
         assert (build.CSRC / header).exists()
     counters = (pointnet_cuda.pointnet_global, pointnet_cuda.pointnet_global_backward,
                 decoder_cuda.decoder_prop, decoder_cuda.decoder_prop_backward,
-                neural_op_cuda.neural_ops_prop, neural_op_cuda.neural_ops_prop_backward)
+                neural_op_cuda.neural_ops_prop, neural_op_cuda.neural_ops_prop_backward,
+                sa_cuda.sa_neighborhood, sa_cuda.sa_neighborhood_backward,
+                fps_cuda.farthest_point_sampling)
     before = [c.launches for c in counters]
     for model in (pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
                             seg_dropout=[0.1, 0.0], device="cpu"),
-                  pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu")):
-        out, jac, lap = model.derivative_apply(make_foam_batch(1, 8, 4, 2, seed=0),
-                                               deterministic=False, seed=5)
+                  pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu"),
+                  pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(),
+                               seg_dropout=[0.1, 0.0], device="cpu")):
+        batch = model.attach_neighbors(make_foam_batch(1, 8, 4, 2, seed=0))
+        out, jac, lap = model.derivative_apply(batch, deterministic=False, seed=5)
         assert out.shape == (1, 12, 3) and jac.shape == lap.shape == (1, 8, 3, 2)
         sum(o.sum() for o in (out, jac, lap)).backward()
     # the counters count kernel launches only
@@ -198,3 +215,17 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         neural_op_cuda.neural_ops_prop(trunk.neural_ops.linears, trunk.reduction, 8, v, jt,
                                        jt, None, v, par, "silu")
+    from porous_cfd_tpu_torch.ops import fps_cuda, sa_cuda
+    conv = pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(),
+                        device="cpu").module.feature_extract.global_feature.sa_1.conv_mlp
+    x = torch.empty((1, 4, 8), device="meta")
+    idx = torch.empty((1, 2, 8), dtype=torch.int64, device="meta")
+    mask = torch.empty((1, 2, 8), dtype=torch.bool, device="meta")
+    rel = torch.empty((1, 2, 8, 2), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        sa_cuda.sa_neighborhood(conv.linears, x, idx, mask, rel, "silu")
+    with pytest.raises(ValueError, match="no kernel"):
+        sa_cuda.sa_neighborhood(conv.linears, x, idx, mask, rel, "silu",
+                                torch.empty((1, 16, 8), device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        fps_cuda.farthest_point_sampling(torch.empty((2, 10, 2), device="meta"), 4)
