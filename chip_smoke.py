@@ -17,7 +17,11 @@ Phases, in order; any failure exits non-zero:
      trunk mask, (f) sa_neighborhood forward and backward at PIPN++'s level 0
      (static) and level 1 (dynamic) shapes, and with emptied neighbourhoods,
      (g) FPS at PIPN++'s two levels, indices equal to the plain version's,
-     (h) pointnet_global and decoder_prop at PIPN++'s shapes;
+     (h) pointnet_global and decoder_prop at PIPN++'s shapes, (i)
+     decoder_prop's max-pool-coupled modes at the pipn shape on a real
+     winner set: j0_add and ctx_width, forward and backward, dropout on and
+     off, every output and gradient (dja/dha and the context block of W0
+     included);
   4. pipn prediction: verbose prediction (fields + PDE residuals) of 52
      synthetic cases at 1500/1000/700 internal/boundary/observation points, in
      4 batches of 13, through the full-width duct_fixed_boundary ``pipn``
@@ -37,8 +41,25 @@ Phases, in order; any failure exits non-zero:
      ``pipn-pp`` model (its boundary cloud's SetAbstraction chain attached
      once per dataset, FPS on the card), with the card's chain against the
      CPU's and the mean valid neighbours per level;
-  9. pipn_pp training: phase 5 for that model.
-Each of phases 4-9 sets every launch count to 0 just before it and reads
+  9. pipn_pp training: phase 5 for that model;
+ 10. pipn_coupled prediction: phase 4 for ``pipn`` with
+     ``coupled_context=True`` (winner gather, decoder_prop's j0_add mode),
+     after coupled and decoupled values are held equal and their J/H equal
+     off the pooling winners' rows; the card-vs-CPU rows leave out those of
+     a channel whose winner differs between the two (a near-tie);
+ 11. pipn_coupled training: phase 5 for it, the card-vs-CPU step on the
+     first two cases whose winners agree;
+ 12. pipn_exact prediction: phase 4 for ``pipn`` with
+     ``fast_derivatives=False`` (the exact autodiff operator, no kernel:
+     every launch count stays 0), against the CPU on 2 cases, after its J
+     is held to the coupled path's off the winner rows;
+ 13. pipn_exact training: phase 5 for it, over 3 runs of 3 epochs;
+ 14. manufactured: the verification recipe, ``pipn_manufactured`` with
+     ``fast_derivatives=True`` (the coupled path, tanh) on
+     ``make_manufactured_batch(rng(8421), 16, 400, 120)``, 101 epochs of 4
+     steps, the loss at epochs 0/25/50/75/100 falling; then a few steps of
+     its default exact path.
+Each of phases 4-14 sets every launch count to 0 just before it and reads
 them just after. The second-to-last lines are the ``{"kernels": [...]}``
 JSON and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -85,6 +106,10 @@ SLICE_RUNS = 7
 # and p, observations u x/y and p
 LOSS_WEIGHTS = (1, 1, 1, 1, 1, 1, 100, 100, 100)
 TRAIN_RUNS, TRAIN_EPOCHS = 5, 10
+EXACT_RUNS, EXACT_EPOCHS = 3, 3
+# the manufactured-solutions recipe: 16 cases of 400/120 points, batch 4
+MS_CASES, MS_INT, MS_BND, MS_BATCH, MS_EPOCHS = 16, 400, 120, 4, 101
+MS_FE_GLOBAL = [64 + 2 + 1, 64, 128, 1024]
 
 # Tolerance of every comparison on the card: |a - b| <= RTOL * max|ref|.
 # The kernels, cuBLAS and the CPU's BLAS sum the 352- to 1024-wide rows in
@@ -106,6 +131,16 @@ REPLACES = {
                     "pallas_call at :433), decoupled mode, with dropout",
     "decoder_prop_bwd": "porous_cfd_tpu/ops/decoder_pallas.py:228 (_bwd_kernel; "
                         "pallas_call at :473), decoupled mode, with dropout",
+    "decoder_prop_j0_add": "porous_cfd_tpu/ops/decoder_pallas.py:168 (_fwd_kernel; "
+                           "pallas_call at :433), j0_add mode (:153-156, :199-201, "
+                           ":597-611)",
+    "decoder_prop_j0_add_bwd": "porous_cfd_tpu/ops/decoder_pallas.py:228 (_bwd_kernel; "
+                               "pallas_call at :473), j0_add mode (:283-285, :355-357)",
+    "decoder_prop_ctx": "porous_cfd_tpu/ops/decoder_pallas.py:168 (_fwd_kernel; "
+                        "pallas_call at :433), ctx_width mode (:134-139, :195, :381-386, "
+                        ":590-592)",
+    "decoder_prop_ctx_bwd": "porous_cfd_tpu/ops/decoder_pallas.py:228 (_bwd_kernel; "
+                            "pallas_call at :473), ctx_width mode (:276, :334-344, :622)",
     "neural_ops_prop": "porous_cfd_tpu/ops/neural_op_pallas.py:107 (_fwd_kernel; "
                        "pallas_call at :357), with dropout",
     "neural_ops_prop_bwd": "porous_cfd_tpu/ops/neural_op_pallas.py:154 (_bwd_kernel; "
@@ -122,6 +157,10 @@ SOURCES = {"pointnet_global": "porous_cfd_tpu_torch/ops/csrc/pointnet_global.cu"
            "pointnet_global_bwd": "porous_cfd_tpu_torch/ops/csrc/pointnet_global.cu",
            "decoder_prop": "porous_cfd_tpu_torch/ops/csrc/decoder_prop.cu",
            "decoder_prop_bwd": "porous_cfd_tpu_torch/ops/csrc/decoder_prop.cu",
+           "decoder_prop_j0_add": "porous_cfd_tpu_torch/ops/csrc/decoder_prop.cu",
+           "decoder_prop_j0_add_bwd": "porous_cfd_tpu_torch/ops/csrc/decoder_prop.cu",
+           "decoder_prop_ctx": "porous_cfd_tpu_torch/ops/csrc/decoder_prop.cu",
+           "decoder_prop_ctx_bwd": "porous_cfd_tpu_torch/ops/csrc/decoder_prop.cu",
            "neural_ops_prop": "porous_cfd_tpu_torch/ops/csrc/neural_op_prop.cu",
            "neural_ops_prop_bwd": "porous_cfd_tpu_torch/ops/csrc/neural_op_prop.cu",
            "sa_neighborhood": "porous_cfd_tpu_torch/ops/csrc/sa_neighborhood.cu",
@@ -500,6 +539,127 @@ def check_decoder(seg, seg_dropout, gen, tag):
     return fwd, bwd
 
 
+def coupled_inputs(model, batch):
+    """The decoder's inputs on the coupled path of ``model`` (a coupled
+    pipn on the card) for ``batch``: (v, jt, ht, v_b, g, zj0, zh0, jctx,
+    hctx), the last two the ctx_width mode's context derivatives, channel
+    f's J/H at its winner row in column f (nonzero at the winners only)."""
+    import torch
+    from porous_cfd_tpu_torch.data.foam_data import split_contiguous
+    from porous_cfd_tpu_torch.models import pipn
+    from porous_cfd_tpu_torch.physics import analytic
+    fe = model.module.feature_extract
+    internal, boundary = split_contiguous(batch)
+    feats = torch.cat([batch["boundaryId"], batch["sdf"]], dim=-1)
+    n_int = internal["C"].shape[-2]
+    with torch.no_grad():
+        j0, h0 = analytic.identity_jacobian_t(internal["C"])
+        v, jt, ht = analytic.mlp_prop_t(fe.local_feature.linears, internal["C"], j0, h0, "silu")
+        v_b = analytic.mlp_value(fe.local_feature.linears, boundary["C"], "silu")
+        g, rows, jw, hw = pipn.winner_terms(fe, v, jt, ht, v_b, feats[:, :n_int],
+                                            feats[:, n_int:], "silu")
+        w0g = model.module.decoder.linear_0.weight[:, v.shape[-1]:]
+        zj0, zh0 = pipn.winner_add_terms(rows, jw, hw, w0g, n_int)
+        idx = rows[:, None, None, :].expand(jw.shape[0], jw.shape[1], 1, jw.shape[2])
+        ctx = []
+        for w in (jw, hw):
+            c = w.new_zeros((*jw.shape[:2], n_int, jw.shape[2]))
+            ctx.append(c.scatter_(2, idx, w[:, :, None, :]))
+    return [t.contiguous() for t in (v, jt, ht, v_b, g, zj0, zh0, *ctx)]
+
+
+def check_decoder_coupled(model, batch, pk):
+    """decoder_prop's j0_add and ctx_width modes against the plain version at
+    the pipn shape on ``model``'s real inputs for ``batch``, forward and
+    backward, dropout on and off, timed. Returns {mode: (fwd, bwd)}."""
+    import torch
+    from porous_cfd_tpu_torch.ops import decoder_cuda, mlp_prop_cuda
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    dec = model.module.decoder
+    lin_d = dec.linears
+    n_local, dims = FE_LOCAL[-1], 2
+    v, jt, ht, v_b, g, zj0, zh0, jctx, hctx = coupled_inputs(model, batch)
+    nnz = int((jctx != 0).any(-1).sum() + (hctx != 0).any(-1).sum())
+    log(f"  coupled inputs: {int((zj0 != 0).any(-1).sum())} of {BATCH * dims * N_INT} J rows "
+        f"carry layer-0 terms; {nnz} nonzero context rows (J and H)")
+    params_d = list(dec.parameters())
+    names = ["dv", "djt", "dht", "dv_b", "dg"] + [f"d{n}" for n, _ in dec.named_parameters()]
+    widths = tuple([n_local] + SEG[1:])
+    macs_d = n_local * SEG[1] + sum(a * b for a, b in zip(SEG[1:-1], SEG[2:]))
+    rows = BATCH * N_INT * (1 + 2 * dims) + BATCH * N_BND
+    base_flops = 2.0 * rows * macs_d + 2.0 * BATCH * (SEG[0] - n_local) * SEG[1]
+    res = {}
+    for mode, extra in (("j0_add", (zj0, zh0)), ("ctx_width", (jctx, hctx))):
+        key = "j0_add" if mode == "j0_add" else "jctx_t"
+        leaves = [t.clone().requires_grad_() for t in (v, jt, ht, v_b, g, *extra)]
+        xnames = ["dja", "dha"] if mode == "j0_add" else ["djctx", "dhctx"]
+        errs, timing = [], {}
+        for drop in (SEG_DROPOUT, None):
+            dtag = f"dropout {max(SEG_DROPOUT)}" if drop else "no dropout"
+            kw = {key: leaves[5], key.replace("j", "h", 1): leaves[6]}
+            dargs = (lin_d, n_local, *leaves[:5], "silu", drop, drop is None, SEED)
+            out_k = decoder_cuda.decoder_prop(*dargs, **kw)
+            cots = [torch.randn(o.shape, generator=gen).to(dev) for o in out_k]
+            got = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out_k, cots)),
+                                      leaves + params_d)
+            torch.cuda.synchronize()
+            out_p = decoder_cuda.decoder_prop_plain(*dargs, **kw)
+            errs.append(check_close(f"decoder_prop {mode} forward, {dtag}",
+                                    list(zip(("v", "jac", "lap"), out_k, out_p))))
+            loss_ref = sum((o * c).sum() for o, c in zip(out_p, cots))
+            ref = torch.autograd.grad(loss_ref, leaves + params_d, retain_graph=True)
+            errs.append(check_close(f"decoder_prop {mode} backward, {dtag}",
+                                    list(zip(names[:5] + xnames + names[5:], got, ref))))
+            if drop:
+                with torch.no_grad():
+                    timing["ms"] = time_ms(torch, lambda: decoder_cuda.decoder_prop(*dargs, **kw))
+                    timing["plain_ms"] = time_ms(
+                        torch, lambda: decoder_cuda.decoder_prop_plain(*dargs, **kw), n=5)
+                timing["plain_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                    loss_ref, leaves + params_d, retain_graph=True), n=5)
+                meta = mlp_prop_cuda.Meta(
+                    n_local, "silu", tuple(float(r) for r in drop), SEED, dims, BATCH, N_INT,
+                    N_BND, widths, SEG[0] - n_local if mode == "ctx_width" else 0,
+                    mode == "j0_add")
+                with torch.no_grad():
+                    weights = [lin.weight.detach() for lin in lin_d]
+                    cctx = torch.nn.functional.linear(g[:, 0], lin_d[0].weight[:, n_local:],
+                                                      lin_d[0].bias).contiguous()
+                    jt_in, ht_in = jt, ht
+                    if mode == "ctx_width":
+                        jt_in, ht_in = torch.cat([jt, jctx], -1), torch.cat([ht, hctx], -1)
+                    ja = (zj0, zh0) if mode == "j0_add" else (None, None)
+                    _, _, _, stashes = mlp_prop_cuda.forward(
+                        decoder_cuda.DECODER, meta, v, jt_in, ht_in, v_b, cctx, weights,
+                        [lin.bias.detach() for lin in lin_d[1:]], True, None, *ja)
+                    gv, gj, gh = (c.contiguous() for c in cots)
+                    timing["bwd_ms"] = time_ms(torch, lambda: decoder_cuda.decoder_prop_backward(
+                        meta, weights, stashes, gv, gj, gh))
+                del stashes
+            del out_k, out_p, got, ref, loss_ref
+        ctx_flops = 0.0
+        if mode == "ctx_width":   # the context rows this data needs: the nonzero ones
+            ctx_flops = 2.0 * nnz * (SEG[0] - n_local) * SEG[1]
+        else:                     # the two additions
+            ctx_flops = 2.0 * zj0.numel()
+        flops = base_flops + ctx_flops
+        ins = [v, jt, ht, v_b, g, *extra, *params_d]
+        fwd = {"err": max(errs[0], errs[2]), "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+               "flops": flops, "nbytes": nbytes_of(ins) + 4 * (BATCH * (N_INT + N_BND) * 3
+                                                              + 2 * BATCH * N_INT * 3 * dims),
+               "extra": {"nonzero_context_rows": nnz} if mode == "ctx_width" else {}}
+        bwd = {"err": max(errs[1], errs[3]), "ms": timing["bwd_ms"],
+               "plain_ms": timing["plain_bwd_ms"], "flops": 2.0 * flops,
+               "nbytes": 2 * nbytes_of(ins) + 4 * (BATCH * (N_INT + N_BND) * 3
+                                                  + 2 * BATCH * N_INT * 3 * dims)}
+        log(f"  decoder_prop {mode}: forward {timing['ms']:.4f} ms (plain "
+            f"{timing['plain_ms']:.3f}), backward {timing['bwd_ms']:.4f} ms (plain "
+            f"{timing['plain_bwd_ms']:.3f})")
+        res[mode] = (fwd, bwd)
+    return res
+
+
 def sa_winners(linears, x, idx, mask, rel, xg):
     """(winners, winner rows) of one sa_neighborhood level: the (case,
     centroid, channel) maxima of the non-empty neighbourhoods, and the
@@ -731,13 +891,24 @@ def check_chain(model, cpu_model, data):
     return report
 
 
+def derivatives_no_grad(model, batch):
+    """(jac, lap) of the model's path (analytic, or the exact operator)."""
+    import torch
+    from porous_cfd_tpu_torch.train.engine import model_derivatives
+    with torch.no_grad():
+        return model_derivatives(model, batch, True)[1:]
+
+
 def prediction_phase(label, model, cpu_model, data, scalers, counters, want, name, smi,
-                     per_evaluate=None, share_aux=False):
+                     per_evaluate=None, share_aux=False, compare_cases=BATCH, row_mask=None):
     """Verbose prediction of every case in batches of BATCH through
     ``evaluate``: launch counts per batch (``want``; ``per_evaluate`` more per
     call, from its ``attach_neighbors``), shapes, finiteness, the median time
-    per batch of SLICE_RUNS runs, and one batch against the same module on
-    the CPU, which builds its own per-dataset aux unless ``share_aux``."""
+    per batch of SLICE_RUNS runs, and the first ``compare_cases`` cases
+    against the same module on the CPU, which builds its own per-dataset aux
+    unless ``share_aux``. ``row_mask(model, cpu_model, on_card, on_cpu)``,
+    if given, says which internal rows' derivatives and residuals are
+    compared (all where None)."""
     import torch
     from porous_cfd_tpu_torch.pipelines.evaluation import evaluate
     from porous_cfd_tpu_torch.train.engine import gather_cases, make_predict_functions
@@ -780,22 +951,23 @@ def prediction_phase(label, model, cpu_model, data, scalers, counters, want, nam
     # the CPU builds itself; or with the card's (``share_aux``: a neighbour
     # chain built on each side may differ where a point lies within rounding
     # of a radius, and check_chain counts such entries)
-    batch = gather_cases(data, torch.arange(BATCH))
+    batch = gather_cases(data, torch.arange(compare_cases))
     on_card = model.attach_neighbors(batch.to(dev))
     on_cpu = on_card.to("cpu") if share_aux else cpu_model.attach_neighbors(batch)
-    with torch.no_grad():
-        out_g = model.derivative_apply(on_card)
-    pred_g, extras_g = make_predict_functions(model).predict_batch(on_card, True)
+    predict_g = make_predict_functions(model).predict_batch
+    predict_c = make_predict_functions(cpu_model).predict_batch
+    pred_g, extras_g = predict_g(on_card, True)
+    out_g = [pred_g.data, *derivatives_no_grad(model, on_card)]
     cpu_model.module.load_state_dict(copy.deepcopy(model.module).cpu().state_dict())
-    with torch.no_grad():
-        out_c = cpu_model.derivative_apply(on_cpu)
-    pred_c, extras_c = make_predict_functions(cpu_model).predict_batch(on_cpu, True)
+    pred_c, extras_c = predict_c(on_cpu, True)
+    out_c = [pred_c.data, *derivatives_no_grad(cpu_model, on_cpu)]
+    rows = (slice(None) if row_mask is None
+            else row_mask(model, cpu_model, on_card, on_cpu))
     check_close(f"{label} prediction card-vs-CPU", [
-        ("fields", out_g[0].cpu(), out_c[0]), ("jac", out_g[1].cpu(), out_c[1]),
-        ("lap", out_g[2].cpu(), out_c[2]),
-        ("Momentum", extras_g["Momentum"].cpu(), extras_c["Momentum"]),
-        ("div", extras_g["div"].cpu(), extras_c["div"]),
-        ("predicted fields", pred_g.data.cpu(), pred_c.data)])
+        ("fields", out_g[0].cpu(), out_c[0]), ("jac", out_g[1].cpu()[rows], out_c[1][rows]),
+        ("lap", out_g[2].cpu()[rows], out_c[2][rows]),
+        ("Momentum", extras_g["Momentum"].cpu()[rows], extras_c["Momentum"][rows]),
+        ("div", extras_g["div"].cpu()[rows], extras_c["div"][rows])])
     return {"ms_per_batch": ms_batch, "cases_per_s": cases_s, "runs_ms_per_batch": runs_ms,
             "batches": n_batches, "batch_size": BATCH, "points": [N_INT, N_BND, N_OBS],
             "launches_per_batch": {k: (v - per_evaluate.get(k, 0)) // n_batches
@@ -804,15 +976,16 @@ def prediction_phase(label, model, cpu_model, data, scalers, counters, want, nam
 
 
 def training_phase(label, full_model, data, counters, want, name, smi, model_type,
-                   want_attach=None, share_aux=False):
+                   want_attach=None, share_aux=False, runs=TRAIN_RUNS, epochs=TRAIN_EPOCHS,
+                   two_cases=(0, 1)):
     """Training of ``full_model(device)`` with the fixed loss weights at
     batch BATCH: launch counts of ``attach_neighbors`` (``want_attach``,
     default none) and per step (``want``), finite non-zero gradients in
     every parameter, the loss falling, steps/s over whole epochs (median of
-    TRAIN_RUNS runs of TRAIN_EPOCHS epochs), one step on 2 cases against the
-    CPU with dropout on (each side with its own per-dataset aux, or both
-    with the card's if ``share_aux``), and a Trainer.fit whose checkpoints
-    restore."""
+    ``runs`` runs of ``epochs`` epochs), one step on the cases ``two_cases``
+    against the CPU with dropout on (each side with its own per-dataset aux,
+    or both with the card's if ``share_aux``), and a Trainer.fit whose
+    checkpoints restore."""
     import numpy as np
     import torch
     from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
@@ -867,21 +1040,21 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
         f"a finite, non-zero gradient; step-1 total loss {float(m[0]):.6f}")
 
     # steps/s as bench.py measures it: whole epochs between two syncs, after
-    # a warm-up epoch; the median of TRAIN_RUNS runs of TRAIN_EPOCHS epochs
+    # a warm-up epoch; the median of ``runs`` runs of ``epochs`` epochs
     state, m_warm = train_fns.train_epoch(state, dataset, perm())
     epoch_totals = [float(m_warm[0])]
     run_ms = []
     reset_counts()
-    for _ in range(TRAIN_RUNS):
-        perms = [perm() for _ in range(TRAIN_EPOCHS)]
+    for _ in range(runs):
+        perms = [perm() for _ in range(epochs)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m_epochs = train_fns.train_epochs(state, dataset, perms)
         torch.cuda.synchronize()
-        run_ms.append((time.perf_counter() - t0) * 1e3 / (TRAIN_EPOCHS * steps_per_epoch))
+        run_ms.append((time.perf_counter() - t0) * 1e3 / (epochs * steps_per_epoch))
         epoch_totals += m_epochs[:, 0].cpu().tolist()
     train_counts = read_counts()
-    n_steps = TRAIN_RUNS * TRAIN_EPOCHS * steps_per_epoch
+    n_steps = runs * epochs * steps_per_epoch
     if train_counts != {k: n * n_steps for k, n in want.items()}:
         fail(f"{label} launch counts {train_counts} over {n_steps} steps != {want} per step")
     if not all(map(lambda t: t == t and abs(t) < float("inf"), epoch_totals)):
@@ -894,14 +1067,14 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
     steps_s = 1e3 / ms_step
     run_ms.sort()
     log(f"{label} training: {ms_step:.3f} ms per step, {steps_s:.2f} steps/s at batch "
-        f"{BATCH} (median of {TRAIN_RUNS} runs of {TRAIN_EPOCHS} epochs x "
+        f"{BATCH} (median of {runs} runs of {epochs} epochs x "
         f"{steps_per_epoch} steps, {run_ms[0]:.3f} to {run_ms[-1]:.3f} ms/step; "
         f"{name}; {smi})")
     per_step = {k: v // n_steps for k, v in train_counts.items()}
     del state, train_fns, model, dataset
 
     # one step on 2 cases, card against CPU, dropout on
-    two = gather_cases(data, torch.arange(2))
+    two = gather_cases(data, torch.as_tensor(two_cases))
     res, two_card = [], None
     for device in (dev, torch.device("cpu")):
         mdl = full_model(device)
@@ -967,10 +1140,164 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
             fail(f"{label} checkpoint-epoch=2: epoch {epoch2}, step {at2.step}")
     log(f"  {label} Trainer.fit checkpoints written and restored")
     return {"ms_per_step": ms_step, "steps_per_s": steps_s, "runs_ms_per_step": run_ms,
-            "epochs_per_run": TRAIN_EPOCHS, "steps_per_epoch": steps_per_epoch,
+            "epochs_per_run": epochs, "steps_per_epoch": steps_per_epoch,
             "batch_size": BATCH, "epoch_totals_first_last": [epoch_totals[0],
                                                              epoch_totals[-1]],
             "launches_per_step": per_step, "launches_per_attach": attach_counts}
+
+
+def winners(model, batch):
+    """Each channel's first maximal row of the pooled feature, (B, F) on the
+    host, through the model's own pointnet_global (the kernel on the card)."""
+    import torch
+    from porous_cfd_tpu_torch.ops import pointnet_cuda
+    from porous_cfd_tpu_torch.physics import analytic
+    fe = model.module.feature_extract
+    with torch.no_grad():
+        local = analytic.mlp_value(fe.local_feature.linears, batch["C"],
+                                   model.module.activation)
+        feats = torch.cat([batch["boundaryId"], batch["sdf"]], dim=-1)
+        _, arg = pointnet_cuda.pointnet_global(fe.global_feature.linears,
+                                               torch.cat([local, feats], dim=-1).contiguous(),
+                                               model.module.activation)
+    return arg[:, 0].long().cpu()
+
+
+def agreeing_rows(model, cpu_model, on_card, on_cpu):
+    """(B, Ni) mask of the internal rows whose derivatives the card and the
+    CPU must share: all but the winner rows (on either side) of a channel
+    whose winner differs between the two, a near-tie in the pooled max."""
+    import torch
+    w_card, w_cpu = winners(model, on_card), winners(cpu_model, on_cpu)
+    differ = w_card != w_cpu
+    keep = torch.ones((w_card.shape[0], N_INT), dtype=torch.bool)
+    for w in (w_card, w_cpu):
+        for b, f in differ.nonzero().tolist():
+            if w[b, f] < N_INT:
+                keep[b, w[b, f]] = False
+    log(f"  winners: {int(differ.sum())} of {differ.numel()} channels differ between the "
+        f"card and the CPU; {int((~keep).sum())} internal rows left out of the comparison")
+    return keep
+
+
+def first_agreeing_cases(model, cpu_model, data, n=2):
+    """The first ``n`` cases of ``data`` whose winners agree on the card and
+    the CPU in every channel (a near-tie elsewhere moves a gradient)."""
+    import torch
+    on_card = data.to(model.device)
+    w_card, w_cpu = winners(model, on_card), winners(cpu_model, data)
+    same = (w_card == w_cpu).all(dim=-1)
+    picked = same.nonzero()[:n, 0].tolist()
+    log(f"  winners agree in every channel in {int(same.sum())} of {len(same)} cases; the "
+        f"card-vs-CPU step takes cases {picked}")
+    if len(picked) < n:
+        fail("fewer than two cases whose winners agree on the card and the CPU")
+    return tuple(picked)
+
+
+def check_paths_off_winners(models, batch):
+    """On the card: the coupled path's values equal the decoupled ones, and
+    J (H) equal the decoupled path's off the internal winner rows, and J the
+    exact path's there; the coupling moves J at the winners. The exact
+    path's H carries the grad-of-sum mixed term at every row, so its mean
+    deviation from the coupled H is reported, not compared."""
+    import torch
+    from porous_cfd_tpu_torch.train.engine import model_derivatives
+    outs = {}
+    for key, model in models.items():
+        with torch.no_grad():
+            outs[key] = [t.detach() for t in model_derivatives(model, batch, True)]
+    win = winners(models["coupled"], batch)
+    clean = torch.ones((win.shape[0], N_INT), dtype=torch.bool)
+    for b in range(win.shape[0]):
+        clean[b, win[b][win[b] < N_INT]] = False
+    clean = clean.to(batch.data.device)
+    ref = outs["coupled"]
+    pairs = [("values, decoupled", outs["decoupled"][0], ref[0]),
+             ("J off the winners, decoupled", outs["decoupled"][1][clean], ref[1][clean]),
+             ("H off the winners, decoupled", outs["decoupled"][2][clean], ref[2][clean])]
+    if "exact" in outs:
+        pairs += [("values, exact", outs["exact"][0], ref[0]),
+                  ("J off the winners, exact", outs["exact"][1][clean], ref[1][clean])]
+    check_close("coupled against", pairs)
+    moved = float((outs["decoupled"][1][~clean] - ref[1][~clean]).abs().max())
+    report = {"winner_rows": int((~clean).sum()), "rows": clean.numel(),
+              "j_max_coupling_at_winners": moved}
+    if "exact" in outs:
+        report["exact_lap_mean_abs_dev"] = float((outs["exact"][2] - ref[2]).abs().mean())
+        report["coupled_lap_mean_abs"] = float(ref[2].abs().mean())
+    log(f"  {report['winner_rows']} of {report['rows']} internal rows win a channel; the "
+        f"coupling moves J there by up to {moved:.3e}" + (
+            f"; the exact H differs from the coupled H by {report['exact_lap_mean_abs_dev']:.3e}"
+            f" on average (mean |H| {report['coupled_lap_mean_abs']:.3e})"
+            if "exact" in outs else ""))
+    if not moved > RTOL * float(ref[1].abs().max()):
+        fail("the coupling does not move J at the winner rows")
+    return report
+
+
+def manufactured_phase(counters, counts, name, smi):
+    """The manufactured-solutions recipe on the card: pipn_manufactured with
+    fast_derivatives=True (the coupled path, tanh), 101 epochs of 4 steps
+    over 16 cases, the loss at every 25th epoch, then a few steps of the
+    default exact path."""
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.data.manufactured import make_manufactured_batch
+    from porous_cfd_tpu_torch.models.pipn import pipn_manufactured
+    from porous_cfd_tpu_torch.train.engine import make_optimizer, make_train_functions
+    dev = torch.device("cuda", 0)
+    ds = make_manufactured_batch(np.random.default_rng(SEED), MS_CASES, MS_INT, MS_BND).to(dev)
+    steps = MS_CASES // MS_BATCH
+    report = {}
+    for fast, n_epochs in ((True, MS_EPOCHS), (False, 2)):
+        tag = "coupled" if fast else "exact"
+        model = pipn_manufactured(0.01, 50.0, 1.0, FE_LOCAL, MS_FE_GLOBAL, SEG,
+                                  fast_derivatives=fast,
+                                  generator=torch.Generator().manual_seed(SEED), device=dev)
+        fns = make_train_functions(model, make_optimizer(model, steps_per_epoch=steps))
+        state = fns.init_state(seed=SEED)
+        rng = np.random.default_rng(0)
+        for c in counters.values():
+            c.launches = 0
+        losses = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for epoch in range(n_epochs):
+            state, m = fns.train_epoch(state, ds, rng.permutation(MS_CASES).reshape(steps,
+                                                                                   MS_BATCH))
+            if epoch % 25 == 0 or epoch == n_epochs - 1:
+                losses[epoch] = float(m[0])
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) * 1e3 / (n_epochs * steps)
+        n_steps = n_epochs * steps
+        per_step = {k: c.launches // n_steps for k, c in counters.items()}
+        if {k: c.launches for k, c in counters.items()} != {
+                k: v * n_steps for k, v in per_step.items()}:
+            fail(f"manufactured {tag}: launches not a whole number per step")
+        log(f"manufactured {tag}: total loss by epoch {losses}; {ms_step:.3f} ms per step "
+            f"(batch {MS_BATCH}, {MS_INT}/{MS_BND} points, with a sync every 25 epochs; "
+            f"{name}; {smi}); launches per step {per_step}")
+        if not all(np.isfinite(list(losses.values()))):
+            fail(f"manufactured {tag}: non-finite loss")
+        first, last = losses[0], losses[n_epochs - 1]
+        if fast:
+            if not last < first:
+                fail("manufactured: the total loss did not fall")
+            want = counts(pointnet_global=1, pointnet_global_bwd=1, decoder_prop=2,
+                          decoder_prop_bwd=2, decoder_prop_j0_add=1, decoder_prop_j0_add_bwd=1)
+            log(f"  the loss went from {first:.4f} to {last:.4f} in {n_epochs} epochs "
+                f"(the recipe's note expects about 20 to below 1: "
+                f"{'held' if first > 10 and last < 1 else 'not held'})")
+        else:
+            want = counts()
+        if per_step != want:
+            fail(f"manufactured {tag}: launches per step {per_step} != {want}")
+        report[tag] = {"loss_by_epoch": losses, "ms_per_step": ms_step,
+                       "steps_per_s": 1e3 / ms_step, "epochs": n_epochs,
+                       "steps_per_epoch": steps, "launches_per_step": per_step}
+        del state, fns, model
+    return report
 
 
 def main() -> int:
@@ -1000,7 +1327,11 @@ def main() -> int:
                 "neural_ops_prop_bwd": neural_op_cuda.neural_ops_prop_backward,
                 "sa_neighborhood": sa_cuda.sa_neighborhood,
                 "sa_neighborhood_bwd": sa_cuda.sa_neighborhood_backward,
-                "farthest_point_sampling": fps_cuda.farthest_point_sampling}
+                "farthest_point_sampling": fps_cuda.farthest_point_sampling,
+                "decoder_prop_j0_add": decoder_cuda.MODE_COUNTS["j0_add"][0],
+                "decoder_prop_j0_add_bwd": decoder_cuda.MODE_COUNTS["j0_add"][1],
+                "decoder_prop_ctx": decoder_cuda.MODE_COUNTS["ctx_width"][0],
+                "decoder_prop_ctx_bwd": decoder_cuda.MODE_COUNTS["ctx_width"][1]}
 
     def counts(**nonzero):
         return {k: nonzero.get(k, 0) for k in counters}
@@ -1087,6 +1418,16 @@ def main() -> int:
                          seg_dropout=SEG_DROPOUT,
                          generator=torch.Generator().manual_seed(SEED), device=device)
 
+    def pipn_coupled_model(device):
+        return pipn_foam(NU, D, F, FE_LOCAL, FE_GLOBAL, SEG, scalers,
+                         seg_dropout=SEG_DROPOUT, coupled_context=True,
+                         generator=torch.Generator().manual_seed(SEED), device=device)
+
+    def pipn_exact_model(device):
+        return pipn_foam(NU, D, F, FE_LOCAL, FE_GLOBAL, SEG, scalers,
+                         seg_dropout=SEG_DROPOUT, fast_derivatives=False,
+                         generator=torch.Generator().manual_seed(SEED), device=device)
+
     def pi_gano_model(device):
         return pi_gano(NU, 3, PG_BRANCH, PG_GEOMETRY, PG_LOCAL, PG_OPERATORS, PG_DROPOUT,
                        scalers, VARIABLE_BOUNDARIES,
@@ -1121,6 +1462,13 @@ def main() -> int:
             kernels[k]["at_pipn_pp_shape"] = {**shapes[key], **shape_timing(pair[i], pk),
                                               **pair[i].get("extra", {})}
             kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], pair[i]["err"])
+
+    # ---- 3i. decoder_prop's coupled modes at the pipn shape, real winners --------
+    coupled = check_decoder_coupled(pipn_coupled_model(dev),
+                                    gather_cases(data, torch.arange(BATCH)).to(dev), pk)
+    for mode, key in (("j0_add", "decoder_prop_j0_add"), ("ctx_width", "decoder_prop_ctx")):
+        add_entry(key, coupled[mode][0], mode=mode)
+        add_entry(f"{key}_bwd", coupled[mode][1], mode=mode)
     for kern in kernels.values():
         log(json.dumps({"kernel_timing": kern}))
     torch.cuda.empty_cache()
@@ -1160,13 +1508,56 @@ def main() -> int:
                               name, smi, "pipn-pp",
                               want_attach=counts(farthest_point_sampling=2), share_aux=True)
 
+    torch.cuda.empty_cache()
+
+    # ---- 10, 11. pipn_coupled: the paths off the winners, prediction, training ---
+    log("pipn_coupled: coupled against decoupled on the card, a batch of "
+        f"{BATCH}:")
+    paths_coupled = check_paths_off_winners(
+        {"coupled": pipn_coupled_model(dev), "decoupled": pipn_model(dev)},
+        gather_cases(data, torch.arange(BATCH)).to(dev))
+    want_coupled = dict(pointnet_global=1, decoder_prop=2, decoder_prop_j0_add=1)
+    pc_pred = prediction_phase("pipn_coupled", pipn_coupled_model(dev),
+                               pipn_coupled_model("cpu"), data, scalers, counters,
+                               counts(**want_coupled), name, smi, row_mask=agreeing_rows)
+    two = first_agreeing_cases(pipn_coupled_model(dev), pipn_coupled_model("cpu"),
+                               gather_cases(data, torch.arange(8)))
+    pc_train = training_phase("pipn_coupled", pipn_coupled_model, data, counters,
+                              counts(**want_coupled, pointnet_global_bwd=1, decoder_prop_bwd=2,
+                                     decoder_prop_j0_add_bwd=1),
+                              name, smi, "pipn", two_cases=two)
+    torch.cuda.empty_cache()
+
+    # ---- 12, 13. pipn_exact: no kernel ------------------------------------------
+    log("pipn_exact: exact, coupled and decoupled on the card, 2 cases:")
+    paths_exact = check_paths_off_winners(
+        {"coupled": pipn_coupled_model(dev), "decoupled": pipn_model(dev),
+         "exact": pipn_exact_model(dev)}, gather_cases(data, torch.tensor(two)).to(dev))
+    ex_pred = prediction_phase("pipn_exact", pipn_exact_model(dev), pipn_exact_model("cpu"),
+                               data, scalers, counters, counts(), name, smi, compare_cases=2)
+    ex_train = training_phase("pipn_exact", pipn_exact_model, data, counters, counts(), name,
+                              smi, "pipn", runs=EXACT_RUNS, epochs=EXACT_EPOCHS,
+                              two_cases=two)
+    torch.cuda.empty_cache()
+
+    # ---- 14. manufactured solutions -----------------------------------------------
+    ms_report = manufactured_phase(counters, counts, name, smi)
+
     # launches on each kernel's main path (per training step; FPS per
-    # attach_neighbors, the only place it runs), and per path
+    # attach_neighbors, the only place it runs), and per path; the ctx_width
+    # mode is on no path (the coupled path takes the j0_add mode), so its
+    # count is the coupled path's, 0
     paths = {"pipn": (pipn_pred, pipn_train), "pi_gano": (pg_pred, pg_train),
-             "pipn_pp": (pp_pred, pp_train)}
+             "pipn_pp": (pp_pred, pp_train), "pipn_coupled": (pc_pred, pc_train),
+             "pipn_exact": (ex_pred, ex_train)}
     for k, kern in kernels.items():
         main_path = ("pi_gano" if k.startswith("neural_ops") else
-                     "pipn_pp" if k.startswith(("sa_", "farthest")) else "pipn")
+                     "pipn_pp" if k.startswith(("sa_", "farthest")) else
+                     "pipn_coupled" if k.startswith(("decoder_prop_j0", "decoder_prop_ctx"))
+                     else "pipn")
+        kern["main_path"] = main_path
+        if k.startswith("decoder_prop_ctx"):
+            kern["on_a_path"] = False
         tr = paths[main_path][1]
         kern["launches"] = (tr["launches_per_attach"] if k == "farthest_point_sampling"
                             else tr["launches_per_step"])[k]
@@ -1182,6 +1573,12 @@ def main() -> int:
     log(json.dumps({"pipn_pp_chain": pp_chain}))
     log(json.dumps({"pipn_pp_slice": pp_pred}))
     log(json.dumps({"pipn_pp_train": pp_train}))
+    log(json.dumps({"pipn_coupled_paths": paths_coupled, "pipn_exact_paths": paths_exact}))
+    log(json.dumps({"pipn_coupled_slice": pc_pred}))
+    log(json.dumps({"pipn_coupled_train": pc_train}))
+    log(json.dumps({"pipn_exact_slice": ex_pred}))
+    log(json.dumps({"pipn_exact_train": ex_train}))
+    log(json.dumps({"manufactured": ms_report}))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -64,8 +64,10 @@ class PinnModel:
         exponential learning-rate decay (every reference model's recipe).
     :param derivative_apply: analytic fast path
         ``(batch, deterministic, seed) -> (out_full, jac, lap)`` with jac/lap
-        shaped (..., Ni, O, D). The exact autodiff operator is not ported, so
-        a model without one cannot predict verbosely or train yet.
+        shaped (..., Ni, O, D). A model without one predicts verbosely and
+        trains through the exact autodiff operator
+        (``physics/operators.pinn_derivatives``) on its module, whose
+        forward then also takes ``seed=`` for its dropout.
     :param neighbor_precompute: ``FoamData -> dict`` of per-case aux built
         once per dataset (``attach_neighbors``), or None.
     :param microbatch/remat: gradient accumulation and rematerialisation

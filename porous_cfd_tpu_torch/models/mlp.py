@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from porous_cfd_tpu_torch.device import not_ported
-from porous_cfd_tpu_torch.physics.analytic import ACTIVATIONS
+from porous_cfd_tpu_torch.physics.analytic import ACTIVATIONS, merged_mask
 
 # std of a unit normal truncated to [-2, 2]; flax divides by it so that the
 # truncated draw has the requested variance
@@ -39,8 +39,12 @@ def dense(in_features: int, out_features: int,
 
 class MLP(nn.Module):
     """Linear stack. ``layers`` includes the input size: [in, h1, ..., out].
-    ``dropout`` has one entry per layer; ``last_activation=False`` leaves the
-    final layer plain."""
+    ``dropout`` has one entry per layer, applied after its activation when
+    not ``deterministic``; ``last_activation=False`` leaves the final layer
+    plain. The dropout masks are ``analytic.merged_mask`` of ``seed`` and the
+    layer over the input's rows, so a decoder applied to the merged
+    [internal || boundary] rows drops what the analytic decoder path drops
+    for the same seed."""
 
     def __init__(self, layers: Sequence[int],
                  dropout: Optional[Sequence[float]] = None,
@@ -66,16 +70,19 @@ class MLP(nn.Module):
     def linears(self) -> list[nn.Linear]:
         return [getattr(self, f"linear_{i}") for i in range(len(self.layers) - 1)]
 
-    def forward(self, x, deterministic: bool = True):
-        if (not deterministic and self.dropout is not None
-                and any(r > 0 for r in self.dropout)):
-            raise not_ported("MLP dropout (deterministic=False, training)")
+    def forward(self, x, deterministic: bool = True, seed: Optional[int] = None):
+        drop = (not deterministic and self.dropout is not None
+                and any(r > 0 for r in self.dropout))
+        if drop and seed is None:
+            raise ValueError("MLP: dropout needs a seed")
         act = ACTIVATIONS[self.activation]
         linears = self.linears
         for i, lin in enumerate(linears):
             x = lin(x)
             if i < len(linears) - 1 or self.last_activation:
                 x = act(x)
+            if drop and self.dropout[i] > 0:
+                x = x * merged_mask(seed, i, self.dropout[i], x)
         return x
 
 

@@ -1,12 +1,15 @@
 """PIPN models (counterpart of ``porous_cfd_tpu/models/pipn.py``): the plain
-``PipnModule`` and ``PipnPpModule`` forwards, the ``pipn_foam`` and
-``pipn_foam_pp`` factories and their analytic derivative paths, which carry
-verbose prediction and training.
+``PipnModule`` and ``PipnPpModule`` forwards, the ``pipn_foam``,
+``pipn_manufactured`` and ``pipn_foam_pp`` factories and their analytic
+derivative paths, which carry verbose prediction and training (a model
+without one takes the exact autodiff operator, ``physics/operators.py``).
 
 Per-point features + a pooled global geometry embedding, decoded by a shared
 segmentation MLP. PIPN's analytic path runs two CUDA kernels on the card:
-``pointnet_global`` (pooled global feature) and ``decoder_prop`` (fused
-(v, J, H) decoder with dropout, internal and boundary launches). PIPN++
+``pointnet_global`` (pooled global feature, and its argmax rows in the
+max-pool-coupled mode) and ``decoder_prop`` (fused (v, J, H) decoder with
+dropout, internal and boundary launches; in the coupled mode with additive
+layer-0 J/H terms built from the pooling winners' rows). PIPN++
 pools its embedding with a SetAbstraction chain over the boundary cloud:
 ``sa_neighborhood`` per radius level (static at level 0, dynamic at level
 1) and ``pointnet_global`` for the trailing global level, on a neighbour
@@ -28,8 +31,8 @@ from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors, sa_chain
 from porous_cfd_tpu_torch.models.set_abstraction import PointNetFeatureExtractPp
 from porous_cfd_tpu_torch.ops import decoder_cuda, pointnet_cuda, sa_cuda
 from porous_cfd_tpu_torch.physics import analytic
-from porous_cfd_tpu_torch.physics.losses import (ContinuityLossStandardized,
-                                                 MomentumLossFixed)
+from porous_cfd_tpu_torch.physics.losses import (ContinuityLoss, ContinuityLossStandardized,
+                                                 MomentumLossFixed, MomentumLossManufactured)
 
 
 class PipnModule(nn.Module):
@@ -52,12 +55,16 @@ class PipnModule(nn.Module):
         self.decoder = MLP(seg_layers, seg_dropout, activation,
                            last_activation=False, generator=generator)
 
-    def forward(self, points, batch: FoamData, deterministic: bool = True):
+    def forward(self, points, batch: FoamData, deterministic: bool = True,
+                seed: Optional[int] = None):
+        """``points`` (..., N, 2) are the [internal || boundary] rows; the
+        decoder's dropout (unless ``deterministic``) draws its masks from
+        ``seed`` over those rows, as the analytic path does."""
         global_in = torch.cat([batch["boundaryId"], batch["sdf"]], dim=-1)
         local, g = self.feature_extract(global_in, points, deterministic)
         exp_g = g.expand(*local.shape[:-1], g.shape[-1])
         seg_in = torch.cat([local, exp_g], dim=-1)
-        return self.decoder(seg_in, deterministic)
+        return self.decoder(seg_in, deterministic, seed)
 
 
 def _geometry_features(boundary: FoamData) -> torch.Tensor:
@@ -101,16 +108,18 @@ class PipnPpModule(nn.Module):
 
 
 def _decoder_prop_dispatch(decoder: MLP, n_local, v, jt, ht, v_b, g,
-                           activation, dropout, deterministic, seed):
+                           activation, dropout, deterministic, seed, j0_add=None,
+                           h0_add=None):
     """Decoder-stack propagation: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (``decoder_cuda.decoder_prop`` goes by the
     tensors' device). Dropout runs unless ``deterministic``, with masks fixed
-    by ``seed``. Returns (out_merged, jac, lap) with jac/lap (..., Ni, O,
-    D)."""
+    by ``seed``; ``j0_add``/``h0_add`` (..., D, Ni, F1) carry the max-pool
+    coupling. Returns (out_merged, jac, lap) with jac/lap (..., Ni, O, D)."""
     return decoder_cuda.decoder_prop(
         decoder.linears, n_local, v.contiguous(), jt.contiguous(),
         ht.contiguous(), None if v_b is None else v_b.contiguous(),
-        g.contiguous(), activation, dropout, deterministic, seed)
+        g.contiguous(), activation, dropout, deterministic, seed,
+        j0_add=j0_add, h0_add=h0_add)
 
 
 def _pointnet_global_dispatch(global_feature: MLP, x, activation):
@@ -126,16 +135,22 @@ def pipn_apply_with_derivatives(module: PipnModule, coupled: bool = True):
     jac/lap shaped (..., Ni, O, D). With ``deterministic=False`` the decoder
     applies its dropout, with masks that are a pure function of ``seed``
     (a 64-bit integer; the training step derives it from the run's seed and
-    the step). Only the decoupled-context mode (``coupled=False``: the pooled
-    global feature is held constant per case) is ported; the
-    max-pool-coupled mode raises."""
-    if coupled:
-        raise not_ported("the max-pool-coupled derivative path (coupled=True)")
+    the step).
+
+    Max-pool coupling (``coupled=True``): the pooled global feature g
+    depends on the differentiated internal coordinates through each
+    channel's argmax row, so the true per-point derivative at a winner row
+    includes the chain through g. ``_winner_gather_ctx`` propagates (v, J,
+    H) through the global-feature chain at the winner rows only and hands
+    the decoder the layer-0 terms it adds to J/H, from which the activation
+    rules produce every cross term. ``coupled=False`` holds g constant per
+    case. The two agree everywhere but at the winner rows."""
 
     def fn(batch: FoamData, deterministic: bool = True, seed=None):
         internal_view, boundary_view = split_contiguous(batch)
         x_int = internal_view["C"]
         x_bnd = boundary_view["C"]
+        n_int = x_int.shape[-2]
         feats = torch.cat([batch["boundaryId"], batch["sdf"]], dim=-1)
         act = module.activation
         fe = module.feature_extract
@@ -144,15 +159,102 @@ def pipn_apply_with_derivatives(module: PipnModule, coupled: bool = True):
         lv_i, lj, lh = analytic.mlp_prop_t(fe.local_feature.linears, x_int,
                                            j0, h0, act)
         lv_b = analytic.mlp_value(fe.local_feature.linears, x_bnd, act)
+        n_local = lv_i.shape[-1]
 
-        local_all = torch.cat([lv_i, lv_b], dim=-2)
-        g = _pointnet_global_dispatch(
-            fe.global_feature, torch.cat([local_all, feats], dim=-1), act)
+        if not coupled:
+            local_all = torch.cat([lv_i, lv_b], dim=-2)
+            g = _pointnet_global_dispatch(
+                fe.global_feature, torch.cat([local_all, feats], dim=-1), act)
+            return _decoder_prop_dispatch(
+                module.decoder, n_local, lv_i, lj, lh, lv_b, g, act,
+                module.seg_dropout, deterministic, seed)
+
+        # the context block of the decoder's first weight: the ctx vector
+        # and the coupling terms both take their gradient from it
+        w0g = module.decoder.linear_0.weight[:, n_local:]
+        g, zj0, zh0 = _winner_gather_ctx(fe, lv_i, lj, lh, lv_b, feats[..., :n_int, :],
+                                         feats[..., n_int:, :], w0g, act)
         return _decoder_prop_dispatch(
-            module.decoder, lv_i.shape[-1], lv_i, lj, lh, lv_b, g, act,
-            module.seg_dropout, deterministic, seed)
+            module.decoder, n_local, lv_i, lj, lh, lv_b, g, act,
+            module.seg_dropout, deterministic, seed, zj0, zh0)
 
     return fn
+
+
+def _gather_rows(x, rows, axis):
+    """``x`` gathered at ``rows`` (B, F) along the point axis ``axis`` (1
+    for (B, N, C), 2 for (B, D, N, C)): (B, F, C) or (B, D, F, C)."""
+    if axis == 1:
+        idx = rows[..., None].expand(*rows.shape, x.shape[-1])
+    else:
+        idx = rows[:, None, :, None].expand(x.shape[0], x.shape[1], rows.shape[1],
+                                            x.shape[-1])
+    return torch.gather(x, axis, idx)
+
+
+def _winner_gather_ctx(fe, lv_i, lj, lh, lv_b, feats_i, feats_b, w0g, act):
+    """Max-pool-coupled context terms by winner gathering (counterpart of the
+    JAX package's ``_winner_gather_ctx``): ``winner_terms``, then
+    ``winner_add_terms`` with the decoder's context block ``w0g`` (F1, G).
+    Returns (g (B, 1, F), zj0, zh0) with the terms shaped (B, D, Ni, F1)."""
+    g, rows, jw, hw = winner_terms(fe, lv_i, lj, lh, lv_b, feats_i, feats_b, act)
+    zj0, zh0 = winner_add_terms(rows, jw, hw, w0g, lv_i.shape[-2])
+    return g, zj0, zh0
+
+
+def winner_terms(fe, lv_i, lj, lh, lv_b, feats_i, feats_b, act):
+    """The pooled feature and the coupling at its winner rows.
+
+    ``pointnet_global`` gives the pooled g and each channel's first maximal
+    row. Only the F winner rows' local (v, J, H) are gathered by index and
+    propagated through the global-feature chain; its last layer is
+    contracted to each winner's own channel (a dot per channel, not the full
+    (K, F) product). Returns (g (B, 1, F), rows (B, F): each channel's
+    winner, clamped to the internal rows, jw, hw (B, D, F): the channel's J
+    and H at its winner, zero where a boundary row wins)."""
+    linears = fe.global_feature.linears
+    g_in = torch.cat([torch.cat([lv_i, feats_i], dim=-1),
+                      torch.cat([lv_b, feats_b], dim=-1)], dim=-2)
+    g, amax = pointnet_cuda.pointnet_global(linears, g_in.contiguous(), act)
+    winner = amax[:, 0, :].long()                               # (B, F)
+    n_int = lv_i.shape[-2]
+    internal = (winner < n_int).to(lv_i.dtype)[:, None]         # (B, 1, F)
+    rows = winner.clamp(max=n_int - 1)
+
+    sel_v = torch.cat([_gather_rows(lv_i, rows, 1), _gather_rows(feats_i, rows, 1)], dim=-1)
+    sel_j, sel_h = _gather_rows(lj, rows, 2), _gather_rows(lh, rows, 2)
+    zf = sel_j.new_zeros((*sel_j.shape[:-1], feats_i.shape[-1]))
+    # every layer but the last, activated; then the last layer at each
+    # winner's own channel, and its activation rules
+    qv, qj, qh = analytic.mlp_prop_t(linears[:-1], sel_v, torch.cat([sel_j, zf], dim=-1),
+                                     torch.cat([sel_h, zf], dim=-1), act)
+    last = linears[-1]
+    zv = torch.einsum("bfk,fk->bf", qv, last.weight) + last.bias
+    zjw = torch.einsum("bdfk,fk->bdf", qj, last.weight)
+    zhw = torch.einsum("bdfk,fk->bdf", qh, last.weight)
+    _, d1, d2 = analytic.rules_for(act)(zv)
+    d1, d2 = d1[:, None], d2[:, None]
+    return g, rows, d1 * zjw * internal, (d2 * zjw * zjw + d1 * zhw) * internal
+
+
+def winner_add_terms(rows, jw, hw, w0g, n_int: int):
+    """The decoder's layer-0 terms ``zj0 = (winner mask * J_g) W0g^T``: each
+    winner's row jw[b, d, f] * W0g[:, f] added into its point's row
+    (``index_add``, atomics on the card), (B, D, n_int, F1) each; a boundary
+    winner's zero terms add nothing."""
+    b_cases, d_dims, _ = jw.shape
+    f1 = w0g.shape[0]
+    dest = ((torch.arange(b_cases, device=rows.device)[:, None, None] * d_dims
+             + torch.arange(d_dims, device=rows.device)[None, :, None]) * n_int
+            + rows[:, None, :]).reshape(-1)
+    w_rows = w0g.t()                                            # (F, F1)
+
+    def scatter(w):
+        terms = (w[..., None] * w_rows).reshape(-1, f1)
+        return (terms.new_zeros((b_cases * d_dims * n_int, f1)).index_add(0, dest, terms)
+                .reshape(b_cases, d_dims, n_int, f1))
+
+    return scatter(jw), scatter(hw)
 
 
 def pipn_foam(nu: float, d: float, f: float,
@@ -167,16 +269,45 @@ def pipn_foam(nu: float, d: float, f: float,
               generator: Optional[torch.Generator] = None,
               device=None) -> PinnModel:
     """Data+physics PIPN with standardized features, on ``device`` (the CUDA
-    card unless ``"cpu"`` is asked for). Only the analytic derivative path in
-    its decoupled-context mode (the product default) is ported."""
-    if not fast_derivatives:
-        raise not_ported("the exact autodiff derivative path "
-                         "(fast_derivatives=False)")
+    card unless ``"cpu"`` is asked for). ``fast_derivatives`` takes the
+    analytic derivative path, decoupled (the product default) or
+    max-pool-coupled (``coupled_context``); without it the exact autodiff
+    operator differentiates the module."""
     device = resolve_device(device)
     module = PipnModule(fe_local_layers, fe_global_layers, seg_layers,
                         seg_dropout, activation, generator).to(device)
     return _foam_model(module, nu, d, f, scalers, device,
-                       pipn_apply_with_derivatives(module, coupled_context))
+                       pipn_apply_with_derivatives(module, coupled_context)
+                       if fast_derivatives else None)
+
+
+def pipn_manufactured(nu: float, d: float, f: float,
+                      fe_local_layers: Sequence[int],
+                      fe_global_layers: Sequence[int],
+                      seg_layers: Sequence[int],
+                      activation: str = "tanh",
+                      fast_derivatives: bool = False,
+                      coupled_context: bool = True,
+                      generator: Optional[torch.Generator] = None,
+                      device=None) -> PinnModel:
+    """Physics-only PIPN on raw coordinates: the manufactured-solutions
+    verification workload (``data/manufactured.py``), on ``device`` (the
+    CUDA card unless ``"cpu"`` is asked for). Its defaults are the exact
+    autodiff operator and, with ``fast_derivatives``, the max-pool-coupled
+    analytic path: reference-exact semantics, which is what a verification
+    run is for. ``activation`` applies to every layer."""
+    device = resolve_device(device)
+    module = PipnModule(fe_local_layers, fe_global_layers, seg_layers, None, activation,
+                        generator).to(device)
+    return PinnModel(
+        module=module,
+        dims=seg_layers[-1] - 1,
+        momentum_loss=MomentumLossManufactured(nu, d, f),
+        continuity_loss=ContinuityLoss(),
+        enable_data_loss=False,
+        learning_rate=1e-3, lr_gamma=0.9995, adam_eps=1e-6,
+        derivative_apply=(pipn_apply_with_derivatives(module, coupled_context)
+                          if fast_derivatives else None))
 
 
 def _foam_model(module, nu, d, f, scalers, device, derivative_apply,
@@ -276,7 +407,8 @@ def pipn_foam_pp_mrg(*args, **kwargs):
 
 
 def pipn_manufactured_pp(*args, **kwargs):
-    """The physics-only PIPN++ needs the manufactured-solutions workload."""
+    """The physics-only PIPN++ needs its ``"id_first"`` feature order in the
+    SetAbstraction chain."""
     raise not_ported("pipn_manufactured_pp (manufactured-solutions PIPN++)")
 
 

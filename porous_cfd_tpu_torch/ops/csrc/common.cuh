@@ -135,19 +135,22 @@ __device__ __forceinline__ void load_w_tile(const Layer& L, int k0, int n0, floa
   cp_async_commit();
 }
 
-// acc[i][j] = sum_k A[(i * 8 + p) * lda + k] * W[k][n0 + first_col() + j].
-// A is a shared-memory tile whose columns [k, round4(k)) are zero. Every
-// thread of the block must call it; it starts and ends with a barrier, so A
-// may be written just before the call and the tiles reused just after.
-template <int RM>
+// acc[i][j] = sum_k A[(i * 8 + p) * lda + k] * W[k][n0 + first_col() + j]
+// (with ACC, that sum is added to acc). A is a shared-memory tile whose
+// columns [k, round4(k)) are zero. Every thread of the block must call it;
+// it starts and ends with a barrier, so A may be written just before the
+// call and the tiles reused just after.
+template <int RM, bool ACC = false>
 __device__ __forceinline__ void block_gemm(float (&acc)[RM][4], const float* A, int lda,
                                            const Layer& L, int n0, float* w_tiles) {
   const int p = row_slot();
   const int col = first_col();
+  if (!ACC) {
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
 
   const int n_tiles = (L.k + kChunkK - 1) / kChunkK;
   const int k_end = round4(L.k);

@@ -1,13 +1,18 @@
-// decoder_prop, decoupled-context mode: the PIPN decoder MLP on the value,
-// Jacobian and Hessian-diagonal rows of every point, with the activation
-// rules and inverted dropout applied between layers and a linear last layer;
-// forward and backward.
+// decoder_prop: the PIPN decoder MLP on the value, Jacobian and
+// Hessian-diagonal rows of every point, with the activation rules and
+// inverted dropout applied between layers and a linear last layer; forward
+// and backward, in its three modes.
 //
 // Replaces the TPU kernels porous_cfd_tpu/ops/decoder_pallas.py:_fwd_kernel
 // (pallas_call at decoder_pallas.py:433) and _bwd_kernel (pallas_call at
-// :473) in their decoupled mode (no ctx_width, no j0_add). The same kernels
-// serve the internal launch (v, J, H rows) and the value-only boundary
-// launch.
+// :473): the decoupled mode (per-case context through ctx only), the
+// j0_add mode (additive layer-0 J/H terms and their cotangents dja/dha,
+// :153-156, :199-201, :283-285, :355-357; the max-pool-coupled PIPN path
+// through models/pipn.py's winner gather) and the ctx_width mode (J/H rows
+// carry the context columns too, the full first-layer weight for them,
+// :134-139, :195, :334-344). The same kernels serve the internal launch
+// (v, J, H rows) and the value-only boundary launch, which is the
+// decoupled mode in all three.
 //
 // What bounds it on an H100: operations. At the reference envelope the
 // internal launch runs 13 x 1500 x 5 = 97,500 rows through 64 -> 512 -> 256 ->
@@ -15,14 +20,20 @@
 // boundary launch runs 13,000 value rows (5.1 GFLOP). The backward does the
 // same work twice over (input cotangents and weight gradients, 87 GFLOP).
 // All are far above the f32 ridge point, so the f32 CUDA-core rate is the
-// limit.
+// limit. The j0_add mode adds two (13, 2, 1500, 512) f32 reads forward and
+// two writes backward (160 MB each way, about 0.05 ms at 3.35 TB/s); the
+// ctx_width mode runs its 1024 context columns through layer 0 for every
+// J/H row (a further 102 GFLOP forward), which is why the path takes the
+// j0_add mode.
 //
 // Design: mlp_prop.cuh's kernels without modulation (MOD = false). The
 // widest stash is the 512-wide layer-0 output: 40 x 512 floats (80 KB) plus
 // a 40 x 256 buffer for the other layers, one block of 153 KB per SM. The
 // training stash is 0.7 GB at the envelope, written once and read once:
 // about 0.4 ms of bandwidth, against the 0.65 ms of operations a recompute
-// would cost.
+// would cost. The addends are nullable pointers, not a template axis, so
+// the instantiations do not double; the context columns stream through a
+// 128-column staging tile, so shared memory stays at the decoupled size.
 #include "mlp_prop.cuh"
 
 using namespace pct;
@@ -58,7 +69,12 @@ __global__ void philox_kernel(const unsigned* in, unsigned* out, int n) {
 // no dropout). stash_a / stash_z (null: no stash) receive the training
 // stash, rows ((b * n_pts + pt) * C + comp) with C = 1 + 2D (1 value-only):
 // stash_a holds every layer's input rows, stash_z every hidden layer's
-// pre-activations, layer after layer. Returns the CUDA error code (0 = ok).
+// pre-activations, layer after layer. v_width: the width of the v rows;
+// below widths[0] (ctx_width mode, derivatives only) the jt/ht rows carry
+// widths[0] - v_width context columns after the local ones and w[0] is the
+// full (widths[0], F1) layer-0 weight. j0_add / h0_add (n_cases, D, n_pts,
+// F1), or null: added to the J/H rows' layer-0 pre-activations. Returns the
+// CUDA error code (0 = ok).
 extern "C" int decoder_prop_forward(int d_dims, int act, int with_derivatives,
                                     const float* v, const float* jt, const float* ht,
                                     int n_cases, int n_pts, const float* ctx, int n_layers,
@@ -67,11 +83,13 @@ extern "C" int decoder_prop_forward(int d_dims, int act, int with_derivatives,
                                     int ov_row0, float* oj, float* oh, unsigned k0,
                                     unsigned k1, const unsigned* thresh, const float* scale,
                                     const int* on, float* stash_a, float* stash_z,
+                                    int v_width, const float* j0_add, const float* h0_add,
                                     void* stream) {
   return prop_forward<false>(d_dims, act, with_derivatives != 0, v, jt, ht, n_cases, n_pts,
                              ctx, nullptr, n_layers, w, b, widths, ov, ov_rows, ov_row0, oj,
                              oh, make_dropout(k0, k1, n_layers, thresh, scale, on), stash_a,
-                             stash_z, static_cast<cudaStream_t>(stream));
+                             stash_z, v_width, j0_add, h0_add,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Scratch floats decoder_prop_backward needs for one launch of `rows` stash
@@ -87,9 +105,12 @@ extern "C" long long decoder_prop_backward_workspace(int n_cases, long long rows
 // weight (widths[i+1] x ldw[i]) row-major (layer 0: its first L columns are
 // read). gz_stash (rows x sum of widths[1:]) receives every layer's
 // pre-activation cotangents. Writes dv (n_cases, n_pts, L) and, with
-// derivatives, djt/dht (n_cases, D, n_pts, L); ADDS dW_i (widths[i] x
+// derivatives, djt/dht (n_cases, D, n_pts, widths[0]); ADDS dW_i (widths[i] x
 // widths[i+1], (in, out) layout) to dw[i], the value-row sums of GZ_i to db[i]
 // for i >= 1, and the per-case value-row sums of GZ_0 to dctx (n_cases, F1).
+// v_width as the forward's (dv is (n_cases, n_pts, v_width)); dja / dha
+// (n_cases, D, n_pts, F1), or null, receive the J/H rows of GZ_0, the
+// cotangents of the forward's j0_add / h0_add.
 extern "C" int decoder_prop_backward(
     int d_dims, int act, int with_derivatives, const float* gv, int ov_rows, int ov_row0,
     const float* gj, const float* gh, int n_cases, int n_pts, int n_layers,
@@ -97,12 +118,12 @@ extern "C" int decoder_prop_backward(
     const unsigned* thresh, const float* scale, const int* on, const float* stash_a,
     const float* stash_z, float* gz_stash, float* dv, float* djt, float* dht,
     float* const* dw, float* const* db, float* dctx, float* scratch, long long scratch_floats,
-    void* stream) {
+    int v_width, float* dja, float* dha, void* stream) {
   return prop_backward<false>(d_dims, act, with_derivatives != 0, gv, ov_rows, ov_row0, gj, gh,
                               n_cases, n_pts, n_layers, w_orig, ldw, widths,
                               make_dropout(k0, k1, n_layers, thresh, scale, on), nullptr,
                               stash_a, stash_z, gz_stash, nullptr, dv, djt, dht, dw, db, dctx,
-                              nullptr, scratch, scratch_floats,
+                              nullptr, scratch, scratch_floats, v_width, dja, dha,
                               static_cast<cudaStream_t>(stream));
 }
 

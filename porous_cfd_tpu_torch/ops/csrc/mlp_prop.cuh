@@ -24,6 +24,18 @@
 // [row0, row0 + n) of the merged (B, Ni + Nb, O) tensor, J/H as (B, Ni, O,
 // D). Rows past n_pts are computed on zeros and never stored.
 //
+// Two layer-0 modes carry the max-pool-coupled decoder (decoder_prop.cu;
+// the trunk uses neither). j0_add: two (B, D, N, F1) tensors are added to
+// the J/H rows' layer-0 pre-activations in the GEMM's epilogue, before the
+// activation rules, and the backward writes their cotangents (the J/H rows
+// of GZ_0) in the same layout. Context columns: the J/H rows are wider than
+// the value rows (lv local columns, then context columns up to widths[0]);
+// the value rows read zeros there, as the ctx vector already carries their
+// context. Only the lv local columns are staged with the input rows; the
+// context columns go through the same accumulators kCtxChunk at a time
+// from a staging tile of their own, so shared memory does not grow with
+// the context width, and the stash holds the full rows for dW_0.
+//
 // Backward design. The TPU kernels recompute the forward per tile and carry
 // dW, db, dctx (and dpar) across their sequential grid; Hopper's blocks run
 // in parallel, and per-block copies of the weights do not fit. So:
@@ -52,6 +64,9 @@
 namespace pct {
 namespace {
 
+// context columns of layer 0 staged per pass (context-column mode)
+constexpr int kCtxChunk = 128;
+
 // Per-layer device pointers: for the training stash a[i] (rows x k_i) holds
 // layer i's input rows and z[i] (rows x n_i) its pre-activations (hidden
 // layers only), rows ((b * n_pts + pt) * C + comp); the backward also uses
@@ -64,7 +79,8 @@ struct Stash {
 template <int D, int ACT, bool DERIV, bool MOD>
 __global__ void __launch_bounds__(kThreads)
     mlp_prop_fwd(const float* __restrict__ v, const float* __restrict__ jt,
-                 const float* __restrict__ ht, int n_pts, const float* __restrict__ ctx,
+                 const float* __restrict__ ht, const float* __restrict__ ja,
+                 const float* __restrict__ ha, int lv, int n_pts, const float* __restrict__ ctx,
                  const float* __restrict__ par, Mlp mlp, Dropout dr, Stash st, int bw0, int bw1,
                  float* __restrict__ ov, int ov_rows, int ov_row0, float* __restrict__ oj,
                  float* __restrict__ oh) {
@@ -80,22 +96,22 @@ __global__ void __launch_bounds__(kThreads)
   const int pt0 = blockIdx.x * kPoints;
   const int p = row_slot();
   const int col = first_col();
-  const int l0 = mlp.layer[0].k;
-  const int ld0 = padded(l0);
+  const int l0 = mlp.layer[0].k;             // J/H (and stash) row width
+  const int ld0 = padded(lv);                // the staged local columns
   const int f1 = mlp.layer[0].n;
   const bool stash = st.a[0] != nullptr;
 
-  // stage the input rows: row r = comp * 8 + point (internal) or point r
-  // (boundary); padding columns and rows past n_pts read 0
+  // stage the local input columns: row r = comp * 8 + point (internal) or
+  // point r (boundary); padding columns and rows past n_pts read 0
   for (int e = threadIdx.x; e < kRows * ld0; e += kThreads) {
     const int r = e / ld0;
     const int c = e % ld0;
     const int comp = DERIV ? r / kWarps : 0;
     const int pt = pt0 + (DERIV ? r % kWarps : r);
     float val = 0.f;
-    if (pt < n_pts && c < l0) {
+    if (pt < n_pts && c < lv) {
       if (comp == 0) {
-        val = v[((size_t)b * n_pts + pt) * l0 + c];
+        val = v[((size_t)b * n_pts + pt) * lv + c];
       } else if (comp <= D) {
         val = jt[(((size_t)b * D + comp - 1) * n_pts + pt) * l0 + c];
       } else {
@@ -109,7 +125,8 @@ __global__ void __launch_bounds__(kThreads)
   int cur = 0;
   const int nl = mlp.n_layers;
   for (int li = 0; li < nl - 1; ++li) {
-    const Layer L = mlp.layer[li];
+    Layer L = mlp.layer[li];
+    if (li == 0) L.k = lv;                   // the context columns follow below
     const float* A = buf[cur];
     float* out = buf[cur ^ 1];
     const int lda = padded(L.k);
@@ -122,6 +139,35 @@ __global__ void __launch_bounds__(kThreads)
     for (int n0 = 0; n0 < L.n; n0 += kChunkN) {
       float acc[kComps][4];
       block_gemm<kComps>(acc, A, lda, L, n0, w_tiles);
+      if (DERIV && li == 0 && lv < l0) {
+        // context columns [lv, l0) of the J/H rows (zeros in the value
+        // rows), a chunk at a time through the same accumulators; the
+        // first output chunk also writes them to the stash
+        float* cbuf = buf[0] + kRows * ld0;
+        const int ldc = padded(kCtxChunk);
+        for (int c0 = lv; c0 < l0; c0 += kCtxChunk) {
+          const int kc = min(kCtxChunk, l0 - c0);
+          for (int e = threadIdx.x; e < kRows * ldc; e += kThreads) {
+            const int r = e / ldc;
+            const int c = e % ldc;
+            const int comp = r / kWarps;
+            const int pt = pt0 + r % kWarps;
+            float val = 0.f;
+            if (pt < n_pts && c < kc) {
+              if (comp > 0) {
+                const float* src = comp <= D ? jt : ht;
+                const int d = comp <= D ? comp - 1 : comp - 1 - D;
+                val = src[(((size_t)b * D + d) * n_pts + pt) * l0 + c0 + c];
+              }
+              if (stash && n0 == 0)
+                st.a[0][(((size_t)b * n_pts + pt) * C + comp) * l0 + c0 + c] = val;
+            }
+            cbuf[e] = val;
+          }
+          const Layer Lc{L.w + (size_t)c0 * L.ldw, nullptr, kc, L.n, L.ldw};
+          block_gemm<kComps, true>(acc, cbuf, ldc, Lc, n0, w_tiles);
+        }
+      }
       // dropout factors of this thread's 4 columns: one Philox call per point
       float m[DERIV ? 1 : kComps][4];
 #pragma unroll
@@ -155,8 +201,13 @@ __global__ void __launch_bounds__(kThreads)
           }
 #pragma unroll
           for (int d = 0; d < D; ++d) {
-            const float zj = acc[1 + d][j];
-            const float zh = acc[1 + D + d][j];
+            float zj = acc[1 + d][j];
+            float zh = acc[1 + D + d][j];
+            if (li == 0 && ja != nullptr && pt < n_pts) {  // j0_add mode
+              const size_t o = (((size_t)b * D + d) * n_pts + pt) * L.n + n;
+              zj += ja[o];
+              zh += ha[o];
+            }
             const float oj_ = d1 * zj * mk;
             const float oh_ = (d2 * zj * zj + d1 * zh) * mk;
             out[((1 + d) * kWarps + p) * ldo + n] = oj_;
@@ -215,14 +266,17 @@ __global__ void __launch_bounds__(kThreads)
 // (out, in) layout read as a (k = n_i) x (n = k_i) matrix, so block_gemm
 // computes GA_i = GZ_i W_i^T. z[i] / gz[i] are the stash and cotangent rows
 // of layer i (rows as in Stash); with MOD, dps.a[i] (n_cases * n_pts x n_i)
-// receives layer i's dpar addends, one row per point.
+// receives layer i's dpar addends, one row per point. dv rows hold the lv
+// local columns; dja/dha (j0_add mode, else null) receive the J/H rows of
+// GZ_0 as (n_cases, D, n_pts, F1).
 template <int D, int ACT, bool DERIV, bool MOD>
 __global__ void __launch_bounds__(kThreads)
     mlp_prop_bwd_rows(const float* __restrict__ gv, int ov_rows, int ov_row0,
                       const float* __restrict__ gj, const float* __restrict__ gh, int n_pts,
                       const float* __restrict__ par, Mlp wt, Dropout dr, Stash st, Stash gzs,
-                      Stash dps, int bw0, int bw1, float* __restrict__ dv,
-                      float* __restrict__ djt, float* __restrict__ dht) {
+                      Stash dps, int bw0, int bw1, int lv, float* __restrict__ dv,
+                      float* __restrict__ djt, float* __restrict__ dht,
+                      float* __restrict__ dja, float* __restrict__ dha) {
   constexpr int kComps = 1 + 2 * D;
   constexpr int kRows = kComps * kWarps;
   constexpr int kPoints = DERIV ? kWarps : kRows;
@@ -289,7 +343,7 @@ __global__ void __launch_bounds__(kThreads)
             const int pt = pt0 + (DERIV ? p : i * kWarps + p);
             if (pt >= n_pts) continue;
             if (comp == 0) {
-              dv[((size_t)b * n_pts + pt) * L.n + n] = acc[i][j];
+              if (n < lv) dv[((size_t)b * n_pts + pt) * lv + n] = acc[i][j];
             } else if (comp <= D) {
               djt[(((size_t)b * D + comp - 1) * n_pts + pt) * L.n + n] = acc[i][j];
             } else {
@@ -345,6 +399,11 @@ __global__ void __launch_bounds__(kThreads)
             out[((1 + D + d) * kWarps + p) * ldo + n] = gzh;
             gz[(g0 + 1 + d) * L.n + n] = gzj;
             gz[(g0 + 1 + D + d) * L.n + n] = gzh;
+            if (lz == 0 && dja != nullptr) {  // j0_add mode: GZ_0's J/H rows
+              const size_t o = (((size_t)b * D + d) * n_pts + pt) * L.n + n;
+              dja[o] = gzj;
+              dha[o] = gzh;
+            }
           }
           out[p * ldo + n] = gzv;
           gz[g0 * L.n + n] = gzv;
@@ -377,6 +436,11 @@ struct PropArgs {
   Mlp mlp;
   Dropout dr;
   Stash st;
+  int lv;                                      // local (value-row) input width
+  const float* ja;                             // j0_add mode's addends, else null
+  const float* ha;
+  float* dja;                                  // and their cotangents
+  float* dha;
 };
 
 template <int D, int ACT, bool DERIV, bool MOD>
@@ -384,15 +448,21 @@ int launch_prop_fwd(const float* v, const float* jt, const float* ht, const floa
                     const PropArgs& a, float* ov, float* oj, float* oh, cudaStream_t s) {
   constexpr int kRows = (1 + 2 * D) * kWarps;
   constexpr int kPoints = DERIV ? kWarps : kRows;
+  // buffer 0 stages only the local columns of layer 0's input, and in the
+  // context-column mode the context chunk beside them
+  Mlp staged = a.mlp;
+  const bool ctx_cols = a.lv < staged.layer[0].k;
+  staged.layer[0].k = a.lv;
   int bw0, bw1;
-  buffer_widths(a.mlp, &bw0, &bw1);
+  buffer_widths(staged, &bw0, &bw1);
+  if (ctx_cols) bw0 = max(bw0, padded(a.lv) + padded(kCtxChunk));
   const size_t smem = sizeof(float) * ((size_t)kRows * (bw0 + bw1) + 2 * kWTileFloats);
   if (smem > (size_t)max_shared_bytes()) return (int)cudaErrorInvalidValue;
   auto kernel = mlp_prop_fwd<D, ACT, DERIV, MOD>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((a.n_pts + kPoints - 1) / kPoints, a.n_cases);
-  kernel<<<grid, kThreads, smem, s>>>(v, jt, ht, a.n_pts, ctx, a.par, a.mlp, a.dr, a.st, bw0,
-                                      bw1, ov, a.ov_rows, a.ov_row0, oj, oh);
+  kernel<<<grid, kThreads, smem, s>>>(v, jt, ht, a.ja, a.ha, a.lv, a.n_pts, ctx, a.par, a.mlp,
+                                      a.dr, a.st, bw0, bw1, ov, a.ov_rows, a.ov_row0, oj, oh);
   return (int)cudaGetLastError();
 }
 
@@ -416,7 +486,8 @@ int launch_prop_bwd(const float* gv, const float* gj, const float* gh, const Pro
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((a.n_pts + kPoints - 1) / kPoints, a.n_cases);
   kernel<<<grid, kThreads, smem, s>>>(gv, a.ov_rows, a.ov_row0, gj, gh, a.n_pts, a.par, wt, a.dr,
-                                      a.st, gzs, dps, bw[0], bw[1], dv, djt, dht);
+                                      a.st, gzs, dps, bw[0], bw[1], a.lv, dv, djt, dht, a.dja,
+                                      a.dha);
   return (int)cudaGetLastError();
 }
 
@@ -437,9 +508,14 @@ int launch_prop_bwd(const float* gv, const float* gj, const float* gh, const Pro
     default: return (int)cudaErrorInvalidValue;                              \
   }
 
-inline bool prop_valid(int d_dims, int act, int n_layers, int n_cases, int n_pts) {
+// lv < widths[0] (context columns) and the j0_add addends are layer-0 modes
+// of a launch with derivatives through an activated layer 0
+inline bool prop_valid(int d_dims, int act, int n_layers, int n_cases, int n_pts,
+                       const int* widths, bool deriv, int lv, bool j0_add) {
+  const bool coupled = lv < widths[0] || j0_add;
   return d_dims >= 1 && d_dims <= 3 && (act == kSilu || act == kTanh) && n_layers >= 1 &&
-         n_layers <= kMaxLayers && n_cases >= 1 && n_pts >= 1;
+         n_layers <= kMaxLayers && n_cases >= 1 && n_pts >= 1 && lv >= 1 &&
+         lv <= widths[0] && (!coupled || (deriv && n_layers >= 2));
 }
 
 // stash pointers of one launch: a[i] then z[i] for the hidden layers, each a
@@ -465,11 +541,15 @@ int prop_forward(int d_dims, int act, bool deriv, const float* v, const float* j
                  const float* ht, int n_cases, int n_pts, const float* ctx, const float* par,
                  int n_layers, const float* const* w, const float* const* b, const int* widths,
                  float* ov, int ov_rows, int ov_row0, float* oj, float* oh, const Dropout& dr,
-                 float* stash_a, float* stash_z, cudaStream_t s) {
-  if (!prop_valid(d_dims, act, n_layers, n_cases, n_pts)) return (int)cudaErrorInvalidValue;
+                 float* stash_a, float* stash_z, int lv, const float* ja, const float* ha,
+                 cudaStream_t s) {
+  if (!prop_valid(d_dims, act, n_layers, n_cases, n_pts, widths, deriv, lv, ja != nullptr) ||
+      (ja == nullptr) != (ha == nullptr))
+    return (int)cudaErrorInvalidValue;
   const size_t rows = (size_t)n_cases * n_pts * (deriv ? 1 + 2 * d_dims : 1);
   PropArgs a{n_cases, n_pts, ov_rows, ov_row0, par, make_mlp(n_layers, w, b, widths), dr,
-             make_stash(stash_a, stash_z, rows, n_layers, widths)};
+             make_stash(stash_a, stash_z, rows, n_layers, widths), lv, ja, ha, nullptr,
+             nullptr};
   PCT_PROP_DISPATCH(launch_prop_fwd, MOD, v, jt, ht, ctx, a, ov, oj, oh, s)
 }
 
@@ -495,8 +575,11 @@ int prop_backward(int d_dims, int act, bool deriv, const float* gv, int ov_rows,
                   const Dropout& dr, const float* par, const float* stash_a,
                   const float* stash_z, float* gz_stash, float* dpar_rows, float* dv,
                   float* djt, float* dht, float* const* dw, float* const* db, float* dctx,
-                  float* dpar, float* scratch, long long scratch_floats, cudaStream_t s) {
-  if (!prop_valid(d_dims, act, n_layers, n_cases, n_pts)) return (int)cudaErrorInvalidValue;
+                  float* dpar, float* scratch, long long scratch_floats, int lv, float* dja,
+                  float* dha, cudaStream_t s) {
+  if (!prop_valid(d_dims, act, n_layers, n_cases, n_pts, widths, deriv, lv, dja != nullptr) ||
+      (dja == nullptr) != (dha == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int C = deriv ? 1 + 2 * d_dims : 1;
   const size_t rows = (size_t)n_cases * n_pts * C;
   if (prop_backward_workspace(n_cases, (long long)rows, n_layers, widths) > scratch_floats)
@@ -512,7 +595,8 @@ int prop_backward(int d_dims, int act, bool deriv, const float* gv, int ov_rows,
   }
   PropArgs a{n_cases, n_pts, ov_rows, ov_row0, par, Mlp{}, dr,
              make_stash(const_cast<float*>(stash_a), const_cast<float*>(stash_z), rows,
-                        n_layers, widths)};
+                        n_layers, widths),
+             lv, nullptr, nullptr, dja, dha};
   // gz[i] (rows x widths[i+1]) and dpar addends (points x widths[i+1]),
   // layer after layer, in the a[] slots
   Stash gzs{}, dps{};

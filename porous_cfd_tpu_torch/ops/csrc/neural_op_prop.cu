@@ -66,7 +66,8 @@ extern "C" int neural_ops_prop_forward(int d_dims, int act, int with_derivatives
   return prop_forward<true>(d_dims, act, with_derivatives != 0, v, jt, ht, n_cases, n_pts,
                             ctx, par, n_layers, w, b, widths, ov, ov_rows, ov_row0, oj, oh,
                             make_dropout(k0, k1, n_layers, thresh, scale, on), stash_a,
-                            stash_z, static_cast<cudaStream_t>(stream));
+                            stash_z, widths[0], nullptr, nullptr,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // Scratch floats neural_ops_prop_backward needs for one launch of `rows`
@@ -96,5 +97,6 @@ extern "C" int neural_ops_prop_backward(
                              n_cases, n_pts, n_layers, w_orig, ldw, widths,
                              make_dropout(k0, k1, n_layers, thresh, scale, on), par, stash_a,
                              stash_z, gz_stash, dpar_rows, dv, djt, dht, dw, db, dctx, dpar,
-                             scratch, scratch_floats, static_cast<cudaStream_t>(stream));
+                             scratch, scratch_floats, widths[0], nullptr, nullptr,
+                             static_cast<cudaStream_t>(stream));
 }

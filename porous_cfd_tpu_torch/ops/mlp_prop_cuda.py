@@ -10,6 +10,13 @@ value-only for the boundary rows. When a gradient is wanted the kernels run
 inside ``MlpProp``, a ``torch.autograd.Function``: the training forward also
 stashes each layer's input rows and pre-activations, and the backward is the
 backward kernel, again one internal and one boundary launch.
+
+The decoder's internal launch has two layer-0 modes besides (``Meta.mode``):
+``j0_add`` adds (B, D, Ni, F1) terms to the J/H rows' layer-0
+pre-activations and gives their cotangents back; ``ctx_width`` takes J/H
+rows ``ctx_width`` columns wider than the value rows, through the full
+layer-0 weight. Each mode counts its internal launches in a ``ModeCount``
+of its own, beside the wrapper's count of all launches.
 """
 from __future__ import annotations
 
@@ -42,21 +49,33 @@ def check_tensor(label: str, t: torch.Tensor, shape: tuple, device, fn: str) -> 
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+class ModeCount:
+    """Launches of one kernel mode, counted as the wrappers count theirs."""
+
+    def __init__(self):
+        self.launches = 0
+
+
 class Kernels:
     """One instantiation of ``csrc/mlp_prop.cuh``: the C entry points
     ``<prefix>_forward``, ``<prefix>_backward_workspace`` and
     ``<prefix>_backward`` of ``csrc/<source>.cu``. A modulated one takes
     ``par`` after the forward's other arguments and ``par, dpar_rows, dpar``
-    after the backward's. The launch counts go to the ``launches`` attributes
-    of ``forward_counter`` and ``backward_counter``."""
+    after the backward's; a coupled one ``v_width, j0_add, h0_add`` and
+    ``v_width, dja, dha``. The launch counts go to the ``launches``
+    attributes of ``forward_counter`` and ``backward_counter``, and a
+    coupled mode's internal launches also to ``mode_counts[mode]`` (forward,
+    backward)."""
 
     def __init__(self, source: str, prefix: str, modulated: bool, forward_counter,
-                 backward_counter):
+                 backward_counter, mode_counts: Optional[dict] = None):
         self.source = source
         self.prefix = prefix
         self.modulated = modulated
+        self.coupled = mode_counts is not None
         self.forward_counter = forward_counter
         self.backward_counter = backward_counter
+        self.mode_counts = mode_counts or {}
 
     def library(self) -> ctypes.CDLL:
         lib = build.library(self.source)
@@ -64,23 +83,43 @@ class Kernels:
         if fwd.argtypes is None:
             p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
             fwd.argtypes = ([i, i, i, p, p, p, i, i, p, i, p, p, p, p, i, i, p, p, u, u, p, p,
-                             p, p, p] + [p] * self.modulated + [p])
+                             p, p, p] + [p] * self.modulated + [i, p, p] * self.coupled + [p])
             fwd.restype = i
             ws = getattr(lib, f"{self.prefix}_backward_workspace")
             ws.argtypes = [i, ll, i, p]
             ws.restype = ll
             bwd = getattr(lib, f"{self.prefix}_backward")
             bwd.argtypes = ([i, i, i, p, i, i, p, p, i, i, i, p, p, p, u, u, p, p, p, p, p, p,
-                             p, p, p, p, p, p, p, ll] + [p, p, p] * self.modulated + [p])
+                             p, p, p, p, p, p, p, ll] + [p, p, p] * self.modulated
+                            + [i, p, p] * self.coupled + [p])
             bwd.restype = i
         return lib
 
+    def coupled_args(self, meta: "Meta", a=None, h=None) -> list:
+        """A coupled entry point's trailing ``v_width`` and ``j0_add/h0_add``
+        (forward) or ``dja/dha`` (backward) pointers, null where None; none
+        for the others."""
+        if not self.coupled:
+            return []
+        return [meta.n_local] + [None if t is None else t.data_ptr() for t in (a, h)]
+
+    def count_mode(self, meta: "Meta", direction: int) -> None:
+        if meta.mode is not None:
+            self.mode_counts[meta.mode][direction].launches += 1
+
 
 class Meta:
-    """What one call fixes besides its tensors."""
+    """What one call fixes besides its tensors. ``widths`` are the value
+    rows' (L, F1, ..., O); with ``ctx_width`` the internal launch's J/H rows
+    are that much wider (``int_widths``); ``j0_add`` marks the additive
+    layer-0 mode."""
 
     def __init__(self, n_local, activation, rates, seed, d_dims, b_cases, n_int, n_bnd,
-                 widths):
+                 widths, ctx_width: int = 0, j0_add: bool = False):
+        if ctx_width and j0_add:
+            raise ValueError("the ctx_width and j0_add modes exclude each other")
+        self.ctx_width = ctx_width
+        self.j0_add = j0_add
         self.n_local = n_local
         self.activation = activation
         self.rates = rates
@@ -95,6 +134,16 @@ class Meta:
     def n_layers(self):
         return len(self.widths) - 1
 
+    @property
+    def int_widths(self):
+        """The internal launch's widths: layer 0's input with the context
+        columns of the ctx_width mode."""
+        return (self.widths[0] + self.ctx_width,) + tuple(self.widths[1:])
+
+    @property
+    def mode(self) -> Optional[str]:
+        return "j0_add" if self.j0_add else "ctx_width" if self.ctx_width else None
+
     def dropout_args(self):
         """(k0, k1, thresholds, scales, on) for the C interface."""
         nl = self.n_layers
@@ -106,18 +155,19 @@ class Meta:
         return (self.seed & dropout_mod.MASK32, (self.seed >> 32) & dropout_mod.MASK32,
                 thresh, scale, build.int_array(on))
 
-    def stash_floats(self, rows):
-        w = self.widths
+    @staticmethod
+    def stash_floats(rows, w):
         return rows * sum(w[:-1]), rows * sum(w[1:-1])
 
 
 def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, stash: bool,
-            par=None):
+            par=None, ja=None, ha=None):
     """Both launches; with ``stash`` also the training stash of each.
     ``weights`` are the layers' nn.Linear weights (layer 0's local block is
-    read), ``biases`` those of layers 1 on; ``ctx`` (B, F1) takes layer 0's
-    bias's place; ``par`` (B, F) for a modulated ``kern``. Returns (ov, oj,
-    oh, [a_int, z_int, a_bnd, z_bnd])."""
+    read, and its context block too in the ctx_width mode), ``biases`` those
+    of layers 1 on; ``ctx`` (B, F1) takes layer 0's bias's place; ``par``
+    (B, F) for a modulated ``kern``; ``ja``/``ha`` (B, D, Ni, F1) the j0_add
+    mode's addends. Returns (ov, oj, oh, [a_int, z_int, a_bnd, z_bnd])."""
     dev = v.device
     b_cases, n_int, n_bnd, d_dims = meta.b_cases, meta.n_int, meta.n_bnd, meta.d_dims
     n_out = meta.widths[-1]
@@ -125,20 +175,21 @@ def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, sta
     oj = torch.empty((b_cases, n_int, n_out, d_dims), dtype=torch.float32, device=dev)
     oh = torch.empty_like(oj)
     # the kernel reads weights as (in, out): nn.Linear's weight transposed,
-    # for layer 0 only its local block
-    ws = ([weights[0].detach()[:, :meta.n_local].t().contiguous()]
+    # for layer 0 the columns the internal launch uses (the boundary launch
+    # reads the first n_local rows of the same matrix)
+    ws = ([weights[0].detach()[:, :meta.int_widths[0]].t().contiguous()]
           + [w.detach().t().contiguous() for w in weights[1:]])
     bs = [ctx] + [b.detach() for b in biases]
     fn = getattr(kern.library(), f"{kern.prefix}_forward")
-    args = (build.pointer_array(ws), build.pointer_array(bs), build.int_array(meta.widths))
+    w_ptrs, b_ptrs = build.pointer_array(ws), build.pointer_array(bs)
     drop = meta.dropout_args()
     mod = [par.data_ptr()] if kern.modulated else []
     stashes = []
 
-    def stash_for(rows):
+    def stash_for(rows, widths):
         if not stash:
             return None, None
-        na, nz = meta.stash_floats(rows)
+        na, nz = meta.stash_floats(rows, widths)
         a = torch.empty((na,), dtype=torch.float32, device=dev)
         z = torch.empty((nz,), dtype=torch.float32, device=dev)
         stashes.extend([a, z])
@@ -147,17 +198,20 @@ def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, sta
     act = ACT_CODES[meta.activation]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        sa, sz = stash_for(b_cases * n_int * (1 + 2 * d_dims))
+        sa, sz = stash_for(b_cases * n_int * (1 + 2 * d_dims), meta.int_widths)
         code = fn(d_dims, act, 1, v.data_ptr(), jt.data_ptr(), ht.data_ptr(), b_cases, n_int,
-                  ctx.data_ptr(), len(ws), *args, ov.data_ptr(), n_int + n_bnd, 0,
-                  oj.data_ptr(), oh.data_ptr(), *drop, sa, sz, *mod, stream)
+                  ctx.data_ptr(), len(ws), w_ptrs, b_ptrs, build.int_array(meta.int_widths),
+                  ov.data_ptr(), n_int + n_bnd, 0, oj.data_ptr(), oh.data_ptr(), *drop, sa, sz,
+                  *mod, *kern.coupled_args(meta, ja, ha), stream)
         build.check_launch(f"{kern.prefix} (internal)", code)
         kern.forward_counter.launches += 1
+        kern.count_mode(meta, 0)
         if v_b is not None:
-            sa, sz = stash_for(b_cases * n_bnd)
+            sa, sz = stash_for(b_cases * n_bnd, meta.widths)
             code = fn(d_dims, act, 0, v_b.data_ptr(), None, None, b_cases, n_bnd,
-                      ctx.data_ptr(), len(ws), *args, ov.data_ptr(), n_int + n_bnd, n_int,
-                      None, None, *drop, sa, sz, *mod, stream)
+                      ctx.data_ptr(), len(ws), w_ptrs, b_ptrs, build.int_array(meta.widths),
+                      ov.data_ptr(), n_int + n_bnd, n_int, None, None, *drop, sa, sz, *mod,
+                      *kern.coupled_args(meta), stream)
             build.check_launch(f"{kern.prefix} (boundary)", code)
             kern.forward_counter.launches += 1
     return ov, oj, oh, stashes
@@ -165,18 +219,20 @@ def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, sta
 
 def backward(kern: Kernels, meta: Meta, weights, stashes, gv, gj, gh, par=None):
     """The backward kernel, internal then boundary launch: (dv, djt, dht,
-    dv_b or None, dctx (B, F1), dW per layer ((in, out), layer 0's local
-    block), db per layer from 1 on, dpar (B, F) or None)."""
+    dv_b or None, dctx (B, F1), dW per layer ((in, out); layer 0's rows the
+    internal launch uses), db per layer from 1 on, dpar (B, F) or None, dja
+    and dha (B, D, Ni, F1) or None). djt/dht are as wide as the internal
+    launch's J/H rows."""
     dev = gv.device
     b_cases, n_int, n_bnd, d_dims = meta.b_cases, meta.n_int, meta.n_bnd, meta.d_dims
-    widths = meta.widths
+    widths, int_widths = meta.widths, meta.int_widths
     nl = meta.n_layers
     lib = kern.library()
     fn = getattr(lib, f"{kern.prefix}_backward")
-    w_arr = build.int_array(widths)
+    w_int, w_bnd = build.int_array(int_widths), build.int_array(widths)
     ldw = build.int_array([w.shape[1] for w in weights])
     w_ptrs = build.pointer_array(weights)
-    dws = [torch.zeros((widths[i], widths[i + 1]), dtype=torch.float32, device=dev)
+    dws = [torch.zeros((int_widths[i], widths[i + 1]), dtype=torch.float32, device=dev)
            for i in range(nl)]
     dbs = [torch.zeros((widths[i + 1],), dtype=torch.float32, device=dev) for i in range(nl)]
     dctx = dbs[0].new_zeros((b_cases, widths[1]))
@@ -187,8 +243,9 @@ def backward(kern: Kernels, meta: Meta, weights, stashes, gv, gj, gh, par=None):
     act = ACT_CODES[meta.activation]
     rows_int = b_cases * n_int * (1 + 2 * d_dims)
     rows_bnd = b_cases * n_bnd
-    n_scratch = max(getattr(lib, f"{kern.prefix}_backward_workspace")(b_cases, r, nl, w_arr)
-                    for r in (rows_int, rows_bnd) if r)
+    ws_fn = getattr(lib, f"{kern.prefix}_backward_workspace")
+    n_scratch = max(ws_fn(b_cases, r, nl, w) for r, w in ((rows_int, w_int), (rows_bnd, w_bnd))
+                    if r)
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
     gz = torch.empty((max(rows_int, rows_bnd) * sum(widths[1:]),), dtype=torch.float32,
                      device=dev)
@@ -198,42 +255,51 @@ def backward(kern: Kernels, meta: Meta, weights, stashes, gv, gj, gh, par=None):
         dpar_rows = torch.empty((b_cases * max(n_int, n_bnd) * sum(widths[1:-1]),),
                                 dtype=torch.float32, device=dev)
         mod = [par.data_ptr(), dpar_rows.data_ptr(), dpar.data_ptr()]
+    dja = dha = None
+    if meta.j0_add:
+        dja = torch.empty((b_cases, d_dims, n_int, widths[1]), dtype=torch.float32, device=dev)
+        dha = torch.empty_like(dja)
+
     dv = torch.empty((b_cases, n_int, widths[0]), dtype=torch.float32, device=dev)
-    djt = torch.empty((b_cases, d_dims, n_int, widths[0]), dtype=torch.float32, device=dev)
+    djt = torch.empty((b_cases, d_dims, n_int, int_widths[0]), dtype=torch.float32, device=dev)
     dht = torch.empty_like(djt)
     dv_b = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        # the internal launch writes dja/dha itself: the boundary launch
+        # reuses gz, which holds GZ_0's J/H rows until then
         code = fn(d_dims, act, 1, gv.data_ptr(), n_int + n_bnd, 0, gj.data_ptr(),
-                  gh.data_ptr(), b_cases, n_int, nl, w_ptrs, ldw, w_arr, *drop,
+                  gh.data_ptr(), b_cases, n_int, nl, w_ptrs, ldw, w_int, *drop,
                   stashes[0].data_ptr(), stashes[1].data_ptr() if stashes[1].numel() else None,
                   gz.data_ptr(), dv.data_ptr(), djt.data_ptr(), dht.data_ptr(), dw_ptrs,
-                  db_ptrs, dctx.data_ptr(), scratch.data_ptr(), n_scratch, *mod, stream)
+                  db_ptrs, dctx.data_ptr(), scratch.data_ptr(), n_scratch, *mod,
+                  *kern.coupled_args(meta, dja, dha), stream)
         build.check_launch(f"{kern.prefix} backward (internal)", code)
         kern.backward_counter.launches += 1
+        kern.count_mode(meta, 1)
         if n_bnd:
             dv_b = torch.empty((b_cases, n_bnd, widths[0]), dtype=torch.float32, device=dev)
             code = fn(d_dims, act, 0, gv.data_ptr(), n_int + n_bnd, n_int, None, None, b_cases,
-                      n_bnd, nl, w_ptrs, ldw, w_arr, *drop, stashes[2].data_ptr(),
+                      n_bnd, nl, w_ptrs, ldw, w_bnd, *drop, stashes[2].data_ptr(),
                       stashes[3].data_ptr() if stashes[3].numel() else None, gz.data_ptr(),
                       dv_b.data_ptr(), None, None, dw_ptrs, db_ptrs, dctx.data_ptr(),
-                      scratch.data_ptr(), n_scratch, *mod, stream)
+                      scratch.data_ptr(), n_scratch, *mod, *kern.coupled_args(meta), stream)
             build.check_launch(f"{kern.prefix} backward (boundary)", code)
             kern.backward_counter.launches += 1
-    return dv, djt, dht, dv_b, dctx, dws, dbs[1:], dpar
+    return dv, djt, dht, dv_b, dctx, dws, dbs[1:], dpar, dja, dha
 
 
 class MlpProp(torch.autograd.Function):
     """The forward kernels with their stash, and the backward kernels.
-    Inputs: (kern, meta, v, jt, ht, v_b, ctx, par or None, *weights,
-    *biases of layers 1 on)."""
+    Inputs: (kern, meta, v, jt, ht, v_b, ctx, par or None, ja or None, ha or
+    None, *weights, *biases of layers 1 on)."""
 
     @staticmethod
-    def forward(ctx, kern, meta, v, jt, ht, v_b, cctx, par, *params):
+    def forward(ctx, kern, meta, v, jt, ht, v_b, cctx, par, ja, ha, *params):
         nl = meta.n_layers
         weights, biases = params[:nl], params[nl:]
         ov, oj, oh, stashes = forward(kern, meta, v, jt, ht, v_b, cctx, weights, biases,
-                                      True, par)
+                                      True, par, ja, ha)
         ctx.kern, ctx.meta = kern, meta
         ctx.save_for_backward(*weights, *stashes, *([par] if kern.modulated else []))
         return ov, oj, oh
@@ -245,21 +311,24 @@ class MlpProp(torch.autograd.Function):
         saved = list(ctx.saved_tensors)
         par = saved.pop().detach() if kern.modulated else None
         weights = [w.detach() for w in saved[:nl]]
-        dv, djt, dht, dv_b, dctx, dws, dbs, dpar = backward(
+        dv, djt, dht, dv_b, dctx, dws, dbs, dpar, dja, dha = backward(
             kern, meta, weights, saved[nl:], gv.contiguous(), gj.contiguous(),
             gh.contiguous(), par)
-        # layer 0's kernel gradient covers its local block; the context block
-        # gets its gradient through ctx's F.linear
+        # layer 0's kernel gradient covers the columns the internal launch
+        # reads (the local block; all of it in the ctx_width mode); autograd
+        # adds the value rows' context-block gradient through ctx's F.linear
         dw0 = torch.zeros_like(weights[0])
-        dw0[:, :meta.n_local] = dws[0].t()
-        return (None, None, dv, djt, dht, dv_b, dctx, dpar, dw0,
+        dw0[:, :meta.int_widths[0]] = dws[0].t()
+        return (None, None, dv, djt, dht, dv_b, dctx, dpar, dja, dha, dw0,
                 *[dw.t() for dw in dws[1:]], *dbs)
 
 
-def run(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, par, weights, biases):
+def run(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, par, weights, biases, ja=None,
+        ha=None):
     """The kernels on validated inputs, inside ``MlpProp`` when a gradient
     is wanted: (v (B, Ni + Nb, O), jac (B, Ni, O, D), lap)."""
-    tensors = [v, jt, ht, ctx, *weights, *biases] + [t for t in (v_b, par) if t is not None]
+    tensors = [v, jt, ht, ctx, *weights, *biases] + [t for t in (v_b, par, ja, ha)
+                                                    if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return MlpProp.apply(kern, meta, v, jt, ht, v_b, ctx, par, *weights, *biases)
-    return forward(kern, meta, v, jt, ht, v_b, ctx, weights, biases, False, par)[:3]
+        return MlpProp.apply(kern, meta, v, jt, ht, v_b, ctx, par, ja, ha, *weights, *biases)
+    return forward(kern, meta, v, jt, ht, v_b, ctx, weights, biases, False, par, ja, ha)[:3]

@@ -77,7 +77,7 @@ def neural_ops_prop_backward(meta: Meta, weights, par, stashes, gv, gj, gh):
     dv_b or None, dctx (B, F), dpar (B, F), dW per layer ((in, out),
     operator 0's local block), db per layer from 1 on)."""
     dv, djt, dht, dv_b, dctx, dws, dbs, dpar = mlp_prop_cuda.backward(
-        TRUNK, meta, weights, stashes, gv, gj, gh, par)
+        TRUNK, meta, weights, stashes, gv, gj, gh, par)[:8]
     return dv, djt, dht, dv_b, dctx, dpar, dws, dbs
 
 

@@ -96,17 +96,30 @@ def dense_prop(linear, v, j, h):
             F.linear(h, linear.weight))
 
 
-def context_dense_prop(linear, n_local: int, v, j, h, v_b, g):
+def context_dense_prop(linear, n_local: int, v, j, h, v_b, g, j_ctx=None, h_ctx=None,
+                       j0_add=None, h0_add=None):
     """First dense layer of a decoder whose input is ``[local || context]``,
     with the per-case context ``g`` (..., 1, G) contracted once per case and
-    its zero J/H block skipped. ``j``/``h`` are (..., Ni, D, L); ``v_b`` may
-    be None."""
+    its J/H block skipped unless given. ``j``/``h`` are (..., Ni, D, L);
+    ``v_b`` may be None.
+
+    The max-pool coupling of the context (nonzero only at the pooling
+    winners' rows) enters in one of two forms: ``j_ctx``/``h_ctx`` (..., Ni,
+    D, G), the context block's input derivatives, through the context block
+    of the weight; or ``j0_add``/``h0_add`` (..., Ni, D, F1), that product
+    already formed, added to the pre-activations."""
     w_local = linear.weight[:, :n_local]
-    ctx = F.linear(g, linear.weight[:, n_local:], linear.bias)
+    w_ctx = linear.weight[:, n_local:]
+    ctx = F.linear(g, w_ctx, linear.bias)
     v = F.linear(v, w_local) + ctx
     if v_b is not None:
         v_b = F.linear(v_b, w_local) + ctx
-    return v, F.linear(j, w_local), F.linear(h, w_local), v_b
+    j, h = F.linear(j, w_local), F.linear(h, w_local)
+    if j_ctx is not None:
+        j, h = j + F.linear(j_ctx, w_ctx), h + F.linear(h_ctx, w_ctx)
+    if j0_add is not None:
+        j, h = j + j0_add, h + h0_add
+    return v, j, h, v_b
 
 
 def activation_prop_merged(activation: str, v, j, h, n_int: int):
@@ -119,22 +132,30 @@ def activation_prop_merged(activation: str, v, j, h, n_int: int):
     return val, j, h
 
 
+def merged_mask(seed: int, layer: int, rate: float, v) -> torch.Tensor:
+    """The inverted-dropout mask of ``v`` (..., N, F), whose rows are the
+    merged [internal || boundary] rows: ``ops/dropout.py``'s counter function
+    of (seed, layer, case, merged row, column), the one the decoder kernel
+    draws."""
+    n_cases = v[..., 0, 0].numel()
+    return keep_mask(seed, layer, n_cases, v.shape[-2], v.shape[-1], rate,
+                     v.device).reshape(v.shape).to(v.dtype)
+
+
 def dropout_prop_merged(seed: int, layer: int, rate: float, v, j, h, n_int: int):
     """Inverted dropout with one mask over the merged [internal || boundary]
-    rows of ``v`` (..., N, F); J/H (..., Ni, D, F) share the mask of their
-    internal rows (the derivative of mask * x / keep is mask * dx / keep).
-    The mask is ``ops/dropout.py``'s counter function of (seed, layer, case,
-    merged row, column), the one the decoder kernel draws."""
-    n_cases = v[..., 0, 0].numel()
-    mask = keep_mask(seed, layer, n_cases, v.shape[-2], v.shape[-1], rate,
-                     v.device).reshape(v.shape).to(v.dtype)
+    rows of ``v`` (..., N, F) (``merged_mask``); J/H (..., Ni, D, F) share
+    the mask of their internal rows (the derivative of mask * x / keep is
+    mask * dx / keep)."""
+    mask = merged_mask(seed, layer, rate, v)
     mask_i = mask[..., :n_int, None, :]
     return v * mask, j * mask_i, h * mask_i
 
 
 def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
                  activation: str, dropout: Optional[Sequence[float]] = None,
-                 deterministic: bool = True, seed: Optional[int] = None):
+                 deterministic: bool = True, seed: Optional[int] = None,
+                 j_ctx=None, h_ctx=None, j0_add=None, h0_add=None):
     """Decoder-stack propagation over ``[local || context]`` inputs with the
     internal and boundary value rows merged into one matmul per layer; the
     last layer is linear.
@@ -144,10 +165,13 @@ def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
         None; ``g``: pooled context (..., 1, G).
     :param dropout: one rate per layer, applied after each layer's
         activation unless ``deterministic``, with masks fixed by ``seed``.
+    :param j_ctx/h_ctx/j0_add/h0_add: the max-pool coupling of the context
+        (``context_dense_prop``), or None.
     :return: (values over [internal || boundary] rows, J, H).
     """
     n_int = v.shape[-2]
-    v, j, h, v_b = context_dense_prop(linears[0], n_local, v, j, h, v_b, g)
+    v, j, h, v_b = context_dense_prop(linears[0], n_local, v, j, h, v_b, g, j_ctx, h_ctx,
+                                      j0_add, h0_add)
     if v_b is not None:
         v = torch.cat([v, v_b], dim=-2)
     n_out = len(linears)

@@ -1,12 +1,13 @@
 """Physics residuals and losses (counterpart of
-``porous_cfd_tpu/physics/losses.py``): continuity div(u) and the standardized
+``porous_cfd_tpu/physics/losses.py``): continuity div(u) and the
 Navier-Stokes-Darcy-Forchheimer momentum residual
 
     (u . grad) u  -  nu lap(u)  +  grad p  +  u (d nu + 1/2 |u| f) * zone
 
-with the chain-rule factors that undo z-score standardization, for fixed
-scalar d/f (``MomentumLossFixed``) or per-point d/f fields
-(``MomentumLossVariable``). Each loss has
+on raw coordinates with an analytic forcing (``ContinuityLoss``,
+``MomentumLossManufactured``), or with the chain-rule factors that undo
+z-score standardization, for fixed scalar d/f (``MomentumLossFixed``) or
+per-point d/f fields (``MomentumLossVariable``). Each loss has
 ``residual(...)`` and is a callable giving the per-component MSE against 0.
 Scalers must lie on the device of the tensors they meet (``.to(device)``).
 """
@@ -41,6 +42,18 @@ def _u_source(u_raw, d, f, nu):
 
 
 @dataclasses.dataclass(frozen=True)
+class ContinuityLoss:
+    """div(u) residual on raw (unscaled) outputs."""
+
+    def residual(self, u_jac: torch.Tensor) -> torch.Tensor:
+        return torch.sum(torch.diagonal(u_jac, dim1=-2, dim2=-1), dim=-1)
+
+    def __call__(self, u_jac: torch.Tensor) -> torch.Tensor:
+        r = self.residual(u_jac)
+        return mse(r, torch.zeros_like(r))
+
+
+@dataclasses.dataclass(frozen=True)
 class ContinuityLossStandardized:
     """div(u) residual with the standardization chain rule."""
     u_scaler: StandardScaler
@@ -54,6 +67,26 @@ class ContinuityLossStandardized:
     def __call__(self, u_jac: torch.Tensor) -> torch.Tensor:
         r = self.residual(u_jac)
         return mse(r, torch.zeros_like(r))
+
+
+@dataclasses.dataclass(frozen=True)
+class MomentumLossManufactured:
+    """Raw-coordinate residual with the analytic forcing ``internal["f"]``:
+    (u . grad) u - nu sum_j d2u/dxj2 + grad p + source * cellToRegion - f."""
+    nu: float
+    d: float
+    f: float
+
+    def residual(self, internal: FoamData, u, u_jac, u_lap, p_grad):
+        source = _u_source(u, self.d, self.f, self.nu)
+        convection = torch.einsum("...ij,...j->...i", u_jac, u)
+        viscosity = self.nu * torch.sum(u_lap, dim=-1)
+        return (convection - viscosity + p_grad + source * internal["cellToRegion"]
+                - internal["f"])
+
+    def __call__(self, internal, u, u_jac, u_lap, p_grad):
+        r = self.residual(internal, u, u_jac, u_lap, p_grad)
+        return vector_loss(r, torch.zeros_like(r))
 
 
 @dataclasses.dataclass(frozen=True)

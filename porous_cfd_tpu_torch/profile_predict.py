@@ -1,13 +1,15 @@
 """Where the time of verbose prediction, or of a training step, goes on the
 card.
 
-    python -m porous_cfd_tpu_torch.profile_predict [--model pipn|pi_gano|pipn_pp]
-                                                   [--mode predict|train]
-                                                   [--batches 8] [--trace DIR]
+    python -m porous_cfd_tpu_torch.profile_predict
+        [--model pipn|pipn_coupled|pipn_exact|pi_gano|pipn_pp]
+        [--mode predict|train] [--batches 8] [--trace DIR]
 
 Builds a full-width model (random weights from seed 8421): the
-duct_fixed_boundary ``pipn`` or ``pipn-pp`` model or the
-duct_variable_boundary ``pi-gano`` model, and one batch of 13 synthetic
+duct_fixed_boundary ``pipn`` model (decoupled analytic path; ``pipn_coupled``:
+the max-pool-coupled one, winner gather and decoder_prop's j0_add mode;
+``pipn_exact``: the exact autodiff operator, no kernel) or ``pipn-pp``
+model, or the duct_variable_boundary ``pi-gano`` model, and one batch of 13 synthetic
 cases at 1500/1000/700 points (with the model's per-dataset aux attached),
 warms up, then runs ``--batches`` verbose
 predictions (``predict``) or training steps with the examples' fixed loss
@@ -19,8 +21,11 @@ wall time of the window; compare the device time with an unprofiled step
 time (``chip_smoke.py``) for the busy share of a real run. Before the
 window, ``--batches`` unprofiled runs, each from an idle card, give the
 host's time to enqueue one run and the wall time to its end (medians): where
-the two are close, the host and not the card sets the pace.
-Needs a CUDA device.
+the two are close, the host and not the card sets the pace. One more run
+under ``torch.cuda.set_sync_debug_mode("warn")`` counts the calls that make
+the host wait for the card; the profiled window also counts the aten
+operator calls and device events per run, the host's work. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import argparse
 import json
 import statistics
 import time
+import warnings
 
 import torch
 
@@ -40,11 +46,13 @@ from porous_cfd_tpu_torch.train.engine import (make_optimizer, make_predict_func
                                                make_train_functions)
 
 NU = 1489.4e-6
+PIPN = dict(nu=NU, d=14000.0, f=17.11, fe_local_layers=[2, 64, 64],
+            fe_global_layers=[69, 96, 128, 1024], seg_layers=[1088, 512, 256, 128, 3],
+            seg_dropout=[0.05, 0.05, 0, 0])
 CONFIGS = {
-    "pipn": (pipn_foam, dict(nu=NU, d=14000.0, f=17.11, fe_local_layers=[2, 64, 64],
-                             fe_global_layers=[69, 96, 128, 1024],
-                             seg_layers=[1088, 512, 256, 128, 3],
-                             seg_dropout=[0.05, 0.05, 0, 0])),
+    "pipn": (pipn_foam, PIPN),
+    "pipn_coupled": (pipn_foam, dict(PIPN, coupled_context=True)),
+    "pipn_exact": (pipn_foam, dict(PIPN, fast_derivatives=False)),
     "pi_gano": (pi_gano, dict(nu=NU, out_features=3, branch_layers=[8, 128, 352, 352, 352],
                               geometry_layers=[7, 64, 176, 176, 176],
                               local_layers=[2, 64, 176, 176, 176], n_operators=4,
@@ -57,7 +65,8 @@ CONFIGS = {
                                    seg_layers=[1088, 378, 128, 3], seg_dropout=[0.05, 0, 0])),
 }
 LOSS_WEIGHTS = (1, 1, 1, 1, 1, 1, 100, 100, 100)
-# device-kernel names of the port's hand-written CUDA kernels
+# device-kernel names of the port's hand-written CUDA kernels (the decoder's
+# coupled modes run as mlp_prop_fwd / mlp_prop_bwd_rows too)
 OWN_KERNELS = ("mlp_prop_fwd", "mlp_prop_bwd_rows", "pointnet_tiles", "pointnet_reduce",
                "pointnet_last", "pointnet_lower_bwd", "weight_grad_partial",
                "sum_partials", "group_colsum", "sa_fwd", "sa_bwd", "fps_kernel")
@@ -104,6 +113,16 @@ def main(argv=None) -> int:
         to_end.append(time.perf_counter() - t0)
     host_ms = statistics.median(enqueue) * 1e3
     idle_wall_ms = statistics.median(to_end) * 1e3
+    # calls in one run that make the host wait for the card
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -120,8 +139,11 @@ def main(argv=None) -> int:
     # that annotate a span of kernels ("Optimizer.step#Adam.step"; a kernel
     # name may hold a '#' too, "{lambda(int)#1}", but never without '(')
     rows = []
+    aten_calls = 0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            # the host's share: operator calls, nested ones included
+            aten_calls += evt.count if evt.key.startswith("aten::") else 0
             continue
         if "#" in evt.key and "(" not in evt.key:
             continue
@@ -132,6 +154,7 @@ def main(argv=None) -> int:
     device_ms = sum(r[0] for r in rows)
     own_ms = sum(r[0] for r in rows if any(k in r[2] for k in OWN_KERNELS))
     wall_ms = wall / args.batches * 1e3
+    device_events = sum(r[1] for r in rows)
     what = "batch" if args.mode == "predict" else "step"
     print(f"{torch.cuda.get_device_name(0)}: {args.model} {args.mode}, {wall_ms:.3f} ms wall "
           f"per {what}, "
@@ -139,7 +162,9 @@ def main(argv=None) -> int:
           f"{device_ms / wall_ms:.3f}); the port's kernels {own_ms:.3f} ms, the rest "
           f"{device_ms - own_ms:.3f} ms")
     print(f"unprofiled, from an idle card: the host enqueues a {what} in {host_ms:.3f} ms, "
-          f"which ends after {idle_wall_ms:.3f} ms (medians of {args.batches})")
+          f"which ends after {idle_wall_ms:.3f} ms (medians of {args.batches}); "
+          f"{syncs} synchronizing calls, {aten_calls // args.batches} aten operator calls "
+          f"and {device_events} device events (kernels, copies) per {what}")
     for ms, count, key in rows[:20]:
         print(f"  {ms:9.4f} ms  x{count:<3d} {key[:90]}")
     print(json.dumps({"model": args.model, "mode": args.mode, f"wall_ms_per_{what}": wall_ms,
@@ -148,6 +173,9 @@ def main(argv=None) -> int:
                       "busy_share": device_ms / wall_ms,
                       f"host_enqueue_ms_per_{what}": host_ms,
                       f"unprofiled_wall_ms_per_{what}": idle_wall_ms,
+                      f"host_syncs_per_{what}": syncs,
+                      f"aten_calls_per_{what}": aten_calls // args.batches,
+                      f"device_events_per_{what}": device_events,
                       "top": [{"ms": ms, "count": c, "name": k[:120]}
                               for ms, c, k in rows[:20]]}))
     return 0

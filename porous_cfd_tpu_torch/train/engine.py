@@ -27,7 +27,7 @@ from porous_cfd_tpu_torch.device import not_ported
 from porous_cfd_tpu_torch.models.base import PinnModel, error_labels, loss_labels
 from porous_cfd_tpu_torch.ops import dropout
 from porous_cfd_tpu_torch.physics.losses import mae, mse, vector_loss
-from porous_cfd_tpu_torch.physics.operators import split_derivatives
+from porous_cfd_tpu_torch.physics.operators import pinn_derivatives, split_derivatives
 from porous_cfd_tpu_torch.physics.scaling import LossScaler
 
 
@@ -84,20 +84,34 @@ def _take_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -2, ids[..., None].expand(*ids.shape, x.shape[-1]))
 
 
+def model_derivatives(model: PinnModel, batch: FoamData, deterministic: bool,
+                      seed: Optional[int] = None):
+    """(out_full, jac, lap) on [internal || boundary] rows: the model's
+    analytic path, or else the exact autodiff operator on its module, whose
+    decoder dropout draws the analytic path's masks for the same seed."""
+    if model.derivative_apply is not None:
+        return model.derivative_apply(batch, deterministic, seed)
+    internal, boundary = split_contiguous(batch)
+    boundary_pts = boundary["C"]
+
+    def apply_fn(pts):
+        return model.module(torch.cat([pts, boundary_pts], dim=-2), batch, deterministic,
+                            seed=seed)
+
+    return pinn_derivatives(apply_fn, internal["C"])
+
+
 def compute_losses(model: PinnModel, batch: FoamData, deterministic: bool = False,
                    seed: Optional[int] = None):
-    """The reference training-step body: the analytic forward with
-    derivatives on [internal || boundary] rows, boundary MSEs, continuity
-    and momentum residuals, observation MSEs. Returns the unscaled loss
-    vector [continuity, momentum.., boundary_u.., boundary_p, obs_u..,
-    obs_p] and the full-domain predictions."""
-    if model.derivative_apply is None:
-        raise not_ported("training through the exact autodiff operator "
-                         "(a model without derivative_apply)")
+    """The reference training-step body: the forward with derivatives on
+    [internal || boundary] rows (``model_derivatives``), boundary MSEs,
+    continuity and momentum residuals, observation MSEs. Returns the
+    unscaled loss vector [continuity, momentum.., boundary_u.., boundary_p,
+    obs_u.., obs_p] and the full-domain predictions."""
     internal, boundary = split_contiguous(batch)
     n_int = internal.data.shape[-2]
     labels = model.predicted_labels
-    out, jac, lap = model.derivative_apply(batch, deterministic, seed)
+    out, jac, lap = model_derivatives(model, batch, deterministic, seed)
     predicted = FoamData(out, labels, batch.domain)
     pred_internal = FoamData(out[..., :n_int, :], labels,
                              {"internal": internal.domain["internal"]})
@@ -141,7 +155,7 @@ def make_predict_functions(model: PinnModel) -> PredictFunctions:
     """``eval_batch(batch) -> [p_error, *u_errors]`` and
     ``predict_batch(batch, verbose=False)``; with ``verbose`` the latter also
     returns the residual fields (channels [Momentum.., div]) on the internal
-    rows, from the model's analytic derivative path."""
+    rows, from the model's analytic derivative path or the exact operator."""
 
     def forward(batch: FoamData):
         return model.module(batch["C"], batch, deterministic=True).float()
@@ -156,11 +170,8 @@ def make_predict_functions(model: PinnModel) -> PredictFunctions:
     def predict_batch(batch: FoamData, verbose: bool = False):
         if not verbose:
             return FoamData(forward(batch), model.predicted_labels, batch.domain)
-        if model.derivative_apply is None:
-            raise not_ported("verbose prediction through the exact autodiff "
-                             "operator (a model without derivative_apply)")
         internal = batch["internal"]
-        out, jac, lap = model.derivative_apply(batch, True)
+        out, jac, lap = model_derivatives(model, batch, True)
         predicted = FoamData(out, model.predicted_labels, batch.domain)
         u_jac, u_lap, p_grad = split_derivatives(jac, lap, model.dims)
         div = model.continuity_loss.residual(u_jac)

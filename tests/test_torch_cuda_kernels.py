@@ -443,3 +443,115 @@ def test_pipn_pp_slice_on_card_matches_cpu(cuda):
         assert_close(a.detach().cpu(), r.detach())
     for a, r in zip(results[0][1], results[1][1]):
         assert_close(a.cpu(), r)
+
+
+# ---------------------------------------------------------------------------
+# the decoder's max-pool-coupled modes, and PIPN's coupled and exact paths
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("mode,act,dims,boundary", [
+    ("j0_add", "silu", 2, True), ("j0_add", "tanh", 3, False), ("j0_add", "tanh", 1, True),
+    ("ctx_width", "silu", 2, True), ("ctx_width", "tanh", 1, False),
+    ("ctx_width", "silu", 3, True)])
+def test_decoder_coupled_modes_match_plain(cuda, mode, act, dims, boundary, rate):
+    """Forward and backward of both coupled modes against the plain
+    version: every output and every gradient, dja/dha (the kernel's GZ_0
+    rows) and the context derivatives and the context block of W0 (kernel
+    dW0 plus autograd through ctx) included. A 300-wide context spans three
+    staging chunks, the last one partial."""
+    gen = torch.Generator().manual_seed(30 + dims)
+    n_local, g_width = 24, (40 if mode == "j0_add" else 300)
+    layers = [n_local + g_width, 136, 72, 20, 3]
+    dec = MLP(layers, activation=act, last_activation=False, generator=gen).to(cuda)
+    rnd = lambda *s: (torch.randn(s, generator=gen) * 0.5).to(cuda).requires_grad_()  # noqa: E731
+    v, jt, ht = rnd(2, 37, n_local), rnd(2, dims, 37, n_local), rnd(2, dims, 37, n_local)
+    v_b = rnd(2, 45, n_local) if boundary else None
+    g = rnd(2, 1, g_width)
+    if mode == "j0_add":
+        xj, xh = rnd(2, dims, 37, layers[1]), rnd(2, dims, 37, layers[1])
+        kw = dict(j0_add=xj, h0_add=xh)
+    else:   # sparse, as at the pooling winners' rows
+        keep = (torch.rand((2, 1, 37, 1), generator=gen) < 0.2).float().to(cuda)
+        xj = (torch.randn((2, dims, 37, g_width), generator=gen).to(cuda) * keep).requires_grad_()
+        xh = (torch.randn((2, dims, 37, g_width), generator=gen).to(cuda) * keep).requires_grad_()
+        kw = dict(jctx_t=xj, hctx_t=xh)
+    inputs = [t for t in (v, jt, ht, v_b, g, xj, xh) if t is not None] + _params(dec)
+    args = (dec.linears, n_local, v, jt, ht, v_b, g, act, [rate, rate, 0.0, 0.0], False, 99)
+    fwd_c, bwd_c = decoder_cuda.MODE_COUNTS[mode]
+    before = (decoder_cuda.decoder_prop.launches, decoder_cuda.decoder_prop_backward.launches,
+              fwd_c.launches, bwd_c.launches)
+    out = decoder_cuda.decoder_prop(*args, **kw)
+    cots = [torch.randn(o.shape, generator=gen).to(cuda) for o in out]
+    got = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cots)), inputs)
+    torch.cuda.synchronize()
+    n = 2 if boundary else 1
+    assert (decoder_cuda.decoder_prop.launches - before[0],
+            decoder_cuda.decoder_prop_backward.launches - before[1],
+            fwd_c.launches - before[2], bwd_c.launches - before[3]) == (n, n, 1, 1)
+    ref_out = decoder_cuda.decoder_prop_plain(*args, **kw)
+    for a, r in zip(out, ref_out):
+        assert_close(a.detach(), r.detach())
+    ref = torch.autograd.grad(sum((o * c).sum() for o, c in zip(ref_out, cots)), inputs)
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+
+COUPLED_CFG = dict(nu=1e-3, d=100.0, f=1.0, fe_local_layers=[2, 32, 32],
+                   fe_global_layers=[37, 48, 64, 256], seg_layers=[288, 128, 64, 32, 3],
+                   seg_dropout=[0.1, 0.1, 0, 0], scalers=make_scalers())
+
+
+def test_coupled_slice_on_card_matches_cpu(cuda):
+    """pipn_foam(coupled_context=True): one pointnet_global and two
+    decoder_prop launches (the internal one in the j0_add mode) a forward,
+    as many backward; values, J, H and the parameter gradients of a loss on
+    them, dropout on, as on the CPU."""
+    gpu = pipn_foam(**COUPLED_CFG, coupled_context=True,
+                    generator=torch.Generator().manual_seed(1), device=cuda)
+    cpu = pipn_foam(**COUPLED_CFG, coupled_context=True,
+                    generator=torch.Generator().manual_seed(1), device="cpu")
+    batch = make_foam_batch(3, 200, 96, 20, seed=2)
+    counters = (pointnet_cuda.pointnet_global, pointnet_cuda.pointnet_global_backward,
+                decoder_cuda.decoder_prop, decoder_cuda.decoder_prop_backward,
+                *decoder_cuda.MODE_COUNTS["j0_add"])
+    before = [c.launches for c in counters]
+    res = []
+    for model, b in ((gpu, batch.to(cuda)), (cpu, batch)):
+        out = model.derivative_apply(b, deterministic=False, seed=77)
+        loss = sum((o ** 2).mean() for o in out)
+        res.append(([o.detach().cpu() for o in out],
+                    torch.autograd.grad(loss, list(model.module.parameters()))))
+        if model is gpu:
+            torch.cuda.synchronize()
+            assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 2, 2, 1, 1]
+    for a, r in zip(res[0][0], res[1][0]):
+        assert_close(a, r)
+    for a, r in zip(res[0][1], res[1][1]):
+        assert_close(a.cpu(), r)
+
+
+def test_exact_path_on_card_launches_no_kernel(cuda):
+    """pipn_foam(fast_derivatives=False) runs the plain module under
+    autograd: no kernel launches, the losses and gradients as on the CPU."""
+    from porous_cfd_tpu_torch.ops import fps_cuda, sa_cuda
+    from porous_cfd_tpu_torch.train.engine import compute_losses
+    counters = (pointnet_cuda.pointnet_global, pointnet_cuda.pointnet_global_backward,
+                decoder_cuda.decoder_prop, decoder_cuda.decoder_prop_backward,
+                neural_op_cuda.neural_ops_prop, neural_op_cuda.neural_ops_prop_backward,
+                sa_cuda.sa_neighborhood, sa_cuda.sa_neighborhood_backward,
+                fps_cuda.farthest_point_sampling)
+    before = [c.launches for c in counters]
+    batch = make_foam_batch(2, 120, 48, 20, seed=3)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        model = pipn_foam(**COUPLED_CFG, fast_derivatives=False,
+                          generator=torch.Generator().manual_seed(5), device=dev)
+        losses, _ = compute_losses(model, batch.to(dev), seed=11)
+        res.append((losses.detach().cpu(),
+                    torch.autograd.grad(losses.sum(), list(model.module.parameters()))))
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
+    assert_close(res[0][0], res[1][0])
+    for a, r in zip(res[0][1], res[1][1]):
+        assert_close(a.cpu(), r)

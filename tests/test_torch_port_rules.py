@@ -17,7 +17,7 @@ from porous_cfd_tpu_torch.device import resolve_device
 from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp, pi_gano_pp_full
 from porous_cfd_tpu_torch.models.pipn import (PipnModule, pipn_foam, pipn_foam_pp,
                                               pipn_foam_pp_full, pipn_foam_pp_mrg,
-                                              pipn_manufactured_pp)
+                                              pipn_manufactured, pipn_manufactured_pp)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "porous_cfd_tpu_torch"
@@ -89,6 +89,8 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
         pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers())
     with pytest.raises(RuntimeError, match="CUDA"):
         pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipn_manufactured(1e-2, 50.0, 1.0, [2, 8, 8], [11, 8, 16], [24, 8, 3])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -104,12 +106,11 @@ def test_unported_paths_raise():
                                  make_optimizer(model, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_functions(model, make_optimizer(model, 1), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
-                  fast_derivatives=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
-                  coupled_context=True, device="cpu")
+    # PIPN's exact and coupled paths are ported; PI-GANO's and PIPN++'s exact
+    # paths are not
+    for kwargs in (dict(fast_derivatives=False), dict(coupled_context=True)):
+        assert pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(), device="cpu",
+                         **kwargs) is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.with_precision("bf16-mixed")
     for kwargs in (dict(full=True), dict(fast_derivatives=False)):
@@ -183,9 +184,12 @@ def test_kernel_modules_need_no_nvcc_or_gpu(monkeypatch):
                 neural_op_cuda.neural_ops_prop, neural_op_cuda.neural_ops_prop_backward,
                 sa_cuda.sa_neighborhood, sa_cuda.sa_neighborhood_backward,
                 fps_cuda.farthest_point_sampling)
+    counters += tuple(c for pair in decoder_cuda.MODE_COUNTS.values() for c in pair)
     before = [c.launches for c in counters]
     for model in (pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
                             seg_dropout=[0.1, 0.0], device="cpu"),
+                  pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
+                            seg_dropout=[0.1, 0.0], coupled_context=True, device="cpu"),
                   pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu"),
                   pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(),
                                seg_dropout=[0.1, 0.0], device="cpu")):
@@ -193,6 +197,10 @@ def test_kernel_modules_need_no_nvcc_or_gpu(monkeypatch):
         out, jac, lap = model.derivative_apply(batch, deterministic=False, seed=5)
         assert out.shape == (1, 12, 3) and jac.shape == lap.shape == (1, 8, 3, 2)
         sum(o.sum() for o in (out, jac, lap)).backward()
+    from porous_cfd_tpu_torch.train.engine import compute_losses
+    exact = pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(), seg_dropout=[0.1, 0.0],
+                      fast_derivatives=False, device="cpu")
+    compute_losses(exact, make_foam_batch(1, 8, 4, 2, seed=0), seed=5)[0].sum().backward()
     # the counters count kernel launches only
     assert [c.launches for c in counters] == before
 
