@@ -17,11 +17,15 @@ Phases, in order; any failure exits non-zero:
      trunk mask, (f) sa_neighborhood forward and backward at PIPN++'s level 0
      (static) and level 1 (dynamic) shapes, and with emptied neighbourhoods,
      (g) FPS at PIPN++'s two levels, indices equal to the plain version's,
-     (h) pointnet_global and decoder_prop at PIPN++'s shapes, (i)
+     (h) pointnet_global and decoder_prop at PIPN++'s shapes, and
+     pointnet_global at PI-GANO++'s global level, with dx, (i)
      decoder_prop's max-pool-coupled modes at the pipn shape on a real
      winner set: j0_add and ctx_width, forward and backward, dropout on and
      off, every output and gradient (dja/dha and the context block of W0
-     included);
+     included), (j) neural_ops_prop's other modes at pi-gano-full's shapes:
+     a linear last operator and no reduction together (pi-gano-full's
+     trunks), and each alone, forward and backward, dropout on and off;
+     sa_neighborhood also at PI-GANO++'s two levels (32 neighbours);
   4. pipn prediction: verbose prediction (fields + PDE residuals) of 52
      synthetic cases at 1500/1000/700 internal/boundary/observation points, in
      4 batches of 13, through the full-width duct_fixed_boundary ``pipn``
@@ -37,6 +41,12 @@ Phases, in order; any failure exits non-zero:
      attached once per dataset);
   7. pi-gano training: phase 5 for that model, with the example's fixed loss
      weights;
+ 6b, 7b. pi-gano-full prediction and training: phases 4 and 5 for the
+     example's ``pi-gano-full`` (three trunks without reduction, six
+     neural_ops_prop launches each way);
+ 6c, 7c. pi-gano-pp prediction and training: the card's boundary chain
+     against the CPU's, then phases 4 and 5 for the example's
+     ``pi-gano-pp`` (two SA levels at 32 neighbours, a global level);
   8. pipn_pp prediction: phase 4 for the full-width duct_fixed_boundary
      ``pipn-pp`` model (its boundary cloud's SetAbstraction chain attached
      once per dataset, FPS on the card), with the card's chain against the
@@ -58,11 +68,18 @@ Phases, in order; any failure exits non-zero:
      ``fast_derivatives=True`` (the coupled path, tanh) on
      ``make_manufactured_batch(rng(8421), 16, 400, 120)``, 101 epochs of 4
      steps, the loss at epochs 0/25/50/75/100 falling; then a few steps of
-     its default exact path.
+     its default exact path;
+ 15. the CLI: the port's case writer makes a 13 / 4 case variable split,
+     and ``python -m porous_cfd_tpu_torch.examples.duct_variable_boundary
+     .train --model pi-gano-full`` trains it for 30 epochs in a subprocess
+     at its default bf16-mixed precision: checkpoints, model_meta.json, the
+     training loss falling by CLI_MIN_FALL of itself at least, ms per epoch
+     over the whole fit and after its first chunk of 10 epochs.
 Each of phases 4-14 sets every launch count to 0 just before it and reads
-them just after. The second-to-last lines are the ``{"kernels": [...]}``
-JSON and the card's name and power limit; the last line is ``{"ok": true,
-"device": {...}}``.
+them just after; every training phase also counts the synchronizing calls
+of one step, which must be none. The second-to-last lines are the
+``{"kernels": [...]}`` JSON and the card's name and power limit; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -110,6 +127,19 @@ EXACT_RUNS, EXACT_EPOCHS = 3, 3
 # the manufactured-solutions recipe: 16 cases of 400/120 points, batch 4
 MS_CASES, MS_INT, MS_BND, MS_BATCH, MS_EPOCHS = 16, 400, 120, 4, 101
 MS_FE_GLOBAL = [64 + 2 + 1, 64, 128, 1024]
+# the duct_variable_boundary "pi-gano-pp" configuration at full width
+# (examples/duct_variable_boundary/train.py:56-69): two radius levels over
+# the boundary cloud's [C || boundaryId] rows and a global one, 32 neighbours
+PGP_GEOMETRY = [[2 * 2 + N_BID, 64, 64], [64 + 2, 176, 176], [176 + 2, 176, 176]]
+PGP_RADIUS, PGP_FRACTION, PGP_NEIGHBORS = [0.5, 1], [0.5, 0.25], 32
+# the CLI phase: a variable split written by the port, cases of
+# CLI_CASE_POINTS internal points and four patches of CLI_PATCH_POINTS
+CLI_TRAIN, CLI_VAL, CLI_EPOCHS = 13, 4, 30
+CLI_CASE_POINTS, CLI_PATCH_POINTS = 3000, 300
+# the least relative fall of the CLI's training loss (without dropout) over
+# its CLI_EPOCHS steps: this loss falls slowly from the seeded weights, by
+# about 6e-4 of itself over 30 steps on an H100; a third of that is asked
+CLI_MIN_FALL = 2e-4
 
 # Tolerance of every comparison on the card: |a - b| <= RTOL * max|ref|.
 # The kernels, cuBLAS and the CPU's BLAS sum the 352- to 1024-wide rows in
@@ -145,6 +175,25 @@ REPLACES = {
                        "pallas_call at :357), with dropout",
     "neural_ops_prop_bwd": "porous_cfd_tpu/ops/neural_op_pallas.py:154 (_bwd_kernel; "
                            "pallas_call at :391), with dropout",
+    "neural_ops_prop_full": "porous_cfd_tpu/ops/neural_op_pallas.py:107 (_fwd_kernel; "
+                            "pallas_call at :357), last_activation=False and "
+                            "out_features=None together (:64, :74-75, :86-87, :125-134, "
+                            ":143-147), with dropout",
+    "neural_ops_prop_full_bwd": "porous_cfd_tpu/ops/neural_op_pallas.py:154 (_bwd_kernel; "
+                                "pallas_call at :391), last_activation=False and "
+                                "out_features=None together (:168, :200, :224), with dropout",
+    "neural_ops_prop_linear_last": "porous_cfd_tpu/ops/neural_op_pallas.py:107 (_fwd_kernel; "
+                                   "pallas_call at :357), last_activation=False alone "
+                                   "(:74-75, :125-134), with dropout",
+    "neural_ops_prop_linear_last_bwd": "porous_cfd_tpu/ops/neural_op_pallas.py:154 "
+                                       "(_bwd_kernel; pallas_call at :391), "
+                                       "last_activation=False alone (:200, :242, :271)",
+    "neural_ops_prop_no_reduction": "porous_cfd_tpu/ops/neural_op_pallas.py:107 (_fwd_kernel; "
+                                    "pallas_call at :357), out_features=None alone (:64, "
+                                    ":86-87, :98-99, :143-147), with dropout",
+    "neural_ops_prop_no_reduction_bwd": "porous_cfd_tpu/ops/neural_op_pallas.py:154 "
+                                        "(_bwd_kernel; pallas_call at :391), "
+                                        "out_features=None alone (:168, :224)",
     "sa_neighborhood": "porous_cfd_tpu/ops/sa_pallas.py:67 (_fwd_kernel; pallas_call at "
                        ":284 through _build_static, the static variant, and at :215 through "
                        "_build, the dynamic one)",
@@ -163,6 +212,12 @@ SOURCES = {"pointnet_global": "porous_cfd_tpu_torch/ops/csrc/pointnet_global.cu"
            "decoder_prop_ctx_bwd": "porous_cfd_tpu_torch/ops/csrc/decoder_prop.cu",
            "neural_ops_prop": "porous_cfd_tpu_torch/ops/csrc/neural_op_prop.cu",
            "neural_ops_prop_bwd": "porous_cfd_tpu_torch/ops/csrc/neural_op_prop.cu",
+           "neural_ops_prop_full": "porous_cfd_tpu_torch/ops/csrc/neural_op_prop.cu",
+           "neural_ops_prop_full_bwd": "porous_cfd_tpu_torch/ops/csrc/neural_op_prop.cu",
+           "neural_ops_prop_linear_last": "porous_cfd_tpu_torch/ops/csrc/neural_op_prop.cu",
+           "neural_ops_prop_linear_last_bwd": "porous_cfd_tpu_torch/ops/csrc/neural_op_prop.cu",
+           "neural_ops_prop_no_reduction": "porous_cfd_tpu_torch/ops/csrc/neural_op_prop.cu",
+           "neural_ops_prop_no_reduction_bwd": "porous_cfd_tpu_torch/ops/csrc/neural_op_prop.cu",
            "sa_neighborhood": "porous_cfd_tpu_torch/ops/csrc/sa_neighborhood.cu",
            "sa_neighborhood_bwd": "porous_cfd_tpu_torch/ops/csrc/sa_neighborhood.cu",
            "farthest_point_sampling": "porous_cfd_tpu_torch/ops/csrc/fps.cu"}
@@ -338,18 +393,32 @@ def check_pointnet(layers, n_pts, x_grad, gen, tag):
     return fwd, bwd
 
 
-def check_trunk(gen):
+def trunk_mode(last_activation=True, reduction=True):
+    """The name of a neural_ops_prop mode, as ``neural_op_cuda.MODE_COUNTS``
+    keys it; None for the default one."""
+    return "_".join(m for m, on in (("linear_last", not last_activation),
+                                    ("no_reduction", not reduction)) if on) or None
+
+
+def check_trunk(gen, last_activation=True, reduction=True):
     """neural_ops_prop forward and backward against the plain version at the
-    pi-gano envelope, dropout on and off, timed. Returns the forward's and
-    the backward's (err, ms, plain ms, flops, bytes, extra timings)."""
+    pi-gano envelope, dropout on and off, timed, in one mode: the default
+    (an activated last operator and the reduction), or without the last
+    activation and/or the reduction (pi-gano-full's trunks run without
+    both, the outputs F wide). Returns the forward's and the backward's
+    (err, ms, plain ms, flops, bytes, extra timings)."""
     import torch
     from porous_cfd_tpu_torch.models.mlp import NeuralOperatorSequential, dense
     from porous_cfd_tpu_torch.ops import dropout, mlp_prop_cuda, neural_op_cuda
     dev = torch.device("cuda", 0)
+    mode = trunk_mode(last_activation, reduction)
+    label = "neural_ops_prop" + (f" {mode}" if mode else "")
     n_local, f = PG_LOCAL[-1], PG_BRANCH[-1]
-    ops = NeuralOperatorSequential(PG_OPERATORS, f, PG_DROPOUT, "silu", generator=gen).to(dev)
-    red = dense(f, 3, gen).to(dev)
-    linears = ops.linears + [red]
+    n_out = 3 if reduction else f
+    ops = NeuralOperatorSequential(PG_OPERATORS, f, PG_DROPOUT, "silu",
+                                   last_activation=last_activation, generator=gen).to(dev)
+    red = dense(f, 3, gen).to(dev) if reduction else None
+    linears = ops.linears + ([red] if reduction else [])
     params = [p for lin in linears for p in (lin.weight, lin.bias)]
 
     def rnd(*shape, scale=1.0):
@@ -361,45 +430,52 @@ def check_trunk(gen):
     par = (torch.rand((BATCH, 1, f), generator=gen) + 0.5).to(dev)
 
     seed = neural_op_cuda.trunk_seed(SEED)
-    mask = dropout.keep_mask(seed, 1, BATCH, N_INT + N_BND, f, 0.1, dev)
-    kept = float((mask > 0).float().mean())
-    log(f"  kept fraction of a ({BATCH}, {N_INT + N_BND}, {f}) trunk mask at rate 0.1: "
-        f"{kept:.6f}")
-    if abs(kept - 0.9) > 0.002:
-        fail(f"trunk kept fraction {kept} not within 0.9 +- 0.002")
-    del mask
+    if mode is None:
+        mask = dropout.keep_mask(seed, 1, BATCH, N_INT + N_BND, f, 0.1, dev)
+        kept = float((mask > 0).float().mean())
+        log(f"  kept fraction of a ({BATCH}, {N_INT + N_BND}, {f}) trunk mask at rate 0.1: "
+            f"{kept:.6f}")
+        if abs(kept - 0.9) > 0.002:
+            fail(f"trunk kept fraction {kept} not within 0.9 +- 0.002")
+        del mask
 
     leaves = [t.clone().requires_grad_() for t in (v, jt, ht, v_b, geom, par)]
     names = ["dv", "djt", "dht", "dv_b", "dgeom", "dpar"] + [
-        f"d{n}" for n, _ in ops.named_parameters()] + [f"dreduction.{n}" for n, _ in
-                                                       red.named_parameters()]
+        f"d{n}" for n, _ in ops.named_parameters()] + ([
+            f"dreduction.{n}" for n, _ in red.named_parameters()] if reduction else [])
     errs, timing = [], {}
     for drop in (PG_DROPOUT, None):
         tag = "dropout 0.1" if drop else "no dropout"
         dargs = (ops.linears, red, n_local, *leaves, "silu", drop, drop is None, SEED)
-        out_k = neural_op_cuda.neural_ops_prop(*dargs)
+        kw = {"last_activation": last_activation}
+        out_k = neural_op_cuda.neural_ops_prop(*dargs, **kw)
+        if out_k[0].shape[-1] != n_out:
+            fail(f"{label}: output width {out_k[0].shape[-1]} != {n_out}")
         cots = [torch.randn(o.shape, generator=gen).to(dev) for o in out_k]
         got = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out_k, cots)),
                                   leaves + params)
         torch.cuda.synchronize()
-        out_p = neural_op_cuda.neural_ops_prop_plain(*dargs)
-        errs.append(check_close(f"neural_ops_prop forward, {tag}",
+        out_p = neural_op_cuda.neural_ops_prop_plain(*dargs, **kw)
+        errs.append(check_close(f"{label} forward, {tag}",
                                 list(zip(("v", "jac", "lap"), out_k, out_p))))
         loss_ref = sum((o * c).sum() for o, c in zip(out_p, cots))
         ref = torch.autograd.grad(loss_ref, leaves + params, retain_graph=True)
-        errs.append(check_close(f"neural_ops_prop backward, {tag}",
-                                list(zip(names, got, ref))))
+        errs.append(check_close(f"{label} backward, {tag}", list(zip(names, got, ref)),
+                                quiet=mode is not None))
         with torch.no_grad():
-            timing[f"ms_{tag}"] = time_ms(torch, lambda: neural_op_cuda.neural_ops_prop(*dargs))
+            timing[f"ms_{tag}"] = time_ms(
+                torch, lambda: neural_op_cuda.neural_ops_prop(*dargs, **kw))
             timing[f"plain_ms_{tag}"] = time_ms(
-                torch, lambda: neural_op_cuda.neural_ops_prop_plain(*dargs), n=5)
+                torch, lambda: neural_op_cuda.neural_ops_prop_plain(*dargs, **kw), n=5)
         if drop:
             timing["plain_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
                 loss_ref, leaves + params, retain_graph=True), n=5)
-            widths = (n_local,) + (f,) * PG_OPERATORS + (3,)
-            rates = mlp_prop_cuda.dropout_rates(drop, PG_OPERATORS, False) + (0.0,)
+            widths = (n_local,) + (f,) * PG_OPERATORS + ((3,) if reduction else ())
+            rates = (mlp_prop_cuda.dropout_rates(drop, PG_OPERATORS, False)
+                     + (0.0,) * reduction)
+            meta_kw = dict(reduction=reduction, last_activation=last_activation)
             meta = mlp_prop_cuda.Meta(n_local, "silu", rates, seed, 2, BATCH, N_INT, N_BND,
-                                      widths)
+                                      widths, **meta_kw)
             with torch.no_grad():
                 weights = [lin.weight.detach() for lin in linears]
                 biases = [lin.bias.detach() for lin in linears[1:]]
@@ -412,7 +488,7 @@ def check_trunk(gen):
                 timing["bwd_ms"] = time_ms(torch, lambda: neural_op_cuda.neural_ops_prop_backward(
                     meta, weights, par2, stashes, gv, gj, gh))
                 meta_int = mlp_prop_cuda.Meta(n_local, "silu", rates, seed, 2, BATCH, N_INT, 0,
-                                              widths)
+                                              widths, **meta_kw)
                 gv_int = gv[:, :N_INT].contiguous()
                 timing["bwd_internal_ms"] = time_ms(
                     torch, lambda: neural_op_cuda.neural_ops_prop_backward(
@@ -423,18 +499,22 @@ def check_trunk(gen):
     with torch.no_grad():
         args_int = (ops.linears, red, n_local, v, jt, ht, None, geom, par, "silu")
         timing["ms_internal_launch_no_dropout"] = time_ms(
-            torch, lambda: neural_op_cuda.neural_ops_prop(*args_int))
-    macs = n_local * f + (PG_OPERATORS - 1) * f * f + f * 3
+            torch, lambda: neural_op_cuda.neural_ops_prop(*args_int,
+                                                          last_activation=last_activation))
+    macs = n_local * f + (PG_OPERATORS - 1) * f * f + (f * 3 if reduction else 0)
     rows = BATCH * N_INT * 5 + BATCH * N_BND
     flops = 2.0 * rows * macs + 2.0 * BATCH * PG_GEOMETRY[-1] * f
     fwd_bytes = nbytes_of([v, jt, ht, v_b, geom, par, *params]) + 4 * (
-        BATCH * (N_INT + N_BND) * 3 + 2 * BATCH * N_INT * 3 * 2)
+        BATCH * (N_INT + N_BND) * n_out + 2 * BATCH * N_INT * n_out * 2)
+    log(f"  {label}: forward {timing['ms_dropout 0.1']:.4f} ms (plain "
+        f"{timing['plain_ms_dropout 0.1']:.3f}), backward {timing['bwd_ms']:.4f} ms (plain "
+        f"{timing['plain_bwd_ms']:.3f}), dropout 0.1")
     fwd = {"err": max(errs[0], errs[2]), "ms": timing["ms_dropout 0.1"],
            "plain_ms": timing["plain_ms_dropout 0.1"], "flops": flops, "nbytes": fwd_bytes,
            "extra": {"ms_no_dropout": timing["ms_no dropout"],
                      "plain_ms_no_dropout": timing["plain_ms_no dropout"],
                      "ms_internal_launch_no_dropout":
-                         timing["ms_internal_launch_no_dropout"]}}
+                         timing["ms_internal_launch_no_dropout"], "out_width": n_out}}
     bwd = {"err": max(errs[1], errs[3]), "ms": timing["bwd_ms"],
            "plain_ms": timing["plain_bwd_ms"], "flops": 2.0 * flops, "nbytes": bwd_bytes,
            "extra": {"ms_internal_launch": timing["bwd_internal_ms"]}}
@@ -709,10 +789,11 @@ def sa_backward_flops(widths, flops_f, winners, winner_rows):
     return flops
 
 
-def check_sa(model, chain, gen, pk):
-    """sa_neighborhood against the plain version on the card at PIPN++'s two
-    levels: level 0 static on ``chain`` (the model's precompute of BATCH
-    cases: xg, rel, mask), level 1 dynamic on random level-0 features with
+def check_sa(seq, chain, gen, pk, n_levels=len(PP_RADIUS)):
+    """sa_neighborhood against the plain version on the card at the two
+    radius levels of ``seq`` (a SetAbstractionSeq: PIPN++'s, or PI-GANO++'s
+    at 32 neighbours): level 0 static on ``chain`` (the model's precompute
+    of BATCH cases: xg, rel, mask), level 1 dynamic on random level-0 features with
     the chain's idx, rel and mask; forward and backward (every parameter
     gradient, and dx through dP), and level 1 again with every seventh
     neighbourhood emptied (0 out, no gradient). Timed with CUDA events; the
@@ -724,8 +805,7 @@ def check_sa(model, chain, gen, pk):
     from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors
     from porous_cfd_tpu_torch.ops import sa_cuda
     dev = torch.device("cuda", 0)
-    seq = model.module.feature_extract.global_feature
-    nbrs = extract_sa_neighbors(chain, len(PP_RADIUS))
+    nbrs = extract_sa_neighbors(chain, n_levels)
     res = {"fwd": {}, "bwd": {}}
     for i, tag in ((0, "level 0 static"), (1, "level 1 dynamic")):
         lin = getattr(seq, f"sa_{i}").conv_mlp.linears
@@ -854,19 +934,19 @@ def check_fps(data, levels):
     return out
 
 
-def check_chain(model, cpu_model, data):
+def check_chain(model, cpu_model, data, n_levels=len(PP_RADIUS), k=PP_NEIGHBORS):
     """The boundary chain of every case of ``data`` on the card (FPS kernel,
     cuBLAS distances) against the CPU's (plain FPS, the CPU's BLAS): the
     centroids must be equal; the (centroid, slot) entries whose index or
     mask differ are counted (a point within about 1e-6 of r may fall on
     either side), and the float entries compared where the indices agree.
-    Also the mean valid neighbours per level."""
+    Also the mean valid neighbours per level (at most ``k``)."""
     import torch
     dev = torch.device("cuda", 0)
-    card = {k: v.cpu() for k, v in model.neighbor_precompute(data.to(dev)).items()}
+    card = {key: v.cpu() for key, v in model.neighbor_precompute(data.to(dev)).items()}
     cpu = cpu_model.neighbor_precompute(data)
     report = {}
-    for i in range(len(PP_RADIUS)):
+    for i in range(n_levels):
         if not torch.equal(card[f"_sa_cent_{i}"], cpu[f"_sa_cent_{i}"]):
             fail(f"chain level {i}: the card's centroids differ from the CPU's")
         differ = ((card[f"_sa_idx_{i}"] != cpu[f"_sa_idx_{i}"])
@@ -883,7 +963,7 @@ def check_chain(model, cpu_model, data):
         log(f"  chain level {i}: centroids equal; {int(differ.sum())} of {differ.numel()} "
             f"(centroid, slot) entries differ between the card and the CPU; rel within "
             f"{rel_err:.2e}, posc within {posc_err:.2e}; {mean_nbrs:.2f} valid neighbours per "
-            f"centroid (cap {PP_NEIGHBORS})")
+            f"centroid (cap {k})")
     same0 = (card["_sa_idx_0"] == cpu["_sa_idx_0"]) & (card["_sa_mask_0"] == cpu["_sa_mask_0"])
     report["xg_max_abs_diff"] = float((card["_sa_xg_0"] - cpu["_sa_xg_0"])
                                       .reshape(*same0.shape, -1)[same0].abs().max())
@@ -981,7 +1061,7 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
     """Training of ``full_model(device)`` with the fixed loss weights at
     batch BATCH: launch counts of ``attach_neighbors`` (``want_attach``,
     default none) and per step (``want``), finite non-zero gradients in
-    every parameter, the loss falling, steps/s over whole epochs (median of
+    every parameter, no synchronizing call in a step, the loss falling, steps/s over whole epochs (median of
     ``runs`` runs of ``epochs`` epochs), one step on the cases ``two_cases``
     against the CPU with dropout on (each side with its own per-dataset aux,
     or both with the card's if ``share_aux``), and a Trainer.fit whose
@@ -989,6 +1069,7 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
     import numpy as np
     import torch
     from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
+    from porous_cfd_tpu_torch.profile_predict import sync_sites
     from porous_cfd_tpu_torch.train.engine import (gather_cases, make_optimizer,
                                                    make_train_functions)
     from porous_cfd_tpu_torch.train.trainer import Trainer, TrainerConfig, load_checkpoint
@@ -1038,6 +1119,16 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
         groups[group] = groups.get(group, 0) + 1
     log(f"  every parameter ({len(list(model.module.parameters()))}; by group {groups}) has "
         f"a finite, non-zero gradient; step-1 total loss {float(m[0]):.6f}")
+
+    # the step queues its work and returns: train/engine.py's contract is no
+    # host sync inside it. One more step under set_sync_debug_mode("warn")
+    # counts the calls that make the host wait for the card.
+    idx = torch.as_tensor(perm()[0], device=dev)
+    sites = sync_sites(lambda: train_fns.train_step(state, gather_cases(dataset, idx)))
+    log(f"  synchronizing calls in one step: {len(sites)}"
+        + "".join(f"\n    {site}" for site in sites))
+    if sites:
+        fail(f"{label}: {len(sites)} synchronizing calls in one training step")
 
     # steps/s as bench.py measures it: whole epochs between two syncs, after
     # a warm-up epoch; the median of ``runs`` runs of ``epochs`` epochs
@@ -1143,7 +1234,8 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
             "epochs_per_run": epochs, "steps_per_epoch": steps_per_epoch,
             "batch_size": BATCH, "epoch_totals_first_last": [epoch_totals[0],
                                                              epoch_totals[-1]],
-            "launches_per_step": per_step, "launches_per_attach": attach_counts}
+            "launches_per_step": per_step, "launches_per_attach": attach_counts,
+            "host_syncs_per_step": len(sites)}
 
 
 def winners(model, batch):
@@ -1300,6 +1392,113 @@ def manufactured_phase(counters, counts, name, smi):
     return report
 
 
+def cli_phase(name, smi):
+    """The port's duct_variable_boundary training CLI on the card, as a user
+    runs it: the port's case writer makes a CLI_TRAIN / CLI_VAL variable
+    split with the example's data config (cases large enough to sample
+    N_INT / N_BND / N_OBS points), then ``python -m
+    porous_cfd_tpu_torch.examples.duct_variable_boundary.train --model
+    pi-gano-full`` trains CLI_EPOCHS epochs at its default bf16-mixed
+    precision in a subprocess. Checks model.ckpt, best.ckpt and
+    model_meta.json, and that the training loss fell by CLI_MIN_FALL of
+    itself at least: the trained weights against the initial ones (the
+    CLI's seed) on the training split, without dropout. Reports ms per epoch
+    (the trainer's, validation included), over the whole fit and after its
+    first chunk, which holds the start-up."""
+    import re
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.data.dataset import FoamDataset
+    from porous_cfd_tpu_torch.datagen import meta, synthetic_case
+    from porous_cfd_tpu_torch.examples.duct_variable_boundary import train as cli
+    from porous_cfd_tpu_torch.train.engine import compute_losses
+    dev = torch.device("cuda", 0)
+    cfg = json.loads((ROOT / "examples" / "duct_variable_boundary" / "assets"
+                      / "data_config.json").read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        rng = np.random.default_rng(SEED)
+        t0 = time.perf_counter()
+        for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
+            synthetic_case.write_foam_split(root / split, n, rng, n_internal=CLI_CASE_POINTS,
+                                            n_per_patch=CLI_PATCH_POINTS, variable=True)
+            synthetic_case.write_data_config(root / split, cfg["Fields"],
+                                             cfg["Variable boundaries"],
+                                             cfg["Normalize fields"], cfg["Dims"])
+            meta.generate_meta(root / split, *cfg["Fields"], max_dim=len(cfg["Dims"]))
+        meta.generate_min_points(root)
+        data_s = time.perf_counter() - t0
+        argv = ["--model", "pi-gano-full", "--epochs", str(CLI_EPOCHS), "--log-every", "10",
+                "--n-internal", str(N_INT), "--n-boundary", str(N_BND),
+                "--n-observations", str(N_OBS), "--train-dir", str(root / "train"),
+                "--val-dir", str(root / "val"), "--logs-dir", str(Path(tmp) / "logs"),
+                "--name", "cli"]
+        cmd = [sys.executable, "-m", "porous_cfd_tpu_torch.examples.duct_variable_boundary.train",
+               *argv]
+        log(f"cli: {CLI_TRAIN} + {CLI_VAL} cases written in {data_s:.1f} s; running "
+            + " ".join(cmd[1:]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"  | {line}")
+        if proc.returncode != 0:
+            fail(f"the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        log_dir = Path(tmp) / "logs" / "lightning_logs" / "cli"
+        for fname in ("model.ckpt", "best.ckpt", "model_meta.json"):
+            if not (log_dir / fname).exists():
+                fail(f"the CLI did not write {fname}")
+        model_meta = json.loads((log_dir / "model_meta.json").read_text())
+        want_meta = {"Model type": "pi-gano-full", "N internal": N_INT, "N boundary": N_BND,
+                     "N observations": N_OBS, "Precision": "bf16-mixed",
+                     "Batch size": CLI_TRAIN}
+        if model_meta != want_meta:
+            fail(f"the CLI's model_meta.json {model_meta} != {want_meta}")
+        found = re.search(r"fit: (\d+) epochs in ([0-9.]+) s, ([0-9.]+) ms per epoch; the first "
+                          r"(\d+) in ([0-9.]+) s, then ([0-9.]+) ms per epoch", proc.stdout)
+        if found is None or int(found.group(1)) != CLI_EPOCHS:
+            fail("the CLI did not report its fit time")
+        ms_epoch, ms_steady = float(found.group(3)), float(found.group(6))
+        first_n, first_s = int(found.group(4)), float(found.group(5))
+        ckpt = torch.load(log_dir / "model.ckpt", map_location=dev, weights_only=True)
+        if ckpt["epoch"] != CLI_EPOCHS or ckpt["step"] != CLI_EPOCHS:
+            fail(f"model.ckpt at epoch {ckpt['epoch']}, step {ckpt['step']}")
+
+        # the training loss: initial weights against trained ones on the
+        # training split as the CLI sampled it (its rng draws the training
+        # cases first), weighted as the CLI weights it, without dropout
+        args = cli.build_arg_parser().parse_args(argv)
+        train_data = FoamDataset(str(root / "train"), N_INT, N_BND, N_OBS,
+                                 rng=np.random.default_rng(cli.SEED))
+        model = cli.get_model(args, train_data.normalizers, dev)
+        batch = model.attach_neighbors(train_data.stacked().to(dev))
+        weights = torch.tensor(cli.get_loss_scaler(args).weights, device=dev)
+        totals = []
+        for state in (None, ckpt["module"]):
+            if state is not None:
+                model.module.load_state_dict(state)
+            with torch.no_grad():
+                losses, _ = compute_losses(model, batch, deterministic=True)
+            totals.append(float((weights * losses).sum()))
+        fall = (totals[0] - totals[1]) / totals[0]
+        log(f"cli: pi-gano-full, {CLI_EPOCHS} epochs of {CLI_TRAIN} cases at "
+            f"{N_INT}/{N_BND}/{N_OBS} points, bf16-mixed validation: {ms_epoch:.3f} ms per "
+            f"epoch (the trainer's clock, validation every 10 epochs included); the first "
+            f"{first_n} epochs (start-up included) {first_s:.3f} s, then {ms_steady:.3f} ms "
+            f"per epoch; {wall_s:.1f} s for the whole command; training loss without dropout "
+            f"{totals[0]:.6f} -> {totals[1]:.6f}, a fall of {fall:.3e} of it "
+            f"(at least {CLI_MIN_FALL:.0e} wanted) ({name}; {smi})")
+        if not fall >= CLI_MIN_FALL:
+            fail(f"cli: the training loss fell by {fall:.3e} of itself, less than "
+                 f"{CLI_MIN_FALL:.0e}")
+    return {"model": "pi-gano-full", "epochs": CLI_EPOCHS, "train_cases": CLI_TRAIN,
+            "val_cases": CLI_VAL, "points": [N_INT, N_BND, N_OBS], "ms_per_epoch": ms_epoch,
+            "first_epochs": first_n, "first_epochs_s": first_s,
+            "ms_per_epoch_after_first": ms_steady, "command_s": wall_s,
+            "data_write_s": data_s, "loss_initial_trained": totals, "loss_fall": fall,
+            "model_meta": model_meta}
+
+
 def main() -> int:
     if not (ROOT / "porous_cfd_tpu_torch").is_dir():
         print("chip_smoke: porous_cfd_tpu_torch/ not found beside this script",
@@ -1313,7 +1512,7 @@ def main() -> int:
     from porous_cfd_tpu_torch.data.synthetic import (VARIABLE_BOUNDARIES, make_foam_batch,
                                                      make_scalers)
     from porous_cfd_tpu_torch.models.neighbors import fps_count
-    from porous_cfd_tpu_torch.models.pi_gano import pi_gano
+    from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp
     from porous_cfd_tpu_torch.models.pipn import pipn_foam, pipn_foam_pp
     from porous_cfd_tpu_torch.ops import (build, decoder_cuda, dropout, fps_cuda,
                                           neural_op_cuda, pointnet_cuda, sa_cuda)
@@ -1332,6 +1531,10 @@ def main() -> int:
                 "decoder_prop_j0_add_bwd": decoder_cuda.MODE_COUNTS["j0_add"][1],
                 "decoder_prop_ctx": decoder_cuda.MODE_COUNTS["ctx_width"][0],
                 "decoder_prop_ctx_bwd": decoder_cuda.MODE_COUNTS["ctx_width"][1]}
+    for key, mode in (("full", "linear_last_no_reduction"), ("linear_last", "linear_last"),
+                      ("no_reduction", "no_reduction")):
+        counters[f"neural_ops_prop_{key}"] = neural_op_cuda.MODE_COUNTS[mode][0]
+        counters[f"neural_ops_prop_{key}_bwd"] = neural_op_cuda.MODE_COUNTS[mode][1]
 
     def counts(**nonzero):
         return {k: nonzero.get(k, 0) for k in counters}
@@ -1410,6 +1613,14 @@ def main() -> int:
     add_entry("neural_ops_prop_bwd", tr_bwd)
     torch.cuda.empty_cache()
 
+    # ---- 3j. neural_ops_prop's other modes at pi-gano-full's shapes ------------
+    for key, mode in (("full", (False, False)), ("linear_last", (False, True)),
+                      ("no_reduction", (True, False))):
+        fwd, bwd = check_trunk(gen, *mode)
+        add_entry(f"neural_ops_prop_{key}", fwd, mode=trunk_mode(*mode))
+        add_entry(f"neural_ops_prop_{key}_bwd", bwd, mode=trunk_mode(*mode))
+        torch.cuda.empty_cache()
+
     data = make_foam_batch(N_CASES, N_INT, N_BND, N_OBS, seed=SEED)
     scalers = make_scalers()
 
@@ -1433,6 +1644,17 @@ def main() -> int:
                        scalers, VARIABLE_BOUNDARIES,
                        generator=torch.Generator().manual_seed(SEED), device=device)
 
+    def pi_gano_full_model(device):
+        return pi_gano(NU, 3, PG_BRANCH, PG_GEOMETRY, PG_LOCAL, PG_OPERATORS, PG_DROPOUT,
+                       scalers, VARIABLE_BOUNDARIES, full=True,
+                       generator=torch.Generator().manual_seed(SEED), device=device)
+
+    def pi_gano_pp_model(device):
+        return pi_gano_pp(NU, 3, PG_BRANCH, PGP_GEOMETRY, PGP_RADIUS, PGP_FRACTION, PG_LOCAL,
+                          PG_OPERATORS, PG_DROPOUT, scalers, VARIABLE_BOUNDARIES,
+                          max_neighbors=PGP_NEIGHBORS,
+                          generator=torch.Generator().manual_seed(SEED), device=device)
+
     def pipn_pp_model(device):
         return pipn_foam_pp(NU, D, F, PP_LOCAL, PP_GLOBAL, PP_RADIUS, PP_FRACTION, PP_SEG,
                             scalers, seg_dropout=PP_DROPOUT, max_neighbors=PP_NEIGHBORS,
@@ -1441,26 +1663,43 @@ def main() -> int:
     # ---- 3f. sa_neighborhood at PIPN++'s level shapes, on a real chain --------
     pp_card = pipn_pp_model(dev)
     chain = pp_card.neighbor_precompute(gather_cases(data, torch.arange(BATCH)).to(dev))
-    sa_fwd, sa_bwd = check_sa(pp_card, chain, gen, pk)
+    sa_fwd, sa_bwd = check_sa(pp_card.module.feature_extract.global_feature, chain, gen, pk)
     add_entry("sa_neighborhood", sa_fwd)
     add_entry("sa_neighborhood_bwd", sa_bwd)
     del pp_card, chain
+    # and at PI-GANO++'s levels, 32 neighbours
+    pgp_card = pi_gano_pp_model(dev)
+    chain = pgp_card.neighbor_precompute(gather_cases(data, torch.arange(BATCH)).to(dev))
+    pgp_sa = check_sa(pgp_card.module.geometry_encoder.set_abstraction, chain, gen, pk,
+                      len(PGP_RADIUS))
+    for i, k in enumerate(("sa_neighborhood", "sa_neighborhood_bwd")):
+        kernels[k]["at_pi_gano_pp_shape"] = {"neighbors": PGP_NEIGHBORS,
+                                             "widths": PGP_GEOMETRY[:len(PGP_RADIUS)],
+                                             **shape_timing(pgp_sa[i], pk),
+                                             **pgp_sa[i]["extra"]}
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], pgp_sa[i]["err"])
+    del pgp_card, chain
 
     # ---- 3g. FPS at PIPN++'s two levels, every case ---------------------------
     n_cent = [fps_count(N_BND, PP_FRACTION[0])]
     n_cent.append(fps_count(n_cent[0], PP_FRACTION[1]))
     add_entry("farthest_point_sampling", check_fps(data, n_cent), exact="indices equal")
 
-    # ---- 3h. pointnet_global and decoder_prop at PIPN++'s shapes -----------------
+    # ---- 3h. pointnet_global and decoder_prop at PIPN++'s shapes, and --------
+    # pointnet_global at PI-GANO++'s global level (its input needs dx too)
     pp_pn = check_pointnet(PP_GLOBAL[-1], n_cent[1], True, gen, "pipn_pp global")
     pp_dec = check_decoder(PP_SEG, PP_DROPOUT, gen, "pipn_pp")
-    shapes = {"pointnet_global": {"input": [BATCH, n_cent[1], PP_GLOBAL[-1][0]],
-                                  "widths": PP_GLOBAL[-1]},
-              "decoder_prop": {"widths": PP_SEG, "dropout": PP_DROPOUT}}
-    for key, pair in (("pointnet_global", pp_pn), ("decoder_prop", pp_dec)):
+    pgp_cent = fps_count(fps_count(N_BND, PGP_FRACTION[0]), PGP_FRACTION[1])
+    pgp_pn = check_pointnet(PGP_GEOMETRY[-1], pgp_cent, True, gen, "pi-gano-pp global")
+    for key, pair, at, shape in (
+            ("pointnet_global", pp_pn, "at_pipn_pp_shape",
+             {"input": [BATCH, n_cent[1], PP_GLOBAL[-1][0]], "widths": PP_GLOBAL[-1]}),
+            ("decoder_prop", pp_dec, "at_pipn_pp_shape",
+             {"widths": PP_SEG, "dropout": PP_DROPOUT}),
+            ("pointnet_global", pgp_pn, "at_pi_gano_pp_global_shape",
+             {"input": [BATCH, pgp_cent, PGP_GEOMETRY[-1][0]], "widths": PGP_GEOMETRY[-1]})):
         for i, k in enumerate((key, f"{key}_bwd")):
-            kernels[k]["at_pipn_pp_shape"] = {**shapes[key], **shape_timing(pair[i], pk),
-                                              **pair[i].get("extra", {})}
+            kernels[k][at] = {**shape, **shape_timing(pair[i], pk), **pair[i].get("extra", {})}
             kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], pair[i]["err"])
 
     # ---- 3i. decoder_prop's coupled modes at the pipn shape, real winners --------
@@ -1491,6 +1730,35 @@ def main() -> int:
                               counts(pointnet_global=2, pointnet_global_bwd=2,
                                      neural_ops_prop=2, neural_ops_prop_bwd=2),
                               name, smi, "pi-gano")
+    torch.cuda.empty_cache()
+
+    # ---- 6b, 7b. pi-gano-full: verbose prediction, then training ------------------
+    pgf_pred = prediction_phase("pi-gano-full", pi_gano_full_model(dev),
+                                pi_gano_full_model("cpu"), data, scalers, counters,
+                                counts(pointnet_global=2, neural_ops_prop=6,
+                                       neural_ops_prop_full=6), name, smi)
+    pgf_train = training_phase("pi-gano-full", pi_gano_full_model, data, counters,
+                               counts(pointnet_global=2, pointnet_global_bwd=2,
+                                      neural_ops_prop=6, neural_ops_prop_bwd=6,
+                                      neural_ops_prop_full=6, neural_ops_prop_full_bwd=6),
+                               name, smi, "pi-gano-full")
+    torch.cuda.empty_cache()
+
+    # ---- 6c, 7c. pi-gano-pp: the chain, verbose prediction, then training ---------
+    log("pi-gano-pp boundary chain, card against CPU:")
+    pgp_chain = check_chain(pi_gano_pp_model(dev), pi_gano_pp_model("cpu"), data,
+                            len(PGP_RADIUS), PGP_NEIGHBORS)
+    pgp_pred = prediction_phase("pi-gano-pp", pi_gano_pp_model(dev), pi_gano_pp_model("cpu"),
+                                data, scalers, counters,
+                                counts(sa_neighborhood=2, pointnet_global=2, neural_ops_prop=2),
+                                name, smi, per_evaluate=counts(farthest_point_sampling=2),
+                                share_aux=True)
+    pgp_train = training_phase("pi-gano-pp", pi_gano_pp_model, data, counters,
+                               counts(sa_neighborhood=2, sa_neighborhood_bwd=2,
+                                      pointnet_global=2, pointnet_global_bwd=2,
+                                      neural_ops_prop=2, neural_ops_prop_bwd=2),
+                               name, smi, "pi-gano-pp",
+                               want_attach=counts(farthest_point_sampling=2), share_aux=True)
     torch.cuda.empty_cache()
 
     # ---- 8, 9. pipn_pp: the chain, verbose prediction, then training ------------
@@ -1542,21 +1810,30 @@ def main() -> int:
 
     # ---- 14. manufactured solutions -----------------------------------------------
     ms_report = manufactured_phase(counters, counts, name, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 15. the duct_variable_boundary CLI, pi-gano-full ---------------------------
+    cli_report = cli_phase(name, smi)
 
     # launches on each kernel's main path (per training step; FPS per
     # attach_neighbors, the only place it runs), and per path; the ctx_width
-    # mode is on no path (the coupled path takes the j0_add mode), so its
-    # count is the coupled path's, 0
+    # mode and the trunk's single modes are on no path (the coupled path
+    # takes the j0_add mode, pi-gano-full both trunk modes at once), so their
+    # counts are those of the path nearest them, 0
     paths = {"pipn": (pipn_pred, pipn_train), "pi_gano": (pg_pred, pg_train),
+             "pi_gano_full": (pgf_pred, pgf_train), "pi_gano_pp": (pgp_pred, pgp_train),
              "pipn_pp": (pp_pred, pp_train), "pipn_coupled": (pc_pred, pc_train),
              "pipn_exact": (ex_pred, ex_train)}
     for k, kern in kernels.items():
-        main_path = ("pi_gano" if k.startswith("neural_ops") else
+        main_path = ("pi_gano_full" if k.startswith("neural_ops_prop_") and
+                     k != "neural_ops_prop_bwd" else
+                     "pi_gano" if k.startswith("neural_ops") else
                      "pipn_pp" if k.startswith(("sa_", "farthest")) else
                      "pipn_coupled" if k.startswith(("decoder_prop_j0", "decoder_prop_ctx"))
                      else "pipn")
         kern["main_path"] = main_path
-        if k.startswith("decoder_prop_ctx"):
+        if k.startswith(("decoder_prop_ctx", "neural_ops_prop_linear_last",
+                         "neural_ops_prop_no_reduction")):
             kern["on_a_path"] = False
         tr = paths[main_path][1]
         kern["launches"] = (tr["launches_per_attach"] if k == "farthest_point_sampling"
@@ -1570,6 +1847,11 @@ def main() -> int:
     log(json.dumps({"train": pipn_train}))
     log(json.dumps({"pi_gano_slice": pg_pred}))
     log(json.dumps({"pi_gano_train": pg_train}))
+    log(json.dumps({"pi_gano_full_slice": pgf_pred}))
+    log(json.dumps({"pi_gano_full_train": pgf_train}))
+    log(json.dumps({"pi_gano_pp_chain": pgp_chain}))
+    log(json.dumps({"pi_gano_pp_slice": pgp_pred}))
+    log(json.dumps({"pi_gano_pp_train": pgp_train}))
     log(json.dumps({"pipn_pp_chain": pp_chain}))
     log(json.dumps({"pipn_pp_slice": pp_pred}))
     log(json.dumps({"pipn_pp_train": pp_train}))
@@ -1579,11 +1861,13 @@ def main() -> int:
     log(json.dumps({"pipn_exact_slice": ex_pred}))
     log(json.dumps({"pipn_exact_train": ex_train}))
     log(json.dumps({"manufactured": ms_report}))
+    log(json.dumps({"cli": cli_report}))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -20,7 +20,6 @@ from torch import nn
 
 from porous_cfd_tpu_torch.data.foam_data import FoamData
 from porous_cfd_tpu_torch.data.scalers import StandardScaler
-from porous_cfd_tpu_torch.device import not_ported
 
 
 def predicted_labels(dims: int) -> dict:
@@ -73,6 +72,9 @@ class PinnModel:
     :param microbatch/remat: gradient accumulation and rematerialisation
         (the U-Net variants' memory knobs); not ported, and training raises
         when either is set.
+    :param eval_dtype: the compute type of the forward-only surfaces
+        (validation, non-verbose prediction), set by ``with_precision``;
+        None is f32. Training and every derivative graph stay f32.
     """
     module: nn.Module
     dims: int
@@ -88,11 +90,14 @@ class PinnModel:
     neighbor_precompute: Optional[Any] = None
     remat: bool = False
     microbatch: Optional[int] = None
+    eval_dtype: Optional[torch.dtype] = None
 
     def with_precision(self, precision: str) -> "PinnModel":
-        if str(precision).startswith("bf16"):
-            raise not_ported("--precision bf16-mixed")
-        return self
+        """The ``--precision`` flag on the forward-only surfaces: ``bf16*``
+        runs their matmuls in bfloat16 (``torch.autocast``) with f32
+        parameters; anything else is f32 throughout."""
+        dtype = torch.bfloat16 if str(precision).startswith("bf16") else None
+        return dataclasses.replace(self, eval_dtype=dtype)
 
     def attach_neighbors(self, dataset: FoamData) -> FoamData:
         """Merge the model's precomputed per-case aux (keys starting with

@@ -1,18 +1,24 @@
-"""PI-GANO model (counterpart of ``porous_cfd_tpu/models/pi_gano.py``):
-geometry-aware branch/trunk neural operator for variable inlet conditions.
+"""PI-GANO models (counterpart of ``porous_cfd_tpu/models/pi_gano.py``):
+geometry-aware branch/trunk neural operators for variable inlet conditions.
 
 A geometry encoder (max-pooled MLP on [boundaryId || sdf || C]) and a branch
 net (max-pooled MLP on the variable-boundary features) give two per-case
 embeddings; a points encoder MLP feeds a NeuralOperator trunk whose first
 layer also takes the geometry embedding and whose every layer is multiplied
 by the branch embedding; a linear reduction gives [Ux, Uy, (Uz), p].
+``PiGanoFull`` (``full=True``) has one trunk per output instead, its last
+operator linear, each summed over its features. PI-GANO++ pools its geometry
+embedding with a SetAbstraction chain over the boundary points.
 
-The analytic derivative path runs three CUDA kernels' launches on the card:
+The analytic derivative path runs the CUDA kernels on the card:
 ``pointnet_global`` for the geometry and branch embeddings (value-only pooled
-context) and ``neural_ops_prop`` (the fused (v, J, H) trunk and reduction
-with dropout, internal and boundary launches); under autograd their backward
-kernels carry the gradients. ``PiGanoFull``, PI-GANO++ and the exact
-autodiff path are not ported yet.
+context; PI-GANO++'s global SetAbstraction level too), ``sa_neighborhood``
+for PI-GANO++'s radius levels on a chain precomputed once per dataset, and
+``neural_ops_prop`` (the fused (v, J, H) trunk with dropout, internal and
+boundary launches: with the reduction, or, for each of PiGanoFull's trunks,
+without it and with a linear last operator); under autograd their backward
+kernels carry the gradients. The exact autodiff path and PI-GANO++ full are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -26,8 +32,11 @@ from porous_cfd_tpu_torch.device import not_ported, resolve_device
 from porous_cfd_tpu_torch.models.base import PinnModel
 from porous_cfd_tpu_torch.models.mlp import (MLP, Branch, GeometryEncoder,
                                              NeuralOperatorSequential, dense)
-from porous_cfd_tpu_torch.models.pipn import _pointnet_global_dispatch
-from porous_cfd_tpu_torch.ops import neural_op_cuda
+from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors
+from porous_cfd_tpu_torch.models.pipn import (_boundary_sa_precompute, _geometry_features,
+                                              _pointnet_global_dispatch)
+from porous_cfd_tpu_torch.models.set_abstraction import GeometryEncoderPp
+from porous_cfd_tpu_torch.ops import neural_op_cuda, sa_cuda
 from porous_cfd_tpu_torch.physics import analytic
 from porous_cfd_tpu_torch.physics.losses import (ContinuityLossStandardized,
                                                  MomentumLossVariable)
@@ -47,8 +56,9 @@ def gather_parameters(batch: FoamData, variable_boundaries: VariableBoundaries):
 
 
 class PiGanoModule(nn.Module):
-    """PI-GANO forward. ``full=True`` (one trunk per output, sum-reduced) is
-    not ported."""
+    """PI-GANO forward. With ``full`` (PiGanoFull) one trunk per output,
+    ``neural_ops_{k}``, whose last operator is linear and whose features are
+    summed, in place of one trunk and a reduction."""
 
     def __init__(self, out_features: int, branch_layers: Sequence[int],
                  geometry_layers: Sequence[int], local_layers: Sequence[int],
@@ -56,8 +66,7 @@ class PiGanoModule(nn.Module):
                  variable_boundaries: VariableBoundaries, activation: str = "silu",
                  full: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if full:
-            raise not_ported("PiGanoFull (full=True)")
+        self.full = full
         self.out_features = out_features
         self.branch_layers = tuple(branch_layers)
         self.geometry_layers = tuple(geometry_layers)
@@ -70,15 +79,74 @@ class PiGanoModule(nn.Module):
         self.geometry_encoder = GeometryEncoder(geometry_layers, activation, generator)
         self.points_encoder = MLP(local_layers, None, activation, generator=generator)
         self.branch = Branch(branch_layers, activation, generator)
-        self.neural_ops = NeuralOperatorSequential(n_operators, n_feat, operator_dropout,
-                                                   activation, generator=generator)
-        self.reduction = dense(n_feat, out_features, generator)
+        if full:
+            for k in range(out_features):
+                self.add_module(f"neural_ops_{k}", NeuralOperatorSequential(
+                    n_operators, n_feat, operator_dropout, activation, last_activation=False,
+                    generator=generator))
+        else:
+            self.neural_ops = NeuralOperatorSequential(n_operators, n_feat, operator_dropout,
+                                                       activation, generator=generator)
+            self.reduction = dense(n_feat, out_features, generator)
+
+    @property
+    def trunks(self) -> list[NeuralOperatorSequential]:
+        """PiGanoFull's per-output trunks."""
+        return [getattr(self, f"neural_ops_{k}") for k in range(self.out_features)]
 
     def forward(self, points, batch: FoamData, deterministic: bool = True):
         geom_in = torch.cat([batch["boundaryId"], batch["sdf"]], dim=-1)
         param_features = gather_parameters(batch, self.variable_boundaries)
         # the geometry encoder sees the coordinates without a gradient
         geom = self.geometry_encoder(geom_in, points.detach(), deterministic)
+        local = self.points_encoder(points, deterministic)
+        geom = geom.expand(*local.shape[:-1], geom.shape[-1])
+        par = self.branch(param_features, deterministic)
+        operator_in = torch.cat([local, geom], dim=-1)
+        if self.full:
+            return torch.cat([trunk(operator_in, par, deterministic).sum(-1, keepdim=True)
+                              for trunk in self.trunks], dim=-1)
+        return self.reduction(self.neural_ops(operator_in, par, deterministic))
+
+
+class PiGanoPpModule(nn.Module):
+    """PI-GANO++ forward: the geometry encoder is a SetAbstraction chain over
+    the boundary points with ``[C || boundaryId]`` features, ending in a
+    global level."""
+
+    def __init__(self, out_features: int, branch_layers: Sequence[int],
+                 geometry_layers: Sequence[Sequence[int]], geometry_radius: Sequence[float],
+                 geometry_fraction: Sequence[float], local_layers: Sequence[int],
+                 n_operators: int, operator_dropout: Sequence[float],
+                 variable_boundaries: VariableBoundaries, activation: str = "silu",
+                 max_neighbors: int = 64, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.out_features = out_features
+        self.geometry_radius = tuple(geometry_radius)
+        self.geometry_fraction = tuple(geometry_fraction)
+        self.local_layers = tuple(local_layers)
+        self.n_operators = n_operators
+        self.operator_dropout = tuple(float(r) for r in operator_dropout)
+        self.variable_boundaries = variable_boundaries
+        self.activation = activation
+        self.max_neighbors = max_neighbors
+        n_feat = geometry_layers[-1][-1] + local_layers[-1]
+        self.geometry_encoder = GeometryEncoderPp(geometry_fraction, geometry_radius,
+                                                  geometry_layers, activation, max_neighbors,
+                                                  generator)
+        self.points_encoder = MLP(local_layers, None, activation, generator=generator)
+        self.branch = Branch(branch_layers, activation, generator)
+        self.neural_ops = NeuralOperatorSequential(n_operators, n_feat, operator_dropout,
+                                                   activation, generator=generator)
+        self.reduction = dense(n_feat, out_features, generator)
+
+    def forward(self, points, batch: FoamData, deterministic: bool = True):
+        param_features = gather_parameters(batch, self.variable_boundaries)
+        boundary = batch["boundary"]
+        b_pos = boundary["C"].detach()
+        nbrs = extract_sa_neighbors(batch.domain, len(self.geometry_radius))
+        geom = self.geometry_encoder(_geometry_features(boundary).detach(), b_pos,
+                                     deterministic, nbrs)
         local = self.points_encoder(points, deterministic)
         geom = geom.expand(*local.shape[:-1], geom.shape[-1])
         par = self.branch(param_features, deterministic)
@@ -117,14 +185,64 @@ def pi_gano_apply_with_derivatives(module: PiGanoModule):
             par_features = gather_parameters(batch, module.variable_boundaries)
         par = _pointnet_global_dispatch(module.branch.linear, par_features, act)
 
-        linears = module.points_encoder.linears
-        j0, h0 = analytic.identity_jacobian_t(x_int)
-        lv, ljt, lht = analytic.mlp_prop_t(linears, x_int, j0, h0, act)
-        lv_b = analytic.mlp_value(linears, x_bnd, act)
-        return neural_op_cuda.neural_ops_prop(
-            module.neural_ops.linears, module.reduction, lv.shape[-1], lv.contiguous(),
-            ljt.contiguous(), lht.contiguous(), lv_b.contiguous(), geom.contiguous(),
-            par.contiguous(), act, module.operator_dropout, deterministic, seed)
+        return _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed, module.full)
+
+    return fn
+
+
+def _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed, full=False):
+    """The points encoder's (v, J, H) and the trunk through
+    ``neural_ops_prop``: (out_full, jac, lap) with jac/lap (..., Ni, O, D).
+    PiGanoFull (``full``) runs each output's trunk without a reduction and with its
+    last operator linear, and sums its features; every trunk takes the
+    step's one seed (the JAX path hands each the same key), so all three
+    draw the same masks."""
+    act = module.activation
+    linears = module.points_encoder.linears
+    j0, h0 = analytic.identity_jacobian_t(x_int)
+    lv, ljt, lht = analytic.mlp_prop_t(linears, x_int, j0, h0, act)
+    lv_b = analytic.mlp_value(linears, x_bnd, act)
+    args = (lv.shape[-1], lv.contiguous(), ljt.contiguous(), lht.contiguous(),
+            lv_b.contiguous(), geom.contiguous(), par.contiguous(), act,
+            module.operator_dropout, deterministic, seed)
+    if not full:
+        return neural_op_cuda.neural_ops_prop(module.neural_ops.linears, module.reduction,
+                                              *args)
+    outs = [neural_op_cuda.neural_ops_prop(trunk.linears, None, *args, last_activation=False)
+            for trunk in module.trunks]
+    return (torch.cat([v.sum(-1, keepdim=True) for v, _, _ in outs], dim=-1),
+            torch.cat([j.sum(-2, keepdim=True) for _, j, _ in outs], dim=-2),
+            torch.cat([h.sum(-2, keepdim=True) for _, _, h in outs], dim=-2))
+
+
+def pi_gano_pp_apply_with_derivatives(module: PiGanoPpModule):
+    """The analytic derivative path of a PiGanoPpModule, with the signature
+    of ``pi_gano_apply_with_derivatives``'s. The geometry embedding pools
+    over the boundary points, which are not differentiated, so it is a
+    per-case context exactly: the SetAbstraction chain runs value-only
+    (``sa_cuda.sa_seq_fused``) on the dataset's precomputed chain
+    (``attach_neighbors``). Without an attached chain a CPU batch builds one
+    here; a batch on the card raises, as PIPN++'s path does."""
+    precompute = _boundary_sa_precompute(module.geometry_fraction, module.geometry_radius,
+                                         module.max_neighbors)
+    n_levels = len(module.geometry_radius)
+
+    def fn(batch: FoamData, deterministic: bool = True, seed=None):
+        internal_view, boundary_view = split_contiguous(batch)
+        x_int = internal_view["C"]
+        x_bnd = boundary_view["C"]
+        act = module.activation
+        nbrs = extract_sa_neighbors(batch.domain, n_levels)
+        if nbrs is None:
+            if x_bnd.device.type != "cpu":
+                raise ValueError("pi_gano_pp: the batch holds no SetAbstraction chain; attach "
+                                 "it once per dataset with model.attach_neighbors(dataset)")
+            nbrs = extract_sa_neighbors(precompute(batch), n_levels)
+        geom = sa_cuda.sa_seq_fused(module.geometry_encoder.set_abstraction, act,
+                                    _geometry_features(boundary_view), nbrs)
+        par_features = gather_parameters(batch, module.variable_boundaries)
+        par = _pointnet_global_dispatch(module.branch.linear, par_features, act)
+        return _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed)
 
     return fn
 
@@ -160,10 +278,10 @@ def pi_gano(nu: float, out_features: int, branch_layers, geometry_layers, local_
             variable_boundaries: VariableBoundaries, activation: str = "silu",
             full: bool = False, fast_derivatives: bool = True,
             generator: Optional[torch.Generator] = None, device=None) -> PinnModel:
-    """PI-GANO on ``device`` (the CUDA card unless ``"cpu"`` is asked for).
-    Only the analytic derivative path is ported, so ``fast_derivatives``
-    defaults to True here (the JAX factory's default, False, selects the
-    exact autodiff path); ``full=True`` is not ported."""
+    """PI-GANO, or with ``full`` PiGanoFull, on ``device`` (the CUDA card
+    unless ``"cpu"`` is asked for). Only the analytic derivative path is
+    ported, so ``fast_derivatives`` defaults to True here (the JAX factory's
+    default, False, selects the exact autodiff path)."""
     if not fast_derivatives:
         raise not_ported("the exact autodiff derivative path (fast_derivatives=False)")
     device = resolve_device(device)
@@ -175,9 +293,28 @@ def pi_gano(nu: float, out_features: int, branch_layers, geometry_layers, local_
                           _gano_inputs_precompute(variable_boundaries))
 
 
-def pi_gano_pp(*args, **kwargs):
-    """PI-GANO++ needs the SetAbstraction geometry encoder."""
-    raise not_ported("pi_gano_pp (PI-GANO++)")
+def pi_gano_pp(nu: float, out_features: int, branch_layers, geometry_layers,
+               geometry_radius, geometry_fraction, local_layers, n_operators: int,
+               operator_dropout, scalers: dict, variable_boundaries: VariableBoundaries,
+               activation: str = "silu", max_neighbors: int = 64,
+               fast_derivatives: bool = True, generator: Optional[torch.Generator] = None,
+               device=None) -> PinnModel:
+    """PI-GANO++ on ``device`` (the CUDA card unless ``"cpu"`` is asked
+    for). Its analytic path is exact for this family and the only one
+    ported. ``attach_neighbors`` builds the boundary cloud's
+    SetAbstraction chain, ``[C || boundaryId]`` features first, once per
+    dataset."""
+    if not fast_derivatives:
+        raise not_ported("the exact autodiff derivative path (fast_derivatives=False)")
+    device = resolve_device(device)
+    module = PiGanoPpModule(out_features, branch_layers, geometry_layers, geometry_radius,
+                            geometry_fraction, local_layers, n_operators, operator_dropout,
+                            variable_boundaries, activation, max_neighbors,
+                            generator).to(device)
+    return _pi_gano_model(module, out_features - 1, nu, scalers, device,
+                          pi_gano_pp_apply_with_derivatives(module),
+                          _boundary_sa_precompute(geometry_fraction, geometry_radius,
+                                                  max_neighbors))
 
 
 def pi_gano_pp_full(*args, **kwargs):

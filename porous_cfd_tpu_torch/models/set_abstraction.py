@@ -12,8 +12,9 @@ sa_seq_fused``). Submodule names are the flax ones (``sa_{i}/conv_mlp``,
 
 The JAX package's semantics notes hold: relative positions are
 ``(pos_j - pos_i) / r``, FPS starts at index 0, and an empty neighbourhood
-gives 0. The U-Net blocks (FeaturePropagation), the MRG encoder and
-``k_chunks`` are not ported yet.
+gives 0. ``GeometryEncoderPp`` is PI-GANO++'s geometry encoder. The U-Net
+blocks (FeaturePropagation), the MRG encoder and ``k_chunks`` are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -118,3 +119,19 @@ class PointNetFeatureExtractPp(nn.Module):
         local = self.local_feature(global_pos, deterministic)
         g, _ = self.global_feature(geom_features, geom_pos, deterministic, neighbors)
         return local, g
+
+
+class GeometryEncoderPp(nn.Module):
+    """PI-GANO++ geometry encoder: a SetAbstractionSeq ``set_abstraction``
+    ending in a global level, one descriptor (B, 1, F) per cloud."""
+
+    def __init__(self, fraction: Sequence[float], radius: Sequence[float],
+                 conv_mlp: Sequence[Sequence[int]], activation: str = "silu",
+                 max_neighbors: int = 64, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.set_abstraction = SetAbstractionSeq(fraction, radius, conv_mlp, activation,
+                                                 max_neighbors, generator)
+
+    def forward(self, x, pos, deterministic: bool = True, neighbors=None):
+        g, _ = self.set_abstraction(x, pos, deterministic, neighbors)
+        return g

@@ -6,6 +6,20 @@
 // multiplied per case by a vector par (B, F) after its dropout, and the
 // backward adds up the per-case cotangent dpar.
 //
+// Two launch-time modes serve the trunk of PiGanoFull (neural_op_prop.cu;
+// the decoder uses neither). The first n_act layers are the "operators":
+// dense, activation rules, dropout and modulation, through the block GEMM.
+// With a reduction (n_act = n_layers - 1) the last layer is linear (the
+// dot-product epilogue); without one (reduce = false, n_act = n_layers) the
+// last operator's (v, J, H) go straight from its epilogue to ov/oj/oh, F
+// wide. With last_linear the last operator takes the identity's rules (val
+// = z, d1 = 1, d2 = d3 = 0) in place of the activation's: a linear operator
+// that is still dropped out and modulated. Only the MODES instantiations
+// (MOD's alone) test these flags; the default mode's launches go to
+// instantiations whose epilogues carry none of their branches: on an H100
+// the branches cost the default trunk's internal launches 3% forward and
+// 8% backward.
+//
 // Forward design: with D = 2 every point carries 1 + 2D = 5 rows. A block
 // holds 40 rows: in the internal launch 8 points x 5 components, row comp * 8
 // + point. common.cuh's block_gemm gives each thread the rows i * 8 + p for
@@ -76,14 +90,19 @@ struct Stash {
   float* z[kMaxLayers];
 };
 
-template <int D, int ACT, bool DERIV, bool MOD>
+// the operators' count: every layer but the reduction, or (MODES) all of them
+inline __host__ __device__ int operators(int n_layers, bool reduce) {
+  return reduce ? n_layers - 1 : n_layers;
+}
+
+template <int D, int ACT, bool DERIV, bool MOD, bool MODES>
 __global__ void __launch_bounds__(kThreads)
     mlp_prop_fwd(const float* __restrict__ v, const float* __restrict__ jt,
                  const float* __restrict__ ht, const float* __restrict__ ja,
                  const float* __restrict__ ha, int lv, int n_pts, const float* __restrict__ ctx,
                  const float* __restrict__ par, Mlp mlp, Dropout dr, Stash st, int bw0, int bw1,
                  float* __restrict__ ov, int ov_rows, int ov_row0, float* __restrict__ oj,
-                 float* __restrict__ oh) {
+                 float* __restrict__ oh, bool reduce, bool last_linear) {
   constexpr int kComps = 1 + 2 * D;          // rows per point with derivatives
   constexpr int kRows = kComps * kWarps;     // rows of the block's tile
   constexpr int kPoints = DERIV ? kWarps : kRows;
@@ -124,9 +143,13 @@ __global__ void __launch_bounds__(kThreads)
 
   int cur = 0;
   const int nl = mlp.n_layers;
-  for (int li = 0; li < nl - 1; ++li) {
+  const bool no_red = MODES && !reduce;
+  const int n_act = operators(nl, !no_red);
+  for (int li = 0; li < n_act; ++li) {
     Layer L = mlp.layer[li];
     if (li == 0) L.k = lv;                   // the context columns follow below
+    const bool lin = MODES && last_linear && li == n_act - 1;  // identity rules
+    const bool last = no_red && li == nl - 1;  // outputs to ov/oj/oh
     const float* A = buf[cur];
     float* out = buf[cur ^ 1];
     const int lda = padded(L.k);
@@ -135,7 +158,7 @@ __global__ void __launch_bounds__(kThreads)
     const float* bias_row = (li == 0) ? ctx + (size_t)b * f1 : L.b;
     const float* par_row = MOD ? par + (size_t)b * L.n : nullptr;
     float* za = stash ? st.z[li] : nullptr;
-    float* an = stash ? st.a[li + 1] : nullptr;
+    float* an = (stash && !last) ? st.a[li + 1] : nullptr;
     for (int n0 = 0; n0 < L.n; n0 += kChunkN) {
       float acc[kComps][4];
       block_gemm<kComps>(acc, A, lda, L, n0, w_tiles);
@@ -180,8 +203,10 @@ __global__ void __launch_bounds__(kThreads)
         const int n = n0 + col + j;
         if (n >= n_pad) continue;
         if (n >= L.n) {  // padding columns of the next layer's input
+          if (!last) {
 #pragma unroll
-          for (int i = 0; i < kComps; ++i) out[(i * kWarps + p) * ldo + n] = 0.f;
+            for (int i = 0; i < kComps; ++i) out[(i * kWarps + p) * ldo + n] = 0.f;
+          }
           continue;
         }
         const float bias = bias_row[n];
@@ -190,14 +215,22 @@ __global__ void __launch_bounds__(kThreads)
           const int pt = pt0 + p;
           const size_t g0 = ((size_t)b * n_pts + pt) * C;
           const bool keep_row = stash && pt < n_pts;
+          const bool store = last && pt < n_pts;
           float val, d1, d2;
           const float z = acc[0][j] + bias;
-          act_rules<ACT>(z, val, d1, d2);
+          if (lin) {
+            val = z;
+            d1 = 1.f;
+            d2 = 0.f;
+          } else {
+            act_rules<ACT>(z, val, d1, d2);
+          }
           const float mk = m[0][j] * pm;
-          out[p * ldo + n] = val * mk;
+          if (!last) out[p * ldo + n] = val * mk;
+          if (store) ov[((size_t)b * ov_rows + ov_row0 + pt) * L.n + n] = val * mk;
           if (keep_row) {
             za[g0 * L.n + n] = z;
-            an[g0 * L.n + n] = val * mk;
+            if (!last) an[g0 * L.n + n] = val * mk;
           }
 #pragma unroll
           for (int d = 0; d < D; ++d) {
@@ -210,13 +243,21 @@ __global__ void __launch_bounds__(kThreads)
             }
             const float oj_ = d1 * zj * mk;
             const float oh_ = (d2 * zj * zj + d1 * zh) * mk;
-            out[((1 + d) * kWarps + p) * ldo + n] = oj_;
-            out[((1 + D + d) * kWarps + p) * ldo + n] = oh_;
+            if (!last) {
+              out[((1 + d) * kWarps + p) * ldo + n] = oj_;
+              out[((1 + D + d) * kWarps + p) * ldo + n] = oh_;
+            }
+            if (store) {
+              oj[(((size_t)b * n_pts + pt) * L.n + n) * D + d] = oj_;
+              oh[(((size_t)b * n_pts + pt) * L.n + n) * D + d] = oh_;
+            }
             if (keep_row) {
               za[(g0 + 1 + d) * L.n + n] = zj;
               za[(g0 + 1 + D + d) * L.n + n] = zh;
-              an[(g0 + 1 + d) * L.n + n] = oj_;
-              an[(g0 + 1 + D + d) * L.n + n] = oh_;
+              if (!last) {
+                an[(g0 + 1 + d) * L.n + n] = oj_;
+                an[(g0 + 1 + D + d) * L.n + n] = oh_;
+              }
             }
           }
         } else {
@@ -224,11 +265,14 @@ __global__ void __launch_bounds__(kThreads)
           for (int i = 0; i < kComps; ++i) {
             const int pt = pt0 + i * kWarps + p;
             const float z = acc[i][j] + bias;
-            const float a = act_value<ACT>(z) * (m[DERIV ? 0 : i][j] * pm);
-            out[(i * kWarps + p) * ldo + n] = a;
-            if (stash && pt < n_pts) {
-              za[((size_t)b * n_pts + pt) * L.n + n] = z;
-              an[((size_t)b * n_pts + pt) * L.n + n] = a;
+            const float a = (lin ? z : act_value<ACT>(z)) * (m[DERIV ? 0 : i][j] * pm);
+            if (!last) out[(i * kWarps + p) * ldo + n] = a;
+            if (pt < n_pts) {
+              if (stash) {
+                za[((size_t)b * n_pts + pt) * L.n + n] = z;
+                if (!last) an[((size_t)b * n_pts + pt) * L.n + n] = a;
+              }
+              if (last) ov[((size_t)b * ov_rows + ov_row0 + pt) * L.n + n] = a;
             }
           }
         }
@@ -236,6 +280,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     cur ^= 1;
   }
+  if (no_red) return;
 
   // last layer (linear, a few outputs): one dot product per (row, output)
   const Layer L = mlp.layer[nl - 1];
@@ -269,14 +314,15 @@ __global__ void __launch_bounds__(kThreads)
 // receives layer i's dpar addends, one row per point. dv rows hold the lv
 // local columns; dja/dha (j0_add mode, else null) receive the J/H rows of
 // GZ_0 as (n_cases, D, n_pts, F1).
-template <int D, int ACT, bool DERIV, bool MOD>
+template <int D, int ACT, bool DERIV, bool MOD, bool MODES>
 __global__ void __launch_bounds__(kThreads)
     mlp_prop_bwd_rows(const float* __restrict__ gv, int ov_rows, int ov_row0,
                       const float* __restrict__ gj, const float* __restrict__ gh, int n_pts,
                       const float* __restrict__ par, Mlp wt, Dropout dr, Stash st, Stash gzs,
                       Stash dps, int bw0, int bw1, int lv, float* __restrict__ dv,
                       float* __restrict__ djt, float* __restrict__ dht,
-                      float* __restrict__ dja, float* __restrict__ dha) {
+                      float* __restrict__ dja, float* __restrict__ dha, bool reduce,
+                      bool last_linear) {
   constexpr int kComps = 1 + 2 * D;
   constexpr int kRows = kComps * kWarps;
   constexpr int kPoints = DERIV ? kWarps : kRows;
@@ -290,7 +336,11 @@ __global__ void __launch_bounds__(kThreads)
   const int p = row_slot();
   const int col = first_col();
   const int nl = wt.n_layers;
-  const int n_out = wt.layer[nl - 1].k;       // O
+  const int n_out = wt.layer[nl - 1].k;       // O, or F without a reduction
+  // without a reduction the staged cotangents are GA of the last operator,
+  // whose rules a first step (li = nl, no GEMM) applies
+  const bool no_red = MODES && !reduce;
+  const int n_act = operators(nl, !no_red);
 
   // stage the output cotangents (GZ of the linear last layer)
   {
@@ -310,15 +360,17 @@ __global__ void __launch_bounds__(kThreads)
         } else {
           val = gh[(((size_t)b * n_pts + pt) * n_out + c) * D + comp - 1 - D];
         }
-        gzl[(((size_t)b * n_pts + pt) * C + comp) * n_out + c] = val;
+        if (!no_red) gzl[(((size_t)b * n_pts + pt) * C + comp) * n_out + c] = val;
       }
       buf[0][e] = val;
     }
   }
 
   int cur = 0;
-  for (int li = nl - 1; li >= 0; --li) {
-    const Layer L = wt.layer[li];             // k = n_li (GZ width), n = k_li
+  for (int li = no_red ? nl : nl - 1; li >= 0; --li) {
+    const bool pre = no_red && li == nl;       // GA_nl is the staged rows
+    // k = n_li (GZ width), n = k_li
+    const Layer L = pre ? Layer{nullptr, nullptr, n_out, n_out, n_out} : wt.layer[li];
     const float* A = buf[cur];
     float* out = buf[cur ^ 1];
     const int lda = padded(L.k);
@@ -329,9 +381,21 @@ __global__ void __launch_bounds__(kThreads)
     float* gz = li > 0 ? gzs.a[lz] : nullptr;
     const float* par_row = MOD ? par + (size_t)b * L.n : nullptr;
     float* dpr = (MOD && li > 0) ? dps.a[lz] : nullptr;
+    const bool lin = MODES && last_linear && lz == n_act - 1;  // identity rules
     for (int n0 = 0; n0 < L.n; n0 += kChunkN) {
       float acc[kComps][4];
-      block_gemm<kComps>(acc, A, lda, L, n0, w_tiles);
+      if (pre) {
+        __syncthreads();  // the staged rows are complete
+#pragma unroll
+        for (int i = 0; i < kComps; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = n0 + col + j;
+            acc[i][j] = n < L.n ? A[(i * kWarps + p) * lda + n] : 0.f;
+          }
+      } else {
+        block_gemm<kComps>(acc, A, lda, L, n0, w_tiles);
+      }
       if (li == 0) {  // input cotangents: dv, djt, dht
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -381,10 +445,16 @@ __global__ void __launch_bounds__(kThreads)
           const float mke = mk * pm;
           const float zv = z[g0 * L.n + n];
           float d1, d2, d3;
-          act_rules3<ACT>(zv, d1, d2, d3);
+          if (lin) {
+            d1 = 1.f;
+            d2 = 0.f;
+            d3 = 0.f;
+          } else {
+            act_rules3<ACT>(zv, d1, d2, d3);
+          }
           float gzv = acc[0][j] * mke * d1;
           // dpar addend: GA against the pre-modulation (v, J, H) of the point
-          float dp = MOD ? acc[0][j] * act_value<ACT>(zv) : 0.f;
+          float dp = MOD ? acc[0][j] * (lin ? zv : act_value<ACT>(zv)) : 0.f;
 #pragma unroll
           for (int d = 0; d < D; ++d) {
             const float zj = z[(g0 + 1 + d) * L.n + n];
@@ -417,9 +487,9 @@ __global__ void __launch_bounds__(kThreads)
               const size_t g0 = (size_t)b * n_pts + pt;
               const float zv = z[g0 * L.n + n];
               const float mi = m[DERIV ? 0 : i][j];
-              g = acc[i][j] * (mi * pm) * act_d1<ACT>(zv);
+              g = acc[i][j] * (mi * pm) * (lin ? 1.f : act_d1<ACT>(zv));
               gz[g0 * L.n + n] = g;
-              if (MOD) dpr[g0 * L.n + n] = acc[i][j] * act_value<ACT>(zv) * mi;
+              if (MOD) dpr[g0 * L.n + n] = acc[i][j] * (lin ? zv : act_value<ACT>(zv)) * mi;
             }
             out[(i * kWarps + p) * ldo + n] = g;
           }
@@ -441,9 +511,11 @@ struct PropArgs {
   const float* ha;
   float* dja;                                  // and their cotangents
   float* dha;
+  bool reduce;                                 // the trunk's modes (MOD only)
+  bool last_linear;
 };
 
-template <int D, int ACT, bool DERIV, bool MOD>
+template <int D, int ACT, bool DERIV, bool MOD, bool MODES>
 int launch_prop_fwd(const float* v, const float* jt, const float* ht, const float* ctx,
                     const PropArgs& a, float* ov, float* oj, float* oh, cudaStream_t s) {
   constexpr int kRows = (1 + 2 * D) * kWarps;
@@ -458,76 +530,87 @@ int launch_prop_fwd(const float* v, const float* jt, const float* ht, const floa
   if (ctx_cols) bw0 = max(bw0, padded(a.lv) + padded(kCtxChunk));
   const size_t smem = sizeof(float) * ((size_t)kRows * (bw0 + bw1) + 2 * kWTileFloats);
   if (smem > (size_t)max_shared_bytes()) return (int)cudaErrorInvalidValue;
-  auto kernel = mlp_prop_fwd<D, ACT, DERIV, MOD>;
+  auto kernel = mlp_prop_fwd<D, ACT, DERIV, MOD, MODES>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((a.n_pts + kPoints - 1) / kPoints, a.n_cases);
   kernel<<<grid, kThreads, smem, s>>>(v, jt, ht, a.ja, a.ha, a.lv, a.n_pts, ctx, a.par, a.mlp,
-                                      a.dr, a.st, bw0, bw1, ov, a.ov_rows, a.ov_row0, oj, oh);
+                                      a.dr, a.st, bw0, bw1, ov, a.ov_rows, a.ov_row0, oj, oh,
+                                      a.reduce, a.last_linear);
   return (int)cudaGetLastError();
 }
 
-template <int D, int ACT, bool DERIV, bool MOD>
+template <int D, int ACT, bool DERIV, bool MOD, bool MODES>
 int launch_prop_bwd(const float* gv, const float* gj, const float* gh, const PropArgs& a,
                     const Mlp& wt, const Stash& gzs, const Stash& dps, float* dv, float* djt,
                     float* dht, cudaStream_t s) {
   constexpr int kRows = (1 + 2 * D) * kWarps;
   constexpr int kPoints = DERIV ? kWarps : kRows;
-  // buffer 0 holds the GZ of layers nl-1, nl-3, ...; buffer 1 the others
+  // step li reads buffer (top - li) & 1: buffer 0 holds the staged rows and
+  // the GZ of layers top-2, top-4, ...; buffer 1 the others (top = nl - 1,
+  // or nl for the first, GEMM-less step of the no-reduction mode)
   int bw[2] = {0, 0};
   const int nl = wt.n_layers;
-  for (int li = nl - 1; li >= 0; --li) {
-    const int in_buf = (nl - 1 - li) & 1;
-    bw[in_buf] = max(bw[in_buf], padded(wt.layer[li].k));
-    if (li > 0) bw[in_buf ^ 1] = max(bw[in_buf ^ 1], padded(wt.layer[li].n));
+  const int top = a.reduce ? nl - 1 : nl;
+  const int n_out = wt.layer[nl - 1].k;
+  for (int li = top; li >= 0; --li) {
+    const int in_buf = (top - li) & 1;
+    bw[in_buf] = max(bw[in_buf], padded(li == nl ? n_out : wt.layer[li].k));
+    if (li > 0) bw[in_buf ^ 1] = max(bw[in_buf ^ 1], padded(li == nl ? n_out : wt.layer[li].n));
   }
   const size_t smem = sizeof(float) * ((size_t)kRows * (bw[0] + bw[1]) + 2 * kWTileFloats);
   if (smem > (size_t)max_shared_bytes()) return (int)cudaErrorInvalidValue;
-  auto kernel = mlp_prop_bwd_rows<D, ACT, DERIV, MOD>;
+  auto kernel = mlp_prop_bwd_rows<D, ACT, DERIV, MOD, MODES>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((a.n_pts + kPoints - 1) / kPoints, a.n_cases);
   kernel<<<grid, kThreads, smem, s>>>(gv, a.ov_rows, a.ov_row0, gj, gh, a.n_pts, a.par, wt, a.dr,
                                       a.st, gzs, dps, bw[0], bw[1], a.lv, dv, djt, dht, a.dja,
-                                      a.dha);
+                                      a.dha, a.reduce, a.last_linear);
   return (int)cudaGetLastError();
 }
 
-#define PCT_PROP_DISPATCH(FN, MOD, ...)                                      \
+#define PCT_PROP_DISPATCH(FN, MOD, MODES, ...)                               \
   switch (d_dims * 4 + act * 2 + (deriv ? 1 : 0)) {                          \
-    case 4: return FN<1, kSilu, false, MOD>(__VA_ARGS__);                    \
-    case 5: return FN<1, kSilu, true, MOD>(__VA_ARGS__);                     \
-    case 6: return FN<1, kTanh, false, MOD>(__VA_ARGS__);                    \
-    case 7: return FN<1, kTanh, true, MOD>(__VA_ARGS__);                     \
-    case 8: return FN<2, kSilu, false, MOD>(__VA_ARGS__);                    \
-    case 9: return FN<2, kSilu, true, MOD>(__VA_ARGS__);                     \
-    case 10: return FN<2, kTanh, false, MOD>(__VA_ARGS__);                   \
-    case 11: return FN<2, kTanh, true, MOD>(__VA_ARGS__);                    \
-    case 12: return FN<3, kSilu, false, MOD>(__VA_ARGS__);                   \
-    case 13: return FN<3, kSilu, true, MOD>(__VA_ARGS__);                    \
-    case 14: return FN<3, kTanh, false, MOD>(__VA_ARGS__);                   \
-    case 15: return FN<3, kTanh, true, MOD>(__VA_ARGS__);                    \
+    case 4: return FN<1, kSilu, false, MOD, MODES>(__VA_ARGS__);             \
+    case 5: return FN<1, kSilu, true, MOD, MODES>(__VA_ARGS__);              \
+    case 6: return FN<1, kTanh, false, MOD, MODES>(__VA_ARGS__);             \
+    case 7: return FN<1, kTanh, true, MOD, MODES>(__VA_ARGS__);              \
+    case 8: return FN<2, kSilu, false, MOD, MODES>(__VA_ARGS__);             \
+    case 9: return FN<2, kSilu, true, MOD, MODES>(__VA_ARGS__);              \
+    case 10: return FN<2, kTanh, false, MOD, MODES>(__VA_ARGS__);            \
+    case 11: return FN<2, kTanh, true, MOD, MODES>(__VA_ARGS__);             \
+    case 12: return FN<3, kSilu, false, MOD, MODES>(__VA_ARGS__);            \
+    case 13: return FN<3, kSilu, true, MOD, MODES>(__VA_ARGS__);             \
+    case 14: return FN<3, kTanh, false, MOD, MODES>(__VA_ARGS__);            \
+    case 15: return FN<3, kTanh, true, MOD, MODES>(__VA_ARGS__);             \
     default: return (int)cudaErrorInvalidValue;                              \
   }
 
 // lv < widths[0] (context columns) and the j0_add addends are layer-0 modes
-// of a launch with derivatives through an activated layer 0
+// of a launch with derivatives through an activated layer 0 and a
+// reduction; the trunk's modes (no reduction, a linear last operator) are
+// MOD's alone and need an operator
+template <bool MOD>
 inline bool prop_valid(int d_dims, int act, int n_layers, int n_cases, int n_pts,
-                       const int* widths, bool deriv, int lv, bool j0_add) {
+                       const int* widths, bool deriv, int lv, bool j0_add, bool reduce,
+                       bool last_linear) {
   const bool coupled = lv < widths[0] || j0_add;
   return d_dims >= 1 && d_dims <= 3 && (act == kSilu || act == kTanh) && n_layers >= 1 &&
          n_layers <= kMaxLayers && n_cases >= 1 && n_pts >= 1 && lv >= 1 &&
-         lv <= widths[0] && (!coupled || (deriv && n_layers >= 2));
+         lv <= widths[0] && (MOD || (reduce && !last_linear)) &&
+         (!last_linear || operators(n_layers, reduce) >= 1) &&
+         (!coupled || (deriv && n_layers >= 2 && reduce && !last_linear));
 }
 
-// stash pointers of one launch: a[i] then z[i] for the hidden layers, each a
-// (rows x width) block of one buffer
-inline Stash make_stash(float* a_base, float* z_base, size_t rows, int n_layers,
+// stash pointers of one launch: a[i] for every layer, then z[i] for the
+// first n_act (the operators), each a (rows x width) block of one buffer
+inline Stash make_stash(float* a_base, float* z_base, size_t rows, int n_layers, int n_act,
                         const int* widths) {
   Stash st{};
   size_t oa = 0, oz = 0;
   for (int i = 0; i < n_layers; ++i) {
     st.a[i] = a_base ? a_base + oa : nullptr;
     oa += rows * widths[i];
-    if (i < n_layers - 1) {
+    if (i < n_act) {
       st.z[i] = z_base ? z_base + oz : nullptr;
       oz += rows * widths[i + 1];
     }
@@ -542,15 +625,21 @@ int prop_forward(int d_dims, int act, bool deriv, const float* v, const float* j
                  int n_layers, const float* const* w, const float* const* b, const int* widths,
                  float* ov, int ov_rows, int ov_row0, float* oj, float* oh, const Dropout& dr,
                  float* stash_a, float* stash_z, int lv, const float* ja, const float* ha,
-                 cudaStream_t s) {
-  if (!prop_valid(d_dims, act, n_layers, n_cases, n_pts, widths, deriv, lv, ja != nullptr) ||
+                 cudaStream_t s, bool reduce = true, bool last_linear = false) {
+  if (!prop_valid<MOD>(d_dims, act, n_layers, n_cases, n_pts, widths, deriv, lv, ja != nullptr,
+                       reduce, last_linear) ||
       (ja == nullptr) != (ha == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t rows = (size_t)n_cases * n_pts * (deriv ? 1 + 2 * d_dims : 1);
   PropArgs a{n_cases, n_pts, ov_rows, ov_row0, par, make_mlp(n_layers, w, b, widths), dr,
-             make_stash(stash_a, stash_z, rows, n_layers, widths), lv, ja, ha, nullptr,
-             nullptr};
-  PCT_PROP_DISPATCH(launch_prop_fwd, MOD, v, jt, ht, ctx, a, ov, oj, oh, s)
+             make_stash(stash_a, stash_z, rows, n_layers, operators(n_layers, reduce), widths),
+             lv, ja, ha, nullptr, nullptr, reduce, last_linear};
+  if constexpr (MOD) {
+    if (!reduce || last_linear) {
+      PCT_PROP_DISPATCH(launch_prop_fwd, MOD, true, v, jt, ht, ctx, a, ov, oj, oh, s)
+    }
+  }
+  PCT_PROP_DISPATCH(launch_prop_fwd, MOD, false, v, jt, ht, ctx, a, ov, oj, oh, s)
 }
 
 // Scratch floats prop_backward needs for one launch of `rows` stash rows.
@@ -565,9 +654,9 @@ inline long long prop_backward_workspace(int n_cases, long long rows, int n_laye
 }
 
 // Backward of one prop_forward launch (see the extern "C" entry points).
-// With MOD, dpar_rows (n_cases * n_pts x sum of the hidden widths) receives
-// the per-point dpar addends, layer after layer, and dpar (n_cases, F) gets
-// their per-case column sums ADDED, layer by layer.
+// With MOD, dpar_rows (n_cases * n_pts x sum of the n_act operators' output
+// widths) receives the per-point dpar addends, layer after layer, and dpar
+// (n_cases, F) gets their per-case column sums ADDED, layer by layer.
 template <bool MOD>
 int prop_backward(int d_dims, int act, bool deriv, const float* gv, int ov_rows, int ov_row0,
                   const float* gj, const float* gh, int n_cases, int n_pts, int n_layers,
@@ -576,10 +665,12 @@ int prop_backward(int d_dims, int act, bool deriv, const float* gv, int ov_rows,
                   const float* stash_z, float* gz_stash, float* dpar_rows, float* dv,
                   float* djt, float* dht, float* const* dw, float* const* db, float* dctx,
                   float* dpar, float* scratch, long long scratch_floats, int lv, float* dja,
-                  float* dha, cudaStream_t s) {
-  if (!prop_valid(d_dims, act, n_layers, n_cases, n_pts, widths, deriv, lv, dja != nullptr) ||
+                  float* dha, cudaStream_t s, bool reduce = true, bool last_linear = false) {
+  if (!prop_valid<MOD>(d_dims, act, n_layers, n_cases, n_pts, widths, deriv, lv,
+                       dja != nullptr, reduce, last_linear) ||
       (dja == nullptr) != (dha == nullptr))
     return (int)cudaErrorInvalidValue;
+  const int n_act = operators(n_layers, reduce);
   const int C = deriv ? 1 + 2 * d_dims : 1;
   const size_t rows = (size_t)n_cases * n_pts * C;
   if (prop_backward_workspace(n_cases, (long long)rows, n_layers, widths) > scratch_floats)
@@ -595,8 +686,8 @@ int prop_backward(int d_dims, int act, bool deriv, const float* gv, int ov_rows,
   }
   PropArgs a{n_cases, n_pts, ov_rows, ov_row0, par, Mlp{}, dr,
              make_stash(const_cast<float*>(stash_a), const_cast<float*>(stash_z), rows,
-                        n_layers, widths),
-             lv, nullptr, nullptr, dja, dha};
+                        n_layers, n_act, widths),
+             lv, nullptr, nullptr, dja, dha, reduce, last_linear};
   // gz[i] (rows x widths[i+1]) and dpar addends (points x widths[i+1]),
   // layer after layer, in the a[] slots
   Stash gzs{}, dps{};
@@ -604,7 +695,7 @@ int prop_backward(int d_dims, int act, bool deriv, const float* gv, int ov_rows,
   for (int i = 0; i < n_layers; ++i) {
     gzs.a[i] = gz_stash + off;
     off += rows * widths[i + 1];
-    if (MOD && i < n_layers - 1) {
+    if (MOD && i < n_act) {
       dps.a[i] = dpar_rows + off_p;
       off_p += (size_t)n_cases * n_pts * widths[i + 1];
     }
@@ -612,7 +703,14 @@ int prop_backward(int d_dims, int act, bool deriv, const float* gv, int ov_rows,
   int err;
   {
     auto run = [&]() -> int {
-      PCT_PROP_DISPATCH(launch_prop_bwd, MOD, gv, gj, gh, a, wt, gzs, dps, dv, djt, dht, s)
+      if constexpr (MOD) {
+        if (!reduce || last_linear) {
+          PCT_PROP_DISPATCH(launch_prop_bwd, MOD, true, gv, gj, gh, a, wt, gzs, dps, dv, djt,
+                            dht, s)
+        }
+      }
+      PCT_PROP_DISPATCH(launch_prop_bwd, MOD, false, gv, gj, gh, a, wt, gzs, dps, dv, djt, dht,
+                        s)
     };
     err = run();
   }
@@ -632,7 +730,7 @@ int prop_backward(int d_dims, int act, bool deriv, const float* gv, int ov_rows,
       e = cudaGetLastError();
       if (e != cudaSuccess) return (int)e;
     }
-    if (MOD && i < n_layers - 1) {
+    if (MOD && i < n_act) {
       group_colsum<<<dim3((n + 31) / 32, n_cases), dim3(32, 8), 0, s>>>(
           dps.a[i], n, 1, n_pts, n_cases * n_pts, n, dpar, 1);
       e = cudaGetLastError();

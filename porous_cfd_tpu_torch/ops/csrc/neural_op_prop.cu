@@ -3,6 +3,16 @@
 // forward and backward. Each operator is dense -> activation rules ->
 // inverted dropout -> modulation of v, J and H by the pooled branch
 // embedding par (per case, as wide as the trunk); the reduction is linear.
+// Two modes of the TPU kernel's besides (neural_op_pallas.py:_Cfg): the last
+// operator without an activation (last_activation=False, :74-75, :125-134),
+// and no fused reduction (out_features=None, :64, :86-87, :143-147), where
+// the output is the last operator's (v, J, H), F wide. PiGanoFull runs both
+// together, once per output field. mlp_prop.cuh runs every operator through
+// its block-GEMM path (every layer is one without a reduction), the linear one
+// with the identity's rules (d1 = 1, d2 = d3 = 0) and still dropped out and
+// modulated; its backward first applies the last operator's rules to the
+// staged output cotangents, whose products with the pre-modulation triple
+// add to dpar like every other operator's.
 //
 // Replaces the TPU kernels porous_cfd_tpu/ops/neural_op_pallas.py:_fwd_kernel
 // (:107; pallas_call at :357) and _bwd_kernel (:154; pallas_call at :391).
@@ -15,6 +25,8 @@
 // GFLOP) while reading 80 MB; the boundary launch runs 13,000 value rows
 // (11.3 GFLOP). The backward does about twice the forward's work. All are
 // far above the f32 ridge point, so the f32 CUDA-core rate is the limit.
+// Without the reduction (PiGanoFull) each trunk writes (13, 1500, 352, 2)
+// J and H, 55 MB each, still far below the operations' time.
 //
 // Design: mlp_prop.cuh's kernels with modulation (MOD = true); the TPU
 // kernel's transposed (B, D, N, F) J/H, 128-row tiles and per-tile
@@ -38,10 +50,12 @@ using namespace pct;
 namespace pct {
 namespace {
 
-// the hidden layers must all be as wide as par
-bool trunk_widths_ok(int n_layers, const int* widths) {
-  if (n_layers < 2) return false;
-  for (int i = 2; i < n_layers; ++i)
+// there is at least one operator, and every operator's output is as wide as
+// par: widths[1..n_act]
+bool trunk_widths_ok(int n_layers, bool reduce, const int* widths) {
+  const int n_act = operators(n_layers, reduce);
+  if (n_act < 1) return false;
+  for (int i = 2; i <= n_act; ++i)
     if (widths[i] != widths[1]) return false;
   return true;
 }
@@ -51,8 +65,10 @@ bool trunk_widths_ok(int n_layers, const int* widths) {
 
 // Arguments as decoder_prop_forward's (ctx = geom W0[L:] + b0; layer i <
 // n_layers - 1 is operator i, the last layer the reduction F -> O; widths =
-// (L, F, ..., F, O)), then par (n_cases, F). Returns the CUDA error code
-// (0 = ok).
+// (L, F, ..., F, O)), then par (n_cases, F), last_activation (0: the last
+// operator is linear) and reduction (0: no reduction, every layer is an
+// operator, widths = (L, F, ..., F), and the outputs are F wide). Returns the
+// CUDA error code (0 = ok).
 extern "C" int neural_ops_prop_forward(int d_dims, int act, int with_derivatives,
                                        const float* v, const float* jt, const float* ht,
                                        int n_cases, int n_pts, const float* ctx, int n_layers,
@@ -61,13 +77,16 @@ extern "C" int neural_ops_prop_forward(int d_dims, int act, int with_derivatives
                                        int ov_row0, float* oj, float* oh, unsigned k0,
                                        unsigned k1, const unsigned* thresh, const float* scale,
                                        const int* on, float* stash_a, float* stash_z,
-                                       const float* par, void* stream) {
-  if (par == nullptr || !trunk_widths_ok(n_layers, widths)) return (int)cudaErrorInvalidValue;
+                                       const float* par, int last_activation, int reduction,
+                                       void* stream) {
+  if (par == nullptr || !trunk_widths_ok(n_layers, reduction != 0, widths))
+    return (int)cudaErrorInvalidValue;
   return prop_forward<true>(d_dims, act, with_derivatives != 0, v, jt, ht, n_cases, n_pts,
                             ctx, par, n_layers, w, b, widths, ov, ov_rows, ov_row0, oj, oh,
                             make_dropout(k0, k1, n_layers, thresh, scale, on), stash_a,
                             stash_z, widths[0], nullptr, nullptr,
-                            static_cast<cudaStream_t>(stream));
+                            static_cast<cudaStream_t>(stream), reduction != 0,
+                            last_activation == 0);
 }
 
 // Scratch floats neural_ops_prop_backward needs for one launch of `rows`
@@ -77,11 +96,12 @@ extern "C" long long neural_ops_prop_backward_workspace(int n_cases, long long r
   return prop_backward_workspace(n_cases, rows, n_layers, widths);
 }
 
-// Backward of one neural_ops_prop_forward launch (same inputs, dropout, par
-// and stash): arguments as decoder_prop_backward's, then par, dpar_rows
-// (n_cases * n_pts x F * (n_layers - 1) scratch for the per-point dpar
-// addends) and dpar (n_cases, F), to which the per-case cotangent of par is
-// ADDED, operator by operator.
+// Backward of one neural_ops_prop_forward launch (same inputs, dropout, par,
+// modes and stash): arguments as decoder_prop_backward's, then par,
+// dpar_rows (n_cases * n_pts x F * operators scratch for the per-point dpar
+// addends), dpar (n_cases, F), to which the per-case cotangent of par is
+// ADDED, operator by operator, and the forward's last_activation and
+// reduction.
 extern "C" int neural_ops_prop_backward(
     int d_dims, int act, int with_derivatives, const float* gv, int ov_rows, int ov_row0,
     const float* gj, const float* gh, int n_cases, int n_pts, int n_layers,
@@ -89,14 +109,16 @@ extern "C" int neural_ops_prop_backward(
     const unsigned* thresh, const float* scale, const int* on, const float* stash_a,
     const float* stash_z, float* gz_stash, float* dv, float* djt, float* dht,
     float* const* dw, float* const* db, float* dctx, float* scratch, long long scratch_floats,
-    const float* par, float* dpar_rows, float* dpar, void* stream) {
+    const float* par, float* dpar_rows, float* dpar, int last_activation, int reduction,
+    void* stream) {
   if (par == nullptr || dpar == nullptr || dpar_rows == nullptr ||
-      !trunk_widths_ok(n_layers, widths))
+      !trunk_widths_ok(n_layers, reduction != 0, widths))
     return (int)cudaErrorInvalidValue;
   return prop_backward<true>(d_dims, act, with_derivatives != 0, gv, ov_rows, ov_row0, gj, gh,
                              n_cases, n_pts, n_layers, w_orig, ldw, widths,
                              make_dropout(k0, k1, n_layers, thresh, scale, on), par, stash_a,
                              stash_z, gz_stash, dpar_rows, dv, djt, dht, dw, db, dctx, dpar,
                              scratch, scratch_floats, widths[0], nullptr, nullptr,
-                             static_cast<cudaStream_t>(stream));
+                             static_cast<cudaStream_t>(stream), reduction != 0,
+                             last_activation == 0);
 }

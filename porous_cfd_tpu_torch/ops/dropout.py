@@ -70,17 +70,15 @@ def keep_mask(seed: int, layer: int, n_cases: int, n_rows: int, width: int,
     """Inverted-dropout mask (n_cases, n_rows, width) float32 over merged
     rows: ``1 / keep`` where kept, else 0."""
     keep = 1.0 - rate
-    cols = torch.arange(width, device=device)
+    # one Philox call per 4 columns; its four outputs are columns 4c .. 4c+3
+    quads = torch.arange((width + 3) // 4, device=device)
     rows = torch.arange(n_rows, device=device)[:, None]
     cases = torch.arange(n_cases, device=device)[:, None, None]
-    outs = philox4x32_10((cols // 4, rows, cases, layer),
+    outs = philox4x32_10((quads, rows, cases, layer),
                          (seed & MASK32, (seed >> 32) & MASK32))
-    lane = (cols % 4).expand(n_cases, n_rows, width)
     bits = torch.stack(torch.broadcast_tensors(*outs), dim=-1)
-    bits = torch.gather(bits, -1, lane[..., None])[..., 0]
-    scale = torch.tensor(1.0 / keep, dtype=torch.float32, device=device)
-    return torch.where(bits < keep_threshold(rate), scale,
-                       torch.zeros((), dtype=torch.float32, device=device))
+    bits = bits.reshape(n_cases, n_rows, -1)[..., :width]
+    return torch.where(bits < keep_threshold(rate), 1.0 / keep, 0.0).to(torch.float32)
 
 
 def _splitmix64(x: int) -> int:

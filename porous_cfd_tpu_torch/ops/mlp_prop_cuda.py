@@ -11,12 +11,18 @@ inside ``MlpProp``, a ``torch.autograd.Function``: the training forward also
 stashes each layer's input rows and pre-activations, and the backward is the
 backward kernel, again one internal and one boundary launch.
 
+The trunk has two modes besides (``Meta.reduction`` and
+``Meta.last_activation``): without a reduction every layer is an operator
+and the output is the last operator's, F wide; without the last activation
+the last operator is linear (still dropped out and modulated).
+
 The decoder's internal launch has two layer-0 modes besides (``Meta.mode``):
 ``j0_add`` adds (B, D, Ni, F1) terms to the J/H rows' layer-0
 pre-activations and gives their cotangents back; ``ctx_width`` takes J/H
 rows ``ctx_width`` columns wider than the value rows, through the full
-layer-0 weight. Each mode counts its internal launches in a ``ModeCount``
-of its own, beside the wrapper's count of all launches.
+layer-0 weight. Each mode counts the launches it changes in a
+``ModeCount`` of its own (a decoder mode its internal launches, a trunk mode
+both), beside the wrapper's count of all launches.
 """
 from __future__ import annotations
 
@@ -59,23 +65,24 @@ class ModeCount:
 class Kernels:
     """One instantiation of ``csrc/mlp_prop.cuh``: the C entry points
     ``<prefix>_forward``, ``<prefix>_backward_workspace`` and
-    ``<prefix>_backward`` of ``csrc/<source>.cu``. A modulated one takes
-    ``par`` after the forward's other arguments and ``par, dpar_rows, dpar``
-    after the backward's; a coupled one ``v_width, j0_add, h0_add`` and
-    ``v_width, dja, dha``. The launch counts go to the ``launches``
-    attributes of ``forward_counter`` and ``backward_counter``, and a
-    coupled mode's internal launches also to ``mode_counts[mode]`` (forward,
+    ``<prefix>_backward`` of ``csrc/<source>.cu``. A modulated one (the
+    trunk) takes ``par, last_activation, reduction`` after the forward's
+    other arguments and ``par, dpar_rows, dpar, last_activation,
+    reduction`` after the backward's; the other (the decoder) ``v_width,
+    j0_add, h0_add`` and ``v_width, dja, dha``. The launch counts go to the
+    ``launches`` attributes of ``forward_counter`` and ``backward_counter``,
+    and those of a mode also to ``mode_counts[mode]`` (forward,
     backward)."""
 
     def __init__(self, source: str, prefix: str, modulated: bool, forward_counter,
-                 backward_counter, mode_counts: Optional[dict] = None):
+                 backward_counter, mode_counts: dict):
         self.source = source
         self.prefix = prefix
         self.modulated = modulated
-        self.coupled = mode_counts is not None
+        self.coupled = not modulated
         self.forward_counter = forward_counter
         self.backward_counter = backward_counter
-        self.mode_counts = mode_counts or {}
+        self.mode_counts = mode_counts
 
     def library(self) -> ctypes.CDLL:
         lib = build.library(self.source)
@@ -83,14 +90,15 @@ class Kernels:
         if fwd.argtypes is None:
             p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
             fwd.argtypes = ([i, i, i, p, p, p, i, i, p, i, p, p, p, p, i, i, p, p, u, u, p, p,
-                             p, p, p] + [p] * self.modulated + [i, p, p] * self.coupled + [p])
+                             p, p, p] + [p, i, i] * self.modulated + [i, p, p] * self.coupled
+                            + [p])
             fwd.restype = i
             ws = getattr(lib, f"{self.prefix}_backward_workspace")
             ws.argtypes = [i, ll, i, p]
             ws.restype = ll
             bwd = getattr(lib, f"{self.prefix}_backward")
             bwd.argtypes = ([i, i, i, p, i, i, p, p, i, i, i, p, p, p, u, u, p, p, p, p, p, p,
-                             p, p, p, p, p, p, p, ll] + [p, p, p] * self.modulated
+                             p, p, p, p, p, p, p, ll] + [p, p, p, i, i] * self.modulated
                             + [i, p, p] * self.coupled + [p])
             bwd.restype = i
         return lib
@@ -103,8 +111,15 @@ class Kernels:
             return []
         return [meta.n_local] + [None if t is None else t.data_ptr() for t in (a, h)]
 
-    def count_mode(self, meta: "Meta", direction: int) -> None:
-        if meta.mode is not None:
+    def mode_args(self, meta: "Meta") -> list:
+        """A modulated entry point's trailing mode flags; none for the
+        others."""
+        return [int(meta.last_activation), int(meta.reduction)] if self.modulated else []
+
+    def count_mode(self, meta: "Meta", direction: int, boundary: bool = False) -> None:
+        """Count a launch in its mode, if the mode changes that launch (the
+        decoder's layer-0 modes leave the boundary launch as it is)."""
+        if meta.mode is not None and not (boundary and meta.layer0_mode):
             self.mode_counts[meta.mode][direction].launches += 1
 
 
@@ -112,12 +127,17 @@ class Meta:
     """What one call fixes besides its tensors. ``widths`` are the value
     rows' (L, F1, ..., O); with ``ctx_width`` the internal launch's J/H rows
     are that much wider (``int_widths``); ``j0_add`` marks the additive
-    layer-0 mode."""
+    layer-0 mode. Without ``reduction`` every layer is an activated (or,
+    the last one without ``last_activation``, linear) operator and O is the
+    last operator's width."""
 
     def __init__(self, n_local, activation, rates, seed, d_dims, b_cases, n_int, n_bnd,
-                 widths, ctx_width: int = 0, j0_add: bool = False):
+                 widths, ctx_width: int = 0, j0_add: bool = False, reduction: bool = True,
+                 last_activation: bool = True):
         if ctx_width and j0_add:
             raise ValueError("the ctx_width and j0_add modes exclude each other")
+        self.reduction = reduction
+        self.last_activation = last_activation
         self.ctx_width = ctx_width
         self.j0_add = j0_add
         self.n_local = n_local
@@ -135,14 +155,28 @@ class Meta:
         return len(self.widths) - 1
 
     @property
+    def n_operators(self):
+        """Layers through the activation rules, dropout and modulation."""
+        return self.n_layers - 1 if self.reduction else self.n_layers
+
+    @property
     def int_widths(self):
         """The internal launch's widths: layer 0's input with the context
         columns of the ctx_width mode."""
         return (self.widths[0] + self.ctx_width,) + tuple(self.widths[1:])
 
     @property
+    def layer0_mode(self) -> bool:
+        return self.j0_add or bool(self.ctx_width)
+
+    @property
     def mode(self) -> Optional[str]:
-        return "j0_add" if self.j0_add else "ctx_width" if self.ctx_width else None
+        """The name of the launch's mode, None for the default one."""
+        if self.layer0_mode:
+            return "j0_add" if self.j0_add else "ctx_width"
+        trunk = [name for name, on in (("linear_last", not self.last_activation),
+                                       ("no_reduction", not self.reduction)) if on]
+        return "_".join(trunk) or None
 
     def dropout_args(self):
         """(k0, k1, thresholds, scales, on) for the C interface."""
@@ -155,9 +189,10 @@ class Meta:
         return (self.seed & dropout_mod.MASK32, (self.seed >> 32) & dropout_mod.MASK32,
                 thresh, scale, build.int_array(on))
 
-    @staticmethod
-    def stash_floats(rows, w):
-        return rows * sum(w[:-1]), rows * sum(w[1:-1])
+    def stash_floats(self, rows, w):
+        """Floats of a launch's stash: every layer's input rows, and the
+        operators' pre-activations."""
+        return rows * sum(w[:-1]), rows * sum(w[1:1 + self.n_operators])
 
 
 def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, stash: bool,
@@ -202,7 +237,7 @@ def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, sta
         code = fn(d_dims, act, 1, v.data_ptr(), jt.data_ptr(), ht.data_ptr(), b_cases, n_int,
                   ctx.data_ptr(), len(ws), w_ptrs, b_ptrs, build.int_array(meta.int_widths),
                   ov.data_ptr(), n_int + n_bnd, 0, oj.data_ptr(), oh.data_ptr(), *drop, sa, sz,
-                  *mod, *kern.coupled_args(meta, ja, ha), stream)
+                  *mod, *kern.mode_args(meta), *kern.coupled_args(meta, ja, ha), stream)
         build.check_launch(f"{kern.prefix} (internal)", code)
         kern.forward_counter.launches += 1
         kern.count_mode(meta, 0)
@@ -211,9 +246,10 @@ def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, sta
             code = fn(d_dims, act, 0, v_b.data_ptr(), None, None, b_cases, n_bnd,
                       ctx.data_ptr(), len(ws), w_ptrs, b_ptrs, build.int_array(meta.widths),
                       ov.data_ptr(), n_int + n_bnd, n_int, None, None, *drop, sa, sz, *mod,
-                      *kern.coupled_args(meta), stream)
+                      *kern.mode_args(meta), *kern.coupled_args(meta), stream)
             build.check_launch(f"{kern.prefix} (boundary)", code)
             kern.forward_counter.launches += 1
+            kern.count_mode(meta, 0, boundary=True)
     return ov, oj, oh, stashes
 
 
@@ -252,9 +288,10 @@ def backward(kern: Kernels, meta: Meta, weights, stashes, gv, gj, gh, par=None):
     dpar, mod = None, []
     if kern.modulated:
         dpar = torch.zeros_like(par)
-        dpar_rows = torch.empty((b_cases * max(n_int, n_bnd) * sum(widths[1:-1]),),
-                                dtype=torch.float32, device=dev)
-        mod = [par.data_ptr(), dpar_rows.data_ptr(), dpar.data_ptr()]
+        dpar_rows = torch.empty(
+            (b_cases * max(n_int, n_bnd) * sum(widths[1:1 + meta.n_operators]),),
+            dtype=torch.float32, device=dev)
+        mod = [par.data_ptr(), dpar_rows.data_ptr(), dpar.data_ptr(), *kern.mode_args(meta)]
     dja = dha = None
     if meta.j0_add:
         dja = torch.empty((b_cases, d_dims, n_int, widths[1]), dtype=torch.float32, device=dev)
@@ -286,6 +323,7 @@ def backward(kern: Kernels, meta: Meta, weights, stashes, gv, gj, gh, par=None):
                       scratch.data_ptr(), n_scratch, *mod, *kern.coupled_args(meta), stream)
             build.check_launch(f"{kern.prefix} backward (boundary)", code)
             kern.backward_counter.launches += 1
+            kern.count_mode(meta, 1, boundary=True)
     return dv, djt, dht, dv_b, dctx, dws, dbs[1:], dpar, dja, dha
 
 

@@ -6,7 +6,10 @@ Each operator is dense -> activation rules -> inverted dropout ->
 multiplication of v, J and H by the pooled branch embedding ``par``; the
 first operator takes ``[points embedding || geometry embedding]`` and is split
 by context, so the geometry block runs once per case and J/H skip it; the
-reduction is linear.
+reduction is linear. As in the JAX function, the last operator may be left
+without its activation (``last_activation=False``) and the reduction left
+out (``reduction=None``: the output is the last operator's, F wide);
+PiGanoFull's trunks take both.
 
 ``neural_ops_prop`` launches the hand-written CUDA kernel
 (``csrc/neural_op_prop.cu``) for CUDA tensors, once for the internal (v, J, H)
@@ -47,10 +50,11 @@ def trunk_seed(seed: Optional[int]) -> Optional[int]:
 
 def neural_ops_prop_plain(operators: Sequence, reduction, n_local: int, v, jt, ht, v_b,
                           geom, par, activation: str, dropout=None,
-                          deterministic: bool = True, seed: Optional[int] = None):
-    """The JAX package's ``_neural_ops_prop_ctx`` (every operator activated)
-    followed by ``dense_prop`` through the reduction, in the transposed
-    layout, with the port's dropout masks."""
+                          deterministic: bool = True, seed: Optional[int] = None,
+                          last_activation: bool = True):
+    """The JAX package's ``_neural_ops_prop_ctx`` followed by ``dense_prop``
+    through the reduction (none when ``reduction`` is None), in the
+    transposed layout, with the port's dropout masks."""
     rates = dropout_rates(dropout, len(operators), deterministic, "neural_ops_prop")
     if any(rates) and seed is None:
         raise ValueError("neural_ops_prop: dropout needs a seed")
@@ -64,11 +68,13 @@ def neural_ops_prop_plain(operators: Sequence, reduction, n_local: int, v, jt, h
     for i, lin in enumerate(operators):
         if i > 0:
             v, j, h = analytic.dense_prop(lin, v, j, h)
-        v, j, h = analytic.activation_prop_merged(activation, v, j, h, n_int)
+        if last_activation or i < len(operators) - 1:
+            v, j, h = analytic.activation_prop_merged(activation, v, j, h, n_int)
         if rates[i] > 0:
             v, j, h = analytic.dropout_prop_merged(seed, i, rates[i], v, j, h, n_int)
         v, j, h = v * par, j * par_j, h * par_j
-    v, j, h = analytic.dense_prop(reduction, v, j, h)
+    if reduction is not None:
+        v, j, h = analytic.dense_prop(reduction, v, j, h)
     return v, j.transpose(-1, -2), h.transpose(-1, -2)
 
 
@@ -83,13 +89,16 @@ def neural_ops_prop_backward(meta: Meta, weights, par, stashes, gv, gj, gh):
 
 def neural_ops_prop(operators: Sequence, reduction, n_local: int, v, jt, ht, v_b, geom,
                     par, activation: str, dropout: Optional[Sequence[float]] = None,
-                    deterministic: bool = True, seed: Optional[int] = None):
+                    deterministic: bool = True, seed: Optional[int] = None,
+                    last_activation: bool = True):
     """Trunk + reduction propagation of internal (v, J, H) rows and boundary
     value rows.
 
-    :param operators: the operators' ``nn.Linear`` layers (every one
-        activated); operator 0 takes ``[local (n_local) || geometry (G)]``,
-        the others are F -> F. ``reduction``: the linear F -> O layer.
+    :param operators: the operators' ``nn.Linear`` layers, every one
+        activated but, without ``last_activation``, the last; operator 0
+        takes ``[local (n_local) || geometry (G)]``, the others are F -> F.
+        ``reduction``: the linear F -> O layer, or None (O = F: the last
+        operator's output).
     :param v: (B, Ni, L) internal local features; ``jt``/``ht`` (B, D, Ni, L).
     :param v_b: (B, Nb, L) boundary local features, or None.
     :param geom: (B, 1, G) pooled geometry embedding; ``par`` (B, 1, F) the
@@ -102,7 +111,7 @@ def neural_ops_prop(operators: Sequence, reduction, n_local: int, v, jt, ht, v_b
         raise ValueError("neural_ops_prop: dropout needs a seed")
     if v.device.type == "cpu":
         return neural_ops_prop_plain(operators, reduction, n_local, v, jt, ht, v_b, geom, par,
-                                     activation, rates, False, seed)
+                                     activation, rates, False, seed, last_activation)
     if v.device.type != "cuda":
         raise ValueError(f"neural_ops_prop: no kernel for device {v.device}")
     if activation not in ACT_CODES:
@@ -128,26 +137,33 @@ def neural_ops_prop(operators: Sequence, reduction, n_local: int, v, jt, ht, v_b
     for i, lin in enumerate(operators[1:], start=1):
         check(f"operator_{i}.weight", lin.weight, (n_feat, n_feat))
         check(f"operator_{i}.bias", lin.bias, (n_feat,))
-    n_out = reduction.weight.shape[0]
-    check("reduction.weight", reduction.weight, (n_out, n_feat))
-    check("reduction.bias", reduction.bias, (n_out,))
+    linears = list(operators)
+    if reduction is not None:
+        n_out = reduction.weight.shape[0]
+        check("reduction.weight", reduction.weight, (n_out, n_feat))
+        check("reduction.bias", reduction.bias, (n_out,))
+        linears.append(reduction)
     n_bnd = 0
     if v_b is not None:
         n_bnd = v_b.shape[1]
         check("v_b", v_b, (b_cases, n_bnd, n_local))
 
-    widths = (n_local,) + (n_feat,) * len(operators) + (n_out,)
-    meta = Meta(n_local, activation, rates + (0.0,), trunk_seed(seed), d_dims, b_cases,
-                n_int, n_bnd, widths)
+    widths = (n_local,) + tuple(lin.weight.shape[0] for lin in linears)
+    meta = Meta(n_local, activation, rates + (0.0,) * (reduction is not None),
+                trunk_seed(seed), d_dims, b_cases, n_int, n_bnd, widths,
+                reduction=reduction is not None, last_activation=last_activation)
     # first-layer split: the per-case context term is one small matmul,
     # differentiated by autograd
     ctx = F.linear(geom[:, 0, :], w0[:, n_local:], operators[0].bias).contiguous()
-    linears = [*operators, reduction]
     return mlp_prop_cuda.run(TRUNK, meta, v, jt, ht, v_b, ctx, par[:, 0, :],
                              [lin.weight for lin in linears], [lin.bias for lin in linears[1:]])
 
 
 neural_ops_prop.launches = 0
 neural_ops_prop_backward.launches = 0
+# launches (forward, backward) of the modes besides the default one:
+# PiGanoFull's trunks take "linear_last_no_reduction"
+MODE_COUNTS = {mode: (mlp_prop_cuda.ModeCount(), mlp_prop_cuda.ModeCount())
+               for mode in ("linear_last", "no_reduction", "linear_last_no_reduction")}
 TRUNK = mlp_prop_cuda.Kernels("neural_op_prop", "neural_ops_prop", True, neural_ops_prop,
-                              neural_ops_prop_backward)
+                              neural_ops_prop_backward, MODE_COUNTS)

@@ -2,17 +2,17 @@
 card.
 
     python -m porous_cfd_tpu_torch.profile_predict
-        [--model pipn|pipn_coupled|pipn_exact|pi_gano|pipn_pp]
+        [--model pipn|pipn_coupled|pipn_exact|pi_gano|pi_gano_full|pi_gano_pp|pipn_pp]
         [--mode predict|train] [--batches 8] [--trace DIR]
 
 Builds a full-width model (random weights from seed 8421): the
 duct_fixed_boundary ``pipn`` model (decoupled analytic path; ``pipn_coupled``:
 the max-pool-coupled one, winner gather and decoder_prop's j0_add mode;
 ``pipn_exact``: the exact autodiff operator, no kernel) or ``pipn-pp``
-model, or the duct_variable_boundary ``pi-gano`` model, and one batch of 13 synthetic
-cases at 1500/1000/700 points (with the model's per-dataset aux attached),
-warms up, then runs ``--batches`` verbose
-predictions (``predict``) or training steps with the examples' fixed loss
+model, or the duct_variable_boundary ``pi-gano``, ``pi-gano-full`` or
+``pi-gano-pp`` model, and one batch of 13 synthetic cases at 1500/1000/700
+points (with the model's per-dataset aux attached), warms up, then runs
+``--batches`` verbose predictions (``predict``) or training steps with the examples' fixed loss
 weights (``train``) under ``torch.profiler``. Prints the device time per
 batch of each kernel (top entries), the device busy share of the wall time,
 and one JSON summary line that also splits the device time into the port's
@@ -23,9 +23,9 @@ window, ``--batches`` unprofiled runs, each from an idle card, give the
 host's time to enqueue one run and the wall time to its end (medians): where
 the two are close, the host and not the card sets the pace. One more run
 under ``torch.cuda.set_sync_debug_mode("warn")`` counts the calls that make
-the host wait for the card; the profiled window also counts the aten
-operator calls and device events per run, the host's work. Needs a CUDA
-device.
+the host wait for the card and prints where each was made; the profiled
+window also counts the aten operator calls and device events per run, the
+host's work. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -33,13 +33,15 @@ import argparse
 import json
 import statistics
 import time
+import traceback
 import warnings
+from pathlib import Path
 
 import torch
 
 from porous_cfd_tpu_torch.data.synthetic import (VARIABLE_BOUNDARIES, make_foam_batch,
                                                  make_scalers)
-from porous_cfd_tpu_torch.models.pi_gano import pi_gano
+from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp
 from porous_cfd_tpu_torch.models.pipn import pipn_foam, pipn_foam_pp
 from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
 from porous_cfd_tpu_torch.train.engine import (make_optimizer, make_predict_functions,
@@ -49,15 +51,20 @@ NU = 1489.4e-6
 PIPN = dict(nu=NU, d=14000.0, f=17.11, fe_local_layers=[2, 64, 64],
             fe_global_layers=[69, 96, 128, 1024], seg_layers=[1088, 512, 256, 128, 3],
             seg_dropout=[0.05, 0.05, 0, 0])
+PI_GANO = dict(nu=NU, out_features=3, branch_layers=[8, 128, 352, 352, 352],
+               geometry_layers=[7, 64, 176, 176, 176], local_layers=[2, 64, 176, 176, 176],
+               n_operators=4, operator_dropout=[0, 0.1, 0.1, 0],
+               variable_boundaries=VARIABLE_BOUNDARIES)
 CONFIGS = {
     "pipn": (pipn_foam, PIPN),
     "pipn_coupled": (pipn_foam, dict(PIPN, coupled_context=True)),
     "pipn_exact": (pipn_foam, dict(PIPN, fast_derivatives=False)),
-    "pi_gano": (pi_gano, dict(nu=NU, out_features=3, branch_layers=[8, 128, 352, 352, 352],
-                              geometry_layers=[7, 64, 176, 176, 176],
-                              local_layers=[2, 64, 176, 176, 176], n_operators=4,
-                              operator_dropout=[0, 0.1, 0.1, 0],
-                              variable_boundaries=VARIABLE_BOUNDARIES)),
+    "pi_gano": (pi_gano, PI_GANO),
+    "pi_gano_full": (pi_gano, dict(PI_GANO, full=True)),
+    "pi_gano_pp": (pi_gano_pp, dict(PI_GANO, geometry_layers=[[8, 64, 64], [66, 176, 176],
+                                                              [178, 176, 176]],
+                                    geometry_radius=[0.5, 1], geometry_fraction=[0.5, 0.25],
+                                    max_neighbors=32)),
     "pipn_pp": (pipn_foam_pp, dict(nu=NU, d=14000.0, f=17.11, fe_local_layers=[2, 64, 64],
                                    fe_global_layers=[[8, 64, 64], [66, 128, 128],
                                                      [130, 256, 1024]],
@@ -70,6 +77,44 @@ LOSS_WEIGHTS = (1, 1, 1, 1, 1, 1, 100, 100, 100)
 OWN_KERNELS = ("mlp_prop_fwd", "mlp_prop_bwd_rows", "pointnet_tiles", "pointnet_reduce",
                "pointnet_last", "pointnet_lower_bwd", "weight_grad_partial",
                "sum_partials", "group_colsum", "sa_fwd", "sa_bwd", "fps_kernel")
+
+
+def sync_sites(run) -> list[str]:
+    """The calls of one ``run()`` that make the host wait for the card, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: for each, the warning's
+    ``file:line`` and the innermost frame of this package on the stack.
+    Turning the mode on also warns, once per process, that it is a
+    prototype feature that does not detect all "synchronizing operations";
+    that notice is not a call and does not count."""
+    sites = []
+    here = Path(__file__).resolve().parent
+
+    def where(frame) -> str:
+        path = Path(frame.filename)
+        if path.is_relative_to(here.parent):
+            path = path.relative_to(here.parent)
+        return f"{path}:{frame.lineno}"
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        text = str(message)
+        if "synchronizing" not in text or "prototype" in text:
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if Path(f.filename).name != "warnings.py"]
+        own = [f for f in stack if Path(f.filename).resolve().is_relative_to(here)
+               and Path(f.filename).resolve() != Path(__file__).resolve()]
+        site = own[-1] if own else stack[-1]
+        sites.append(f"{filename}:{lineno} from {where(site)} ({site.name})")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
 
 
 def main(argv=None) -> int:
@@ -113,15 +158,8 @@ def main(argv=None) -> int:
         to_end.append(time.perf_counter() - t0)
     host_ms = statistics.median(enqueue) * 1e3
     idle_wall_ms = statistics.median(to_end) * 1e3
-    # calls in one run that make the host wait for the card
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            run()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    sites = sync_sites(run)
+    syncs = len(sites)
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -165,6 +203,8 @@ def main(argv=None) -> int:
           f"which ends after {idle_wall_ms:.3f} ms (medians of {args.batches}); "
           f"{syncs} synchronizing calls, {aten_calls // args.batches} aten operator calls "
           f"and {device_events} device events (kernels, copies) per {what}")
+    for site in sites:
+        print(f"  synchronizing call: {site}")
     for ms, count, key in rows[:20]:
         print(f"  {ms:9.4f} ms  x{count:<3d} {key[:90]}")
     print(json.dumps({"model": args.model, "mode": args.mode, f"wall_ms_per_{what}": wall_ms,
@@ -173,7 +213,7 @@ def main(argv=None) -> int:
                       "busy_share": device_ms / wall_ms,
                       f"host_enqueue_ms_per_{what}": host_ms,
                       f"unprofiled_wall_ms_per_{what}": idle_wall_ms,
-                      f"host_syncs_per_{what}": syncs,
+                      f"host_syncs_per_{what}": syncs, "host_sync_sites": sites,
                       f"aten_calls_per_{what}": aten_calls // args.batches,
                       f"device_events_per_{what}": device_events,
                       "top": [{"ms": ms, "count": c, "name": k[:120]}

@@ -158,7 +158,12 @@ def make_predict_functions(model: PinnModel) -> PredictFunctions:
     rows, from the model's analytic derivative path or the exact operator."""
 
     def forward(batch: FoamData):
-        return model.module(batch["C"], batch, deterministic=True).float()
+        # forward-only: in the model's eval precision (bf16 autocast under
+        # --precision bf16-mixed), reduced in f32
+        with torch.autocast(batch.data.device.type, dtype=model.eval_dtype,
+                            enabled=model.eval_dtype is not None):
+            out = model.module(batch["C"], batch, deterministic=True)
+        return out.float()
 
     @torch.no_grad()
     def eval_batch(batch: FoamData):

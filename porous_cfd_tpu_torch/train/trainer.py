@@ -267,8 +267,18 @@ class Trainer:
                         / max(time.time() - t0, 1e-9))
                 print(f"epoch {last}/{cfg.epochs} "
                       f"total={metrics[0]:.5f} ({rate:.1f} steps/s)")
+            if epoch == start_epoch:  # the first chunk holds the start-up
+                first_epochs, t_first = last - start_epoch, time.time()
             epoch = last
 
+        if cfg.epochs > start_epoch:
+            end = time.time()
+            seconds = end - t0
+            rest = cfg.epochs - start_epoch - first_epochs
+            print(f"fit: {cfg.epochs - start_epoch} epochs in {seconds:.3f} s, "
+                  f"{seconds * 1e3 / (cfg.epochs - start_epoch):.3f} ms per epoch"
+                  + (f"; the first {first_epochs} in {t_first - t0:.3f} s, then "
+                     f"{(end - t_first) * 1e3 / rest:.3f} ms per epoch" if rest else ""))
         self.save_checkpoint(state, cfg.epochs, "model.ckpt")
         if best is not None:
             self.save_checkpoint(state, best["epoch"], "best.ckpt", payload=best)

@@ -555,3 +555,118 @@ def test_exact_path_on_card_launches_no_kernel(cuda):
     assert_close(res[0][0], res[1][0])
     for a, r in zip(res[0][1], res[1][1]):
         assert_close(a.cpu(), r)
+
+
+# ---------------------------------------------------------------------------
+# the trunk's linear-last-operator and no-reduction modes, PiGanoFull and
+# PI-GANO++
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("last_activation,reduction", [(False, True), (True, False),
+                                                       (False, False)],
+                         ids=["linear_last", "no_reduction", "both"])
+@pytest.mark.parametrize("act,dims,boundary,f", [("silu", 2, True, 136), ("tanh", 2, False, 40),
+                                                 ("silu", 3, True, 40)])
+def test_neural_ops_modes_match_plain(cuda, act, dims, boundary, f, last_activation,
+                                      reduction, rate):
+    """The two other modes, alone and together, forward and backward against
+    the plain version, dropout on and off; the outputs are F wide without a
+    reduction, and dpar collects the linear operator's streams too."""
+    gen = torch.Generator().manual_seed(40 + dims)
+    n_local = f // 2
+    ops = NeuralOperatorSequential(3, f, (0.0,) * 3, act, last_activation=last_activation,
+                                   generator=gen).to(cuda)
+    red = dense(f, 3, gen).to(cuda) if reduction else None
+    rnd = lambda *s: (torch.randn(s, generator=gen) * 0.5).to(cuda).requires_grad_()  # noqa: E731
+    v, jt, ht = rnd(2, 37, n_local), rnd(2, dims, 37, n_local), rnd(2, dims, 37, n_local)
+    v_b = rnd(2, 45, n_local) if boundary else None
+    geom = rnd(2, 1, f - n_local)
+    par = (torch.rand((2, 1, f), generator=gen) + 0.5).to(cuda).requires_grad_()
+    inputs = [t for t in (v, jt, ht, v_b, geom, par) if t is not None] + _params(ops) + (
+        _params(red) if reduction else [])
+    args = (ops.linears, red, n_local, v, jt, ht, v_b, geom, par, act, [0.0, rate, rate],
+            False, 1234)
+    mode = "_".join(m for m, on in (("linear_last", not last_activation),
+                                    ("no_reduction", not reduction)) if on)
+    counts = neural_op_cuda.MODE_COUNTS[mode]
+    before = [c.launches for c in counts]
+    out = neural_op_cuda.neural_ops_prop(*args, last_activation=last_activation)
+    assert out[0].shape[-1] == (3 if reduction else f)
+    cots = [torch.randn(o.shape, generator=gen).to(cuda) for o in out]
+    got = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cots)), inputs)
+    torch.cuda.synchronize()
+    n = 2 if boundary else 1
+    assert [c.launches - b for c, b in zip(counts, before)] == [n, n]
+    ref_out = neural_op_cuda.neural_ops_prop_plain(*args, last_activation=last_activation)
+    for a, r in zip(out, ref_out):
+        assert_close(a.detach(), r.detach())
+    ref = torch.autograd.grad(sum((o * c).sum() for o, c in zip(ref_out, cots)), inputs)
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+
+PG_CFG = dict(nu=1e-3, out_features=3, branch_layers=[8, 32, 80, 80],
+              local_layers=[2, 16, 40, 40], n_operators=3, operator_dropout=[0, 0.1, 0.1],
+              variable_boundaries=VARIABLE_BOUNDARIES, scalers=make_scalers())
+
+
+@pytest.mark.parametrize("variant", ["full", "pp"])
+def test_pi_gano_variants_on_card_match_cpu(cuda, variant):
+    """derivative_apply with dropout on: outputs and parameter gradients on
+    the card equal the CPU's. PiGanoFull launches neural_ops_prop 6 times a
+    batch (3 trunks x internal and boundary rows) and its backward 6 times;
+    PI-GANO++ (32 neighbours) launches sa_neighborhood twice, pointnet_global
+    twice (the global level and the branch) and neural_ops_prop twice."""
+    from porous_cfd_tpu_torch.models.pi_gano import pi_gano_pp
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    if variant == "full":
+        def make(device):
+            return pi_gano(**PG_CFG, geometry_layers=[7, 16, 40, 40], full=True,
+                           generator=torch.Generator().manual_seed(1), device=device)
+        want = [0, 0, 2, 2, 6, 6]
+    else:
+        def make(device):
+            return pi_gano_pp(**PG_CFG, geometry_layers=[[8, 16, 16], [18, 40, 40],
+                                                         [42, 40, 40]],
+                              geometry_radius=[0.5, 1.0], geometry_fraction=[0.5, 0.25],
+                              max_neighbors=32, generator=torch.Generator().manual_seed(1),
+                              device=device)
+        want = [2, 2, 2, 2, 2, 2]
+    gpu, cpu = make(cuda), make("cpu")
+    batch = cpu.attach_neighbors(make_foam_batch(3, 200, 96, 20, seed=2))
+    counters = (sa_cuda.sa_neighborhood, sa_cuda.sa_neighborhood_backward,
+                pointnet_cuda.pointnet_global, pointnet_cuda.pointnet_global_backward,
+                neural_op_cuda.neural_ops_prop, neural_op_cuda.neural_ops_prop_backward)
+    before = [c.launches for c in counters]
+    results = []
+    for model, b in ((gpu, batch.to(cuda)), (cpu, batch)):
+        out = model.derivative_apply(b, deterministic=False, seed=77)
+        loss = sum((o ** 2).mean() for o in out)
+        results.append((out, torch.autograd.grad(loss, list(model.module.parameters()))))
+    assert [c.launches - n for c, n in zip(counters, before)] == want
+    for a, r in zip(results[0][0], results[1][0]):
+        assert_close(a.detach().cpu(), r.detach())
+    for a, r in zip(results[0][1], results[1][1]):
+        assert_close(a.cpu(), r)
+
+
+def test_sync_sites_see_a_real_sync_and_none_in_a_training_step(cuda):
+    """profile_predict.sync_sites counts a read of a value from the card
+    (the mode's own prototype notice not counted), and a pipn training step
+    makes no synchronizing call: it only queues work."""
+    from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
+    from porous_cfd_tpu_torch.profile_predict import sync_sites
+    from porous_cfd_tpu_torch.train.engine import make_optimizer, make_train_functions
+    x = torch.ones(4, device=cuda)
+    assert len(sync_sites(lambda: x.sum().item())) == 1
+    assert sync_sites(lambda: x * 2) == []
+    model = pipn_foam(1e-3, 1.0, 1.0, [2, 16, 16], [21, 16, 64], [80, 32, 3], make_scalers(),
+                      seg_dropout=[0.1, 0.0], generator=torch.Generator().manual_seed(3),
+                      device=cuda)
+    fns = make_train_functions(model, make_optimizer(model, 1),
+                               FixedLossScaler((1, 1, 1, 1, 1, 1, 100, 100, 100)))
+    state = fns.init_state(seed=5)
+    batch = make_foam_batch(2, 64, 32, 16, seed=1).to(cuda)
+    fns.train_step(state, batch)
+    assert sync_sites(lambda: fns.train_step(state, batch)) == []

@@ -30,6 +30,9 @@ PI_GANO_SMALL = dict(out_features=3, branch_layers=[8, 16], geometry_layers=[7, 
 PP_SMALL = dict(fe_local_layers=[2, 8, 8], fe_global_layers=[[8, 8, 8], [10, 8, 8], [10, 8, 16]],
                 fe_radius=[0.5, 1.0], fe_fraction=[0.5, 0.25], seg_layers=[24, 8, 3],
                 max_neighbors=8)
+PI_GANO_PP_SMALL = dict(PI_GANO_SMALL, geometry_layers=[[8, 8], [10, 8], [10, 8]],
+                        geometry_radius=[0.5, 1.0], geometry_fraction=[0.5, 0.25],
+                        max_neighbors=8)
 
 
 def small_module(seed):
@@ -106,23 +109,35 @@ def test_unported_paths_raise():
                                  make_optimizer(model, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_functions(model, make_optimizer(model, 1), mesh=object())
-    # PIPN's exact and coupled paths are ported; PI-GANO's and PIPN++'s exact
-    # paths are not
+    # PIPN's exact and coupled paths, PiGanoFull, PI-GANO++ and bf16-mixed
+    # are ported; PI-GANO's, PI-GANO++'s and PIPN++'s exact paths are not
     for kwargs in (dict(fast_derivatives=False), dict(coupled_context=True)):
         assert pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(), device="cpu",
                          **kwargs) is not None
+    assert model.with_precision("bf16-mixed").eval_dtype == torch.bfloat16
+    assert pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu",
+                   full=True).module.full
+    assert pi_gano_pp(1e-3, **PI_GANO_PP_SMALL, scalers=make_scalers(),
+                      device="cpu") is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.with_precision("bf16-mixed")
-    for kwargs in (dict(full=True), dict(fast_derivatives=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu", **kwargs)
-    for factory in (pi_gano_pp, pi_gano_pp_full, pipn_foam_pp_mrg, pipn_manufactured_pp,
+        pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu",
+                fast_derivatives=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pi_gano_pp(1e-3, **PI_GANO_PP_SMALL, scalers=make_scalers(), device="cpu",
+                   fast_derivatives=False)
+    for factory in (pi_gano_pp_full, pipn_foam_pp_mrg, pipn_manufactured_pp,
                     pipn_foam_pp_full):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             factory(1e-3, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(),
                      fast_derivatives=False, device="cpu")
+    from porous_cfd_tpu_torch.examples.duct_variable_boundary.train import get_model
+    from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, train
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model(build_arg_parser().parse_args(["--model", "pi-gano-pp-full"]), {}, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train(build_arg_parser().parse_args(["--mesh-data", "2"]), model, None, None)
 
 
 def _imports(path: Path):
@@ -137,6 +152,9 @@ def _imports(path: Path):
 def test_no_jax_import_anywhere_in_the_port():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    # the data layer, the case writer, the pipelines and the CLIs included
+    for sub in ("data", "datagen", "pipelines", "examples"):
+        assert any(PORT / sub in f.parents for f in files), sub
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -150,6 +168,7 @@ def test_port_imports_with_jax_blocked():
         "import porous_cfd_tpu_torch\n"
         "import porous_cfd_tpu_torch.models.pipn\n"
         "import porous_cfd_tpu_torch.models.pi_gano\n"
+        "import porous_cfd_tpu_torch.examples.duct_variable_boundary.train\n"
         "for info in pkgutil.walk_packages(porous_cfd_tpu_torch.__path__,"
         " 'porous_cfd_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
@@ -184,13 +203,17 @@ def test_kernel_modules_need_no_nvcc_or_gpu(monkeypatch):
                 neural_op_cuda.neural_ops_prop, neural_op_cuda.neural_ops_prop_backward,
                 sa_cuda.sa_neighborhood, sa_cuda.sa_neighborhood_backward,
                 fps_cuda.farthest_point_sampling)
-    counters += tuple(c for pair in decoder_cuda.MODE_COUNTS.values() for c in pair)
+    counters += tuple(c for modes in (decoder_cuda.MODE_COUNTS, neural_op_cuda.MODE_COUNTS)
+                      for pair in modes.values() for c in pair)
     before = [c.launches for c in counters]
     for model in (pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
                             seg_dropout=[0.1, 0.0], device="cpu"),
                   pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
                             seg_dropout=[0.1, 0.0], coupled_context=True, device="cpu"),
                   pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu"),
+                  pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu",
+                          full=True),
+                  pi_gano_pp(1e-3, **PI_GANO_PP_SMALL, scalers=make_scalers(), device="cpu"),
                   pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(),
                                seg_dropout=[0.1, 0.0], device="cpu")):
         batch = model.attach_neighbors(make_foam_batch(1, 8, 4, 2, seed=0))
@@ -237,3 +260,25 @@ def test_wrappers_reject_other_devices():
                                 torch.empty((1, 16, 8), device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         fps_cuda.farthest_point_sampling(torch.empty((2, 10, 2), device="meta"), 4)
+
+
+def test_sync_sites_count_calls_and_not_the_modes_notice(monkeypatch):
+    """profile_predict.sync_sites counts the warnings that name a call that
+    made the host wait, each with its site in the port; the notice that
+    set_sync_debug_mode gives once per process, that the mode is a prototype
+    which does not detect all synchronizing operations, is not such a call."""
+    import warnings
+
+    from porous_cfd_tpu_torch import profile_predict
+    modes = []
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", modes.append)
+
+    def run():
+        warnings.warn("Synchronization debug mode is a prototype feature and does not yet "
+                      "detect all synchronizing operations")
+        warnings.warn("called a synchronizing CUDA operation")
+        warnings.warn("an unrelated warning")
+
+    sites = profile_predict.sync_sites(run)
+    assert modes == ["warn", "default"]
+    assert len(sites) == 1 and "test_torch_port_rules.py" in sites[0]
