@@ -7,8 +7,14 @@ Phases, in order; any failure exits non-zero:
   1. device: TF32 off, card name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port from ``porous_cfd_tpu_torch/ops/csrc``
      (one nvcc per source, side by side) into ``build/porous_cfd_tpu_torch``;
+     the (v, J, H) engine's kernels' registers, stack and spills from
+     ``-Xptxas -v``, and their blocks per SM
+     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the paths' widths;
   3. kernels: each kernel against its plain PyTorch version on the card at the
-     shapes the main paths give it, timed with CUDA events: (a) pointnet_global
+     shapes the main paths give it, timed with CUDA events, every backward
+     of the engine also split into its weight gradients (``weight_grad``
+     alone at each layer's stash shapes, against cuBLAS's ``a.t() @ g`` in
+     full f32, timed beside it) and its rows sweep: (a) pointnet_global
      forward and backward at the pipn shape and (b) at the two pi-gano shapes
      (geometry encoder, branch), (c) decoder_prop forward, (d) decoder_prop
      forward and backward with dropout on and off, the kept fraction of a
@@ -79,7 +85,10 @@ Each of phases 4-14 sets every launch count to 0 just before it and reads
 them just after; every training phase also counts the synchronizing calls
 of one step, which must be none. The second-to-last lines are the
 ``{"kernels": [...]}`` JSON and the card's name and power limit; the last
-line is ``{"ok": true, "device": {...}}``.
+line is ``{"ok": true, "device": {...}}``. Each kernel's ``bound_ms`` is the
+least time of its work at f32 accuracy: the larger of its operations in
+3xTF32 on the tensor cores (three TF32 products) and its bytes over HBM
+bandwidth; ``bound_f32_core_ms`` keeps the f32 CUDA-core bound beside it.
 """
 from __future__ import annotations
 
@@ -143,14 +152,18 @@ CLI_MIN_FALL = 2e-4
 
 # Tolerance of every comparison on the card: |a - b| <= RTOL * max|ref|.
 # The kernels, cuBLAS and the CPU's BLAS sum the 352- to 1024-wide rows in
-# different orders (all in f32), the backward kernels add row chunks in
+# different orders (all in f32; the engine's products in 3xTF32, within
+# about 2^-21 of each f32 product), the backward kernels add row chunks in
 # another order, and pointnet's winner-row scatter adds with atomics, so
 # errors scale with the largest magnitude.
 RTOL = 1e-4
 
-# published H100 peaks (NVIDIA data sheets): f32 outside the tensor cores and
-# HBM bandwidth, by product name
-PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60.0e12, 3.9e12), "": (67.0e12, 3.35e12)}
+# published H100 peaks (NVIDIA data sheets), by product name: f32 outside the
+# tensor cores, HBM bandwidth, and the dense TF32 tensor-core rate (half the
+# sheets' sparse figure). f32-accurate work on the tensor cores (3xTF32)
+# takes three TF32 products, so it runs at a third of that rate.
+PEAKS = {"PCIe": (51.2e12, 2.0e12, 378.0e12), "NVL": (60.0e12, 3.9e12, 417.5e12),
+         "": (67.0e12, 3.35e12, 494.7e12)}
 
 REPLACES = {
     "pointnet_global": "porous_cfd_tpu/ops/pointnet_pallas.py:37 (_fwd_kernel; "
@@ -283,9 +296,16 @@ def check_close(name, pairs, quiet=False):
     return worst
 
 
-def bound(flops, nbytes, peak_flops, peak_bw):
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound(flops, nbytes, peak_f32, peak_bw, peak_tf32):
+    """The least time (ms) of f32-accurate work: the larger of its products
+    in 3xTF32 on the tensor cores (3 FLOP / the TF32 rate) and its bytes over
+    HBM bandwidth, and what bounds it; with the f32 CUDA-core bound beside
+    it, the yardstick before the engine moved to the tensor cores."""
+    t_ops, t_bytes = 3.0 * flops / peak_tf32 * 1e3, nbytes / peak_bw * 1e3
+    t_f32 = max(flops / peak_f32 * 1e3, t_bytes)
+    if t_ops >= t_bytes:
+        return t_ops, "operations", t_f32
+    return t_bytes, "bytes", t_f32
 
 
 def nbytes_of(tensors) -> int:
@@ -293,20 +313,106 @@ def nbytes_of(tensors) -> int:
 
 
 def entry(name, err, ms, plain_ms, flops, nbytes, pk, **extra):
-    b_ms, b_by = bound(flops, nbytes, *pk)
+    b_ms, b_by, b_f32 = bound(flops, nbytes, *pk)
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": None, "max_abs_err": err,
             "tolerance": f"{RTOL} * max|ref|", "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "flop": flops, "bytes": nbytes, **extra}
+            "bound_ms": b_ms, "bound_by": b_by, "bound_f32_core_ms": b_f32,
+            "library_ms": None, "flop": flops, "bytes": nbytes, **extra}
 
 
 def shape_timing(res, pk):
-    """ms, plain ms and bound of one kernel check at one shape."""
-    b_ms, b_by = bound(res["flops"], res["nbytes"], *pk)
+    """ms, plain ms and bounds of one kernel check at one shape."""
+    b_ms, b_by, b_f32 = bound(res["flops"], res["nbytes"], *pk)
     return {"ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "flop": res["flops"], "bytes": res["nbytes"],
-            "max_abs_err": res["err"]}
+            "bound_by": b_by, "bound_f32_core_ms": b_f32, "flop": res["flops"],
+            "bytes": res["nbytes"], "max_abs_err": res["err"]}
+
+
+def grad_shapes(int_widths, widths, dims=2):
+    """(rows, K, N) of every weight gradient one engine backward contracts:
+    the internal launch's (v, J, H) stash rows, then the boundary launch's."""
+    rows = (BATCH * N_INT * (1 + 2 * dims), BATCH * N_BND)
+    return ([(rows[0], int_widths[i], int_widths[i + 1]) for i in range(len(widths) - 1)]
+            + [(rows[1], widths[i], widths[i + 1]) for i in range(len(widths) - 1)])
+
+
+_WEIGHT_GRAD_TIMES = {}  # (rows, K, N) -> (err, ms, library_ms), once a run
+
+
+def time_weight_grads(torch, shapes, pk=None):
+    """The engine's weight_grad alone at each (rows, K, N) on random rows,
+    held to its plain version, cuBLAS's a.t() @ g in full f32 (TF32 off),
+    within RTOL and timed beside it: the backward's split into its
+    weight gradients and its rows sweep. Returns the sums over the shapes
+    (ms, library_ms, flops, nbytes, err) and each shape's times; with
+    ``pk`` also their bounds. A shape met again in the run reuses its
+    measurement."""
+    from porous_cfd_tpu_torch.ops import mlp_prop_cuda
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {"ms": 0.0, "library_ms": 0.0, "flops": 0.0, "nbytes": 0.0, "err": 0.0,
+           "layers": []}
+    for rows, k, n in shapes:
+        if (rows, k, n) not in _WEIGHT_GRAD_TIMES:
+            a = torch.randn((rows, k), generator=gen, device=dev)
+            g = torch.randn((rows, n), generator=gen, device=dev)
+            err = check_close(f"weight_grad ({rows}, {k}) x ({rows}, {n})",
+                              [("dW", mlp_prop_cuda.weight_grad(a, g), a.t() @ g)], quiet=True)
+            _WEIGHT_GRAD_TIMES[rows, k, n] = (
+                err, time_ms(torch, lambda: mlp_prop_cuda.weight_grad(a, g)),
+                time_ms(torch, lambda: a.t() @ g))
+            del a, g
+        err, ms, lib = _WEIGHT_GRAD_TIMES[rows, k, n]
+        out["layers"].append({"rows": rows, "k": k, "n": n, "ms": ms, "library_ms": lib})
+        out["ms"] += ms
+        out["library_ms"] += lib
+        out["flops"] += 2.0 * rows * k * n
+        out["nbytes"] += 4.0 * (rows * (k + n) + k * n)
+        out["err"] = max(out["err"], err)
+    if pk is not None:
+        out.update({k: v for k, v in zip(("bound_ms", "bound_by", "bound_f32_core_ms"),
+                                         bound(out["flops"], out["nbytes"], *pk))})
+    return out
+
+
+def split_backward(torch, bwd, shapes, pk):
+    """Add to a backward row its weight gradients (time_weight_grads) and
+    its rows sweep: the backward's time less theirs (the row kernels and
+    the column sums)."""
+    wg = time_weight_grads(torch, shapes, pk)
+    bwd["extra"] = {**bwd.get("extra", {}), "weight_grad": wg,
+                    "rows_sweep_ms": bwd["ms"] - wg["ms"]}
+    bwd["err"] = max(bwd["err"], wg["err"])
+    log(f"    rows sweep {bwd['ms'] - wg['ms']:.4f} ms, weight_grad {wg['ms']:.4f} ms "
+        f"(cuBLAS f32 {wg['library_ms']:.4f} ms, 3xTF32 bound {wg['bound_ms']:.4f} ms)")
+
+
+def kernel_report(log_text):
+    """Per kernel family (the engine's forward and backward row kernels,
+    weight_grad) of one ``-Xptxas -v`` report: instantiations, registers,
+    the largest stack frame and spills, in bytes."""
+    families = {}
+    name = None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = next((f for f in ("mlp_prop_fwd", "mlp_prop_bwd_rows",
+                                     "weight_grad_partial") if f in line), None)
+            if name:
+                families.setdefault(name, {"count": 0, "registers": [], "stack": 0,
+                                           "spill_stores": 0, "spill_loads": 0})
+                families[name]["count"] += 1
+        elif name and "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            fam = families[name]
+            fam["stack"] = max(fam["stack"], nums[0])
+            fam["spill_stores"] = max(fam["spill_stores"], nums[1])
+            fam["spill_loads"] = max(fam["spill_loads"], nums[2])
+        elif name and "Used" in line and "registers" in line:
+            words = line.split()
+            families[name]["registers"].append(int(words[words.index("Used") + 1]))
+            name = None
+    return families
 
 
 def adam_first_step_spread(g, tau, lr, eps):
@@ -1515,7 +1621,8 @@ def main() -> int:
     from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp
     from porous_cfd_tpu_torch.models.pipn import pipn_foam, pipn_foam_pp
     from porous_cfd_tpu_torch.ops import (build, decoder_cuda, dropout, fps_cuda,
-                                          neural_op_cuda, pointnet_cuda, sa_cuda)
+                                          mlp_prop_cuda, neural_op_cuda, pointnet_cuda,
+                                          sa_cuda)
     from porous_cfd_tpu_torch.train.engine import gather_cases
 
     counters = {"pointnet_global": pointnet_cuda.pointnet_global,
@@ -1549,7 +1656,9 @@ def main() -> int:
     log(f"device: {name} (count {torch.cuda.device_count()}); torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
-    log(f"peaks used for bounds: {pk[0] / 1e12:.1f} TFLOP/s f32, {pk[1] / 1e12:.2f} TB/s")
+    log(f"peaks used for bounds: {pk[2] / 3e12:.1f} TFLOP/s f32-accurate on the tensor cores "
+        f"(3xTF32 of {pk[2] / 1e12:.1f} TF32), {pk[0] / 1e12:.1f} TFLOP/s f32 CUDA cores, "
+        f"{pk[1] / 1e12:.2f} TB/s")
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1559,9 +1668,27 @@ def main() -> int:
     for src in build.SOURCES:
         report = build.library_path(src).with_suffix(".log")
         if report.exists():
-            for line in report.read_text().splitlines():
+            text = report.read_text()
+            for line in text.splitlines():
                 if "spill" in line and "0 bytes spill stores" not in line:
                     log(f"  ptxas {src}: {line.strip()}")
+            for fam, r in kernel_report(text).items():
+                log(f"  ptxas {src} {fam}: {r['count']} instantiations, registers "
+                    f"{min(r['registers'])}-{max(r['registers'])}, stack frame <= {r['stack']} "
+                    f"B, spill stores <= {r['spill_stores']} B, loads <= {r['spill_loads']} B")
+    # blocks per SM of the engine's row kernels and weight_grad at the paths' widths
+    for label, kern, widths, kw in (
+            ("decoder_prop pipn", decoder_cuda.DECODER, [FE_LOCAL[-1]] + SEG[1:], {}),
+            ("decoder_prop pipn_pp", decoder_cuda.DECODER, [FE_LOCAL[-1]] + PP_SEG[1:], {}),
+            ("neural_ops_prop pi-gano", neural_op_cuda.TRUNK,
+             [PG_LOCAL[-1]] + [PG_BRANCH[-1]] * PG_OPERATORS + [3], {}),
+            ("neural_ops_prop pi-gano-full", neural_op_cuda.TRUNK,
+             [PG_LOCAL[-1]] + [PG_BRANCH[-1]] * PG_OPERATORS, {"reduction": False})):
+        occ = mlp_prop_cuda.occupancy(kern, widths, **kw)
+        log(f"  occupancy {label} {widths}: " + ", ".join(f"{k} {v}" for k, v in occ.items()))
+        if min(occ["fwd_blocks_per_sm"], occ["bwd_blocks_per_sm"],
+               occ["weight_grad_blocks_per_sm"]) < 1:
+            fail(f"{label}: a kernel fits no block on an SM ({occ})")
 
     gen = torch.Generator().manual_seed(SEED)
     kernels = {}
@@ -1604,11 +1731,16 @@ def main() -> int:
         fail(f"kept fraction {kept} not within 0.95 +- 0.002")
     del mask
     dec_fwd, dec_bwd = check_decoder(SEG, SEG_DROPOUT, gen, "pipn")
+    split_backward(torch, dec_bwd, grad_shapes(*[[FE_LOCAL[-1]] + SEG[1:]] * 2), pk)
     add_entry("decoder_prop", dec_fwd)
     add_entry("decoder_prop_bwd", dec_bwd)
 
     # ---- 3e. neural_ops_prop forward and backward, dropout on and off ---------
+    def trunk_widths(reduction=True):
+        return [PG_LOCAL[-1]] + [PG_BRANCH[-1]] * PG_OPERATORS + [3] * reduction
+
     tr_fwd, tr_bwd = check_trunk(gen)
+    split_backward(torch, tr_bwd, grad_shapes(*[trunk_widths()] * 2), pk)
     add_entry("neural_ops_prop", tr_fwd)
     add_entry("neural_ops_prop_bwd", tr_bwd)
     torch.cuda.empty_cache()
@@ -1617,6 +1749,7 @@ def main() -> int:
     for key, mode in (("full", (False, False)), ("linear_last", (False, True)),
                       ("no_reduction", (True, False))):
         fwd, bwd = check_trunk(gen, *mode)
+        split_backward(torch, bwd, grad_shapes(*[trunk_widths(mode[1])] * 2), pk)
         add_entry(f"neural_ops_prop_{key}", fwd, mode=trunk_mode(*mode))
         add_entry(f"neural_ops_prop_{key}_bwd", bwd, mode=trunk_mode(*mode))
         torch.cuda.empty_cache()
@@ -1689,6 +1822,7 @@ def main() -> int:
     # pointnet_global at PI-GANO++'s global level (its input needs dx too)
     pp_pn = check_pointnet(PP_GLOBAL[-1], n_cent[1], True, gen, "pipn_pp global")
     pp_dec = check_decoder(PP_SEG, PP_DROPOUT, gen, "pipn_pp")
+    split_backward(torch, pp_dec[1], grad_shapes(*[[FE_LOCAL[-1]] + PP_SEG[1:]] * 2), pk)
     pgp_cent = fps_count(fps_count(N_BND, PGP_FRACTION[0]), PGP_FRACTION[1])
     pgp_pn = check_pointnet(PGP_GEOMETRY[-1], pgp_cent, True, gen, "pi-gano-pp global")
     for key, pair, at, shape in (
@@ -1706,6 +1840,10 @@ def main() -> int:
     coupled = check_decoder_coupled(pipn_coupled_model(dev),
                                     gather_cases(data, torch.arange(BATCH)).to(dev), pk)
     for mode, key in (("j0_add", "decoder_prop_j0_add"), ("ctx_width", "decoder_prop_ctx")):
+        widths = [FE_LOCAL[-1]] + SEG[1:]
+        split_backward(torch, coupled[mode][1],
+                       grad_shapes([SEG[0] if mode == "ctx_width" else widths[0]] + widths[1:],
+                                   widths), pk)
         add_entry(key, coupled[mode][0], mode=mode)
         add_entry(f"{key}_bwd", coupled[mode][1], mode=mode)
     for kern in kernels.values():

@@ -1,19 +1,54 @@
 // Shared pieces of the hand-written Hopper kernels: the layer table passed by
-// value to a kernel, the activation rules, and one block-level f32 GEMM on the
-// CUDA cores that every dense layer of the port's kernels goes through.
+// value to a kernel, the activation rules, the dropout generator, one
+// block-level f32 GEMM on the CUDA cores, the f32-accurate tensor-core
+// primitives (3xTF32) and the weight-gradient contraction built on them.
 //
-// block_gemm computes a (rows x 128) output chunk of one dense layer for a
-// block of 8 warps. Thread layout (the SIMT layout of CUTLASS's warp-level
-// GEMM): warp = (wr, wc) in 2 x 4, lane = (lr, lc) in 4 x 8. A thread owns
-// the rows i * 8 + p, p = wr * 4 + lr (i < RM), and the 4 adjacent columns
-// wc * 32 + lc * 4 + j of the chunk, so its RM x 4 accumulators stay in
-// registers. Per step of 4 k it reads RM float4 of the activation tile (4
-// distinct rows per warp, in distinct banks thanks to a padded row stride)
-// and 4 float4 of the weight tile (8 distinct addresses per warp): about one
-// shared-memory wavefront per 2 FMA instructions, so the FMA pipe and not
-// shared memory is the limit. Weights, given as (in, out) row-major, stream
-// through two 32 x 128 shared-memory tiles: cp.async fills the next tile
-// while the current one is used.
+// block_gemm (pointnet_global.cu and sa_neighborhood.cu; mlp_prop.cuh has
+// its own tensor-core product) computes a (rows x 128) output chunk of one
+// dense layer for a block of 8 warps. Thread layout (the SIMT layout of
+// CUTLASS's warp-level GEMM): warp = (wr, wc) in 2 x 4, lane = (lr, lc) in
+// 4 x 8. A thread owns the rows i * 8 + p, p = wr * 4 + lr (i < RM), and the
+// 4 adjacent columns wc * 32 + lc * 4 + j of the chunk, so its RM x 4
+// accumulators stay in registers. Per step of 4 k it reads RM float4 of the
+// activation tile (4 distinct rows per warp, in distinct banks thanks to a
+// padded row stride) and 4 float4 of the weight tile (8 distinct addresses
+// per warp): about one shared-memory wavefront per 2 FMA instructions, so
+// the FMA pipe and not shared memory is the limit. Weights, given as (in,
+// out) row-major, stream through two 32 x 128 shared-memory tiles: cp.async
+// fills the next tile while the current one is used.
+//
+// 3xTF32. The H100's TF32 tensor cores (494.7 TFLOP/s dense on the SXM
+// part) keep 10 mantissa bits of each operand, about 3 decimal digits: one
+// pass misses the port's 1e-4 * max|ref| gate at the widths of its layers
+// (tests/test_torch_tf32_split.py shows it). Each operand x is split into
+// big = tf32(x) and small = tf32(x - big), which together hold 22 of f32's
+// 24 bits, and a b accumulates in f32 as a_big b_small + a_small b_big +
+// a_big b_big (CUTLASS's OpMultiplyAddFastF32; a_small b_small, about 2^-22
+// of a b, is dropped): three TF32 products, 494.7 / 3 = 164.9 TFLOP/s of
+// f32-accurate work at the data sheet's rate, against 67 TFLOP/s of f32
+// FMA. The rounding is two integer operations (to_tf32). On the H100
+// (tools/tc_ceiling.py) mma.sync.m16n8k8 reaches about 322 TFLOP/s of TF32
+// and wgmma about 487, so the engine's row kernels (mlp_prop.cuh) use
+// wgmma and weight_grad, below, mma.sync.
+//
+// weight_grad replaces the contraction over rows that the TPU kernels carry
+// in scratch across their sequential grid (decoder_pallas.py:_bwd_kernel,
+// neural_op_pallas.py:_bwd_kernel, pointnet_pallas.py:_bwd_kernel): dW = A^T
+// GZ over all rows, half of every backward's FLOP. On the H100 operations
+// and bytes bound it nearly alike: at pipn's internal decoder launch
+// (97,500 rows through 64 -> 512 -> 256 -> 128 -> 3) it does 38.4 GFLOP on
+// 0.73 GB of stash, 0.23 ms at 164.9 TFLOP/s against 0.22 ms at 3.35 TB/s.
+// Design: a block computes a BM x BN tile of dW (BM, BN in {64, 128} by the
+// widths) over one chunk of rows with 8 warps of 3xTF32 mma.sync (a warp
+// tile of BM/2 x BN/4, the three passes issued pass by pass over all its
+// tiles), A and GZ staged 32 rows at a time in a 3-stage cp.async ring (one
+// barrier per stage; 104 KB of shared memory and 183 registers a thread at
+// 128 x 128: one block per SM). wgmma would want GZ K-major, i.e.
+// transposed in shared memory: later work. The
+// activation of a pre-activation operand (A_ACT) is applied in shared
+// memory by the thread that copied each word, before the stage's barrier.
+// Each chunk writes its own partial tile and sum_partials adds the chunks
+// in order: no atomics, and the result does not depend on the schedule.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,8 +92,8 @@ inline Mlp make_mlp(int n_layers, const float* const* w, const float* const* b,
   Mlp m{};
   m.n_layers = n_layers;
   for (int i = 0; i < n_layers && i < kMaxLayers; ++i) {
-    m.layer[i].w = w[i];
-    m.layer[i].b = b[i];
+    m.layer[i].w = w ? w[i] : nullptr;
+    m.layer[i].b = b ? b[i] : nullptr;
     m.layer[i].k = widths[i];
     m.layer[i].n = widths[i + 1];
     m.layer[i].ldw = widths[i + 1];
@@ -266,96 +301,233 @@ inline Dropout make_dropout(unsigned k0, unsigned k1, int n_layers, const unsign
   return d;
 }
 
-// the factors (0 or 1 / keep) of columns 4 * col4 .. 4 * col4 + 3 of one
-// merged row; all 1 where layer i has no dropout
-__device__ __forceinline__ void keep4(const Dropout& dr, int layer, int case_, int row,
-                                      int col4, float (&m)[4]) {
-  if (!dr.on[layer]) {
-    m[0] = m[1] = m[2] = m[3] = 1.f;
-    return;
-  }
-  const uint4 r = philox4x32_10(make_uint4((unsigned)col4, (unsigned)row, (unsigned)case_,
-                                           (unsigned)layer),
-                                dr.k0, dr.k1);
-  const unsigned t = dr.thresh[layer];
-  const float s = dr.scale[layer];
-  m[0] = r.x < t ? s : 0.f;
-  m[1] = r.y < t ? s : 0.f;
-  m[2] = r.z < t ? s : 0.f;
-  m[3] = r.w < t ? s : 0.f;
+// One layer's dropout, read once per layer from the kernel's table (whose
+// run-time indexing goes through local memory).
+struct LayerDrop {
+  unsigned k0, k1, thresh;
+  float scale;
+  int layer;
+  bool on;
+};
+
+__device__ __forceinline__ LayerDrop layer_drop(const Dropout& dr, int layer) {
+  return {dr.k0, dr.k1, dr.thresh[layer], dr.scale[layer], layer, dr.on[layer] != 0};
 }
 
-// Weight gradient C (K x N) = sum over rows r of A[r][k] G[r][n], the
-// contraction over all rows that Hopper's parallel blocks cannot carry across
-// the grid as the TPU does. Each block computes one 64 x 64 tile of C over
-// one chunk of rows into parts[chunk]; sum_partials then adds the chunks in
-// order, so the result does not depend on the schedule. 256 threads, each
-// with a 4 x 4 register tile; 16 rows of A and G staged per step.
-// A_ACT >= 0 applies that activation to A as it is loaded (A holds
-// pre-activations).
-constexpr int kGradTile = 64;
-constexpr int kGradRows = 16;
+// the factors (0 or 1 / keep) of columns c and c + 1 (c even) of one merged
+// row, all 1 where the layer has no dropout: the half of Philox output
+// (c / 4, row, case, layer) that holds them, selected without indexing
+__device__ __forceinline__ void keep2(const LayerDrop& d, int case_, int row, int c,
+                                      float (&f)[2]) {
+  if (!d.on) {
+    f[0] = f[1] = 1.f;
+    return;
+  }
+  const uint4 r = philox4x32_10(make_uint4((unsigned)(c >> 2), (unsigned)row, (unsigned)case_,
+                                           (unsigned)d.layer),
+                                d.k0, d.k1);
+  const bool hi = (c & 2) != 0;
+  f[0] = (hi ? r.z : r.x) < d.thresh ? d.scale : 0.f;
+  f[1] = (hi ? r.w : r.y) < d.thresh ? d.scale : 0.f;
+}
 
-template <int A_ACT>
-__global__ void __launch_bounds__(256)
+// ---------------------------------------------------------------------------
+// Tensor cores at f32 accuracy (3xTF32; see the head of this file)
+
+// x rounded to TF32 (round to nearest, ties away from zero), as f32 bits:
+// cvt.rna.tf32.f32 for finite x, in two integer operations (add half of the
+// 13 dropped bits' range to the magnitude, then clear them; a carry moves
+// into the exponent as rounding up should)
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small to about 2^-22 |x|, both TF32
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// d += a b on one m16n8k8 tile. Fragments (g = lane / 4, t = lane % 4):
+// a = (row g, col t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b = (row t,
+// col g), (t + 4, g); d = (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// cp.async of 16 bytes of which the first `bytes` are read, the rest zeroed
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+
+// Whether a tile of src (row stride ld) starting at column c0 goes in
+// 16-byte copies: aligned rows; otherwise word by word.
+__device__ __forceinline__ bool tile_vec(const float* src, int ld, int c0) {
+  return (ld & 3) == 0 && (c0 & 3) == 0 && (reinterpret_cast<size_t>(src) & 15) == 0;
+}
+
+// Start copying src[r0 + r][c0 + c] (r < R, c < CW; row-major, ld floats a
+// row) to dst[r * sld + c]; entries at rows >= r_end or columns >= c_end
+// read as 0. Not committed: the caller commits the group.
+template <int R, int CW>
+__device__ __forceinline__ void load_tile_async(float* dst, int sld, const float* src, int ld,
+                                                int r0, int r_end, int c0, int c_end) {
+  if (tile_vec(src, ld, c0)) {
+    constexpr int kV = CW / 4;
+    for (int e = threadIdx.x; e < R * kV; e += kThreads) {
+      const int r = e / kV;
+      const int c = (e % kV) * 4;
+      const int row = r0 + r;
+      const int col = c0 + c;
+      const int n = row < r_end ? min(4, c_end - col) : 0;
+      cp_async16(dst + r * sld + c, n > 0 ? src + (size_t)row * ld + col : src,
+                 n > 0 ? 4 * n : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * CW; e += kThreads) {
+      const int r = e / CW;
+      const int c = e % CW;
+      const bool ok = r0 + r < r_end && c0 + c < c_end;
+      cp_async4(dst + r * sld + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+    }
+  }
+}
+
+// act() over the words of a tile that this thread copied with the same
+// load_tile_async call (its own copies are complete after cp_async_wait)
+template <int ACT, int R, int CW>
+__device__ __forceinline__ void activate_own(float* dst, int sld, const float* src, int ld,
+                                             int c0) {
+  if (tile_vec(src, ld, c0)) {
+    constexpr int kV = CW / 4;
+    for (int e = threadIdx.x; e < R * kV; e += kThreads) {
+      float4* p = reinterpret_cast<float4*>(dst + (e / kV) * sld + (e % kV) * 4);
+      float4 v = *p;
+      v.x = act_value<ACT>(v.x);
+      v.y = act_value<ACT>(v.y);
+      v.z = act_value<ACT>(v.z);
+      v.w = act_value<ACT>(v.w);
+      *p = v;
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * CW; e += kThreads) {
+      float* p = dst + (e / CW) * sld + e % CW;
+      *p = act_value<ACT>(*p);
+    }
+  }
+}
+
+// Weight gradient C (K x N) = sum over rows r of A[r][k] G[r][n] in 3xTF32
+// (see the head of this file). Block (blockIdx.x, blockIdx.y) computes the
+// BM x BN tile at (k0, n0) of C over chunk blockIdx.z of the rows into
+// parts[chunk]; sum_partials adds the chunks in order. The mma's M is k,
+// its N is n, its depth the rows: both operands come as [row][column]
+// shared tiles, whose strides of 8 (mod 32) words make every fragment load
+// conflict-free.
+constexpr int kGradDepth = 32;   // rows a stage
+constexpr int kGradStages = 3;
+
+template <int BM, int BN>
+constexpr size_t grad_smem_bytes() {
+  return sizeof(float) * kGradStages * kGradDepth * ((BM + 8) + (BN + 8));
+}
+
+template <int A_ACT, int BM, int BN>
+__global__ void __launch_bounds__(kThreads, 1)
     weight_grad_partial(const float* __restrict__ A, int lda, const float* __restrict__ G,
                         int ldg, int rows, int K, int N, int rows_per_chunk,
                         float* __restrict__ parts) {
-  __shared__ __align__(16) float As[kGradRows][kGradTile];
-  __shared__ __align__(16) float Gs[kGradRows][kGradTile];
-  const int n0 = blockIdx.x * kGradTile;
-  const int k0 = blockIdx.y * kGradTile;
+  constexpr int SA = BM + 8, SG = BN + 8;
+  constexpr int kStage = kGradDepth * (SA + SG);
+  constexpr int WM = BM / 2, WN = BN / 4, MT = WM / 16, NT = WN / 8;
+  extern __shared__ __align__(16) float smem[];
+  const int n0 = blockIdx.x * BN;
+  const int k0 = blockIdx.y * BM;
   const int chunk = blockIdx.z;
   const int r_begin = chunk * rows_per_chunk;
   const int r_end = min(rows, r_begin + rows_per_chunk);
-  const int tk = threadIdx.x >> 4;
-  const int tn = threadIdx.x & 15;
-  float acc[4][4];
+  const int n_steps = r_end > r_begin ? (r_end - r_begin + kGradDepth - 1) / kGradDepth : 0;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int wm = (warp >> 2) * WM;
+  const int wn = (warp & 3) * WN;
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[m][n][q] = 0.f;
 
-  for (int r0 = r_begin; r0 < r_end; r0 += kGradRows) {
-    for (int e = threadIdx.x; e < kGradRows * kGradTile; e += 256) {
-      const int rr = e / kGradTile;
-      const int c = e % kGradTile;
-      const int r = r0 + rr;
-      float a = 0.f, g = 0.f;
-      if (r < r_end) {
-        if (k0 + c < K) {
-          a = A[(size_t)r * lda + k0 + c];
-          if constexpr (A_ACT >= 0) a = act_value<A_ACT>(a);
-        }
-        if (n0 + c < N) g = G[(size_t)r * ldg + n0 + c];
+  auto load = [&](int s) {
+    float* st = smem + (s % kGradStages) * kStage;
+    const int r0 = r_begin + s * kGradDepth;
+    load_tile_async<kGradDepth, BM>(st, SA, A, lda, r0, r_end, k0, K);
+    load_tile_async<kGradDepth, BN>(st + kGradDepth * SA, SG, G, ldg, r0, r_end, n0, N);
+  };
+  for (int s = 0; s < kGradStages - 1; ++s) {
+    if (s < n_steps) load(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kGradStages - 2>();
+    float* as = smem + (s % kGradStages) * kStage;
+    if constexpr (A_ACT >= 0) activate_own<A_ACT, kGradDepth, BM>(as, SA, A, lda, k0);
+    __syncthreads();  // stage s is complete and visible; stage s - 1 is free
+    if (s + kGradStages - 1 < n_steps) load(s + kGradStages - 1);
+    cp_async_commit();
+    const float* gs = as + kGradDepth * SA;
+#pragma unroll
+    for (int kk = 0; kk < kGradDepth; kk += 8) {
+      unsigned ab[MT][4], asm_[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* p = as + (kk + t) * SA + wm + m * 16 + g;
+        split_tf32(p[0], ab[m][0], asm_[m][0]);
+        split_tf32(p[8], ab[m][1], asm_[m][1]);
+        split_tf32(p[4 * SA], ab[m][2], asm_[m][2]);
+        split_tf32(p[4 * SA + 8], ab[m][3], asm_[m][3]);
       }
-      As[rr][c] = a;
-      Gs[rr][c] = g;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < kGradRows; ++rr) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[rr][tk * 4]);
-      const float4 g = *reinterpret_cast<const float4*>(&Gs[rr][tn * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float gv[4] = {g.x, g.y, g.z, g.w};
+      unsigned bb[NT][2], bs[NT][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int n = 0; n < NT; ++n) {
+        const float* p = gs + (kk + t) * SG + wn + n * 8 + g;
+        split_tf32(p[0], bb[n][0], bs[n][0]);
+        split_tf32(p[4 * SG], bb[n][1], bs[n][1]);
+      }
+      // the three passes one after another over all tiles: independent
+      // products between the dependent ones
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + tk * 4 + i;
-    if (k >= K) continue;
+        for (int n = 0; n < NT; ++n) mma_tf32(acc[m][n], ab[m], bs[n][0], bs[n][1]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tn * 4 + j;
-      if (n < N) parts[((size_t)chunk * K + k) * N + n] = acc[i][j];
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_tf32(acc[m][n], asm_[m], bb[n][0], bb[n][1]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_tf32(acc[m][n], ab[m], bb[n][0], bb[n][1]);
     }
   }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = k0 + wm + m * 16 + g + (q >> 1) * 8;
+        const int c = n0 + wn + n * 8 + 2 * t + (q & 1);
+        if (k < K && c < N) parts[((size_t)chunk * K + k) * N + c] = acc[m][n][q];
+      }
 }
 
 // out[j] += sum over p < n_parts of parts[p * len + j], in order of p
@@ -392,9 +564,13 @@ __global__ void group_colsum(const float* __restrict__ G, int ldg, int stride, i
   }
 }
 
+// the tile of dW a block computes: 128 wide along k and n where the
+// widths fill it, else 64
+inline int grad_tile(int width) { return width > 64 ? 128 : 64; }
+
 inline int grad_chunks(int rows, int K, int N) {
-  const int tiles = ((N + kGradTile - 1) / kGradTile) * ((K + kGradTile - 1) / kGradTile);
-  int chunks = (4 * 132 + tiles - 1) / tiles;  // about 4 blocks per SM
+  const int tiles = ((N + grad_tile(N) - 1) / grad_tile(N)) * ((K + grad_tile(K) - 1) / grad_tile(K));
+  int chunks = (2 * 132 + tiles - 1) / tiles;  // about two blocks per SM
   const int most = (rows + 511) / 512;        // at least 512 rows a chunk
   if (chunks > most) chunks = most;
   return chunks < 1 ? 1 : chunks;
@@ -404,21 +580,49 @@ inline size_t grad_scratch_floats(int rows, int K, int N) {
   return (size_t)grad_chunks(rows, K, N) * K * N;
 }
 
+template <int A_ACT, int BM, int BN>
+cudaError_t launch_weight_grad(const float* A, int lda, const float* G, int ldg, int rows, int K,
+                               int N, float* scratch, cudaStream_t s) {
+  const int chunks = grad_chunks(rows, K, N);
+  int per = (rows + chunks - 1) / chunks;
+  per = (per + kGradDepth - 1) / kGradDepth * kGradDepth;
+  constexpr size_t smem = grad_smem_bytes<BM, BN>();
+  auto kernel = weight_grad_partial<A_ACT, BM, BN>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, chunks);
+  kernel<<<grid, kThreads, smem, s>>>(A, lda, G, ldg, rows, K, N, per, scratch);
+  return cudaGetLastError();
+}
+
 // out (K x N) += A^T G over all rows; scratch holds grad_scratch_floats
 template <int A_ACT>
 cudaError_t weight_grad(const float* A, int lda, const float* G, int ldg, int rows, int K,
                         int N, float* scratch, float* out, cudaStream_t s) {
   if (rows < 1) return cudaSuccess;
-  const int chunks = grad_chunks(rows, K, N);
-  int per = (rows + chunks - 1) / chunks;
-  per = (per + kGradRows - 1) / kGradRows * kGradRows;
-  const dim3 grid((N + kGradTile - 1) / kGradTile, (K + kGradTile - 1) / kGradTile, chunks);
-  weight_grad_partial<A_ACT><<<grid, 256, 0, s>>>(A, lda, G, ldg, rows, K, N, per, scratch);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (grad_tile(K) == 128)
+    err = grad_tile(N) == 128
+              ? launch_weight_grad<A_ACT, 128, 128>(A, lda, G, ldg, rows, K, N, scratch, s)
+              : launch_weight_grad<A_ACT, 128, 64>(A, lda, G, ldg, rows, K, N, scratch, s);
+  else
+    err = grad_tile(N) == 128
+              ? launch_weight_grad<A_ACT, 64, 128>(A, lda, G, ldg, rows, K, N, scratch, s)
+              : launch_weight_grad<A_ACT, 64, 64>(A, lda, G, ldg, rows, K, N, scratch, s);
   if (err != cudaSuccess) return err;
   const int len = K * N;
-  sum_partials<<<(len + 255) / 256, 256, 0, s>>>(scratch, chunks, len, out);
+  sum_partials<<<(len + 255) / 256, 256, 0, s>>>(scratch, grad_chunks(rows, K, N), len, out);
   return cudaGetLastError();
+}
+
+// blocks per SM of weight_grad's widest tile (128 x 128, no activation)
+inline int weight_grad_blocks_per_sm() {
+  int blocks = 0;
+  auto kernel = weight_grad_partial<-1, 128, 128>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)grad_smem_bytes<128, 128>());
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
+                                                grad_smem_bytes<128, 128>());
+  return blocks;
 }
 
 // out (N) += column sums of the value rows of G (n_rows value rows, stride

@@ -19,20 +19,22 @@
 // 128 -> 3 (196,992 multiply-adds a row, 38.4 GFLOP) while reading 25 MB; the
 // boundary launch runs 13,000 value rows (5.1 GFLOP). The backward does the
 // same work twice over (input cotangents and weight gradients, 87 GFLOP).
-// All are far above the f32 ridge point, so the f32 CUDA-core rate is the
-// limit. The j0_add mode adds two (13, 2, 1500, 512) f32 reads forward and
-// two writes backward (160 MB each way, about 0.05 ms at 3.35 TB/s); the
-// ctx_width mode runs its 1024 context columns through layer 0 for every
-// J/H row (a further 102 GFLOP forward), which is why the path takes the
-// j0_add mode.
+// At the f32-accurate tensor-core rate (3xTF32, 164.9 TFLOP/s) that is
+// 0.264 ms forward and 0.528 ms backward, far above the bytes' time. The
+// j0_add mode adds two (13, 2, 1500, 512) f32 reads forward and two writes
+// backward (160 MB each way, about 0.05 ms at 3.35 TB/s); the ctx_width
+// mode runs its 1024 context columns through layer 0 for every J/H row (a
+// further 102 GFLOP forward), which is why the path takes the j0_add mode.
 //
-// Design: mlp_prop.cuh's kernels without modulation (MOD = false). The
-// widest stash is the 512-wide layer-0 output: 40 x 512 floats (80 KB) plus
-// a 40 x 256 buffer for the other layers, one block of 153 KB per SM. The
-// training stash is 0.7 GB at the envelope, written once and read once:
-// about 0.4 ms of bandwidth, against the 0.65 ms of operations a recompute
-// would cost. The addends are nullable pointers, not a template axis, so
-// the instantiations do not double; the context columns stream through a
+// Design: mlp_prop.cuh's kernels without modulation (MOD = false): every
+// product in 3xTF32 mma tiles, one thread holding a point's 5 rows. The
+// widest row buffer is the 512-wide layer-0 output: 40 x 516 floats plus a
+// 40 x 260 buffer for the other layers and a 52 KB weight ring, 173 KB, one
+// block per SM. The training stash is 0.7 GB at the envelope, written once
+// and read once: about 0.4 ms of bandwidth, against the 0.26 ms of products
+// a recompute would cost on top of a second pass over the rows. The
+// addends are nullable pointers, not a template axis, so the
+// instantiations do not double; the context columns stream through a
 // 128-column staging tile, so shared memory stays at the decoupled size.
 #include "mlp_prop.cuh"
 
@@ -73,8 +75,10 @@ __global__ void philox_kernel(const unsigned* in, unsigned* out, int n) {
 // below widths[0] (ctx_width mode, derivatives only) the jt/ht rows carry
 // widths[0] - v_width context columns after the local ones and w[0] is the
 // full (widths[0], F1) layer-0 weight. j0_add / h0_add (n_cases, D, n_pts,
-// F1), or null: added to the J/H rows' layer-0 pre-activations. Returns the
-// CUDA error code (0 = ok).
+// F1), or null: added to the J/H rows' layer-0 pre-activations. wsplit
+// (wsplit_floats, at least decoder_prop_forward_workspace's) receives the
+// launch's weights split for the tensor cores. Returns the CUDA error code
+// (0 = ok).
 extern "C" int decoder_prop_forward(int d_dims, int act, int with_derivatives,
                                     const float* v, const float* jt, const float* ht,
                                     int n_cases, int n_pts, const float* ctx, int n_layers,
@@ -84,12 +88,18 @@ extern "C" int decoder_prop_forward(int d_dims, int act, int with_derivatives,
                                     unsigned k1, const unsigned* thresh, const float* scale,
                                     const int* on, float* stash_a, float* stash_z,
                                     int v_width, const float* j0_add, const float* h0_add,
-                                    void* stream) {
+                                    float* wsplit, long long wsplit_floats, void* stream) {
   return prop_forward<false>(d_dims, act, with_derivatives != 0, v, jt, ht, n_cases, n_pts,
                              ctx, nullptr, n_layers, w, b, widths, ov, ov_rows, ov_row0, oj,
                              oh, make_dropout(k0, k1, n_layers, thresh, scale, on), stash_a,
-                             stash_z, v_width, j0_add, h0_add,
+                             stash_z, v_width, j0_add, h0_add, wsplit, wsplit_floats,
                              static_cast<cudaStream_t>(stream));
+}
+
+// Floats of decoder_prop_forward's wsplit for one launch at these widths.
+extern "C" long long decoder_prop_forward_workspace(int n_layers, const int* widths,
+                                                    int v_width) {
+  return prop_forward_workspace(n_layers, widths, v_width);
 }
 
 // Scratch floats decoder_prop_backward needs for one launch of `rows` stash
@@ -125,6 +135,29 @@ extern "C" int decoder_prop_backward(
                               stash_a, stash_z, gz_stash, nullptr, dv, djt, dht, dw, db, dctx,
                               nullptr, scratch, scratch_floats, v_width, dja, dha,
                               static_cast<cudaStream_t>(stream));
+}
+
+// Scratch floats decoder_prop_weight_grad needs.
+extern "C" long long decoder_prop_weight_grad_workspace(int rows, int K, int N) {
+  return (long long)grad_scratch_floats(rows, K, N);
+}
+
+// out (K, N) += a^T g for a (rows, K) and g (rows, N), both row-major and
+// contiguous: the engine's weight-gradient contraction (common.cuh's
+// weight_grad) alone, as every backward launch runs it for each layer.
+extern "C" int decoder_prop_weight_grad(const float* a, const float* g, int rows, int K, int N,
+                                        float* scratch, long long scratch_floats, float* out,
+                                        void* stream) {
+  if (rows < 1 || K < 1 || N < 1 || (long long)grad_scratch_floats(rows, K, N) > scratch_floats)
+    return (int)cudaErrorInvalidValue;
+  return (int)weight_grad<-1>(a, K, g, N, rows, K, N, scratch, out,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Blocks per SM and shared bytes of the decoder's kernels at these widths
+// (see prop_occupancy): out[6].
+extern "C" int decoder_prop_occupancy(int n_layers, const int* widths, int v_width, int* out) {
+  return prop_occupancy<false>(n_layers, widths, v_width, true, out);
 }
 
 // Philox4x32-10 of n (c0, c1, c2, c3, k0, k1) sets in device memory.

@@ -8,7 +8,7 @@
 // and no fused reduction (out_features=None, :64, :86-87, :143-147), where
 // the output is the last operator's (v, J, H), F wide. PiGanoFull runs both
 // together, once per output field. mlp_prop.cuh runs every operator through
-// its block-GEMM path (every layer is one without a reduction), the linear one
+// its product path (every layer is one without a reduction), the linear one
 // with the identity's rules (d1 = 1, d2 = d3 = 0) and still dropped out and
 // modulated; its backward first applies the last operator's rules to the
 // staged output cotangents, whose products with the pre-modulation triple
@@ -23,26 +23,27 @@
 // envelope the internal launch runs 13 x 1500 x 5 = 97,500 rows through
 // 176 -> 352 -> 352 -> 352 -> 352 -> 3 (434,720 multiply-adds a row, 84.8
 // GFLOP) while reading 80 MB; the boundary launch runs 13,000 value rows
-// (11.3 GFLOP). The backward does about twice the forward's work. All are
-// far above the f32 ridge point, so the f32 CUDA-core rate is the limit.
-// Without the reduction (PiGanoFull) each trunk writes (13, 1500, 352, 2)
-// J and H, 55 MB each, still far below the operations' time.
+// (11.3 GFLOP). The backward does about twice the forward's work. At the
+// f32-accurate tensor-core rate (3xTF32, 164.9 TFLOP/s) the forward takes
+// 0.583 ms and the backward 1.165 ms, far above the bytes' time. Without
+// the reduction (PiGanoFull) each trunk writes (13, 1500, 352, 2) J and H,
+// 55 MB each, still below the operations' time.
 //
-// Design: mlp_prop.cuh's kernels with modulation (MOD = true); the TPU
-// kernel's transposed (B, D, N, F) J/H, 128-row tiles and per-tile
-// recompute are not carried over. The first operator's kernel is split by
-// context: ctx = geom W0[176:] + b0 is computed once per case by torch and
-// added to the value rows in place of a bias; J/H skip it. A 352-wide tile
-// needs 40 x 356 floats per buffer: two buffers and two 32 x 128 weight
-// tiles come to 146.7 KB, one block per SM. 176 and 352 are not multiples
-// of the 128-column chunk: every epilogue, stash write, dropout factor and
-// column sum masks the 96-wide tail. The training forward stashes each
-// layer's (modulated) input rows and pre-activations (1.3 GB at the
-// envelope); the backward's row sweep recomputes the pre-modulation triple
-// from the pre-activations and the Philox masks and forms dpar's per-point
-// addends in the epilogue of the same GEMM that carries the cotangent down.
-// dW, db, dctx and dpar are contracted or column-summed in order, without
-// atomics.
+// Design: mlp_prop.cuh's kernels with modulation (MOD = true), every
+// product in 3xTF32 mma tiles; the TPU kernel's transposed (B, D, N, F)
+// J/H, 128-row tiles and per-tile recompute are not carried over. The first
+// operator's kernel is split by context: ctx = geom W0[176:] + b0 is
+// computed once per case by torch and added to the value rows in place of a
+// bias; J/H skip it. A 352-wide tile needs 40 x 356 floats per buffer: two
+// buffers and the 52 KB weight ring come to 166 KB, one block per SM. 176
+// and 352 are not multiples of the 128-column chunk: every epilogue, stash
+// write, dropout factor and column sum masks the 96-wide tail. The training
+// forward stashes each layer's (modulated) input rows and pre-activations
+// (1.3 GB at the envelope); the backward's row sweep recomputes the
+// pre-modulation triple from the pre-activations and the Philox masks and
+// forms dpar's per-point addends in the epilogue of the same product that
+// carries the cotangent down. dW, db, dctx and dpar are contracted or
+// column-summed in order, without atomics.
 #include "mlp_prop.cuh"
 
 using namespace pct;
@@ -67,8 +68,8 @@ bool trunk_widths_ok(int n_layers, bool reduce, const int* widths) {
 // n_layers - 1 is operator i, the last layer the reduction F -> O; widths =
 // (L, F, ..., F, O)), then par (n_cases, F), last_activation (0: the last
 // operator is linear) and reduction (0: no reduction, every layer is an
-// operator, widths = (L, F, ..., F), and the outputs are F wide). Returns the
-// CUDA error code (0 = ok).
+// operator, widths = (L, F, ..., F), and the outputs are F wide), and wsplit
+// as decoder_prop_forward's. Returns the CUDA error code (0 = ok).
 extern "C" int neural_ops_prop_forward(int d_dims, int act, int with_derivatives,
                                        const float* v, const float* jt, const float* ht,
                                        int n_cases, int n_pts, const float* ctx, int n_layers,
@@ -78,15 +79,21 @@ extern "C" int neural_ops_prop_forward(int d_dims, int act, int with_derivatives
                                        unsigned k1, const unsigned* thresh, const float* scale,
                                        const int* on, float* stash_a, float* stash_z,
                                        const float* par, int last_activation, int reduction,
-                                       void* stream) {
+                                       float* wsplit, long long wsplit_floats, void* stream) {
   if (par == nullptr || !trunk_widths_ok(n_layers, reduction != 0, widths))
     return (int)cudaErrorInvalidValue;
   return prop_forward<true>(d_dims, act, with_derivatives != 0, v, jt, ht, n_cases, n_pts,
                             ctx, par, n_layers, w, b, widths, ov, ov_rows, ov_row0, oj, oh,
                             make_dropout(k0, k1, n_layers, thresh, scale, on), stash_a,
-                            stash_z, widths[0], nullptr, nullptr,
+                            stash_z, widths[0], nullptr, nullptr, wsplit, wsplit_floats,
                             static_cast<cudaStream_t>(stream), reduction != 0,
                             last_activation == 0);
+}
+
+// Floats of neural_ops_prop_forward's wsplit for one launch at these widths.
+extern "C" long long neural_ops_prop_forward_workspace(int n_layers, const int* widths,
+                                                       int v_width) {
+  return prop_forward_workspace(n_layers, widths, v_width);
 }
 
 // Scratch floats neural_ops_prop_backward needs for one launch of `rows`
@@ -121,4 +128,11 @@ extern "C" int neural_ops_prop_backward(
                              scratch, scratch_floats, widths[0], nullptr, nullptr,
                              static_cast<cudaStream_t>(stream), reduction != 0,
                              last_activation == 0);
+}
+
+// Blocks per SM and shared bytes of the trunk's kernels at these widths
+// (see prop_occupancy): out[6].
+extern "C" int neural_ops_prop_occupancy(int n_layers, const int* widths, int reduction,
+                                         int* out) {
+  return prop_occupancy<true>(n_layers, widths, widths[0], reduction != 0, out);
 }

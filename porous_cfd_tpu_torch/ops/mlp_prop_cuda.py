@@ -64,12 +64,14 @@ class ModeCount:
 
 class Kernels:
     """One instantiation of ``csrc/mlp_prop.cuh``: the C entry points
-    ``<prefix>_forward``, ``<prefix>_backward_workspace`` and
-    ``<prefix>_backward`` of ``csrc/<source>.cu``. A modulated one (the
-    trunk) takes ``par, last_activation, reduction`` after the forward's
-    other arguments and ``par, dpar_rows, dpar, last_activation,
-    reduction`` after the backward's; the other (the decoder) ``v_width,
-    j0_add, h0_add`` and ``v_width, dja, dha``. The launch counts go to the
+    ``<prefix>_forward``, ``<prefix>_forward_workspace``,
+    ``<prefix>_backward_workspace`` and ``<prefix>_backward`` of
+    ``csrc/<source>.cu``. A modulated one (the trunk) takes ``par,
+    last_activation, reduction`` after the forward's other arguments and
+    ``par, dpar_rows, dpar, last_activation, reduction`` after the
+    backward's; the other (the decoder) ``v_width, j0_add, h0_add`` and
+    ``v_width, dja, dha``; every forward then the scratch of its split
+    weights and its size. The launch counts go to the
     ``launches`` attributes of ``forward_counter`` and ``backward_counter``,
     and those of a mode also to ``mode_counts[mode]`` (forward,
     backward)."""
@@ -91,8 +93,11 @@ class Kernels:
             p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
             fwd.argtypes = ([i, i, i, p, p, p, i, i, p, i, p, p, p, p, i, i, p, p, u, u, p, p,
                              p, p, p] + [p, i, i] * self.modulated + [i, p, p] * self.coupled
-                            + [p])
+                            + [p, ll, p])
             fwd.restype = i
+            fws = getattr(lib, f"{self.prefix}_forward_workspace")
+            fws.argtypes = [i, p, i]
+            fws.restype = ll
             ws = getattr(lib, f"{self.prefix}_backward_workspace")
             ws.argtypes = [i, ll, i, p]
             ws.restype = ll
@@ -215,7 +220,14 @@ def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, sta
     ws = ([weights[0].detach()[:, :meta.int_widths[0]].t().contiguous()]
           + [w.detach().t().contiguous() for w in weights[1:]])
     bs = [ctx] + [b.detach() for b in biases]
-    fn = getattr(kern.library(), f"{kern.prefix}_forward")
+    lib = kern.library()
+    fn = getattr(lib, f"{kern.prefix}_forward")
+    # the launches' weights split for the tensor cores (each launch splits
+    # into it in turn)
+    ws_fn = getattr(lib, f"{kern.prefix}_forward_workspace")
+    n_split = max(ws_fn(len(ws), build.int_array(w), meta.n_local)
+                  for w in (meta.int_widths, meta.widths))
+    wsplit = torch.empty((n_split,), dtype=torch.float32, device=dev)
     w_ptrs, b_ptrs = build.pointer_array(ws), build.pointer_array(bs)
     drop = meta.dropout_args()
     mod = [par.data_ptr()] if kern.modulated else []
@@ -237,7 +249,8 @@ def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, sta
         code = fn(d_dims, act, 1, v.data_ptr(), jt.data_ptr(), ht.data_ptr(), b_cases, n_int,
                   ctx.data_ptr(), len(ws), w_ptrs, b_ptrs, build.int_array(meta.int_widths),
                   ov.data_ptr(), n_int + n_bnd, 0, oj.data_ptr(), oh.data_ptr(), *drop, sa, sz,
-                  *mod, *kern.mode_args(meta), *kern.coupled_args(meta, ja, ha), stream)
+                  *mod, *kern.mode_args(meta), *kern.coupled_args(meta, ja, ha),
+                  wsplit.data_ptr(), n_split, stream)
         build.check_launch(f"{kern.prefix} (internal)", code)
         kern.forward_counter.launches += 1
         kern.count_mode(meta, 0)
@@ -246,7 +259,8 @@ def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, sta
             code = fn(d_dims, act, 0, v_b.data_ptr(), None, None, b_cases, n_bnd,
                       ctx.data_ptr(), len(ws), w_ptrs, b_ptrs, build.int_array(meta.widths),
                       ov.data_ptr(), n_int + n_bnd, n_int, None, None, *drop, sa, sz, *mod,
-                      *kern.mode_args(meta), *kern.coupled_args(meta), stream)
+                      *kern.mode_args(meta), *kern.coupled_args(meta), wsplit.data_ptr(),
+                      n_split, stream)
             build.check_launch(f"{kern.prefix} (boundary)", code)
             kern.forward_counter.launches += 1
             kern.count_mode(meta, 0, boundary=True)
@@ -359,6 +373,71 @@ class MlpProp(torch.autograd.Function):
         dw0[:, :meta.int_widths[0]] = dws[0].t()
         return (None, None, dv, djt, dht, dv_b, dctx, dpar, dja, dha, dw0,
                 *[dw.t() for dw in dws[1:]], *dbs)
+
+
+# launches of weight_grad through its own entry point (the backward
+# launches count theirs on their wrappers)
+WEIGHT_GRAD = ModeCount()
+
+
+def weight_grad_plain(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return a.t() @ g
+
+
+def weight_grad(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """a^T g, (K, N), for a (rows, K) and g (rows, N): the engine's weight
+    gradient contraction alone (``csrc/common.cuh``'s ``weight_grad``: 3xTF32
+    tensor-core tiles over row chunks added in order), as each backward
+    launch runs it for every layer. CPU tensors take ``weight_grad_plain``."""
+    fn = "weight_grad"
+    if a.device.type == "cpu":
+        return weight_grad_plain(a, g)
+    if a.dim() != 2 or g.dim() != 2 or a.shape[0] != g.shape[0]:
+        raise ValueError(f"{fn}: shapes {tuple(a.shape)} and {tuple(g.shape)} do not "
+                         "contract over rows")
+    rows, k = a.shape
+    n = g.shape[1]
+    check_tensor("a", a, (rows, k), a.device, fn)
+    check_tensor("g", g, (rows, n), a.device, fn)
+    lib = build.library("decoder_prop")
+    entry = lib.decoder_prop_weight_grad
+    if entry.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        entry.argtypes = [p, p, i, i, i, p, ll, p, p]
+        entry.restype = i
+        lib.decoder_prop_weight_grad_workspace.argtypes = [i, i, i]
+        lib.decoder_prop_weight_grad_workspace.restype = ll
+    n_scratch = lib.decoder_prop_weight_grad_workspace(rows, k, n)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=a.device)
+    out = torch.zeros((k, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = entry(a.data_ptr(), g.data_ptr(), rows, k, n, scratch.data_ptr(), n_scratch,
+                     out.data_ptr(), stream)
+    build.check_launch(fn, code)
+    WEIGHT_GRAD.launches += 1
+    return out
+
+
+def occupancy(kern: Kernels, widths: Sequence[int], n_local: Optional[int] = None,
+              reduction: bool = True) -> dict:
+    """Blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and
+    dynamic shared bytes of ``kern``'s internal forward and backward
+    kernels in the default mode (D = 2, silu) at ``widths`` (the decoder's
+    layer 0 reads ``n_local`` columns), and of weight_grad's 128 x 128
+    tile. Needs the card."""
+    lib = kern.library()
+    entry = getattr(lib, f"{kern.prefix}_occupancy")
+    out = (ctypes.c_int * 6)()
+    n_layers = len(widths) - 1
+    mode = int(reduction) if kern.modulated else int(n_local or widths[0])
+    entry.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    build.check_launch(f"{kern.prefix}_occupancy",
+                       entry(n_layers, build.int_array(widths), mode, out))
+    keys = ("fwd_blocks_per_sm", "fwd_smem_bytes", "bwd_blocks_per_sm", "bwd_smem_bytes",
+            "weight_grad_blocks_per_sm", "weight_grad_smem_bytes")
+    return dict(zip(keys, list(out)))
 
 
 def run(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, par, weights, biases, ja=None,

@@ -17,9 +17,10 @@ from porous_cfd_tpu_torch.physics import analytic
 pytestmark = pytest.mark.gpu
 
 # |kernel - plain| <= RTOL * max|plain|: f32 on both sides, sums in another
-# order (the kernels' FMA chains against cuBLAS; the backward's weight
-# gradients add row chunks in another order, and pointnet's winner-row
-# scatter adds with atomics in no fixed order).
+# order (the kernels' FMA chains and the engine's 3xTF32 products, each
+# within about 2^-21 of the f32 product, against cuBLAS; the backward's
+# weight gradients add row chunks in another order, and pointnet's
+# winner-row scatter adds with atomics in no fixed order).
 RTOL = 1e-4
 
 
@@ -670,3 +671,146 @@ def test_sync_sites_see_a_real_sync_and_none_in_a_training_step(cuda):
     batch = make_foam_batch(2, 64, 32, 16, seed=1).to(cuda)
     fns.train_step(state, batch)
     assert sync_sites(lambda: fns.train_step(state, batch)) == []
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core engine (3xTF32 mma tiles): widths and point counts ragged
+# against its 8-deep steps, n8 column tiles, 16-row m-tiles and 128-column
+# chunks; the weight-gradient contraction alone; bit-identical backwards
+
+
+def _grads_through(fn, args, inputs, gen, cuda, **kw):
+    out = fn(*args, **kw)
+    cots = [torch.randn(o.shape, generator=gen).to(cuda) for o in out]
+    got = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cots)), inputs)
+    torch.cuda.synchronize()
+    return out, cots, got
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("act", ["silu", "tanh"])
+@pytest.mark.parametrize("n_local,layers,b,n_int,n_bnd", [
+    (2, [2 + 6, 176, 3], 1, 13, 21),
+    (7, [7 + 9, 69, 178, 3], 2, 29, 9),
+    (69, [69 + 11, 130, 7], 1, 41, 17),
+    (130, [130 + 2, 64, 176], 1, 5, 3),
+    (178, [178 + 10, 378, 8, 378], 2, 23, 0),
+], ids=["in2-out3", "in7-out3", "in69-out7", "in130-out176", "in178-out378"])
+def test_decoder_ragged_widths_match_plain(cuda, n_local, layers, b, n_int, n_bnd, act, rate):
+    gen = torch.Generator().manual_seed(n_local + n_int)
+    dec = MLP(layers, activation=act, last_activation=False, generator=gen).to(cuda)
+    rnd = lambda *s: (torch.randn(s, generator=gen) * 0.5).to(cuda).requires_grad_()  # noqa: E731
+    v, jt, ht = rnd(b, n_int, n_local), rnd(b, 2, n_int, n_local), rnd(b, 2, n_int, n_local)
+    v_b = rnd(b, n_bnd, n_local) if n_bnd else None
+    g = rnd(b, 1, layers[0] - n_local)
+    drop = [rate] * (len(layers) - 2) + [0.0]
+    inputs = [t for t in (v, jt, ht, v_b, g) if t is not None] + _params(dec)
+    args = (dec.linears, n_local, v, jt, ht, v_b, g, act, drop, False, 77)
+    out, cots, got = _grads_through(decoder_cuda.decoder_prop, args, inputs, gen, cuda)
+    ref_out = decoder_cuda.decoder_prop_plain(*args)
+    for a, r in zip(out, ref_out):
+        assert_close(a.detach(), r.detach())
+    ref = torch.autograd.grad(sum((o * c).sum() for o, c in zip(ref_out, cots)), inputs)
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("act", ["silu", "tanh"])
+@pytest.mark.parametrize("n_local,f,reduction,b,n_int,n_bnd", [
+    (2, 69, True, 1, 13, 21),
+    (7, 178, False, 2, 29, 9),
+    (69, 130, True, 1, 41, 0),
+], ids=["in2-f69", "in7-f178-no-reduction", "in69-f130"])
+def test_neural_ops_ragged_widths_match_plain(cuda, n_local, f, reduction, b, n_int, n_bnd,
+                                              act, rate):
+    gen = torch.Generator().manual_seed(n_local + f)
+    ops = NeuralOperatorSequential(3, f, (0.0,) * 3, act, generator=gen).to(cuda)
+    red = dense(f, 3, gen).to(cuda) if reduction else None
+    rnd = lambda *s: (torch.randn(s, generator=gen) * 0.5).to(cuda).requires_grad_()  # noqa: E731
+    v, jt, ht = rnd(b, n_int, n_local), rnd(b, 2, n_int, n_local), rnd(b, 2, n_int, n_local)
+    v_b = rnd(b, n_bnd, n_local) if n_bnd else None
+    geom = rnd(b, 1, f - n_local)
+    par = (torch.rand((b, 1, f), generator=gen) + 0.5).to(cuda).requires_grad_()
+    inputs = [t for t in (v, jt, ht, v_b, geom, par) if t is not None] + _params(ops) + (
+        _params(red) if reduction else [])
+    args = (ops.linears, red, n_local, v, jt, ht, v_b, geom, par, act, [0.0, rate, rate],
+            False, 4321)
+    out, cots, got = _grads_through(neural_op_cuda.neural_ops_prop, args, inputs, gen, cuda)
+    assert out[0].shape[-1] == (3 if reduction else f)
+    ref_out = neural_op_cuda.neural_ops_prop_plain(*args)
+    for a, r in zip(out, ref_out):
+        assert_close(a.detach(), r.detach())
+    ref = torch.autograd.grad(sum((o * c).sum() for o, c in zip(ref_out, cots)), inputs)
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+
+@pytest.mark.parametrize("k,n", [(64, 512), (512, 256), (128, 3), (69, 178)])
+def test_weight_grad_at_pipn_rows_matches_float64(cuda, k, n):
+    """dW = A^T G over the 97,500 stash rows of pipn's internal decoder
+    launch, against float64."""
+    from porous_cfd_tpu_torch.ops import mlp_prop_cuda
+    gen = torch.Generator().manual_seed(k * n)
+    a = torch.randn((97_500, k), generator=gen).to(cuda)
+    g = torch.randn((97_500, n), generator=gen).to(cuda)
+    before = mlp_prop_cuda.WEIGHT_GRAD.launches
+    got = mlp_prop_cuda.weight_grad(a, g)
+    torch.cuda.synchronize()
+    assert mlp_prop_cuda.WEIGHT_GRAD.launches == before + 1
+    assert_close(got.double(), a.double().t() @ g.double())
+
+
+@pytest.mark.parametrize("kernel", ["decoder", "trunk"])
+def test_backward_is_bit_identical_run_to_run(cuda, kernel):
+    """No atomics in dW, db, dctx or dpar: two backwards on the same inputs
+    (several row chunks per weight gradient) give the same bits."""
+    gen = torch.Generator().manual_seed(5)
+    rnd = lambda *s: (torch.randn(s, generator=gen) * 0.5).to(cuda).requires_grad_()  # noqa: E731
+    n_local, b, n_int, n_bnd = 40, 2, 700, 300
+    v, jt, ht = rnd(b, n_int, n_local), rnd(b, 2, n_int, n_local), rnd(b, 2, n_int, n_local)
+    v_b = rnd(b, n_bnd, n_local)
+    if kernel == "decoder":
+        mod = MLP([n_local + 24, 136, 72, 3], activation="silu", last_activation=False,
+                  generator=gen).to(cuda)
+        g = rnd(b, 1, 24)
+        inputs = [v, jt, ht, v_b, g] + _params(mod)
+        fn, args = decoder_cuda.decoder_prop, (mod.linears, n_local, v, jt, ht, v_b, g, "silu",
+                                               [0.1, 0.1, 0.0], False, 9)
+    else:
+        mod = NeuralOperatorSequential(3, 136, (0.0,) * 3, "silu", generator=gen).to(cuda)
+        red = dense(136, 3, gen).to(cuda)
+        geom = rnd(b, 1, 96)
+        par = (torch.rand((b, 1, 136), generator=gen) + 0.5).to(cuda).requires_grad_()
+        inputs = [v, jt, ht, v_b, geom, par] + _params(mod) + _params(red)
+        fn, args = neural_op_cuda.neural_ops_prop, (mod.linears, red, n_local, v, jt, ht, v_b,
+                                                    geom, par, "silu", [0.0, 0.1, 0.1], False, 9)
+    runs = []
+    for _ in range(2):
+        out = fn(*args)
+        cots = [torch.ones_like(o) for o in out]
+        runs.append(torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cots)), inputs))
+    torch.cuda.synchronize()
+    for a, r in zip(*runs):
+        assert torch.equal(a, r)
+
+
+def test_neural_ops_dropout_masks_match_plain(cuda):
+    """Forward with heavy dropout at ragged widths: mask for mask, the trunk
+    kernel zeroes exactly the columns the plain version zeroes."""
+    gen = torch.Generator().manual_seed(8)
+    n_local, f = 7, 69
+    ops = NeuralOperatorSequential(3, f, (0.0,) * 3, "silu", generator=gen).to(cuda)
+    red = dense(f, 3, gen).to(cuda)
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda)  # noqa: E731
+    v, jt, ht, v_b, geom = (rnd(3, 45, n_local), rnd(3, 2, 45, n_local), rnd(3, 2, 45, n_local),
+                            rnd(3, 27, n_local), rnd(3, 1, f - n_local))
+    par = (torch.rand((3, 1, f), generator=gen) + 0.5).to(cuda)
+    for seed in (0, 99, 2 ** 40 + 5):
+        args = (ops.linears, red, n_local, v, jt, ht, v_b, geom, par, "silu", [0.5, 0.5, 0.5],
+                False, seed)
+        with torch.no_grad():
+            got = neural_op_cuda.neural_ops_prop(*args, last_activation=False)
+            ref = neural_op_cuda.neural_ops_prop_plain(*args, last_activation=False)
+        for a, r in zip(got, ref):
+            assert_close(a, r)

@@ -1,0 +1,174 @@
+"""Time the (v, J, H) engine's kernels at the main paths' shapes on the card.
+
+    python tools/time_engine.py [--root DIR] [--label NAME]
+
+Imports ``porous_cfd_tpu_torch`` from ``--root`` (default: this checkout),
+so the same script times another tree of the port (a ``git archive`` of a
+parent commit) through the same public wrappers, for comparisons in turns
+within one run on one card. At pipn's decoder shapes (13 cases, 1500
+internal and 1000 boundary points, [64 local + 1024 context] -> 512 -> 256
+-> 128 -> 3, dropout 0.05 on the first two layers) and PI-GANO's trunk
+shapes (176 local, four 352-wide operators, dropout 0.1 on the middle two,
+reduction to 3) it times, with CUDA events (mean of 20 after 3 warm-ups):
+the forward (both launches, no gradient), the internal launch alone, the
+backward kernel from a training stash, and its internal launch. Where the
+tree has ``mlp_prop_cuda.weight_grad`` it also times that contraction alone
+at every layer's stash shapes, beside cuBLAS's ``a.t() @ g`` in full f32
+(TF32 off), and the rows sweep as the backward less its weight gradients.
+Prints one JSON line, with the card's name and power limit. Needs a CUDA
+device.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    """This checkout's chip_smoke.py (its shapes, timer and weight_grad
+    split), loaded by path before ``--root`` takes the package's place."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _chip_smoke()
+BATCH, N_INT, N_BND, SEED = cs.BATCH, cs.N_INT, cs.N_BND, cs.SEED
+SEG, SEG_LOCAL, SEG_DROPOUT = cs.SEG, cs.FE_LOCAL[-1], cs.SEG_DROPOUT
+PG_LOCAL, PG_F = cs.PG_LOCAL[-1], cs.PG_BRANCH[-1]
+PG_OPERATORS, PG_DROPOUT = cs.PG_OPERATORS, cs.PG_DROPOUT
+time_ms = cs.time_ms
+
+
+def time_decoder(torch, gen, dev):
+    from porous_cfd_tpu_torch.models.mlp import MLP
+    from porous_cfd_tpu_torch.ops import decoder_cuda, mlp_prop_cuda
+    dec = MLP(SEG, SEG_DROPOUT, "silu", last_activation=False, generator=gen).to(dev)
+    lin = dec.linears
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    v, v_b = rnd(BATCH, N_INT, SEG_LOCAL), rnd(BATCH, N_BND, SEG_LOCAL)
+    jt, ht = rnd(BATCH, 2, N_INT, SEG_LOCAL, scale=0.5), rnd(BATCH, 2, N_INT, SEG_LOCAL, scale=0.5)
+    g = rnd(BATCH, 1, SEG[0] - SEG_LOCAL)
+    res = {}
+    with torch.no_grad():
+        args = (lin, SEG_LOCAL, v, jt, ht, v_b, g, "silu", SEG_DROPOUT, False, SEED)
+        out = decoder_cuda.decoder_prop(*args)
+        if not all(bool(o.isfinite().all()) for o in out):
+            raise SystemExit("time_engine: decoder_prop gave non-finite values")
+        res["fwd_ms"] = time_ms(torch, lambda: decoder_cuda.decoder_prop(*args))
+        args_int = (lin, SEG_LOCAL, v, jt, ht, None, g, "silu", SEG_DROPOUT, False, SEED)
+        res["fwd_internal_ms"] = time_ms(torch, lambda: decoder_cuda.decoder_prop(*args_int))
+        widths = tuple([SEG_LOCAL] + SEG[1:])
+        meta = mlp_prop_cuda.Meta(SEG_LOCAL, "silu", tuple(SEG_DROPOUT), SEED, 2, BATCH, N_INT,
+                                  N_BND, widths)
+        weights = [lin_.weight.detach() for lin_ in lin]
+        ctx = torch.nn.functional.linear(g[:, 0], lin[0].weight[:, SEG_LOCAL:],
+                                         lin[0].bias).contiguous()
+        _, _, _, stashes = mlp_prop_cuda.forward(decoder_cuda.DECODER, meta, v, jt, ht, v_b, ctx,
+                                                 weights, [x.bias.detach() for x in lin[1:]],
+                                                 True)
+        gv, gj, gh = (torch.randn(o.shape, generator=gen).to(dev) for o in out)
+        res["bwd_ms"] = time_ms(torch, lambda: decoder_cuda.decoder_prop_backward(
+            meta, weights, stashes, gv, gj, gh))
+        meta_int = mlp_prop_cuda.Meta(SEG_LOCAL, "silu", tuple(SEG_DROPOUT), SEED, 2, BATCH,
+                                      N_INT, 0, widths)
+        gv_int = gv[:, :N_INT].contiguous()
+        res["bwd_internal_ms"] = time_ms(torch, lambda: decoder_cuda.decoder_prop_backward(
+            meta_int, weights, stashes[:2], gv_int, gj, gh))
+        del stashes
+        if hasattr(mlp_prop_cuda, "weight_grad"):
+            res["weight_grad"] = cs.time_weight_grads(torch, cs.grad_shapes(widths, widths))
+            res["rows_sweep_ms"] = res["bwd_ms"] - res["weight_grad"]["ms"]
+    return res
+
+
+def time_trunk(torch, gen, dev):
+    from porous_cfd_tpu_torch.models.mlp import NeuralOperatorSequential, dense
+    from porous_cfd_tpu_torch.ops import mlp_prop_cuda, neural_op_cuda
+    ops = NeuralOperatorSequential(PG_OPERATORS, PG_F, PG_DROPOUT, "silu", generator=gen).to(dev)
+    red = dense(PG_F, 3, gen).to(dev)
+    linears = ops.linears + [red]
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    v, v_b = rnd(BATCH, N_INT, PG_LOCAL), rnd(BATCH, N_BND, PG_LOCAL)
+    jt, ht = rnd(BATCH, 2, N_INT, PG_LOCAL, scale=0.5), rnd(BATCH, 2, N_INT, PG_LOCAL, scale=0.5)
+    geom = rnd(BATCH, 1, PG_F - PG_LOCAL)
+    par = (torch.rand((BATCH, 1, PG_F), generator=gen) + 0.5).to(dev)
+    seed = neural_op_cuda.trunk_seed(SEED)
+    res = {}
+    with torch.no_grad():
+        args = (ops.linears, red, PG_LOCAL, v, jt, ht, v_b, geom, par, "silu", PG_DROPOUT, False,
+                SEED)
+        out = neural_op_cuda.neural_ops_prop(*args)
+        if not all(bool(o.isfinite().all()) for o in out):
+            raise SystemExit("time_engine: neural_ops_prop gave non-finite values")
+        res["fwd_ms"] = time_ms(torch, lambda: neural_op_cuda.neural_ops_prop(*args))
+        args_int = (ops.linears, red, PG_LOCAL, v, jt, ht, None, geom, par, "silu", PG_DROPOUT,
+                    False, SEED)
+        res["fwd_internal_ms"] = time_ms(torch, lambda: neural_op_cuda.neural_ops_prop(*args_int))
+        widths = (PG_LOCAL,) + (PG_F,) * PG_OPERATORS + (3,)
+        rates = mlp_prop_cuda.dropout_rates(PG_DROPOUT, PG_OPERATORS, False) + (0.0,)
+        meta = mlp_prop_cuda.Meta(PG_LOCAL, "silu", rates, seed, 2, BATCH, N_INT, N_BND, widths)
+        weights = [lin.weight.detach() for lin in linears]
+        biases = [lin.bias.detach() for lin in linears[1:]]
+        ctx = torch.nn.functional.linear(geom[:, 0], linears[0].weight[:, PG_LOCAL:],
+                                         linears[0].bias).contiguous()
+        par2 = par[:, 0].contiguous()
+        _, _, _, stashes = mlp_prop_cuda.forward(neural_op_cuda.TRUNK, meta, v, jt, ht, v_b, ctx,
+                                                 weights, biases, True, par2)
+        gv, gj, gh = (torch.randn(o.shape, generator=gen).to(dev) for o in out)
+        res["bwd_ms"] = time_ms(torch, lambda: neural_op_cuda.neural_ops_prop_backward(
+            meta, weights, par2, stashes, gv, gj, gh))
+        meta_int = mlp_prop_cuda.Meta(PG_LOCAL, "silu", rates, seed, 2, BATCH, N_INT, 0, widths)
+        gv_int = gv[:, :N_INT].contiguous()
+        res["bwd_internal_ms"] = time_ms(torch, lambda: neural_op_cuda.neural_ops_prop_backward(
+            meta_int, weights, par2, stashes[:2], gv_int, gj, gh))
+        del stashes
+        if hasattr(mlp_prop_cuda, "weight_grad"):
+            res["weight_grad"] = cs.time_weight_grads(torch, cs.grad_shapes(widths, widths))
+            res["rows_sweep_ms"] = res["bwd_ms"] - res["weight_grad"]["ms"]
+    return res
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=str(HERE),
+                        help="the tree whose porous_cfd_tpu_torch is timed")
+    parser.add_argument("--label", default="")
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("time_engine: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from porous_cfd_tpu_torch.ops import build
+    build.build_all(("decoder_prop", "neural_op_prop"))
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    res = {"label": args.label, "root": str(args.root), "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": smi, "decoder_pipn": time_decoder(torch, gen, dev)}
+    torch.cuda.empty_cache()
+    res["trunk_pi_gano"] = time_trunk(torch, gen, dev)
+    print(json.dumps({"time_engine": res}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
