@@ -7,16 +7,18 @@ Phases, in order; any failure exits non-zero:
   1. device: TF32 off, card name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port from ``porous_cfd_tpu_torch/ops/csrc``
      (one nvcc per source, side by side) into ``build/porous_cfd_tpu_torch``;
-     the (v, J, H) engine's kernels' registers, stack and spills from
-     ``-Xptxas -v``, and their blocks per SM
-     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the paths' widths;
+     the (v, J, H) engine's and pointnet_global's kernels' registers, stack
+     and spills from ``-Xptxas -v``, the engine's blocks per SM
+     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the paths' widths
+     and pointnet_global's blocks (points, shared bytes) at its five shapes;
   3. kernels: each kernel against its plain PyTorch version on the card at the
      shapes the main paths give it, timed with CUDA events, every backward
      of the engine also split into its weight gradients (``weight_grad``
      alone at each layer's stash shapes, against cuBLAS's ``a.t() @ g`` in
      full f32, timed beside it) and its rows sweep: (a) pointnet_global
      forward and backward at the pipn shape and (b) at the two pi-gano shapes
-     (geometry encoder, branch), (c) decoder_prop forward, (d) decoder_prop
+     (geometry encoder, branch), the backward's winner compaction held equal
+     to ``pointnet_winner_rows`` and two backward runs bit for bit, (c) decoder_prop forward, (d) decoder_prop
      forward and backward with dropout on and off, the kept fraction of a
      full-size mask and the Philox known answers, (e) neural_ops_prop forward
      and backward with dropout on and off and the kept fraction of a full
@@ -152,10 +154,10 @@ CLI_MIN_FALL = 2e-4
 
 # Tolerance of every comparison on the card: |a - b| <= RTOL * max|ref|.
 # The kernels, cuBLAS and the CPU's BLAS sum the 352- to 1024-wide rows in
-# different orders (all in f32; the engine's products in 3xTF32, within
-# about 2^-21 of each f32 product), the backward kernels add row chunks in
-# another order, and pointnet's winner-row scatter adds with atomics, so
-# errors scale with the largest magnitude.
+# different orders (all in f32; the engine's and pointnet's products in
+# 3xTF32, within about 2^-21 of each f32 product), and the backward kernels
+# add row chunks in another order, so errors scale with the largest
+# magnitude.
 RTOL = 1e-4
 
 # published H100 peaks (NVIDIA data sheets), by product name: f32 outside the
@@ -390,14 +392,15 @@ def split_backward(torch, bwd, shapes, pk):
 
 def kernel_report(log_text):
     """Per kernel family (the engine's forward and backward row kernels,
-    weight_grad) of one ``-Xptxas -v`` report: instantiations, registers,
+    weight_grad, pointnet_global's forward and backward tiles) of one ``-Xptxas -v`` report: instantiations, registers,
     the largest stack frame and spills, in bytes."""
     families = {}
     name = None
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
             name = next((f for f in ("mlp_prop_fwd", "mlp_prop_bwd_rows",
-                                     "weight_grad_partial") if f in line), None)
+                                     "weight_grad_partial", "pointnet_fwd_tiles",
+                                     "pointnet_bwd_tiles") if f in line), None)
             if name:
                 families.setdefault(name, {"count": 0, "registers": [], "stack": 0,
                                            "spill_stores": 0, "spill_loads": 0})
@@ -476,20 +479,34 @@ def check_pointnet(layers, n_pts, x_grad, gen, tag):
     ref = torch.autograd.grad(loss_ref, wrt, retain_graph=True)
     names = (["dx"] if x_grad else []) + [f"d{n}" for n, _ in mlp.named_parameters()]
     err_b = check_close(f"{name} backward", list(zip(names, got, ref)))
-    with torch.no_grad():
-        _, arg_s, z_s, ws_t = pointnet_cuda._forward([lin_.weight for lin_ in lin],
-                                                     [lin_.bias for lin_ in lin], x, "silu",
-                                                     stash=True)
     w_g = [lin_.weight.detach() for lin_ in lin]
     b_g = [lin_.bias.detach() for lin_ in lin]
     dm = cot.contiguous()
-    ms_b = time_ms(torch, lambda: pointnet_cuda.pointnet_global_backward(
-        w_g, ws_t, b_g, x, "silu", z_s, arg_s, dm))
+    a_k = a_k.contiguous()
+
+    def backward(winners=False):
+        return pointnet_cuda.pointnet_global_backward(w_g, b_g, x, "silu", a_k, dm, x_grad,
+                                                      winners)
+
+    # the kernel's compaction against the plain one, and two runs bit for bit
+    *first, (rows_k, slot_k, count_k) = backward(winners=True)
+    rows_p, slot_p, count_p = pointnet_cuda.pointnet_winner_rows(a_k)
+    rcap = rows_k.shape[1]
+    if not (torch.equal(count_k.long(), count_p) and torch.equal(slot_k.long(), slot_p)
+            and torch.equal(rows_k.long(), rows_p[:, :rcap])):
+        fail(f"{name} backward: the winner compaction differs from pointnet_winner_rows")
+    second = backward()
+    flat = lambda r: [t for t in (r[0], *r[1], *r[2]) if t is not None]  # noqa: E731
+    if not all(torch.equal(u, v) for u, v in zip(flat(first), flat(second))):
+        fail(f"{name} backward: two runs differ")
+    winners = int(count_p.sum())
+    log(f"  {name} backward: {winners} winner rows of {BATCH * n_pts}, compaction equal to "
+        f"pointnet_winner_rows, two runs bitwise equal")
+    ms_b = time_ms(torch, backward)
     ms_bp = time_ms(torch, lambda: torch.autograd.grad(loss_ref, wrt, retain_graph=True))
     # the work these inputs need: recompute the lower layers at the winner
-    # rows, z at each (case, channel) winner, then dW, db and the scatter of
-    # the last layer and dX, dW of the lower layers at the winners
-    winners = sum(int(torch.unique(a_k[b, 0]).numel()) for b in range(BATCH))
+    # rows, z at each (case, channel) winner, then dW, db and da of the last
+    # layer and dX, dW of the lower layers at the winners
     lower = sum(a * b for a, b in zip(layers[:-2], layers[1:-1]))
     last = layers[-2] * layers[-1] * BATCH
     bwd = {"err": err_b, "ms": ms_b, "plain_ms": ms_bp,
@@ -1689,6 +1706,14 @@ def main() -> int:
         if min(occ["fwd_blocks_per_sm"], occ["bwd_blocks_per_sm"],
                occ["weight_grad_blocks_per_sm"]) < 1:
             fail(f"{label}: a kernel fits no block on an SM ({occ})")
+
+    # pointnet_global's blocks at the five shapes of phase 3
+    for label, widths in (("pipn", FE_GLOBAL), ("pi-gano geometry", PG_GEOMETRY),
+                          ("pi-gano branch", PG_BRANCH), ("pipn_pp global", PP_GLOBAL[-1]),
+                          ("pi-gano-pp global", PGP_GEOMETRY[-1])):
+        cols, pts, fwd_b, bwd_b = pointnet_cuda.blocks(widths)
+        log(f"  blocks pointnet_global {label} {widths}: forward {pts} points, two warpgroups "
+            f"of {cols} columns each, {fwd_b} bytes of shared memory; backward {bwd_b} bytes")
 
     gen = torch.Generator().manual_seed(SEED)
     kernels = {}

@@ -3,8 +3,8 @@
 // block-level f32 GEMM on the CUDA cores, the f32-accurate tensor-core
 // primitives (3xTF32) and the weight-gradient contraction built on them.
 //
-// block_gemm (pointnet_global.cu and sa_neighborhood.cu; mlp_prop.cuh has
-// its own tensor-core product) computes a (rows x 128) output chunk of one
+// block_gemm (sa_neighborhood.cu; mlp_prop.cuh and pointnet_global.cu have
+// their own tensor-core products) computes a (rows x 128) output chunk of one
 // dense layer for a block of 8 warps. Thread layout (the SIMT layout of
 // CUTLASS's warp-level GEMM): warp = (wr, wc) in 2 x 4, lane = (lr, lc) in
 // 4 x 8. A thread owns the rows i * 8 + p, p = wr * 4 + lr (i < RM), and the

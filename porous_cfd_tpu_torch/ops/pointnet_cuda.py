@@ -9,7 +9,9 @@ fallback: a CUDA tensor either runs the kernel or raises. When a gradient is
 wanted the kernel runs inside a ``torch.autograd.Function`` whose backward is
 the backward kernel (``pointnet_global_backward``): the pooled cotangent goes
 to the first maximal row, the tie rule of the forward's argmax, which is
-returned non-differentiable.
+returned non-differentiable. The forward keeps nothing for the backward but
+its argmax: the backward recomputes the chain at the winner rows only, in
+the compaction ``pointnet_winner_rows`` computes plainly.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from porous_cfd_tpu_torch.ops import build
 from porous_cfd_tpu_torch.physics import analytic
 
 ACT_CODES = {"silu": 0, "tanh": 1}
+# scratch floats of each launch shape, asked of the library once
+_WORKSPACE: dict = {}
 
 
 def pointnet_global_plain(linears: Sequence, x: torch.Tensor, activation: str):
@@ -43,18 +47,42 @@ def pointnet_global_at(linears: Sequence, x: torch.Tensor, activation: str,
     return torch.gather(g, -2, argmax.long())
 
 
+def pointnet_winner_rows(argmax: torch.Tensor):
+    """The backward's compaction of a forward's argmax ((B, 1, F) or (B,
+    F)), plainly: (rows (B, F) int64, each case's distinct winner rows in
+    ascending order, then -1; slot (B, F) int64, each channel's index into
+    its case's rows; count (B,) int64). A channel's winner is
+    ``rows[b, slot[b, c]]``."""
+    arg = argmax.reshape(argmax.shape[0], -1).long()
+    n_cases, f = arg.shape
+    srt, order = torch.sort(arg, dim=1, stable=True)
+    starts = torch.ones_like(srt, dtype=torch.bool)
+    starts[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    slot_sorted = torch.cumsum(starts.long(), dim=1) - 1
+    slot = torch.empty_like(slot_sorted).scatter_(1, order, slot_sorted)
+    count = starts.sum(dim=1)
+    # each slot's first sorted position writes its row; the others write -1
+    # into a spare column
+    rows = torch.full((n_cases, f + 1), -1, dtype=torch.long, device=arg.device)
+    rows.scatter_(1, torch.where(starts, slot_sorted, f), torch.where(starts, srt, -1))
+    rows = rows[:, :f]
+    return rows, slot, count
+
+
 def _library() -> ctypes.CDLL:
     lib = build.library("pointnet_global")
     if lib.pointnet_global_forward.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.pointnet_global_forward.argtypes = [p, i, i, i, p, p, p, i, p, p, p, p, p, p]
+        lib.pointnet_global_forward_workspace.argtypes = [i, i, i, p]
+        lib.pointnet_global_forward_workspace.restype = ll
+        lib.pointnet_global_blocks.argtypes = [i, p, p]
+        lib.pointnet_global_blocks.restype = i
+        lib.pointnet_global_forward.argtypes = [p, i, i, i, p, p, p, i, p, ll, p, p, p]
         lib.pointnet_global_forward.restype = i
-        lib.pointnet_global_tile_rows.argtypes = []
-        lib.pointnet_global_tile_rows.restype = i
-        lib.pointnet_global_backward_workspace.argtypes = [i, i, i, p]
+        lib.pointnet_global_backward_workspace.argtypes = [i, i, i, p, i]
         lib.pointnet_global_backward_workspace.restype = ll
-        lib.pointnet_global_backward.argtypes = [p, i, i, i, p, p, p, p, i, p, p, p, p, p,
-                                                 p, p, p, p, p, ll, p]
+        lib.pointnet_global_backward.argtypes = [p, i, i, i, p, p, p, i, p, p, p, p, p, ll, p,
+                                                 p]
         lib.pointnet_global_backward.restype = i
     return lib
 
@@ -81,94 +109,126 @@ def _widths(x, weights):
     return [x.shape[-1]] + [w.shape[0] for w in weights]
 
 
-def _forward(weights, biases, x, activation, stash: bool):
-    """One kernel launch; with ``stash`` also the hidden layers'
-    pre-activations for the backward. Returns (max, argmax, stash, ws_t)."""
+def blocks(widths):
+    """The kernels' blocks at these widths: (the forward's columns a
+    warpgroup: 128 when each of its two warpgroups owns 64 rows, 64 when
+    both take the same rows; its points a block; its shared bytes; the
+    backward tiles' shared bytes)."""
+    out = (ctypes.c_int * 4)()
+    build.check_launch("pointnet_global blocks", _library().pointnet_global_blocks(
+        len(widths) - 1, build.int_array(widths), out))
+    return tuple(out)
+
+
+def _forward(weights, biases, x, activation):
+    """The forward kernel (weights transposed and split, the tiles, the fold
+    of their partials): (max, argmax)."""
     lib = _library()
     n_cases, n_pts, _ = x.shape
-    # the kernel reads weights as (in, out): nn.Linear's weight transposed
-    ws_t = [w.detach().t().contiguous() for w in weights]
     widths = _widths(x, weights)
+    w_arr = build.int_array(widths)
     f = widths[-1]
-    tile_rows = lib.pointnet_global_tile_rows()
-    n_tiles = -(-n_pts // tile_rows)
     dev = x.device
-    part_max = torch.empty((n_cases, n_tiles, f), dtype=torch.float32, device=dev)
-    part_arg = torch.empty((n_cases, n_tiles, f), dtype=torch.int32, device=dev)
-    out_max = torch.empty((n_cases, 1, f), dtype=torch.float32, device=dev)
+    key = ("fwd", n_cases, n_pts, tuple(widths))
+    n_scratch = _WORKSPACE.get(key)
+    if n_scratch is None:
+        n_scratch = _WORKSPACE[key] = lib.pointnet_global_forward_workspace(
+            n_cases, n_pts, len(weights), w_arr)
+    if n_scratch < 0:
+        raise ValueError(f"pointnet_global: no kernel block fits widths {widths}")
+    buf = torch.empty((n_scratch + n_cases * f,), dtype=torch.float32, device=dev)
+    out_max = buf[n_scratch:].view(n_cases, 1, f)
     out_arg = torch.empty((n_cases, 1, f), dtype=torch.int32, device=dev)
-    z = None
-    if stash and len(weights) > 1:
-        z = torch.empty(n_cases * n_pts * sum(widths[1:-1]), dtype=torch.float32,
-                        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.pointnet_global_forward(
-            x.data_ptr(), n_cases, n_pts, len(ws_t), build.pointer_array(ws_t),
-            build.pointer_array(biases), build.int_array(widths), ACT_CODES[activation],
-            part_max.data_ptr(), part_arg.data_ptr(), out_max.data_ptr(),
-            out_arg.data_ptr(), None if z is None else z.data_ptr(), stream)
+            x.data_ptr(), n_cases, n_pts, len(weights), build.pointer_array(weights),
+            build.pointer_array(biases), w_arr, ACT_CODES[activation], buf.data_ptr(),
+            n_scratch, out_max.data_ptr(), out_arg.data_ptr(), stream)
     build.check_launch("pointnet_global", code)
     pointnet_global.launches += 1
-    return out_max, out_arg, z, ws_t
+    return out_max, out_arg
 
 
-def pointnet_global_backward(weights, ws_t, biases, x, activation, stash_z, argmax, dm):
-    """The backward kernel: (dx (B, N, L0), dW (in, out) per layer, db per
-    layer) of ``sum(dm * max)``; ``stash_z`` is the training forward's."""
+def pointnet_global_backward(weights, biases, x, activation, argmax, dm, need_dx=True,
+                             winners=False):
+    """The backward kernel on the forward's winners: (dx (B, N, L0) or None,
+    dW per layer in nn.Linear's (out, in) layout, db per layer) of
+    ``sum(dm * max)``; with ``winners`` also the kernel's compaction as
+    ``pointnet_winner_rows`` gives it (rows (B, min(N, F)) int32, slot (B, F)
+    int32, count (B,) int32)."""
     lib = _library()
     n_cases, n_pts, _ = x.shape
     widths = _widths(x, weights)
     nl = len(weights)
     dev = x.device
-    rows = n_cases * n_pts
-    dx = torch.empty_like(x)
-    da = torch.empty((rows, widths[-2]), dtype=torch.float32, device=dev) if nl > 1 else None
-    gz_last = torch.empty((n_cases, widths[-1]), dtype=torch.float32, device=dev)
-    gz_stash = torch.empty_like(stash_z) if nl > 1 else None
-    dws = [torch.zeros((widths[i], widths[i + 1]), dtype=torch.float32, device=dev)
-           for i in range(nl)]
-    dbs = [torch.zeros((widths[i + 1],), dtype=torch.float32, device=dev) for i in range(nl)]
+    f = widths[-1]
     w_arr = build.int_array(widths)
-    n_scratch = lib.pointnet_global_backward_workspace(n_cases, n_pts, nl, w_arr)
-    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    key = ("bwd", n_cases, n_pts, tuple(widths), need_dx)
+    n_scratch = _WORKSPACE.get(key)
+    if n_scratch is None:
+        n_scratch = _WORKSPACE[key] = lib.pointnet_global_backward_workspace(
+            n_cases, n_pts, nl, w_arr, int(need_dx))
+    # one allocation: dx, then each layer's (in + 1, out) dW with db as its
+    # last row, then the scratch
+    n_dx = x.numel() if need_dx else 0
+    offs, off = [], -(-n_dx // 32) * 32
+    for i in range(nl):
+        offs.append(off)
+        off += -(-(widths[i] + 1) * widths[i + 1] // 32) * 32
+    buf = torch.empty((off + n_scratch,), dtype=torch.float32, device=dev)
+    dx = buf[:n_dx].view(x.shape) if need_dx else None
+    base = buf.data_ptr()
+    rcap = min(n_pts, f)
+    comp = None
+    if winners:
+        comp = [torch.empty(s, dtype=torch.int32, device=dev)
+                for s in ((n_cases, rcap), (n_cases, f), (n_cases,))]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.pointnet_global_backward(
-            x.data_ptr(), n_cases, n_pts, nl, build.pointer_array(ws_t),
-            build.pointer_array(weights), build.pointer_array(biases), w_arr,
-            ACT_CODES[activation], ptr(stash_z), argmax.data_ptr(), dm.data_ptr(), ptr(da),
-            gz_last.data_ptr(), ptr(gz_stash), dx.data_ptr(), build.pointer_array(dws),
-            build.pointer_array(dbs), scratch.data_ptr(), n_scratch, stream)
+            x.data_ptr(), n_cases, n_pts, nl, build.pointer_array(weights),
+            build.pointer_array(biases), w_arr, ACT_CODES[activation], argmax.data_ptr(),
+            dm.data_ptr(), None if dx is None else base, (ctypes.c_void_p * nl)(
+                *[base + 4 * o for o in offs]), base + 4 * off, n_scratch,
+            None if comp is None else build.pointer_array(comp), stream)
     build.check_launch("pointnet_global backward", code)
     pointnet_global_backward.launches += 1
-    return dx, dws, dbs
+    dws = [buf.as_strided((widths[i + 1], widths[i]), (1, widths[i + 1]), o)
+           for i, o in enumerate(offs)]
+    dbs = [buf.as_strided((widths[i + 1],), (1,), o + widths[i] * widths[i + 1])
+           for i, o in enumerate(offs)]
+    if not winners:
+        return dx, dws, dbs
+    rows, crow, count = comp
+    slot = crow - (torch.arange(n_cases, device=dev, dtype=torch.int32) * rcap)[:, None]
+    return dx, dws, dbs, (rows, slot, count)
 
 
 class _PointnetGlobal(torch.autograd.Function):
-    """The forward kernel with its stash, and the backward kernel."""
+    """The forward kernel, and the backward kernel on its winners: it saves
+    x, the argmax and the parameters, no activation."""
 
     @staticmethod
     def forward(ctx, activation, x, *params):
         nl = len(params) // 2
         weights, biases = params[:nl], params[nl:]
-        m, arg, z, ws_t = _forward(weights, biases, x, activation, stash=True)
+        m, arg = _forward(weights, biases, x, activation)
         ctx.activation = activation
         ctx.n_layers = nl
-        ctx.save_for_backward(x, arg, z, *weights, *ws_t, *biases)
+        ctx.save_for_backward(x, arg, *weights, *biases)
         ctx.mark_non_differentiable(arg)
         return m, arg
 
     @staticmethod
     def backward(ctx, dm, _darg):
         nl = ctx.n_layers
-        x, arg, z, *rest = ctx.saved_tensors
-        weights, ws_t, biases = rest[:nl], rest[nl:2 * nl], rest[2 * nl:]
+        x, arg, *rest = ctx.saved_tensors
+        weights, biases = rest[:nl], rest[nl:]
         dx, dws, dbs = pointnet_global_backward(
-            [w.detach() for w in weights], ws_t, [b.detach() for b in biases], x.detach(),
-            ctx.activation, z, arg, dm.contiguous())
-        return (None, dx, *[dw.t() for dw in dws], *dbs)
+            [w.detach() for w in weights], [b.detach() for b in biases], x.detach(),
+            ctx.activation, arg, dm.contiguous(), need_dx=ctx.needs_input_grad[1])
+        return (None, dx, *dws, *dbs)
 
 
 def pointnet_global(linears: Sequence, x: torch.Tensor, activation: str):
@@ -185,7 +245,7 @@ def pointnet_global(linears: Sequence, x: torch.Tensor, activation: str):
     params = weights + biases
     if torch.is_grad_enabled() and any(t.requires_grad for t in [x, *params]):
         return _PointnetGlobal.apply(activation, x, *params)
-    return _forward(weights, biases, x, activation, stash=False)[:2]
+    return _forward(weights, biases, x, activation)
 
 
 pointnet_global.launches = 0

@@ -19,8 +19,7 @@ pytestmark = pytest.mark.gpu
 # |kernel - plain| <= RTOL * max|plain|: f32 on both sides, sums in another
 # order (the kernels' FMA chains and the engine's 3xTF32 products, each
 # within about 2^-21 of the f32 product, against cuBLAS; the backward's
-# weight gradients add row chunks in another order, and pointnet's
-# winner-row scatter adds with atomics in no fixed order).
+# weight gradients add row chunks in another order).
 RTOL = 1e-4
 
 
@@ -814,3 +813,83 @@ def test_neural_ops_dropout_masks_match_plain(cuda):
             ref = neural_op_cuda.neural_ops_prop_plain(*args, last_activation=False)
         for a, r in zip(got, ref):
             assert_close(a, r)
+
+
+# ---------------------------------------------------------------------------
+# pointnet_global's winner-row backward: the shapes and winner sets it must
+# take (N < F, ragged blocks, one layer, one winner row, F distinct winner
+# rows, ties across blocks, more channels than the compaction's one-key-a-
+# thread sort takes), its compaction against pointnet_winner_rows, two runs
+# bit for bit, and no synchronizing call
+
+
+def _pointnet_case(case, act, cuda):
+    gen = torch.Generator().manual_seed(len(case))
+    shapes = {"n_lt_f": (2, 50, [20, 32, 300]), "ragged_128": (3, 197, [69, 96, 128, 256]),
+              "one_layer": (2, 75, [9, 140]), "r_is_1": (2, 130, [6, 40, 200]),
+              "r_is_f": (2, 150, [64, 64]), "ties_across_blocks": (2, 300, [3, 8, 16]),
+              "f_gt_1024": (2, 40, [6, 16, 1100])}
+    b, n, layers = shapes[case]
+    mlp = MLP(layers, activation=act, generator=gen).to(cuda)
+    x = torch.randn((b, n, layers[0]), generator=gen)
+    if case == "r_is_1":                 # identical rows: row 0 wins every channel
+        x = x[:, :1].repeat(1, n, 1)
+    elif case == "ties_across_blocks":   # period 10: the first copy must win
+        x = x[:, :10].repeat(1, n // 10, 1)
+    elif case == "r_is_f":               # channel c peaks at row c alone
+        f = layers[-1]
+        with torch.no_grad():
+            mlp.linears[0].weight.copy_(torch.eye(f) * 4.0)
+            mlp.linears[0].bias.zero_()
+        x = torch.zeros((b, n, f))
+        x[:, torch.arange(f), torch.arange(f)] = 1.0
+        x[:, f:] = -1.0
+    return mlp, x.to(cuda), torch.randn((b, 1, layers[-1]), generator=gen).to(cuda)
+
+
+@pytest.mark.parametrize("act", ["silu", "tanh"])
+@pytest.mark.parametrize("case", ["n_lt_f", "ragged_128", "one_layer", "r_is_1", "r_is_f",
+                                  "ties_across_blocks", "f_gt_1024"])
+def test_pointnet_winner_backward_cases(cuda, case, act):
+    mlp, x, cot = _pointnet_case(case, act, cuda)
+    xg = x.clone().requires_grad_()
+    m, arg = pointnet_cuda.pointnet_global(mlp.linears, xg, act)
+    got = torch.autograd.grad((m * cot).sum(), [xg, *_params(mlp)])
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        rm, ra = pointnet_cuda.pointnet_global_plain(mlp.linears, x, act)
+        g = analytic.mlp_value(mlp.linears, x, act)
+    assert_close(m.detach(), rm)
+    if case in ("r_is_1", "r_is_f", "ties_across_blocks"):
+        assert torch.equal(arg, ra)      # exact ties and clear winners
+    else:
+        top2 = torch.topk(g, 2, dim=-2).values
+        decided = (top2[:, 0] - top2[:, 1]) > RTOL * rm.abs().max()
+        assert torch.equal(arg[:, 0][decided], ra[:, 0][decided])
+    ref_m = pointnet_cuda.pointnet_global_at(mlp.linears, xg, act, arg)
+    ref = torch.autograd.grad((ref_m * cot).sum(), [xg, *_params(mlp)])
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+    weights = [lin.weight.detach() for lin in mlp.linears]
+    biases = [lin.bias.detach() for lin in mlp.linears]
+    arg = arg.contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runs = [pointnet_cuda.pointnet_global_backward(weights, biases, x, act, arg, cot,
+                                                       winners=True) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rows, slot, count = pointnet_cuda.pointnet_winner_rows(arg)
+    k_rows, k_slot, k_count = runs[0][3]
+    assert torch.equal(k_count.long(), count) and torch.equal(k_slot.long(), slot)
+    assert torch.equal(k_rows.long(), rows[:, :k_rows.shape[1]])
+    if case == "r_is_1":
+        assert count.tolist() == [1] * x.shape[0]
+    if case == "r_is_f":
+        assert count.tolist() == [x.shape[-1]] * x.shape[0]
+    flat = [[r[0], *r[1], *r[2]] for r in runs]
+    assert all(torch.equal(u, v) for u, v in zip(*flat))
+    for a, r in zip(flat[0], [got[0], *got[1::2], *got[2::2]]):
+        assert torch.equal(a, r)

@@ -146,3 +146,32 @@ def test_pointnet_global_tie_gradient_goes_to_the_first_row():
     # case 0, channel 2 (3x): rows 4 and 7 tie at 0.7, and only row 4 (the
     # first) gets the cotangent; row 7 wins no other channel
     assert float(xt.grad[0, 7, 0]) == 0.0 and float(xt.grad[0, 4, 0]) != 0.0
+
+
+@pytest.mark.parametrize("kind,b,n,f", [("random", 3, 40, 24), ("n_lt_f", 2, 7, 64),
+                                        ("r_is_1", 2, 50, 16), ("r_is_f", 2, 90, 32)])
+def test_pointnet_winner_rows_matches_numpy(kind, b, n, f):
+    """The plain compaction the backward kernel is held to: each case's
+    distinct winner rows ascending (np.unique), each channel's index among
+    them, their count."""
+    rng = np.random.default_rng(f)
+    if kind == "r_is_1":
+        arg = np.full((b, 1, f), 5)
+    elif kind == "r_is_f":
+        arg = np.stack([rng.permutation(n)[:f] for _ in range(b)])[:, None]
+    else:
+        arg = rng.integers(0, n, size=(b, 1, f))
+    rows, slot, count = pointnet_cuda.pointnet_winner_rows(
+        torch.from_numpy(arg.astype(np.int32)))
+    assert rows.shape == (b, f) and slot.shape == (b, f) and count.shape == (b,)
+    for i in range(b):
+        uniq, inverse = np.unique(arg[i, 0], return_inverse=True)
+        assert int(count[i]) == len(uniq)
+        np.testing.assert_array_equal(rows[i, :len(uniq)].numpy(), uniq)
+        assert (rows[i, len(uniq):] == -1).all()
+        np.testing.assert_array_equal(slot[i].numpy(), inverse)
+        np.testing.assert_array_equal(rows[i][slot[i]].numpy(), arg[i, 0])
+    if kind == "r_is_1":
+        assert count.tolist() == [1] * b
+    if kind == "r_is_f":
+        assert count.tolist() == [f] * b

@@ -1,4 +1,4 @@
-"""Time the (v, J, H) engine's kernels at the main paths' shapes on the card.
+"""Time the (v, J, H) engine and pointnet_global on the card.
 
     python tools/time_engine.py [--root DIR] [--label NAME]
 
@@ -15,6 +15,11 @@ backward kernel from a training stash, and its internal launch. Where the
 tree has ``mlp_prop_cuda.weight_grad`` it also times that contraction alone
 at every layer's stash shapes, beside cuBLAS's ``a.t() @ g`` in full f32
 (TF32 off), and the rows sweep as the backward less its weight gradients.
+pointnet_global is timed at chip_smoke.py's five shapes (pipn; pi-gano's
+geometry encoder and branch; the pipn-pp and pi-gano-pp global levels)
+through ``pointnet_global`` alone: the forward without a gradient, and the
+backward as ``torch.autograd.grad`` of ``sum(cot * max)`` on a retained
+graph, so that trees with other backward entry points are timed alike.
 Prints one JSON line, with the card's name and power limit. Needs a CUDA
 device.
 """
@@ -142,6 +147,37 @@ def time_trunk(torch, gen, dev):
     return res
 
 
+def time_pointnet(torch, gen, dev):
+    """pointnet_global's forward and backward (ms) at the five shapes."""
+    from porous_cfd_tpu_torch.models.mlp import MLP
+    from porous_cfd_tpu_torch.models.neighbors import fps_count
+    from porous_cfd_tpu_torch.ops import pointnet_cuda
+    n_pp = fps_count(fps_count(N_BND, cs.PP_FRACTION[0]), cs.PP_FRACTION[1])
+    n_pgp = fps_count(fps_count(N_BND, cs.PGP_FRACTION[0]), cs.PGP_FRACTION[1])
+    shapes = {"pipn": (cs.FE_GLOBAL, N_INT + N_BND, True),
+              "pi_gano_geometry": (cs.PG_GEOMETRY, N_INT + N_BND, False),
+              "pi_gano_branch": (cs.PG_BRANCH, cs.PG_N_BRANCH, False),
+              "pipn_pp_global": (cs.PP_GLOBAL[-1], n_pp, True),
+              "pi_gano_pp_global": (cs.PGP_GEOMETRY[-1], n_pgp, True)}
+    res = {}
+    for key, (layers, n_pts, x_grad) in shapes.items():
+        mlp = MLP(layers, activation="silu", generator=gen).to(dev)
+        x = torch.randn((BATCH, n_pts, layers[0]), generator=gen).to(dev)
+        cot = torch.randn((BATCH, 1, layers[-1]), generator=gen).to(dev)
+        lin = mlp.linears
+        with torch.no_grad():
+            fwd_ms = time_ms(torch, lambda: pointnet_cuda.pointnet_global(lin, x, "silu"))
+        xg = x.clone().requires_grad_(x_grad)
+        wrt = ([xg] if x_grad else []) + list(mlp.parameters())
+        m, _ = pointnet_cuda.pointnet_global(lin, xg, "silu")
+        loss = (m * cot).sum()
+        bwd_ms = time_ms(torch, lambda: torch.autograd.grad(loss, wrt, retain_graph=True))
+        res[key] = {"input": [BATCH, n_pts, layers[0]], "widths": layers, "fwd_ms": fwd_ms,
+                    "bwd_ms": bwd_ms}
+        del m, loss
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(HERE),
@@ -156,7 +192,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from porous_cfd_tpu_torch.ops import build
-    build.build_all(("decoder_prop", "neural_op_prop"))
+    build.build_all(("decoder_prop", "neural_op_prop", "pointnet_global"))
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -166,6 +202,8 @@ def main() -> int:
            "nvidia_smi": smi, "decoder_pipn": time_decoder(torch, gen, dev)}
     torch.cuda.empty_cache()
     res["trunk_pi_gano"] = time_trunk(torch, gen, dev)
+    torch.cuda.empty_cache()
+    res["pointnet"] = time_pointnet(torch, gen, dev)
     print(json.dumps({"time_engine": res}), flush=True)
     return 0
 
