@@ -7,10 +7,13 @@ Phases, in order; any failure exits non-zero:
   1. device: TF32 off, card name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port from ``porous_cfd_tpu_torch/ops/csrc``
      (one nvcc per source, side by side) into ``build/porous_cfd_tpu_torch``;
-     the (v, J, H) engine's and pointnet_global's kernels' registers, stack
-     and spills from ``-Xptxas -v``, the engine's blocks per SM
-     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the paths' widths
-     and pointnet_global's blocks (points, shared bytes) at its five shapes;
+     the (v, J, H) engine's, pointnet_global's and sa_neighborhood's
+     kernels' registers, stack and spills from ``-Xptxas -v``, the engine's
+     blocks per SM
+     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the paths' widths,
+     pointnet_global's blocks (points, shared bytes) at its five shapes and
+     sa_neighborhood's (chunk width, resident or streamed weights, shared
+     bytes, blocks per SM) at its four levels;
   3. kernels: each kernel against its plain PyTorch version on the card at the
      shapes the main paths give it, timed with CUDA events, every backward
      of the engine also split into its weight gradients (``weight_grad``
@@ -24,6 +27,8 @@ Phases, in order; any failure exits non-zero:
      and backward with dropout on and off and the kept fraction of a full
      trunk mask, (f) sa_neighborhood forward and backward at PIPN++'s level 0
      (static) and level 1 (dynamic) shapes, and with emptied neighbourhoods,
+     the argmax against the plain one, the backward's winner compaction
+     held equal to ``sa_winner_rows`` and two backward runs bit for bit,
      (g) FPS at PIPN++'s two levels, indices equal to the plain version's,
      (h) pointnet_global and decoder_prop at PIPN++'s shapes, and
      pointnet_global at PI-GANO++'s global level, with dx, (i)
@@ -392,15 +397,18 @@ def split_backward(torch, bwd, shapes, pk):
 
 def kernel_report(log_text):
     """Per kernel family (the engine's forward and backward row kernels,
-    weight_grad, pointnet_global's forward and backward tiles) of one ``-Xptxas -v`` report: instantiations, registers,
-    the largest stack frame and spills, in bytes."""
+    weight_grad, pointnet_global's and sa_neighborhood's forward and
+    backward tiles, sa_neighborhood's compaction) of one ``-Xptxas -v``
+    report: instantiations, registers, the largest stack frame and spills,
+    in bytes."""
     families = {}
     name = None
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
             name = next((f for f in ("mlp_prop_fwd", "mlp_prop_bwd_rows",
                                      "weight_grad_partial", "pointnet_fwd_tiles",
-                                     "pointnet_bwd_tiles") if f in line), None)
+                                     "pointnet_bwd_tiles", "sa_fwd_tiles", "sa_bwd_tiles",
+                                     "sa_bwd_prep") if f in line), None)
             if name:
                 families.setdefault(name, {"count": 0, "registers": [], "stack": 0,
                                            "spill_stores": 0, "spill_loads": 0})
@@ -863,42 +871,24 @@ def check_decoder_coupled(model, batch, pk):
     return res
 
 
-def sa_winners(linears, x, idx, mask, rel, xg):
-    """(winners, winner rows) of one sa_neighborhood level: the (case,
-    centroid, channel) maxima of the non-empty neighbourhoods, and the
-    distinct neighbour rows that hold one or more of them. The rows are the
-    plain version's first maximal valid neighbours, which the kernels pick
-    too except where two rows tie within rounding; the count sizes the
-    backward's work, it is not compared."""
-    import torch
-    import torch.nn.functional as F
-    from porous_cfd_tpu_torch.physics import analytic
-    with torch.no_grad():
-        b_cases, n_cent, k = mask.shape
-        w0, b0 = linears[0].weight, linears[0].bias
-        if xg is not None:
-            h = F.linear(torch.cat([xg.reshape(b_cases, n_cent, k, -1), rel], dim=-1), w0, b0)
-        else:
-            f_in = x.shape[-1]
-            p = F.linear(x, w0[:, :f_in], b0)
-            flat = idx.reshape(b_cases, -1)
-            h = torch.gather(p, 1, flat[..., None].expand(*flat.shape, p.shape[-1])).reshape(
-                b_cases, n_cent, k, -1) + F.linear(rel, w0[:, f_in:])
-        h = analytic.mlp_value(linears[1:], analytic.ACTIVATIONS["silu"](h), "silu")
-        h = h.masked_fill(~mask[..., None], torch.finfo(h.dtype).min)
-        arg = h.max(dim=2).indices                                  # (B, C, F)
-        hit = torch.zeros(mask.shape, dtype=torch.bool, device=mask.device)
-        hit.scatter_(2, arg, True)
-        full = mask.any(-1)
-        return int(full.sum()) * h.shape[-1], int((hit & full[..., None]).sum())
+def sa_backward_flops(widths, static, winners, winner_rows):
+    """The winner-row backward's work, counted as pointnet_global_bwd's is:
+    the last layer's z, da and dW at each (case, centroid, channel) winner;
+    the hidden layers at the distinct winner rows, recomputed, their dW and,
+    above layer 0, GZ W^T; the dynamic level's P row added and dP summed."""
+    flops = 2.0 * winners * widths[-2] * 3
+    for i in range(len(widths) - 2):
+        flops += 2.0 * winner_rows * widths[i] * widths[i + 1] * (2 if i == 0 else 3)
+    return flops + (0.0 if static else 2.0 * winner_rows * widths[1])
 
 
-def sa_backward_flops(widths, flops_f, winners, winner_rows):
-    """The backward's work as pointnet_global_bwd's is counted: the forward
-    over every valid row (it finds the winners), then, from the top, the
-    last layer's dW, db and GZ W^T at each (centroid, channel) winner, and
-    each lower layer's dW, db (the dynamic layer 0: dP's scatter) and, above
-    layer 0, GZ W^T at the distinct winner rows."""
+def sa_backward_flops_with_forward(widths, flops_f, winners, winner_rows):
+    """The count the backward's bound used while the backward recomputed the
+    whole level: the forward over every valid row (it found the winners),
+    then, from the top, the last layer's dW, db and GZ W^T at each winner
+    and each lower layer's dW, db and, above layer 0, GZ W^T at the winner
+    rows. Logged beside the new count, so that the fall of the bound is not
+    read as a change of speed."""
     flops = flops_f
     n_layers = len(widths) - 1
     for j in range(n_layers - 1, -1, -1):
@@ -912,19 +902,66 @@ def sa_backward_flops(widths, flops_f, winners, winner_rows):
     return flops
 
 
+def sa_backward_bytes(call, arg, dout, rows):
+    """The bytes the winner-row backward must move, counted as its work is,
+    from the winners: the argmax and dout; at each distinct winner row its
+    rel row and, static, its xg row, dynamic, its idx and each distinct row
+    of P it reads once; the kernel's parameters, read, and their gradients
+    and, dynamic, dP (B, n_src, F1), written. ``rows`` is the compaction
+    (sa_winner_rows' first part: each case's winner rows c * K + k, then
+    -1)."""
+    import torch
+    xg, rel, _, p, idx = call.tensors
+    n_rows = int((rows >= 0).sum())
+    row_bytes = rel.shape[-1] * 4 + (xg.shape[-1] * 4 if call.static else 8)
+    total = arg.numel() * arg.element_size() + dout.numel() * 4 + n_rows * row_bytes
+    params = sum(t.numel() for t in call.weights) + sum(t.numel() for t in call.biases
+                                                         if t is not None)
+    total += 2 * 4 * params
+    if not call.static:
+        flat = idx.reshape(call.b_cases, -1)
+        src = torch.gather(flat, 1, rows.clamp(min=0))
+        read = torch.zeros((call.b_cases, call.n_src + 1), dtype=torch.bool, device=idx.device)
+        read.scatter_(1, torch.where(rows >= 0, src, call.n_src), True)  # past the rows: spare
+        total += int(read[:, :-1].sum()) * p.shape[-1] * 4 + p.numel() * 4
+    return float(total)
+
+
+def sa_blocks_at(layers, n_cent, k, n_src, static):
+    """sa_neighborhood's blocks (sa_cuda.blocks) at a level's shapes, on
+    placeholder tensors of the card (the blocks depend on shapes only)."""
+    import torch
+    from porous_cfd_tpu_torch.models.mlp import MLP
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    dev = torch.device("cuda", 0)
+    lin = MLP(layers, activation="silu").to(dev).linears
+    rel = torch.zeros((BATCH, n_cent, k, 2), device=dev)
+    mask = torch.ones((BATCH, n_cent, k), dtype=torch.bool, device=dev)
+    idx = torch.zeros((BATCH, n_cent, k), dtype=torch.long, device=dev)
+    f_in = layers[0] - 2
+    xg = torch.zeros((BATCH, n_cent * k, f_in), device=dev) if static else None
+    x = None if static else torch.zeros((BATCH, n_src, f_in), device=dev)
+    return sa_cuda.blocks(sa_cuda.level_call(lin, x, idx, mask, rel, "silu", xg))
+
+
 def check_sa(seq, chain, gen, pk, n_levels=len(PP_RADIUS)):
     """sa_neighborhood against the plain version on the card at the two
     radius levels of ``seq`` (a SetAbstractionSeq: PIPN++'s, or PI-GANO++'s
     at 32 neighbours): level 0 static on ``chain`` (the model's precompute
-    of BATCH cases: xg, rel, mask), level 1 dynamic on random level-0 features with
-    the chain's idx, rel and mask; forward and backward (every parameter
-    gradient, and dx through dP), and level 1 again with every seventh
-    neighbourhood emptied (0 out, no gradient). Timed with CUDA events; the
-    work counts the valid neighbour rows. Returns (fwd, bwd) dicts with the
-    two levels summed and each level's numbers in ``extra``; the backward's
-    work counts the winners as pointnet_global_bwd's does."""
+    of BATCH cases: xg, rel, mask), level 1 dynamic on random level-0
+    features with the chain's idx, rel and mask. The forward's values within
+    RTOL of the plain version and its argmax equal to the plain first
+    maximal valid neighbour wherever the top two differ by more than RTOL;
+    every gradient (dx through dP too) within RTOL of the plain level at the
+    kernel's argmax (sa_neighborhood_at: a near-tie may pick another row
+    than torch.max, as pointnet's check allows); the backward's compaction
+    equal to sa_winner_rows, two backward runs bit for bit; level 1 again
+    with every seventh neighbourhood emptied (0 out, no gradient). Timed
+    with CUDA events; the forward's work counts the valid neighbour rows,
+    the backward's its winners (sa_backward_flops, with the count before the
+    winner-row backward logged beside it). Returns (fwd, bwd) dicts with the
+    two levels summed and each level's numbers in ``extra``."""
     import torch
-    import torch.nn.functional as F
     from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors
     from porous_cfd_tpu_torch.ops import sa_cuda
     dev = torch.device("cuda", 0)
@@ -947,68 +984,102 @@ def check_sa(seq, chain, gen, pk, n_levels=len(PP_RADIUS)):
         out = sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, "silu", xg)
         cot = torch.randn(out.shape, generator=gen).to(dev)
         got = torch.autograd.grad((out * cot).sum(), wrt)
+        x_in = None if x is None else x.detach()
+        call = sa_cuda.level_call(lin, x_in, idx, mask, rel, "silu", xg)
+        with torch.no_grad():  # the argmax the backward was given: same kernel, same inputs
+            arg = sa_cuda._forward(call)[1]
         torch.cuda.synchronize()
-        ref_out = sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel, "silu", xg)
-        err_f = check_close(f"sa_neighborhood {tag}", [("out", out.detach(), ref_out.detach())])
-        loss_ref = (ref_out * cot).sum()
+        with torch.no_grad():
+            ref_out, ref_arg = sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel, "silu", xg,
+                                                             with_argmax=True)
+            h = sa_cuda._plain_rows(lin, x, idx, mask, rel, "silu", xg)
+            top2 = torch.topk(h.masked_fill(~mask[..., None], -1e30), 2, dim=2).values
+            decided = (top2[:, :, 0] - top2[:, :, 1]) > RTOL * ref_out.abs().max()
+            decided |= mask.sum(-1, keepdim=True) < 2
+            mismatch = int((arg != ref_arg)[decided].sum())
+            del h, top2
+        err_f = check_close(f"sa_neighborhood {tag}", [("out", out.detach(), ref_out)])
+        log(f"  sa_neighborhood {tag} argmax: {int(decided.sum())} of {decided.numel()} "
+            f"channels decided, {mismatch} disagree")
+        if mismatch:
+            fail(f"sa_neighborhood {tag}: argmax disagrees with the plain version")
+        ref_at = sa_cuda.sa_neighborhood_at(lin, x, idx, mask, rel, "silu", arg, xg)
+        loss_ref = (ref_at * cot).sum()
         ref = torch.autograd.grad(loss_ref, wrt, retain_graph=True)
         err_b = check_close(f"sa_neighborhood {tag} backward", list(zip(names, got, ref)))
+
+        def backward(winners=False):
+            return sa_cuda.sa_neighborhood_backward(call, arg, cot, winners)
+
+        # the card's compaction against the plain one, two runs bit for bit
+        first = backward(winners=True)
+        rows_p, slot_p, count_p = sa_cuda.sa_winner_rows(arg, mask)
+        rows_k, slot_k, count_k = first[3]
+        if not (torch.equal(count_k.long(), count_p) and torch.equal(slot_k.long(), slot_p)
+                and torch.equal(rows_k.long(), rows_p)):
+            fail(f"sa_neighborhood {tag} backward: the compaction differs from sa_winner_rows")
+        second = backward()
+        flat = lambda r: [t for t in (*r[0], *r[1], r[2]) if t is not None]  # noqa: E731
+        if not all(torch.equal(u, v) for u, v in zip(flat(first), flat(second))):
+            fail(f"sa_neighborhood {tag} backward: two runs differ")
         with torch.no_grad():
             ms_f = time_ms(torch, lambda: sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, "silu",
                                                                   xg))
             ms_fp = time_ms(torch, lambda: sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel,
                                                                          "silu", xg))
-            if static:
-                call = sa_cuda.SaCall("silu", [t.weight for t in lin], [t.bias for t in lin],
-                                      rel, mask, xg=xg)
-            else:
-                p = F.linear(x, lin[0].weight[:, :f_in], lin[0].bias).contiguous()
-                call = sa_cuda.SaCall("silu", [lin[0].weight[:, f_in:]] + [t.weight for t in
-                                                                            lin[1:]],
-                                      [None] + [t.bias for t in lin[1:]], rel, mask, p=p,
-                                      idx=idx)
-            ms_b = time_ms(torch, lambda: sa_cuda.sa_neighborhood_backward(call, cot))
+            ms_b = time_ms(torch, backward)
         ms_bp = time_ms(torch, lambda: torch.autograd.grad(loss_ref, wrt, retain_graph=True),
                         n=5)
         # the forward's work: the valid neighbour rows through the first
         # layer on [xg || rel] (static) or rel (dynamic, P's row is added)
-        # and the other layers; the backward's as pointnet_global_bwd's
+        # and the other layers; the backward's at its winners
         rows = int(mask.sum())
         widths = call.widths
         macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
         flops_f = 2.0 * rows * macs + (0.0 if static else rows * widths[1])
-        winners, winner_rows = sa_winners(lin, x, idx, mask, rel, xg)
-        flops_b = sa_backward_flops(widths, flops_f, winners, winner_rows)
+        winners = int((arg >= 0).sum())
+        winner_rows = int(count_p.sum())
+        flops_b = sa_backward_flops(widths, static, winners, winner_rows)
+        flops_b_old = sa_backward_flops_with_forward(widths, flops_f, winners, winner_rows)
         inputs = [xg if static else call.tensors[3], rel, *params]
         side = mask.numel() + (0 if static else 8 * idx.numel())
-        bytes_f = nbytes_of(inputs + [out]) + side
-        bytes_b = nbytes_of(inputs + [cot, *got]) + side
+        bytes_f = nbytes_of(inputs + [out]) + side + arg.numel()
+        bytes_b = sa_backward_bytes(call, arg, cot, rows_p)
         mean_nbrs = float(mask.sum(-1).float().mean())
         shape = {"centroids": list(mask.shape[:2]), "neighbors": mask.shape[2],
                  "widths": widths, "valid_rows": rows, "mean_valid_neighbors": mean_nbrs}
-        shapes = {"fwd": shape, "bwd": {**shape, "winners": winners,
-                                        "winner_rows": winner_rows}}
+        shapes = {"fwd": shape,
+                  "bwd": {**shape, "winners": winners, "winner_rows": winner_rows,
+                          "flop_counted_with_forward": flops_b_old}}
         for key, err, ms, pms, fl, by in (("fwd", err_f, ms_f, ms_fp, flops_f, bytes_f),
                                           ("bwd", err_b, ms_b, ms_bp, flops_b, bytes_b)):
             res[key][tag] = {**shapes[key], **shape_timing({"err": err, "ms": ms,
                                                             "plain_ms": pms, "flops": fl,
                                                             "nbytes": by}, pk)}
         log(f"  sa_neighborhood {tag}: {rows} valid rows, {mean_nbrs:.2f} valid neighbours "
-            f"per centroid, {winner_rows} distinct winner rows; forward {ms_f:.4f} ms (plain "
-            f"{ms_fp:.4f}), backward {ms_b:.4f} ms (plain {ms_bp:.4f})")
+            f"per centroid, {winners} winners on {winner_rows} distinct rows (compaction equal "
+            f"to sa_winner_rows, two backwards bitwise equal); backward work {flops_b:.4g} "
+            f"FLOP at the winners ({flops_b_old:.4g} as counted with a forward); forward "
+            f"{ms_f:.4f} ms (plain {ms_fp:.4f}), backward {ms_b:.4f} ms (plain {ms_bp:.4f})")
         if not static:  # every seventh neighbourhood emptied
             empty = mask.clone()
             empty[:, ::7] = False
             out_e = sa_cuda.sa_neighborhood(lin, x, idx, empty, rel, "silu")
             got_e = torch.autograd.grad((out_e * cot).sum(), wrt)
+            with torch.no_grad():
+                arg_e = sa_cuda._forward(sa_cuda.level_call(lin, x_in, idx, empty, rel,
+                                                            "silu"))[1]
             ref_e = sa_cuda.sa_neighborhood_plain(lin, x, idx, empty, rel, "silu")
-            ref_ge = torch.autograd.grad((ref_e * cot).sum(), wrt)
+            ref_ge = torch.autograd.grad(
+                (sa_cuda.sa_neighborhood_at(lin, x, idx, empty, rel, "silu", arg_e) * cot).sum(),
+                wrt)
             check_close("sa_neighborhood emptied", [("out", out_e.detach(), ref_e.detach())]
                         + list(zip(names, got_e, ref_ge)), quiet=True)
-            if not bool((out_e.detach()[:, ::7] == 0).all()):
-                fail("sa_neighborhood: an empty neighbourhood did not give 0")
+            if not (bool((out_e.detach()[:, ::7] == 0).all())
+                    and bool((arg_e[:, ::7] == -1).all())):
+                fail("sa_neighborhood: an empty neighbourhood did not give 0 and argmax -1")
             log("  sa_neighborhood: every seventh level-1 neighbourhood emptied gives 0")
-        del out, got, ref, ref_out, loss_ref, call
+        del out, got, ref, ref_out, ref_at, loss_ref, call, first, second
     summed = []
     for key in ("fwd", "bwd"):
         levels = res[key].values()
@@ -1714,6 +1785,21 @@ def main() -> int:
         cols, pts, fwd_b, bwd_b = pointnet_cuda.blocks(widths)
         log(f"  blocks pointnet_global {label} {widths}: forward {pts} points, two warpgroups "
             f"of {cols} columns each, {fwd_b} bytes of shared memory; backward {bwd_b} bytes")
+
+    # sa_neighborhood's blocks at the four levels of phase 3f
+    for label, layers, k, fraction, static in (
+            ("pipn_pp level 0", PP_GLOBAL[0], PP_NEIGHBORS, PP_FRACTION[:1], True),
+            ("pipn_pp level 1", PP_GLOBAL[1], PP_NEIGHBORS, PP_FRACTION, False),
+            ("pi-gano-pp level 0", PGP_GEOMETRY[0], PGP_NEIGHBORS, PGP_FRACTION[:1], True),
+            ("pi-gano-pp level 1", PGP_GEOMETRY[1], PGP_NEIGHBORS, PGP_FRACTION, False)):
+        n_pts = [N_BND]
+        for f in fraction:
+            n_pts.append(fps_count(n_pts[-1], f))
+        blk = sa_blocks_at(layers, n_pts[-1], k, n_pts[-2], static)
+        log(f"  blocks sa_neighborhood {label} {layers}, {n_pts[-1]} centroids of {k}: "
+            + ", ".join(f"{key} {val}" for key, val in blk.items()))
+        if min(blk["fwd_blocks_per_sm"], blk["bwd_blocks_per_sm"]) < 1:
+            fail(f"sa_neighborhood {label}: a kernel fits no block on an SM ({blk})")
 
     gen = torch.Generator().manual_seed(SEED)
     kernels = {}

@@ -1,21 +1,7 @@
 // Shared pieces of the hand-written Hopper kernels: the layer table passed by
-// value to a kernel, the activation rules, the dropout generator, one
-// block-level f32 GEMM on the CUDA cores, the f32-accurate tensor-core
-// primitives (3xTF32) and the weight-gradient contraction built on them.
-//
-// block_gemm (sa_neighborhood.cu; mlp_prop.cuh and pointnet_global.cu have
-// their own tensor-core products) computes a (rows x 128) output chunk of one
-// dense layer for a block of 8 warps. Thread layout (the SIMT layout of
-// CUTLASS's warp-level GEMM): warp = (wr, wc) in 2 x 4, lane = (lr, lc) in
-// 4 x 8. A thread owns the rows i * 8 + p, p = wr * 4 + lr (i < RM), and the
-// 4 adjacent columns wc * 32 + lc * 4 + j of the chunk, so its RM x 4
-// accumulators stay in registers. Per step of 4 k it reads RM float4 of the
-// activation tile (4 distinct rows per warp, in distinct banks thanks to a
-// padded row stride) and 4 float4 of the weight tile (8 distinct addresses
-// per warp): about one shared-memory wavefront per 2 FMA instructions, so
-// the FMA pipe and not shared memory is the limit. Weights, given as (in,
-// out) row-major, stream through two 32 x 128 shared-memory tiles: cp.async
-// fills the next tile while the current one is used.
+// value to a kernel, the activation rules, the dropout generator, the
+// f32-accurate tensor-core primitives (3xTF32) and the weight-gradient
+// contraction built on them.
 //
 // 3xTF32. The H100's TF32 tensor cores (494.7 TFLOP/s dense on the SXM
 // part) keep 10 mantissa bits of each operand, about 3 decimal digits: one
@@ -136,14 +122,6 @@ __device__ __forceinline__ void act_rules(float z, float& val, float& d1, float&
   }
 }
 
-// this thread's row slot p (rows i * 8 + p) and first column in a chunk
-__device__ __forceinline__ int row_slot() {
-  return ((threadIdx.x >> 7) << 2) + ((threadIdx.x & 31) >> 3);
-}
-__device__ __forceinline__ int first_col() {
-  return (((threadIdx.x >> 5) & 3) << 5) + ((threadIdx.x & 7) << 2);
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int bytes = valid ? 4 : 0;  // 0: nothing is read, the word is zeroed
@@ -156,71 +134,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// start copying W[k0 : k0 + 32, n0 : n0 + 128] into a tile; rows and columns
-// past the layer read as 0 (consecutive threads copy consecutive columns)
-__device__ __forceinline__ void load_w_tile(const Layer& L, int k0, int n0, float* tile) {
-  for (int e = threadIdx.x; e < kWTileFloats; e += kThreads) {
-    const int k = k0 + e / kChunkN;
-    const int n = n0 + e % kChunkN;
-    const bool valid = k < L.k && n < L.n;
-    cp_async4(tile + e, valid ? L.w + (size_t)k * L.ldw + n : L.w, valid);
-  }
-  cp_async_commit();
-}
-
-// acc[i][j] = sum_k A[(i * 8 + p) * lda + k] * W[k][n0 + first_col() + j]
-// (with ACC, that sum is added to acc). A is a shared-memory tile whose
-// columns [k, round4(k)) are zero. Every thread of the block must call it;
-// it starts and ends with a barrier, so A may be written just before the
-// call and the tiles reused just after.
-template <int RM, bool ACC = false>
-__device__ __forceinline__ void block_gemm(float (&acc)[RM][4], const float* A, int lda,
-                                           const Layer& L, int n0, float* w_tiles) {
-  const int p = row_slot();
-  const int col = first_col();
-  if (!ACC) {
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_tiles = (L.k + kChunkK - 1) / kChunkK;
-  const int k_end = round4(L.k);
-  load_w_tile(L, 0, n0, w_tiles);
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_w_tile(L, (t + 1) * kChunkK, n0, w_tiles + ((t + 1) & 1) * kWTileFloats);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile t and A are complete and visible
-    const float* w = w_tiles + (t & 1) * kWTileFloats + col;
-    const float* a_row = A + p * lda + t * kChunkK;
-    const int kk_end = min(kChunkK, k_end - t * kChunkK);
-    for (int kk = 0; kk < kk_end; kk += 4) {
-      float4 wv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        wv[q] = *reinterpret_cast<const float4*>(w + (kk + q) * kChunkN);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(a_row + i * kWarps * lda + kk);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc[i][0] = fmaf(av[q], wv[q].x, acc[i][0]);
-          acc[i][1] = fmaf(av[q], wv[q].y, acc[i][1]);
-          acc[i][2] = fmaf(av[q], wv[q].z, acc[i][2]);
-          acc[i][3] = fmaf(av[q], wv[q].w, acc[i][3]);
-        }
-      }
-    }
-    __syncthreads();  // everyone is done with tile t before it is refilled
-  }
 }
 
 inline int max_shared_bytes() {
@@ -426,8 +339,9 @@ __device__ __forceinline__ void activate_own(float* dst, int sld, const float* s
 // Weight gradient C (K x N) = sum over rows r of A[r][k] G[r][n] in 3xTF32
 // (see the head of this file). Block (blockIdx.x, blockIdx.y) computes the
 // BM x BN tile at (k0, n0) of C over chunk blockIdx.z of the rows into
-// parts[chunk]; sum_partials adds the chunks in order. The mma's M is k,
-// its N is n, its depth the rows: both operands come as [row][column]
+// parts[chunk]; sum_partials adds the chunks in order. With rows_dev (not
+// null) the row count is read on the card and split evenly over the chunks.
+// The mma's M is k, its N is n, its depth the rows: both operands come as [row][column]
 // shared tiles, whose strides of 8 (mod 32) words make every fragment load
 // conflict-free.
 constexpr int kGradDepth = 32;   // rows a stage
@@ -442,7 +356,7 @@ template <int A_ACT, int BM, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
     weight_grad_partial(const float* __restrict__ A, int lda, const float* __restrict__ G,
                         int ldg, int rows, int K, int N, int rows_per_chunk,
-                        float* __restrict__ parts) {
+                        float* __restrict__ parts, const int* __restrict__ rows_dev) {
   constexpr int SA = BM + 8, SG = BN + 8;
   constexpr int kStage = kGradDepth * (SA + SG);
   constexpr int WM = BM / 2, WN = BN / 4, MT = WM / 16, NT = WN / 8;
@@ -450,6 +364,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n0 = blockIdx.x * BN;
   const int k0 = blockIdx.y * BM;
   const int chunk = blockIdx.z;
+  if (rows_dev) {  // a count known on the card only: the chunks split it evenly
+    rows = *rows_dev;
+    const int per = (rows + gridDim.z - 1) / gridDim.z;
+    rows_per_chunk = (per + kGradDepth - 1) / kGradDepth * kGradDepth;
+  }
   const int r_begin = chunk * rows_per_chunk;
   const int r_end = min(rows, r_begin + rows_per_chunk);
   const int n_steps = r_end > r_begin ? (r_end - r_begin + kGradDepth - 1) / kGradDepth : 0;
@@ -590,7 +509,7 @@ cudaError_t launch_weight_grad(const float* A, int lda, const float* G, int ldg,
   auto kernel = weight_grad_partial<A_ACT, BM, BN>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, chunks);
-  kernel<<<grid, kThreads, smem, s>>>(A, lda, G, ldg, rows, K, N, per, scratch);
+  kernel<<<grid, kThreads, smem, s>>>(A, lda, G, ldg, rows, K, N, per, scratch, nullptr);
   return cudaGetLastError();
 }
 

@@ -87,33 +87,6 @@ using namespace pct;
 namespace pct {
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// (value, row) as one key whose unsigned order is the pooling's: a larger
-// value, then a lower row. The value's bits are mapped to an order-preserving
-// unsigned (negative values flipped); 0 is below every key ("no row yet").
-__device__ __forceinline__ unsigned long long pack_key(float v, int row) {
-  unsigned u = __float_as_uint(v);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)u << 32) | (unsigned)~row;
-}
-__device__ __forceinline__ float key_value(unsigned long long k) {
-  unsigned u = (unsigned)(k >> 32);
-  u = (u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u;
-  return __uint_as_float(u);
-}
-__device__ __forceinline__ int key_row(unsigned long long k) { return (int)~(unsigned)k; }
-
-// The activation in the forward's epilogues, from the fast exponential and
-// division (a few ulp of f32, against the 1e-4 relative tolerance the kernel
-// is held to): the IEEE expf, division and tanhf cost more than the
-// products here.
-template <int ACT>
-__device__ __forceinline__ float act_fast(float z) {
-  if (ACT == kSilu) return __fdividef(z, 1.f + __expf(-z));
-  return 1.f - __fdividef(2.f, __expf(2.f * z) + 1.f);
-}
-
 // The order in which a block consumes the split weight tiles, across all
 // its layers and chunks, so that the ring's copies run ahead over chunk and
 // layer boundaries: tile j of the block is ts.base + ts.off[j] * kSplitTile.
@@ -363,7 +336,6 @@ __global__ void pointnet_reduce(const unsigned long long* __restrict__ part, int
 // winner slots per block: one m16 tile, so that a case's few winner rows
 // still spread over many blocks (pi-gano's branch has about 140 a case)
 constexpr int kTileRows = 16;
-constexpr int kBwdStages = 3;  // weight tiles in flight in block_mma16
 
 // The compact buffers of one backward launch (R_max = n_cases x rcap rows,
 // rcap = min(n_pts, F); row b * rcap + slot holds case b's slot-th winner).
@@ -388,103 +360,6 @@ struct BwdArgs {
   int* cst;                // (n_cases, rcap + 1): where each slot's channels start
   int* slot_of;            // (n_cases, n_pts): each row's slot, -1 if it wins nothing
 };
-
-// exclusive prefix sum of v over the block (W warps); *total gets the sum.
-// ws holds W + 1 ints.
-template <int W>
-__device__ __forceinline__ int block_exclusive_scan(int v, int* ws, int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(kFullMask, x, off);
-    if (lane >= off) x += y;
-  }
-  if (lane == 31) ws[warp] = x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < W; ++w) {
-      const int t = ws[w];
-      ws[w] = s;
-      s += t;
-    }
-    ws[W] = s;
-  }
-  __syncthreads();
-  *total = ws[W];
-  return ws[warp] + x - v;
-}
-
-// acc[j][q] = sum over k of A[g + 8 (q >> 1)][k] W[k][n0 + 16 w + 8 j + 2 t +
-// (q & 1)] for the block's 16 rows (w = warp, g = lane / 4, t = lane % 4): a
-// 16 x 128 chunk of one dense layer in 3xTF32 mma.sync (m16n8k8), each warp
-// on 16 columns. A is a shared-memory tile whose columns [k, round8(k)) are
-// zero; W, (in, out) row-major, streams through kBwdStages 32 x 128 shared
-// tiles by cp.async, the next ones' copies in flight while one is used. Every thread of the block must call it; it
-// starts and ends with a barrier.
-__device__ __forceinline__ void block_mma16(float (&acc)[2][4], const float* A, int lda,
-                                            const Layer& L, int n0, float* w_tiles) {
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-  float part[2][2][4];  // the a_big b_small and a_small b_big products
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = part[0][j][q] = part[1][j][q] = 0.f;
-  const int n_tiles = (L.k + kChunkK - 1) / kChunkK;
-  const int k_end = round8(L.k);
-  // 16-byte copies where the rows allow (rows and columns past the layer
-  // read 0); one commit group a tile, empty past the last
-  auto load = [&](int tt) {
-    if (tt < n_tiles)
-      load_tile_async<kChunkK, kChunkN>(w_tiles + (tt % kBwdStages) * kWTileFloats, kChunkN,
-                                        L.w, L.ldw, tt * kChunkK, L.k, n0, L.n);
-    cp_async_commit();
-  };
-  for (int tt = 0; tt < kBwdStages - 1; ++tt) load(tt);
-  for (int tt = 0; tt < n_tiles; ++tt) {
-    cp_async_wait<kBwdStages - 2>();
-    __syncthreads();  // tile tt and A are complete and visible; tile tt - 1's slot is free
-    load(tt + kBwdStages - 1);
-    const float* w = w_tiles + (tt % kBwdStages) * kWTileFloats + 16 * warp + g;
-    const float* a = A + g * lda + tt * kChunkK + t;
-    const int kk_end = min(kChunkK, k_end - tt * kChunkK);
-    // the tile's four 8-deep steps: every fragment first (steps past the
-    // layer's depth read 0), then the products, each of the three into an
-    // accumulator of its own so that they do not wait on one another
-    unsigned ab[4][4], as[4][4], bb[4][2][2], bs[4][2][2];
-#pragma unroll
-    for (int st = 0; st < 4; ++st) {
-      const int kk = 8 * st;
-      const bool in = kk < kk_end;
-      split_tf32(in ? a[kk] : 0.f, ab[st][0], as[st][0]);
-      split_tf32(in ? a[8 * lda + kk] : 0.f, ab[st][1], as[st][1]);
-      split_tf32(in ? a[kk + 4] : 0.f, ab[st][2], as[st][2]);
-      split_tf32(in ? a[8 * lda + kk + 4] : 0.f, ab[st][3], as[st][3]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        split_tf32(in ? w[(kk + t) * kChunkN + 8 * j] : 0.f, bb[st][j][0], bs[st][j][0]);
-        split_tf32(in ? w[(kk + t + 4) * kChunkN + 8 * j] : 0.f, bb[st][j][1], bs[st][j][1]);
-      }
-    }
-#pragma unroll
-    for (int st = 0; st < 4; ++st)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        mma_tf32(part[0][j], ab[st], bs[st][j][0], bs[st][j][1]);
-        mma_tf32(part[1][j], as[st], bb[st][j][0], bb[st][j][1]);
-        mma_tf32(acc[j], ab[st], bb[st][j][0], bb[st][j][1]);
-      }
-    __syncthreads();  // everyone is done with tile tt before it is refilled
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] += part[0][j][q] + part[1][j][q];
-}
 
 // One block per kTileRows winner slots of case blockIdx.y, on the
 // compaction pointnet_bwd_prep made: the recomputed hidden layers at its
@@ -745,51 +620,6 @@ __global__ void pointnet_bwd_finish(const float* __restrict__ gz_last,
   dx[idx] = slot >= 0 ? dxc[((size_t)b * rcap + slot) * l0 + idx % l0] : 0.f;
 }
 
-// out[l] = the sum of the n_parts[l] partial blocks of layer l, in order
-struct PartSums {
-  const float* parts[kMaxLayers];
-  float* out[kMaxLayers];
-  int n_parts[kMaxLayers];
-  long long start[kMaxLayers + 1];
-  int n;
-};
-
-__global__ void pointnet_sum_parts(PartSums ps) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= ps.start[ps.n]) return;
-  int l = 0;
-  while (j >= ps.start[l + 1]) ++l;
-  const long long o = j - ps.start[l];
-  const long long len = ps.start[l + 1] - ps.start[l];
-  float s = 0.f;
-  for (int q = 0; q < ps.n_parts[l]; ++q) s += ps.parts[l][q * len + o];
-  ps.out[l][o] = s;
-}
-
-// Every layer's nn.Linear weight (out, in) into the (in, out) layout the
-// products read, in one launch
-struct Transposes {
-  const float* src[kMaxLayers];
-  float* dst[kMaxLayers];
-  int n_out[kMaxLayers];
-  int k_in[kMaxLayers];
-  long long start[kMaxLayers + 1];
-  int n;
-};
-
-__device__ __forceinline__ void transpose_blocks(const Transposes& tr, int block, int n_blocks) {
-  const long long total = tr.start[tr.n];
-  for (long long j = (long long)block * blockDim.x + threadIdx.x; j < total;
-       j += (long long)n_blocks * blockDim.x) {
-    int l = 0;
-    while (j >= tr.start[l + 1]) ++l;
-    const long long o = j - tr.start[l];
-    const int k = (int)(o / tr.n_out[l]);
-    const int n = (int)(o % tr.n_out[l]);
-    tr.dst[l][o] = tr.src[l][(size_t)n * tr.k_in[l] + k];
-  }
-}
-
 __global__ void pointnet_transpose(Transposes tr) { transpose_blocks(tr, blockIdx.x, gridDim.x); }
 
 // The backward's first launch. Blocks [0, n_cases): the compaction of case
@@ -885,24 +715,6 @@ __global__ void __launch_bounds__(kPrepThreads)
   if (threadIdx.x == 0) p.count[b] = count;
 }
 
-// the transposed weights of n_layers layers over base (null: sizes only);
-// returns the floats they take
-inline long long make_transposes(int n_layers, const float* const* w, const int* widths,
-                                 float* base, Transposes* tr) {
-  long long off = 0;
-  tr->n = n_layers;
-  for (int i = 0; i < n_layers; ++i) {
-    tr->src[i] = w ? w[i] : nullptr;
-    tr->dst[i] = base ? base + off : nullptr;
-    tr->k_in[i] = widths[i];
-    tr->n_out[i] = widths[i + 1];
-    tr->start[i] = off;
-    off += (long long)widths[i] * widths[i + 1];
-  }
-  tr->start[n_layers] = off;
-  return off;
-}
-
 inline cudaError_t launch_transposes(const Transposes& tr, cudaStream_t s) {
   const long long total = tr.start[tr.n];
   const int blocks = (int)std::min<long long>((total + 255) / 256, 1024);
@@ -977,8 +789,6 @@ cudaError_t launch_fwd(const FwdConfig& c, dim3 grid, const float* x, int n_pts,
                                     part);
   return cudaGetLastError();
 }
-
-inline long long round32ll(long long n) { return (n + 31) & ~31LL; }
 
 }  // namespace
 }  // namespace pct
@@ -1136,7 +946,7 @@ cudaError_t launch_partials(const float* A, int lda, const float* G, int ldg, in
   auto kernel = weight_grad_partial<-1, BM, BN>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, chunks);
-  kernel<<<grid, kThreads, smem, s>>>(A, lda, G, ldg, rows, K, N, per, parts);
+  kernel<<<grid, kThreads, smem, s>>>(A, lda, G, ldg, rows, K, N, per, parts, nullptr);
   return cudaGetLastError();
 }
 
@@ -1248,7 +1058,7 @@ extern "C" int pointnet_global_backward(const float* x, int n_cases, int n_pts, 
       total += (long long)k * n;
     }
     ps.start[nl - 1] = total;
-    pointnet_sum_parts<<<(int)((total + 255) / 256), 256, 0, s>>>(ps);
+    sum_layer_parts<<<(int)((total * kSumLanes + 255) / 256), 256, 0, s>>>(ps);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (winners) {

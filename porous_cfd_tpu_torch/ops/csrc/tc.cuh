@@ -1,5 +1,6 @@
 // Hopper's f32-accurate tensor-core pieces shared by the row kernels of
-// mlp_prop.cuh (the (v, J, H) engine) and pointnet_global.cu: weights split
+// mlp_prop.cuh (the (v, J, H) engine), pointnet_global.cu and
+// sa_neighborhood.cu: weights split
 // once per launch into their big and small TF32 parts and laid out as ready
 // K-major tiles (split_weights), a ring of those tiles in shared memory fed
 // by one thread's bulk copies (cp.async.bulk, the TMA) and tracked by
@@ -141,15 +142,17 @@ __device__ __forceinline__ void ring_init(uint64_t* bars) {
   __syncthreads();
 }
 
-// copy one split tile into a ring slot; completes the slot's barrier phase
-__device__ __forceinline__ void ring_load(float* slot, const float* src, uint64_t* bar) {
+// copy one split tile (bytes: a multiple of 16) into a ring slot; completes
+// the slot's barrier phase
+__device__ __forceinline__ void ring_load(float* slot, const float* src, uint64_t* bar,
+                                          unsigned bytes = kSplitBytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(kSplitBytes)
+               "r"(bytes)
                : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(smem_addr(slot)),
-      "l"(src), "r"(kSplitBytes), "r"(smem_addr(bar))
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -227,6 +230,215 @@ struct Ring {
   uint64_t* bars;
   unsigned seq;
 };
+
+// ---------------------------------------------------------------------------
+// Pieces of the max-pooling kernels (pointnet_global.cu, sa_neighborhood.cu):
+// the pooling's (value, row) keys, the fast activations of the forward's
+// epilogues, a block scan, the backward's 16-row 3xTF32 mma.sync product,
+// the in-order sum of weight-gradient chunks and the weight transposes.
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// (value, row) as one key whose unsigned order is the pooling's: a larger
+// value, then a lower row. The value's bits are mapped to an order-preserving
+// unsigned (negative values flipped); 0 is below every key ("no row yet").
+__device__ __forceinline__ unsigned long long pack_key(float v, int row) {
+  unsigned u = __float_as_uint(v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (unsigned)~row;
+}
+__device__ __forceinline__ float key_value(unsigned long long k) {
+  unsigned u = (unsigned)(k >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u;
+  return __uint_as_float(u);
+}
+__device__ __forceinline__ int key_row(unsigned long long k) { return (int)~(unsigned)k; }
+
+// The activation in the forward's epilogues, from the fast exponential and
+// division (a few ulp of f32, against the 1e-4 relative tolerance the kernel
+// is held to): the IEEE expf, division and tanhf cost more than the
+// products here.
+template <int ACT>
+__device__ __forceinline__ float act_fast(float z) {
+  if (ACT == kSilu) return __fdividef(z, 1.f + __expf(-z));
+  return 1.f - __fdividef(2.f, __expf(2.f * z) + 1.f);
+}
+
+// exclusive prefix sum of v over the block (W warps); *total gets the sum.
+// ws holds W + 1 ints.
+template <int W>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* ws, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFullMask, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) ws[warp] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int w = 0; w < W; ++w) {
+      const int t = ws[w];
+      ws[w] = s;
+      s += t;
+    }
+    ws[W] = s;
+  }
+  __syncthreads();
+  *total = ws[W];
+  return ws[warp] + x - v;
+}
+
+constexpr int kBwdStages = 3;  // weight tiles in flight in block_mma16
+
+// acc[j][q] = sum over k of A[g + 8 (q >> 1)][k] W[k][n0 + 16 w + 8 j + 2 t +
+// (q & 1)] for the block's 16 rows (w = warp, g = lane / 4, t = lane % 4): a
+// 16 x 128 chunk of one dense layer in 3xTF32 mma.sync (m16n8k8), each warp
+// on 16 columns. A is a shared-memory tile whose columns [k, round8(k)) are
+// zero; W, (in, out) row-major, streams through kBwdStages 32 x 128 shared
+// tiles by cp.async, the next ones' copies in flight while one is used. Every thread of the block must call it; it
+// starts and ends with a barrier.
+__device__ __forceinline__ void block_mma16(float (&acc)[2][4], const float* A, int lda,
+                                            const Layer& L, int n0, float* w_tiles) {
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  float part[2][2][4];  // the a_big b_small and a_small b_big products
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = part[0][j][q] = part[1][j][q] = 0.f;
+  const int n_tiles = (L.k + kChunkK - 1) / kChunkK;
+  const int k_end = round8(L.k);
+  // 16-byte copies where the rows allow (rows and columns past the layer
+  // read 0); one commit group a tile, empty past the last
+  auto load = [&](int tt) {
+    if (tt < n_tiles)
+      load_tile_async<kChunkK, kChunkN>(w_tiles + (tt % kBwdStages) * kWTileFloats, kChunkN,
+                                        L.w, L.ldw, tt * kChunkK, L.k, n0, L.n);
+    cp_async_commit();
+  };
+  for (int tt = 0; tt < kBwdStages - 1; ++tt) load(tt);
+  for (int tt = 0; tt < n_tiles; ++tt) {
+    cp_async_wait<kBwdStages - 2>();
+    __syncthreads();  // tile tt and A are complete and visible; tile tt - 1's slot is free
+    load(tt + kBwdStages - 1);
+    const float* w = w_tiles + (tt % kBwdStages) * kWTileFloats + 16 * warp + g;
+    const float* a = A + g * lda + tt * kChunkK + t;
+    const int kk_end = min(kChunkK, k_end - tt * kChunkK);
+    // the tile's four 8-deep steps: every fragment first (steps past the
+    // layer's depth read 0), then the products, each of the three into an
+    // accumulator of its own so that they do not wait on one another
+    unsigned ab[4][4], as[4][4], bb[4][2][2], bs[4][2][2];
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      const int kk = 8 * st;
+      const bool in = kk < kk_end;
+      split_tf32(in ? a[kk] : 0.f, ab[st][0], as[st][0]);
+      split_tf32(in ? a[8 * lda + kk] : 0.f, ab[st][1], as[st][1]);
+      split_tf32(in ? a[kk + 4] : 0.f, ab[st][2], as[st][2]);
+      split_tf32(in ? a[8 * lda + kk + 4] : 0.f, ab[st][3], as[st][3]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        split_tf32(in ? w[(kk + t) * kChunkN + 8 * j] : 0.f, bb[st][j][0], bs[st][j][0]);
+        split_tf32(in ? w[(kk + t + 4) * kChunkN + 8 * j] : 0.f, bb[st][j][1], bs[st][j][1]);
+      }
+    }
+#pragma unroll
+    for (int st = 0; st < 4; ++st)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        mma_tf32(part[0][j], ab[st], bs[st][j][0], bs[st][j][1]);
+        mma_tf32(part[1][j], as[st], bb[st][j][0], bb[st][j][1]);
+        mma_tf32(acc[j], ab[st], bb[st][j][0], bb[st][j][1]);
+      }
+    __syncthreads();  // everyone is done with tile tt before it is refilled
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] += part[0][j][q] + part[1][j][q];
+}
+
+// out[l] = the sum of the n_parts[l] partial blocks of sum l, in order
+// (up to two sums a layer: its weight and its bias)
+constexpr int kMaxSums = 2 * kMaxLayers;
+struct PartSums {
+  const float* parts[kMaxSums];
+  float* out[kMaxSums];
+  int n_parts[kMaxSums];
+  long long start[kMaxSums + 1];
+  int n;
+};
+
+// eight lanes an element: lane i adds the parts i, i + 8, ... in order, then
+// a fixed shuffle tree adds the eight (launch kSumLanes * elements threads)
+constexpr int kSumLanes = 8;
+__global__ void sum_layer_parts(PartSums ps) {
+  const long long j = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kSumLanes;
+  const int i = threadIdx.x % kSumLanes;
+  const bool in = j < ps.start[ps.n];
+  float s = 0.f;
+  int l = 0;
+  long long o = 0;
+  if (in) {
+    while (j >= ps.start[l + 1]) ++l;
+    o = j - ps.start[l];
+    const long long len = ps.start[l + 1] - ps.start[l];
+    for (int q = i; q < ps.n_parts[l]; q += kSumLanes) s += ps.parts[l][q * len + o];
+  }
+#pragma unroll
+  for (int off = 1; off < kSumLanes; off <<= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (in && i == 0) ps.out[l][o] = s;
+}
+
+// Every layer's nn.Linear weight (out, in) into the (in, out) layout the
+// products read, in one launch
+struct Transposes {
+  const float* src[kMaxLayers];
+  float* dst[kMaxLayers];
+  int n_out[kMaxLayers];
+  int k_in[kMaxLayers];
+  long long start[kMaxLayers + 1];
+  int n;
+};
+
+__device__ __forceinline__ void transpose_blocks(const Transposes& tr, int block, int n_blocks) {
+  const long long total = tr.start[tr.n];
+  for (long long j = (long long)block * blockDim.x + threadIdx.x; j < total;
+       j += (long long)n_blocks * blockDim.x) {
+    int l = 0;
+    while (j >= tr.start[l + 1]) ++l;
+    const long long o = j - tr.start[l];
+    const int k = (int)(o / tr.n_out[l]);
+    const int n = (int)(o % tr.n_out[l]);
+    tr.dst[l][o] = tr.src[l][(size_t)n * tr.k_in[l] + k];
+  }
+}
+
+// n rounded up to a multiple of 32 (scratch regions 128-byte aligned)
+inline long long round32ll(long long n) { return (n + 31) & ~31LL; }
+
+// the transposed weights of n_layers layers over base (null: sizes only);
+// returns the floats they take
+inline long long make_transposes(int n_layers, const float* const* w, const int* widths,
+                                 float* base, Transposes* tr) {
+  long long off = 0;
+  tr->n = n_layers;
+  for (int i = 0; i < n_layers; ++i) {
+    tr->src[i] = w ? w[i] : nullptr;
+    tr->dst[i] = base ? base + off : nullptr;
+    tr->k_in[i] = widths[i];
+    tr->n_out[i] = widths[i + 1];
+    tr->start[i] = off;
+    off += (long long)widths[i] * widths[i + 1];
+  }
+  tr->start[n_layers] = off;
+  return off;
+}
 
 }  // namespace
 }  // namespace pct

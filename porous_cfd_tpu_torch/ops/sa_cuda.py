@@ -18,11 +18,13 @@ on the TPU:
     and the kernel gathers P's rows by neighbour index; its backward
     returns dP, so the gradient reaches x.
 
-When a gradient is wanted the kernel runs inside a
-``torch.autograd.Function`` whose backward is the backward kernel
-(``sa_neighborhood_backward``): the pooled cotangent goes to the first
-maximal valid neighbour of each (centroid, channel); empty neighbourhoods
-give 0 and no gradient.
+The forward returns the max and its argmax, the first maximal valid
+neighbour of each (centroid, channel) (-1 for an empty neighbourhood). When
+a gradient is wanted the kernel runs inside a ``torch.autograd.Function``
+that keeps that argmax and nothing else of the forward; its backward
+(``sa_neighborhood_backward``) recomputes the level at the winner rows only,
+in the order ``sa_winner_rows`` gives plainly: the pooled cotangent goes to
+the argmax; empty neighbourhoods give 0 and no gradient.
 """
 from __future__ import annotations
 
@@ -37,15 +39,14 @@ from porous_cfd_tpu_torch.ops import build, pointnet_cuda
 from porous_cfd_tpu_torch.physics import analytic
 
 ACT_CODES = {"silu": 0, "tanh": 1}
-MAX_NEIGHBORS = 64          # one kernel tile holds a whole neighbourhood
-_BACKWARD_SIZES: dict = {}  # (device, variant, shapes) -> (blocks, gradient floats)
+MAX_NEIGHBORS = 64          # a centroid's winners are one 64-bit mask
+_WORKSPACE: dict = {}       # (direction, variant, shapes) -> scratch floats
 
 
-def sa_neighborhood_plain(linears: Sequence, x, idx, mask, rel, activation: str, xg=None):
-    """The level in plain PyTorch: the first layer on each neighbour's row
-    (static: ``[xg || rel]``; dynamic: ``P[idx] + rel W0r`` with ``P = x W0x +
-    b0``), the remaining layers, then ``neighbors.masked_max``. Returns (B, C,
-    F)."""
+def _plain_rows(linears: Sequence, x, idx, mask, rel, activation: str, xg=None):
+    """The MLP on every neighbour row: the first layer (static: ``[xg ||
+    rel]``; dynamic: ``P[idx] + rel W0r`` with ``P = x W0x + b0``), then the
+    remaining layers. Returns (B, C, K, F)."""
     b_cases, n_cent, k = idx.shape
     w0, b0 = linears[0].weight, linears[0].bias
     if xg is not None:
@@ -57,23 +58,79 @@ def sa_neighborhood_plain(linears: Sequence, x, idx, mask, rel, activation: str,
         pg = torch.gather(p, 1, flat[..., None].expand(*flat.shape, p.shape[-1]))
         h = pg.reshape(b_cases, n_cent, k, -1) + F.linear(rel, w0[:, f_in:])
     h = analytic.ACTIVATIONS[activation](h)
-    h = analytic.mlp_value(linears[1:], h, activation)
-    return masked_max(h, mask)
+    return analytic.mlp_value(linears[1:], h, activation)
+
+
+def _first_max(h, mask):
+    """(B, C, F) int8: the first maximal valid neighbour of each (centroid,
+    channel) of h (B, C, K, F), -1 for an empty neighbourhood."""
+    filled = h.detach().masked_fill(~mask[..., None], torch.finfo(h.dtype).min)
+    arg = torch.max(filled, dim=-2).indices
+    return arg.masked_fill(~mask.any(dim=-1)[..., None], -1).to(torch.int8)
+
+
+def sa_neighborhood_plain(linears: Sequence, x, idx, mask, rel, activation: str, xg=None,
+                          with_argmax: bool = False):
+    """The level in plain PyTorch: ``_plain_rows`` then
+    ``neighbors.masked_max``. Returns (B, C, F), and with ``with_argmax``
+    also the argmax as the kernel gives it."""
+    h = _plain_rows(linears, x, idx, mask, rel, activation, xg)
+    out = masked_max(h, mask)
+    return (out, _first_max(h, mask)) if with_argmax else out
+
+
+def sa_neighborhood_at(linears: Sequence, x, idx, mask, rel, activation: str, argmax,
+                       xg=None):
+    """The plain level's values at given neighbours (B, C, F), 0 where the
+    argmax is -1: with the kernel's argmax, the max the kernel returns, and
+    autograd through it is the plain backward on the same winners (a
+    near-tie may make the kernel's argmax another row than torch.max's)."""
+    h = _plain_rows(linears, x, idx, mask, rel, activation, xg)
+    arg = argmax.long()
+    g = torch.gather(h, 2, arg.clamp(min=0)[:, :, None, :]).squeeze(2)
+    return g.masked_fill(arg < 0, 0.0)
+
+
+def sa_winner_rows(argmax, mask):
+    """The backward's compaction of a forward's argmax (B, C, F), plainly:
+    (rows (B, C * min(K, F)) int64, each case's distinct winner rows c * K +
+    k in ascending order, then -1; slot (B, C, F) int64, each channel's index
+    into its case's rows, -1 for an empty neighbourhood; count (B,) int64).
+    A channel's winner is ``rows[b, slot[b, c, ch]]``."""
+    b_cases, n_cent, f = argmax.shape
+    k = mask.shape[-1]
+    dev = argmax.device
+    arg = argmax.long()
+    valid = (arg >= 0) & mask.any(dim=-1)[..., None]
+    # each centroid's winning k; the invalid channels mark a spare column
+    hit = torch.zeros((b_cases, n_cent, k + 1), dtype=torch.bool, device=dev)
+    hit.scatter_(2, torch.where(valid, arg, k), True)
+    hit = hit[..., :k].reshape(b_cases, n_cent * k)
+    count = hit.sum(dim=1)
+    pos = torch.cumsum(hit.long(), dim=1) - 1
+    rcap = n_cent * min(k, f)
+    rows = torch.full((b_cases, rcap + 1), -1, dtype=torch.long, device=dev)
+    flat = torch.arange(n_cent * k, device=dev).expand(b_cases, -1)
+    rows.scatter_(1, torch.where(hit, pos, rcap), torch.where(hit, flat, -1))
+    slot = torch.gather(pos.reshape(b_cases, n_cent, k), 2, arg.clamp(min=0))
+    return rows[:, :rcap], torch.where(valid, slot, -1), count
 
 
 def _library() -> ctypes.CDLL:
     lib = build.library("sa_neighborhood")
     if lib.sa_forward.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         common = [i, i, i, i, i, i, i, p, p, p, p, p, i, i, p, p, p]
-        lib.sa_forward.argtypes = common + [p, p]
+        lib.sa_forward_workspace.argtypes = common
+        lib.sa_forward_workspace.restype = ll
+        lib.sa_forward.argtypes = common + [p, ll, p, p, p]
         lib.sa_forward.restype = i
-        lib.sa_grad_floats.argtypes = [i, i, p]
-        lib.sa_grad_floats.restype = i
-        lib.sa_backward_blocks.argtypes = common
-        lib.sa_backward_blocks.restype = i
-        lib.sa_backward.argtypes = common + [p, p, p, p, i, p, p]
+        lib.sa_backward_workspace.argtypes = common
+        lib.sa_backward_workspace.restype = ll
+        lib.sa_backward.argtypes = common + [p, p, p, ll, p, p, p, p]
         lib.sa_backward.restype = i
+        lib.sa_blocks.argtypes = common + [p]
+        lib.sa_blocks.restype = i
     return lib
 
 
@@ -85,19 +142,19 @@ def _pointers(tensors) -> ctypes.Array:
 
 class SaCall:
     """The kernel's arguments for one level: the variant, shapes, the
-    layers' weights as (in, out) and what the C interface wants beside."""
+    layers' nn.Linear weights (the dynamic layer 0: its W0r block, a view
+    into the whole weight) and what the C interface wants beside."""
 
-    def __init__(self, activation, weights, biases, rel, mask, xg=None, p=None, idx=None):
+    def __init__(self, activation, weights, biases, rel, mask, xg=None, p=None, idx=None,
+                 f_in=0):
         self.activation = activation
         self.static = xg is not None
         self.b_cases, self.n_cent, self.k, self.d = rel.shape
-        self.f_in = xg.shape[-1] if self.static else 0
+        self.f_in = xg.shape[-1] if self.static else f_in
         self.n_src = 0 if self.static else p.shape[1]
-        # layer 0: the whole [W0x; W0r] (static) or W0r (dynamic), as (in, out)
-        self.ws_t = [w.detach().t().contiguous() for w in weights]
-        self.biases = [None if b is None else b.detach() for b in biases]
         self.weights = [w.detach() for w in weights]
-        self.widths = [self.ws_t[0].shape[0]] + [w.shape[1] for w in self.ws_t]
+        self.biases = [None if b is None else b.detach() for b in biases]
+        self.widths = [self.weights[0].shape[1]] + [w.shape[0] for w in self.weights]
         self.tensors = (xg, rel, mask, p, idx)
 
     def args(self):
@@ -105,110 +162,164 @@ class SaCall:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         return (int(self.static), ACT_CODES[self.activation], self.b_cases, self.n_cent,
                 self.k, self.f_in, self.d, ptr(xg), rel.data_ptr(), mask.data_ptr(), ptr(p),
-                ptr(idx), self.n_src, len(self.ws_t), _pointers(self.ws_t),
+                ptr(idx), self.n_src, len(self.weights), _pointers(self.weights),
                 _pointers(self.biases), build.int_array(self.widths))
 
-    def grad_slices(self, flat):
-        """(dW (in, out) per layer, db per layer or None) views of ``flat``."""
-        dws, dbs, at = [], [], 0
-        for i in range(len(self.ws_t)):
-            n_in, n_out = self.widths[i], self.widths[i + 1]
-            dws.append(flat[at:at + n_in * n_out].view(n_in, n_out))
-            at += n_in * n_out
-            if i == 0 and not self.static:
-                dbs.append(None)
-                continue
-            dbs.append(flat[at:at + n_out])
-            at += n_out
-        return dws, dbs
+    def key(self):
+        return (self.static, self.activation, self.b_cases, self.n_cent, self.k, self.d,
+                self.f_in, self.n_src, tuple(self.widths))
+
+    def workspace(self, lib, direction: str) -> int:
+        """Scratch floats of the forward or backward at these shapes, asked
+        of the library once."""
+        key = (direction, *self.key())
+        if key not in _WORKSPACE:
+            query = lib.sa_forward_workspace if direction == "fwd" else lib.sa_backward_workspace
+            _WORKSPACE[key] = query(*self.args())
+        if _WORKSPACE[key] < 0:
+            raise ValueError(f"sa_neighborhood: no kernel block fits widths {self.widths} "
+                             f"at {self.n_cent} centroids of {self.k} neighbours")
+        return _WORKSPACE[key]
+
+
+def level_call(linears: Sequence, x, idx, mask, rel, activation: str, xg=None) -> SaCall:
+    """The kernel's arguments for one level as ``sa_neighborhood`` builds
+    them (the dynamic variant's P computed here), for calling ``_forward``
+    (the max and its argmax), ``sa_neighborhood_backward`` or ``blocks``
+    directly."""
+    lin = list(linears)
+    if xg is not None:
+        return SaCall(activation, [t.weight for t in lin], [t.bias for t in lin], rel, mask,
+                      xg=xg)
+    f_in = x.shape[-1]
+    p = F.linear(x, lin[0].weight[:, :f_in], lin[0].bias).contiguous()
+    return SaCall(activation, [lin[0].weight[:, f_in:]] + [t.weight for t in lin[1:]],
+                  [None] + [t.bias for t in lin[1:]], rel, mask, p=p, idx=idx, f_in=f_in)
+
+
+def blocks(call: SaCall) -> dict:
+    """The kernels' blocks at ``call``'s shapes: the forward's chunk width,
+    its weight tiles in shared memory (all of a step's when resident), a
+    step's tiles, shared bytes and blocks an SM; the backward tiles' shared
+    bytes and blocks an SM; the compaction's shared bytes."""
+    out = (ctypes.c_int * 8)()
+    build.check_launch("sa_neighborhood blocks", _library().sa_blocks(*call.args(), out))
+    keys = ("fwd_chunk", "fwd_slots", "fwd_tiles_a_step", "fwd_smem", "fwd_blocks_per_sm",
+            "bwd_smem", "bwd_blocks_per_sm", "prep_smem")
+    return dict(zip(keys, out))
 
 
 def _forward(call: SaCall):
+    """The forward kernel (the weights split, the tiles): (max, argmax)."""
     lib = _library()
     dev = call.tensors[1].device
-    out = torch.empty((call.b_cases, call.n_cent, call.widths[-1]), dtype=torch.float32,
-                      device=dev)
+    shape = (call.b_cases, call.n_cent, call.widths[-1])
+    n_out = shape[0] * shape[1] * shape[2]
     with torch.cuda.device(dev):
-        code = lib.sa_forward(*call.args(), out.data_ptr(),
-                              torch.cuda.current_stream(dev).cuda_stream)
+        n_split = call.workspace(lib, "fwd")
+        # one allocation: the split weights, the max, the argmax's bytes
+        buf = torch.empty((n_split + n_out + -(-n_out // 4),), dtype=torch.float32, device=dev)
+        out = buf[n_split:n_split + n_out].view(shape)
+        arg = buf[n_split + n_out:].view(torch.int8)[:n_out].view(shape)
+        code = lib.sa_forward(*call.args(), buf.data_ptr(), n_split, out.data_ptr(),
+                              arg.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("sa_neighborhood", code)
     sa_neighborhood.launches += 1
-    return out
+    return out, arg
 
 
-def _backward_sizes(lib, call: SaCall, dev) -> tuple:
-    """(blocks, floats of one gradient partial) of the backward at
-    ``call``'s shapes: the block count (as many as fit on the card at once)
-    costs an occupancy query, so it is worked out once per device and
-    shapes."""
-    key = (dev, call.static, call.activation, call.b_cases, call.n_cent, call.k, call.d,
-           call.f_in, call.n_src, tuple(call.widths))
-    if key not in _BACKWARD_SIZES:
-        n_blocks = lib.sa_backward_blocks(*call.args())
-        if n_blocks < 1:
-            raise ValueError(f"sa_neighborhood backward: widths {call.widths} do not fit the "
-                             "kernel's shared memory")
-        n_grad = lib.sa_grad_floats(int(call.static), len(call.ws_t),
-                                    build.int_array(call.widths))
-        _BACKWARD_SIZES[key] = (n_blocks, n_grad)
-    return _BACKWARD_SIZES[key]
-
-
-def sa_neighborhood_backward(call: SaCall, dout: torch.Tensor):
-    """The backward kernel: (dW (in, out) per layer, db per layer (None for
-    the dynamic variant's layer 0), dP (B, n_src, F1) or None) of
-    ``sum(dout * out)``."""
+def sa_neighborhood_backward(call: SaCall, argmax: torch.Tensor, dout: torch.Tensor,
+                             winners: bool = False):
+    """The backward kernel on the forward's argmax: (dW (in, out) per layer,
+    db per layer (None for the dynamic variant's layer 0), dP (B, n_src, F1)
+    or None) of ``sum(dout * out)``; with ``winners`` also the kernel's
+    compaction as ``sa_winner_rows`` gives it (rows, slot, count as int32)."""
     lib = _library()
     dev = dout.device
+    widths = call.widths
+    nl = len(widths) - 1
     with torch.cuda.device(dev):
-        n_blocks, n_grad = _backward_sizes(lib, call, dev)
-        parts = torch.zeros((n_blocks * n_grad,), dtype=torch.float32, device=dev)
-        grads = torch.zeros((n_grad,), dtype=torch.float32, device=dev)
-        dp = None if call.static else torch.zeros((call.b_cases, call.n_src, call.widths[1]),
-                                                  dtype=torch.float32, device=dev)
-        code = lib.sa_backward(*call.args(), _pointers(call.weights), dout.data_ptr(),
-                               None if dp is None else dp.data_ptr(), parts.data_ptr(),
-                               n_blocks, grads.data_ptr(),
+        n_scratch = call.workspace(lib, "bwd")
+        # one allocation: each layer's (in + 1, out) dW with db as its last
+        # row, dP, then the scratch
+        offs, off = [], 0
+        for i in range(nl):
+            offs.append(off)
+            off += -(-(widths[i] + 1) * widths[i + 1] // 32) * 32
+        n_dp = 0 if call.static else call.b_cases * call.n_src * widths[1]
+        dp_off = off
+        off += -(-n_dp // 32) * 32
+        buf = torch.empty((off + n_scratch,), dtype=torch.float32, device=dev)
+        base = buf.data_ptr()
+        comp = None
+        if winners:
+            rcap = call.n_cent * min(call.k, widths[-1])
+            comp = [torch.empty(s, dtype=torch.int32, device=dev)
+                    for s in ((call.b_cases, rcap), (call.b_cases, call.n_cent, widths[-1]),
+                              (call.b_cases,))]
+        code = lib.sa_backward(*call.args(), argmax.data_ptr(), dout.data_ptr(),
+                               base + 4 * off, n_scratch,
+                               (ctypes.c_void_p * nl)(*[base + 4 * o for o in offs]),
+                               None if call.static else base + 4 * dp_off,
+                               None if comp is None else build.pointer_array(comp),
                                torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("sa_neighborhood backward", code)
     sa_neighborhood_backward.launches += 1
-    dws, dbs = call.grad_slices(grads)
-    return dws, dbs, dp
+    dws, dbs = [], []
+    for i, o in enumerate(offs):
+        n_w = widths[i] * widths[i + 1]
+        dws.append(buf[o:o + n_w].view(widths[i], widths[i + 1]))
+        dbs.append(None if i == 0 and not call.static else buf[o + n_w:o + n_w + widths[i + 1]])
+    dp = None if call.static else buf[dp_off:dp_off + n_dp].view(call.b_cases, call.n_src,
+                                                                  widths[1])
+    if not winners:
+        return dws, dbs, dp
+    return dws, dbs, dp, tuple(comp)
 
 
 class _SaStatic(torch.autograd.Function):
     """Inputs: (activation, xg, rel, mask, *weights, *biases) of every
-    layer; gradients to the parameters only."""
+    layer; gradients to the parameters only. Keeps the argmax, no
+    activation."""
 
     @staticmethod
     def forward(ctx, activation, xg, rel, mask, *params):
         nl = len(params) // 2
         call = SaCall(activation, params[:nl], params[nl:], rel, mask, xg=xg)
+        out, arg = _forward(call)
         ctx.call = call
-        return _forward(call)
+        ctx.save_for_backward(arg)
+        ctx.mark_non_differentiable(arg)
+        return out, arg
 
     @staticmethod
-    def backward(ctx, dout):
-        dws, dbs, _ = sa_neighborhood_backward(ctx.call, dout.contiguous())
+    def backward(ctx, dout, _darg):
+        (arg,) = ctx.saved_tensors
+        dws, dbs, _ = sa_neighborhood_backward(ctx.call, arg, dout.contiguous())
         return (None, None, None, None, *[dw.t() for dw in dws], *dbs)
 
 
 class _SaDynamic(torch.autograd.Function):
-    """Inputs: (activation, p, rel, idx, mask, w0r, *weights 1.., *biases
-    1..); gradients to P, W0r and the layers from 1 on."""
+    """Inputs: (activation, f_in, p, rel, idx, mask, w0r, *weights 1..,
+    *biases 1..); gradients to P, W0r and the layers from 1 on. Keeps the
+    argmax, no activation."""
 
     @staticmethod
-    def forward(ctx, activation, p, rel, idx, mask, w0r, *rest):
+    def forward(ctx, activation, f_in, p, rel, idx, mask, w0r, *rest):
         nl = len(rest) // 2 + 1
         call = SaCall(activation, [w0r, *rest[:nl - 1]], [None, *rest[nl - 1:]], rel, mask,
-                     p=p, idx=idx)
+                      p=p, idx=idx, f_in=f_in)
+        out, arg = _forward(call)
         ctx.call = call
-        return _forward(call)
+        ctx.save_for_backward(arg)
+        ctx.mark_non_differentiable(arg)
+        return out, arg
 
     @staticmethod
-    def backward(ctx, dout):
-        dws, dbs, dp = sa_neighborhood_backward(ctx.call, dout.contiguous())
-        return (None, dp, None, None, None, *[dw.t() for dw in dws], *dbs[1:])
+    def backward(ctx, dout, _darg):
+        (arg,) = ctx.saved_tensors
+        dws, dbs, dp = sa_neighborhood_backward(ctx.call, arg, dout.contiguous())
+        return (None, None, dp, None, None, None, *[dw.t() for dw in dws], *dbs[1:])
 
 
 def _check(label, t, shape, dtype, device):
@@ -245,11 +356,14 @@ def sa_neighborhood(linears: Sequence, x, idx, mask, rel, activation: str, xg=No
     _check("rel", rel, (b_cases, n_cent, k, d), torch.float32, dev)
     _check("mask", mask, (b_cases, n_cent, k), torch.bool, dev)
     w0, b0 = linears[0].weight, linears[0].bias
+    _check("linear_0.weight", w0, w0.shape, torch.float32, dev)
     width = w0.shape[0]
     for i, lin in enumerate(linears[1:], start=1):
         _check(f"linear_{i}.weight", lin.weight, (lin.weight.shape[0], width), torch.float32,
                dev)
         width = lin.weight.shape[0]
+    for i, lin in enumerate(linears):
+        _check(f"linear_{i}.bias", lin.bias, (lin.weight.shape[0],), torch.float32, dev)
     weights = [lin.weight for lin in linears[1:]]
     biases = [lin.bias for lin in linears[1:]]
     grad = torch.is_grad_enabled()
@@ -258,8 +372,8 @@ def sa_neighborhood(linears: Sequence, x, idx, mask, rel, activation: str, xg=No
         _check("xg", xg, (b_cases, n_cent * k, f_in), torch.float32, dev)
         params = [w0, *weights, b0, *biases]
         if grad and any(t.requires_grad for t in params):
-            return _SaStatic.apply(activation, xg.detach(), rel, mask, *params)
-        return _forward(SaCall(activation, [w0, *weights], [b0, *biases], rel, mask, xg=xg))
+            return _SaStatic.apply(activation, xg.detach(), rel, mask, *params)[0]
+        return _forward(SaCall(activation, [w0, *weights], [b0, *biases], rel, mask, xg=xg))[0]
     f_in = x.shape[-1]
     if w0.shape[1] != f_in + d:
         raise ValueError(f"sa_neighborhood: linear_0 takes {w0.shape[1]} inputs, not "
@@ -267,11 +381,11 @@ def sa_neighborhood(linears: Sequence, x, idx, mask, rel, activation: str, xg=No
     _check("idx", idx, (b_cases, n_cent, k), torch.int64, dev)
     # the dense first-layer feature projection: no K factor, no gather
     p = F.linear(x, w0[:, :f_in], b0).contiguous()
-    w0r = w0[:, f_in:]
+    w0r = w0[:, f_in:]  # the kernel reads it in place, rows f_in + d apart
     if grad and any(t.requires_grad for t in [p, w0r, *weights, *biases]):
-        return _SaDynamic.apply(activation, p, rel, idx, mask, w0r, *weights, *biases)
+        return _SaDynamic.apply(activation, f_in, p, rel, idx, mask, w0r, *weights, *biases)[0]
     return _forward(SaCall(activation, [w0r, *weights], [None, *biases], rel, mask, p=p,
-                          idx=idx))
+                           idx=idx, f_in=f_in))[0]
 
 
 def sa_seq_fused(seq, activation: str, x, neighbors):

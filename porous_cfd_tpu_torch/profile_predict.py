@@ -75,8 +75,8 @@ LOSS_WEIGHTS = (1, 1, 1, 1, 1, 1, 100, 100, 100)
 # device-kernel names of the port's hand-written CUDA kernels (the decoder's
 # coupled modes run as mlp_prop_fwd / mlp_prop_bwd_rows too)
 OWN_KERNELS = ("mlp_prop_fwd", "mlp_prop_bwd_rows", "split_weights", "pointnet_",
-               "weight_grad_partial", "sum_partials", "group_colsum", "sa_fwd", "sa_bwd",
-               "fps_kernel")
+               "weight_grad_partial", "sum_partials", "sum_layer_parts", "group_colsum",
+               "sa_fwd", "sa_bwd", "fps_kernel")
 
 
 def sync_sites(run) -> list[str]:

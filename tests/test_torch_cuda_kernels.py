@@ -305,9 +305,9 @@ def test_pi_gano_slice_on_card_matches_cpu(cuda):
 # PIPN++: the SetAbstraction neighbourhood kernel and FPS
 
 
-def _sa_inputs(gen, cuda, b, n, c, k, f_in, d, empty_every):
-    """Random level inputs: idx into n source rows (padding at index 0 with
-    mask False), some neighbourhoods emptied."""
+def _sa_input_tensors(gen, b, n, c, k, f_in, d, empty_every):
+    """Random level inputs on the CPU: idx into n source rows (padding at
+    index 0 with mask False), some neighbourhoods emptied."""
     x = torch.randn((b, n, f_in), generator=gen)
     idx = torch.randint(0, n, (b, c, k), generator=gen)
     mask = torch.rand((b, c, k), generator=gen) > 0.2
@@ -316,7 +316,12 @@ def _sa_inputs(gen, cuda, b, n, c, k, f_in, d, empty_every):
     idx = torch.where(mask, idx, torch.zeros_like(idx))
     rel = torch.rand((b, c, k, d), generator=gen) * 2 - 1
     xg = torch.gather(x, 1, idx.reshape(b, -1)[..., None].expand(-1, -1, f_in))
-    return [t.to(cuda) for t in (x, idx, mask, rel, xg)]
+    return x, idx, mask, rel, xg
+
+
+def _sa_inputs(gen, cuda, b, n, c, k, f_in, d, empty_every):
+    """_sa_input_tensors on the card."""
+    return [t.to(cuda) for t in _sa_input_tensors(gen, b, n, c, k, f_in, d, empty_every)]
 
 
 @pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
@@ -392,6 +397,163 @@ def test_sa_kernel_ties_take_the_first_row(cuda):
     (dx,) = torch.autograd.grad(out.sum(), [x])
     assert torch.count_nonzero(dx[0, 1]) == 5
     assert torch.all(dx[0, [0, 2, 3, 4, 5]] == 0)
+
+
+# The SA kernels' winner-row design on cases that reach its edges: K of 64
+# and 32, and K of 20 and 48 that do not divide a 64-row tile; centroid
+# counts that leave a ragged last tile (and an idle warpgroup); widths 64,
+# 128, 176 and 256 (a 64-, 128- or 176-column chunk, resident split weights
+# or a ring); masks that are not a prefix and emptied neighbourhoods; exact
+# ties across rows (repeated idx at equal rel); three layers (the backward's
+# recompute and reverse sweep through block_mma16). Each: values within
+# RTOL of the plain version, the argmax equal to its first maximal valid
+# neighbour where the top two differ by more than RTOL, every gradient (dx
+# too) within RTOL of the plain level at the kernel's argmax, the
+# compaction equal to sa_winner_rows, two backwards bit for bit, no
+# synchronizing call, one launch each way.
+SA_CASES = {
+    # (B, source rows, C, K, layers, empty every)
+    "k64_w64": (2, 300, 37, 64, [8, 64, 64], 5),
+    "k32_w176_ragged": (3, 200, 13, 32, [66, 176, 176], 4),
+    "k20_w128": (2, 150, 11, 20, [66, 128, 128], 3),
+    "k48_w256": (2, 120, 5, 48, [66, 256, 256], 0),
+    "k16_nonprefix": (2, 60, 9, 16, [8, 24, 16], 4),
+    "ties": (2, 40, 7, 8, [7, 16, 16], 0),
+    "three_layers": (2, 90, 9, 24, [8, 32, 48, 40], 3),
+}
+
+
+def _sa_case(case, act, static, cuda):
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    b, n, c, k, layers, empty = SA_CASES[case]
+    gen = torch.Generator().manual_seed(len(case) + k)
+    mlp = MLP(layers, activation=act, generator=gen).to(cuda)
+    x, idx, mask, rel, xg = _sa_input_tensors(gen, b, n, c, k, layers[0] - 2, 2, empty)
+    if case == "ties":  # neighbours 1, 4 and 5 read one row at equal rel
+        idx[:, :, 4] = idx[:, :, 5] = idx[:, :, 1]
+        rel[:, :, 4] = rel[:, :, 5] = rel[:, :, 1]
+        mask[:, :, [1, 4, 5]] = True
+        xg = torch.gather(x, 1, idx.reshape(b, -1)[..., None].expand(-1, -1, x.shape[-1]))
+    cot = torch.randn((b, c, layers[-1]), generator=gen)
+    x, idx, mask, rel, xg, cot = [t.to(cuda) for t in (x, idx, mask, rel, xg, cot)]
+    xg = xg if static else None
+    call = sa_cuda.level_call(mlp.linears, x, idx, mask, rel, act, xg)
+    return mlp, x, idx, mask, rel, xg, cot, call
+
+
+def _check_winner_backward(mlp, x, idx, mask, rel, xg, cot, call, act, static):
+    """The public wrapper's forward and backward on one level against the
+    plain version, its compaction, two bitwise backwards and no
+    synchronizing call (see SA_CASES). Returns (argmax, plain argmax)."""
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    lin = mlp.linears
+    xr = x.clone().requires_grad_(not static)
+    wrt = ([] if static else [xr]) + _params(mlp)
+    before = (sa_cuda.sa_neighborhood.launches, sa_cuda.sa_neighborhood_backward.launches)
+    out = sa_cuda.sa_neighborhood(lin, xr, idx, mask, rel, act, xg)
+    got = torch.autograd.grad((out * cot).sum(), wrt)
+    torch.cuda.synchronize()
+    assert (sa_cuda.sa_neighborhood.launches - before[0],
+            sa_cuda.sa_neighborhood_backward.launches - before[1]) == (1, 1)
+    _, arg = sa_cuda._forward(call)  # the argmax the backward was given: same kernel, inputs
+    with torch.no_grad():
+        ref_out, ref_arg = sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel, act, xg,
+                                                         with_argmax=True)
+        h = sa_cuda._plain_rows(lin, x, idx, mask, rel, act, xg)
+    assert_close(out.detach(), ref_out)
+    empty = ~mask.any(-1)
+    assert torch.all(out.detach()[empty] == 0) and torch.all(arg[empty] == -1)
+    top2 = torch.topk(h.masked_fill(~mask[..., None], -1e30), 2, dim=2).values
+    decided = ((top2[:, :, 0] - top2[:, :, 1]) > RTOL * ref_out.abs().max()) | \
+        (mask.sum(-1, keepdim=True) < 2)
+    assert torch.equal(arg[decided], ref_arg[decided])
+    del h, top2
+    ref_at = sa_cuda.sa_neighborhood_at(lin, xr, idx, mask, rel, act, arg, xg)
+    ref = torch.autograd.grad((ref_at * cot).sum(), wrt)
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runs = [sa_cuda.sa_neighborhood_backward(call, arg, cot, winners=True)
+                for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rows, slot, count = sa_cuda.sa_winner_rows(arg, mask)
+    k_rows, k_slot, k_count = runs[0][3]
+    assert torch.equal(k_count.long(), count) and torch.equal(k_slot.long(), slot)
+    assert torch.equal(k_rows.long(), rows)
+    flat = [[t for t in (*r[0], *r[1], r[2]) if t is not None] for r in runs]
+    assert all(torch.equal(u, v) for u, v in zip(*flat))
+    # autograd's gradients are the kernel's (the dynamic W0's rel columns:
+    # its W0r block; b0's comes through P)
+    dws, dbs = runs[0][0], runs[0][1]
+    params = got[0 if static else 1:]
+    for i in range(len(lin)):
+        dw = params[2 * i] if static or i else params[0][:, -rel.shape[-1]:]
+        assert torch.equal(dws[i].t(), dw)
+        if dbs[i] is not None:
+            assert torch.equal(dbs[i], params[2 * i + 1])
+    return arg, ref_arg
+
+
+@pytest.mark.parametrize("act", ["silu", "tanh"])
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
+@pytest.mark.parametrize("case", list(SA_CASES))
+def test_sa_winner_backward_cases(cuda, case, static, act):
+    mlp, x, idx, mask, rel, xg, cot, call = _sa_case(case, act, static, cuda)
+    arg, ref_arg = _check_winner_backward(mlp, x, idx, mask, rel, xg, cot, call, act, static)
+    if case == "ties":
+        assert torch.equal(arg, ref_arg)
+        assert torch.all(arg[torch.isin(arg, torch.tensor([1, 4, 5], device=cuda,
+                                                          dtype=arg.dtype))] == 1)
+
+
+# Shapes past the paths' 500 source rows and 500 centroids a case, which the
+# backward's compaction takes in passes: more than 65,535 source rows and
+# compact rows a case (the dP sort in 39-41 passes of source rows), and
+# centroids whose winner masks do not fit its shared memory (dynamic, two
+# passes; static). Checked as SA_CASES are.
+SA_LARGE = {
+    # (static, B, source rows, C, K, layers)
+    "n_src_70000": (False, 2, 70000, 1100, 64, [66, 64, 64]),
+    "cent_9000": (False, 1, 2000, 9000, 8, [10, 32, 16]),
+    "cent_20000_static": (True, 1, 500, 20000, 4, [8, 32, 16]),
+}
+
+
+@pytest.mark.parametrize("case", list(SA_LARGE))
+def test_sa_winner_backward_large_shapes(cuda, case):
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    static, b, n, c, k, layers = SA_LARGE[case]
+    gen = torch.Generator().manual_seed(c + k)
+    mlp = MLP(layers, activation="silu", generator=gen).to(cuda)
+    x, idx, mask, rel, xg = _sa_inputs(gen, cuda, b, n, c, k, layers[0] - 2, 2, 7)
+    cot = torch.randn((b, c, layers[-1]), generator=gen).to(cuda)
+    xg = xg if static else None
+    call = sa_cuda.level_call(mlp.linears, x, idx, mask, rel, "silu", xg)
+    _check_winner_backward(mlp, x, idx, mask, rel, xg, cot, call, "silu", static)
+
+
+# Widths past what the kernels' blocks take raise, before any launch, rather
+# than give a wrong result: the backward's last layer on more than 256
+# inputs or with more than 1024 channels; a hidden layer too wide for the
+# forward's two 64-row tiles of input rows in shared memory.
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
+@pytest.mark.parametrize("layers", [[8, 320, 64], [8, 64, 1040], [8, 1024, 64]],
+                         ids=["last_inputs_320", "channels_1040", "hidden_1024"])
+def test_sa_shapes_past_the_kernel_limits_raise(cuda, static, layers):
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    gen = torch.Generator().manual_seed(len(layers))
+    mlp = MLP(layers, activation="silu", generator=gen).to(cuda)
+    x, idx, mask, rel, xg = _sa_inputs(gen, cuda, 2, 40, 9, 16, layers[0] - 2, 2, 0)
+    x.requires_grad_(not static)
+    wrt = ([] if static else [x]) + _params(mlp)
+    with pytest.raises(ValueError, match="no kernel block fits"):
+        out = sa_cuda.sa_neighborhood(mlp.linears, x, idx, mask, rel, "silu",
+                                      xg if static else None)
+        torch.autograd.grad(out.sum(), wrt)
 
 
 @pytest.mark.parametrize("b,n,d,n_samples", [(52, 1000, 2, 500), (52, 500, 2, 125),

@@ -1,6 +1,6 @@
-"""Time the (v, J, H) engine and pointnet_global on the card.
+"""Time the (v, J, H) engine, pointnet_global and sa_neighborhood on the card.
 
-    python tools/time_engine.py [--root DIR] [--label NAME]
+    python tools/time_engine.py [--root DIR] [--label NAME] [--kernels]
 
 Imports ``porous_cfd_tpu_torch`` from ``--root`` (default: this checkout),
 so the same script times another tree of the port (a ``git archive`` of a
@@ -20,8 +20,11 @@ geometry encoder and branch; the pipn-pp and pi-gano-pp global levels)
 through ``pointnet_global`` alone: the forward without a gradient, and the
 backward as ``torch.autograd.grad`` of ``sum(cot * max)`` on a retained
 graph, so that trees with other backward entry points are timed alike.
-Prints one JSON line, with the card's name and power limit. Needs a CUDA
-device.
+sa_neighborhood is timed the same way at pipn-pp's and pi-gano-pp's two
+radius levels, on each model's own neighbour chain; with ``--kernels`` also
+each of its kernels' device ms per call under ``torch.profiler`` (10 calls),
+for either direction. Prints one JSON line, with the card's name and power
+limit. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -178,11 +181,93 @@ def time_pointnet(torch, gen, dev):
     return res
 
 
+def kernel_times(torch, fn, runs=10):
+    """Device ms per call of each kernel ``fn`` launches, under
+    torch.profiler, largest first, and their sum."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us and e.count:
+            rows.append({"ms": us / runs / 1e3, "count": e.count // runs, "name": e.key[:90]})
+    rows.sort(key=lambda r: -r["ms"])
+    return {"device_ms": sum(r["ms"] for r in rows), "kernels": rows}
+
+
+def time_sa(torch, gen, dev, kernels=False):
+    """sa_neighborhood's forward and backward (ms) at pipn-pp's and
+    pi-gano-pp's two radius levels, on each model's own chain of BATCH
+    cases: level 0 static (its xg), level 1 dynamic on random level-0
+    features that need a gradient; with ``kernels`` each direction's
+    kernels too (kernel_times)."""
+    from porous_cfd_tpu_torch.data.synthetic import (VARIABLE_BOUNDARIES, make_foam_batch,
+                                                     make_scalers)
+    from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors
+    from porous_cfd_tpu_torch.models.pi_gano import pi_gano_pp
+    from porous_cfd_tpu_torch.models.pipn import pipn_foam_pp
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    from porous_cfd_tpu_torch.train.engine import gather_cases
+    data = make_foam_batch(BATCH, N_INT, N_BND, cs.N_OBS, seed=SEED)
+    scalers = make_scalers()
+    batch = gather_cases(data, torch.arange(BATCH)).to(dev)
+    models = {
+        "pipn_pp": (pipn_foam_pp(cs.NU, cs.D, cs.F, cs.PP_LOCAL, cs.PP_GLOBAL, cs.PP_RADIUS,
+                                 cs.PP_FRACTION, cs.PP_SEG, scalers, seg_dropout=cs.PP_DROPOUT,
+                                 max_neighbors=cs.PP_NEIGHBORS,
+                                 generator=torch.Generator().manual_seed(SEED), device=dev),
+                    lambda m: m.module.feature_extract.global_feature),
+        "pi_gano_pp": (pi_gano_pp(cs.NU, 3, cs.PG_BRANCH, cs.PGP_GEOMETRY, cs.PGP_RADIUS,
+                                  cs.PGP_FRACTION, cs.PG_LOCAL, cs.PG_OPERATORS, cs.PG_DROPOUT,
+                                  scalers, VARIABLE_BOUNDARIES, max_neighbors=cs.PGP_NEIGHBORS,
+                                  generator=torch.Generator().manual_seed(SEED), device=dev),
+                       lambda m: m.module.geometry_encoder.set_abstraction)}
+    res = {}
+    for key, (model, seq_of) in models.items():
+        seq = seq_of(model)
+        nbrs = extract_sa_neighbors(model.neighbor_precompute(batch), 2)
+        for i in range(2):
+            lin = getattr(seq, f"sa_{i}").conv_mlp.linears
+            _, idx, mask, rel, _ = nbrs[i][:5]
+            xg = nbrs[0][5] if i == 0 else None
+            x = None
+            if i:
+                f_in = lin[0].weight.shape[1] - rel.shape[-1]
+                x = torch.randn((BATCH, nbrs[0][0].shape[1], f_in), generator=gen).to(dev)
+                x.requires_grad_()
+            def fwd():
+                with torch.no_grad():
+                    return sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, "silu", xg)
+
+            fwd_ms = time_ms(torch, fwd)
+            out = sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, "silu", xg)
+            cot = torch.randn(out.shape, generator=gen).to(dev)
+            wrt = list(getattr(seq, f"sa_{i}").conv_mlp.parameters()) + ([x] if i else [])
+            loss = (out * cot).sum()
+
+            def bwd():
+                return torch.autograd.grad(loss, wrt, retain_graph=True)
+
+            level = {"centroids": list(mask.shape[:2]), "neighbors": mask.shape[2],
+                     "widths": [lin[0].weight.shape[1]] + [t.weight.shape[0] for t in lin],
+                     "fwd_ms": fwd_ms, "bwd_ms": time_ms(torch, bwd)}
+            if kernels:
+                level["fwd_kernels"] = kernel_times(torch, fwd)
+                level["bwd_kernels"] = kernel_times(torch, bwd)
+            res[f"{key}_level_{i}"] = level
+            del out, loss
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(HERE),
                         help="the tree whose porous_cfd_tpu_torch is timed")
     parser.add_argument("--label", default="")
+    parser.add_argument("--kernels", action="store_true",
+                        help="add sa_neighborhood's device time kernel by kernel")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -192,7 +277,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from porous_cfd_tpu_torch.ops import build
-    build.build_all(("decoder_prop", "neural_op_prop", "pointnet_global"))
+    build.build_all(("decoder_prop", "neural_op_prop", "pointnet_global", "sa_neighborhood"))
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -204,6 +289,8 @@ def main() -> int:
     res["trunk_pi_gano"] = time_trunk(torch, gen, dev)
     torch.cuda.empty_cache()
     res["pointnet"] = time_pointnet(torch, gen, dev)
+    torch.cuda.empty_cache()
+    res["sa"] = time_sa(torch, gen, dev, args.kernels)
     print(json.dumps({"time_engine": res}), flush=True)
     return 0
 
