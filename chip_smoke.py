@@ -29,7 +29,10 @@ Phases, in order; any failure exits non-zero:
      (static) and level 1 (dynamic) shapes, and with emptied neighbourhoods,
      the argmax against the plain one, the backward's winner compaction
      held equal to ``sa_winner_rows`` and two backward runs bit for bit,
-     (g) FPS at PIPN++'s two levels, indices equal to the plain version's,
+     (g) FPS at PIPN++'s two levels for all 52 cases and for one, indices
+     equal to the plain version's and one launch a call, the latency floor
+     (a 32-point cloud, a point a lane) and a design-B cloud (100,000 3D
+     points -> 25,000, thread-block clusters),
      (h) pointnet_global and decoder_prop at PIPN++'s shapes, and
      pointnet_global at PI-GANO++'s global level, with dx, (i)
      decoder_prop's max-pool-coupled modes at the pipn shape on a real
@@ -58,12 +61,14 @@ Phases, in order; any failure exits non-zero:
      example's ``pi-gano-full`` (three trunks without reduction, six
      neural_ops_prop launches each way);
  6c, 7c. pi-gano-pp prediction and training: the card's boundary chain
-     against the CPU's, then phases 4 and 5 for the example's
+     against the CPU's and the time of attach_neighbors of 13 cases with
+     FPS's share of it, then phases 4 and 5 for the example's
      ``pi-gano-pp`` (two SA levels at 32 neighbours, a global level);
   8. pipn_pp prediction: phase 4 for the full-width duct_fixed_boundary
      ``pipn-pp`` model (its boundary cloud's SetAbstraction chain attached
      once per dataset, FPS on the card), with the card's chain against the
-     CPU's and the mean valid neighbours per level;
+     CPU's, the mean valid neighbours per level and attach_neighbors' time
+     as in 6c;
   9. pipn_pp training: phase 5 for that model;
  10. pipn_coupled prediction: phase 4 for ``pipn`` with
      ``coupled_context=True`` (winner gather, decoder_prop's j0_add mode),
@@ -132,6 +137,11 @@ PP_GLOBAL = [[2 + N_BID + 2, 64, 64], [64 + 2, 128, 128], [128 + 2, 256, 1024]]
 PP_SEG = [1024 + 64, 378, 128, 3]
 PP_DROPOUT = [0.05, 0, 0]
 BATCH, N_INT, N_BND, N_OBS, N_CASES = 13, 1500, 1000, 700, 52
+# FPS beyond the paths: the latency floor's 32-point cloud (a point a lane),
+# timed to FLOOR_N and to FLOOR_PICKS picks, and a design-B cloud (points,
+# dims, picks) past one block's capacity
+FLOOR_N, FLOOR_PICKS = 32, 2048
+FPS_BIG = (100_000, 3, 25_000)
 PG_N_BRANCH = N_BND // 4 + N_INT        # branch rows: the inlet patch + internal
 SEED = 8421
 SLICE_RUNS = 7
@@ -277,6 +287,24 @@ def time_ms(torch, fn, n=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def kernel_times(torch, fn, runs=10):
+    """Device ms per call of each kernel ``fn`` launches, under
+    torch.profiler, largest first, and their sum: free of the host's time
+    between launches, which CUDA events around back-to-back calls of a
+    short kernel measure instead."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us and e.count:
+            rows.append({"ms": us / runs / 1e3, "count": e.count // runs, "name": e.key[:90]})
+    rows.sort(key=lambda r: -r["ms"])
+    return {"device_ms": sum(r["ms"] for r in rows), "kernels": rows}
 
 
 def max_err(a, ref):
@@ -1092,40 +1120,141 @@ def check_sa(seq, chain, gen, pk, n_levels=len(PP_RADIUS)):
     return summed
 
 
-def check_fps(data, levels):
-    """FPS on the card at PIPN++'s two levels over every case of ``data``:
-    its boundary cloud, then the level-0 centroids. The kernel's indices
-    must EQUAL the plain version's. Returns (ms, plain ms, flops, bytes and
-    each level's numbers) summed over the levels."""
-    import torch
+def fps_levels(torch, pos, levels, tag, plain=True):
+    """FPS over pos (B, N, D) on the card at a chain of levels (level i + 1
+    samples level i's centroids): at each level the kernel's indices must
+    EQUAL the plain version's and one call must make one launch. Returns
+    each level's numbers and the sums of ms, plain ms, flops and bytes."""
     from porous_cfd_tpu_torch.models.neighbors import gather_points
     from porous_cfd_tpu_torch.ops import fps_cuda
-    dev = torch.device("cuda", 0)
-    pos = data.data[:, N_INT:, data.column_indices("C")].contiguous().to(dev)
-    out = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "nbytes": 0, "extra": {}}
+    fps = fps_cuda.farthest_point_sampling
+    out = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "nbytes": 0,
+           "levels": {}}
     for i, n_samples in enumerate(levels):
-        cent = fps_cuda.farthest_point_sampling(pos, n_samples)
-        plain = fps_cuda.farthest_point_sampling_plain(pos, n_samples)
-        torch.cuda.synchronize()
-        if not torch.equal(cent, plain):
-            fail(f"FPS level {i}: {int((cent != plain).sum())} of {cent.numel()} picks differ "
-                 "from the plain version")
-        ms = time_ms(torch, lambda: fps_cuda.farthest_point_sampling(pos, n_samples))
-        pms = time_ms(torch, lambda: fps_cuda.farthest_point_sampling_plain(pos, n_samples),
-                      n=3, warmup=1)
         b, n, d = pos.shape
-        # per pick and point: d subtractions, d products, d sums, a min and
-        # a compare
-        flops = float(b * (n_samples - 1) * n * (3 * d + 2))
+        before = fps.launches
+        cent = fps(pos, n_samples)
+        torch.cuda.synchronize()
+        if fps.launches != before + 1:
+            fail(f"FPS {tag} level {i}: {fps.launches - before} launches, not 1")
+        ref = fps_cuda.farthest_point_sampling_plain(pos, n_samples)
+        if not torch.equal(cent, ref):
+            fail(f"FPS {tag} level {i}: {int((cent != ref).sum())} of {cent.numel()} picks "
+                 "differ from the plain version")
+        ms = time_ms(torch, lambda: fps(pos, n_samples))
+        dev_ms = kernel_times(torch, lambda: fps(pos, n_samples))["device_ms"]
+        pms = (time_ms(torch, lambda: fps_cuda.farthest_point_sampling_plain(pos, n_samples),
+                       n=3, warmup=1) if plain else None)
+        # per pick and point: d subtractions, d products, d - 1 sums, a min
+        # and a compare
+        flops = float(b * (n_samples - 1) * n * (3 * d + 1))
         nbytes = 4 * pos.numel() + 8 * cent.numel()
-        log(f"  FPS level {i}: ({b}, {n}, {d}) -> {n_samples}, indices equal to the plain "
-            f"version's; {ms:.4f} ms (plain {pms:.2f} ms)")
-        out["extra"][f"level_{i}"] = {"input": [b, n, d], "samples": n_samples, "ms": ms,
-                                      "plain_ms": pms, "flop": flops, "bytes": nbytes}
-        for key, val in (("ms", ms), ("plain_ms", pms), ("flops", flops), ("nbytes", nbytes)):
+        design = fps_cuda.fps_design(b, n, d)._asdict()
+        log(f"  FPS {tag} level {i}: ({b}, {n}, {d}) -> {n_samples}, design {design}, indices "
+            f"equal to the plain version's; {ms:.4f} ms, device {dev_ms:.4f} ms, "
+            f"{1e3 * dev_ms / max(n_samples - 1, 1):.4f} us a pick"
+            + (f" (plain {pms:.2f} ms)" if plain else ""))
+        out["levels"][f"level_{i}"] = {"input": [b, n, d], "samples": n_samples, "ms": ms,
+                                       "device_ms": dev_ms, "plain_ms": pms, "flop": flops,
+                                       "bytes": nbytes, "design": design}
+        for key, val in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", pms or 0.0),
+                         ("flops", flops), ("nbytes", nbytes)):
             out[key] += val
         pos = gather_points(pos, cent)
     return out
+
+
+def check_fps(data, levels):
+    """FPS on the card: PIPN++'s two levels over every case of ``data`` (its
+    boundary clouds, then the level-0 centroids), the same for one case (a
+    new geometry), the latency floor (one 32-point cloud, a point a lane)
+    and a design-B cloud past one block's capacity. Indices EQUAL to the
+    plain version's everywhere, one launch a call. Returns the summed
+    numbers of the B = N_CASES levels, with the rest under ``extra``."""
+    import torch
+    from porous_cfd_tpu_torch.ops import fps_cuda
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED)
+    pos = data.data[:, N_INT:, data.column_indices("C")].contiguous().to(dev)
+    res = fps_levels(torch, pos, levels, f"B={pos.shape[0]}")
+    one = fps_levels(torch, pos[:1].contiguous(), levels, "B=1")
+    # the latency floor: the kernel's own chain a pick with one point a
+    # lane, (1, FLOOR_N, 2) -> FLOOR_N, and its cost a pick as the slope to
+    # -> FLOOR_PICKS (past N the picks repeat point 0, the same work a
+    # pick), free of the launch and the loads; device ms
+    floor_pos = (torch.rand((1, FLOOR_N, 2), generator=gen) * 2 - 1).to(dev)
+    floor_short = fps_levels(torch, floor_pos, [FLOOR_N], "floor", plain=False)["device_ms"]
+    floor_long = fps_levels(torch, floor_pos, [FLOOR_PICKS], "floor",
+                            plain=False)["device_ms"]
+    per_pick = (floor_long - floor_short) / (FLOOR_PICKS - FLOOR_N)
+    picks = sum(n - 1 for n in levels)
+    floor_ms = per_pick * picks
+    log(f"  FPS latency floor: {1e3 * per_pick:.4f} us a pick ({FLOOR_N} points -> "
+        f"{FLOOR_N}: {floor_short:.4f} ms, -> {FLOOR_PICKS}: {floor_long:.4f} ms, device); "
+        f"{floor_ms:.4f} ms for the levels' {picks} picks, "
+        f"{100 * floor_ms / res['device_ms']:.1f}% of B={pos.shape[0]}'s device "
+        f"{res['device_ms']:.4f} ms, {100 * floor_ms / one['device_ms']:.1f}% of B=1's "
+        f"{one['device_ms']:.4f} ms")
+    # design B: one large cloud, the plain version timed once
+    big_pos = (torch.rand((1, *FPS_BIG[:2]), generator=gen) * 2 - 1).to(dev)
+    fps = fps_cuda.farthest_point_sampling
+    before = fps.launches
+    big = fps(big_pos, FPS_BIG[2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big_ref = fps_cuda.farthest_point_sampling_plain(big_pos, FPS_BIG[2])
+    torch.cuda.synchronize()
+    big_plain_ms = 1e3 * (time.perf_counter() - t0)
+    if fps.launches != before + 1 or not torch.equal(big, big_ref):
+        fail(f"FPS design B (1, {FPS_BIG[0]}, {FPS_BIG[1]}) -> {FPS_BIG[2]}: "
+             f"{int((big != big_ref).sum())} picks differ, {fps.launches - before} launches")
+    big_ms = time_ms(torch, lambda: fps(big_pos, FPS_BIG[2]), n=3, warmup=1)
+    big_design = fps_cuda.fps_design(1, *FPS_BIG[:2])._asdict()
+    log(f"  FPS design B: (1, {FPS_BIG[0]}, {FPS_BIG[1]}) -> {FPS_BIG[2]}, design "
+        f"{big_design}, indices equal to the plain version's; {big_ms:.3f} ms, "
+        f"{1e3 * big_ms / (FPS_BIG[2] - 1):.4f} us a pick (plain {big_plain_ms:.1f} ms, once)")
+    levels_b, device_ms = res.pop("levels"), res.pop("device_ms")
+    res["extra"] = {**levels_b, "device_ms": device_ms, "at_b1": one["levels"],
+                    "b1_ms": one["ms"], "b1_device_ms": one["device_ms"],
+                    "latency_floor_ms": floor_ms, "latency_floor_us_per_pick": 1e3 * per_pick,
+                    "latency_floor_share": floor_ms / device_ms,
+                    "latency_floor_device_ms": {f"{FLOOR_N}_picks": floor_short,
+                                                f"{FLOOR_PICKS}_picks": floor_long},
+                    "design": {k: v["design"] for k, v in levels_b.items()},
+                    "design_b_cloud": {"input": [1, *FPS_BIG[:2]], "samples": FPS_BIG[2],
+                                       "design": big_design, "ms": big_ms,
+                                       "plain_ms_once": big_plain_ms}}
+    res["err"] = 0.0
+    return res
+
+
+def time_attach(torch, model, batch):
+    """attach_neighbors of one batch on the card (FPS, the radius search and
+    the gathers), CUDA-event ms, and FPS's part of it: events around each of
+    its FPS calls (one launch each) through the neighbours module."""
+    from porous_cfd_tpu_torch.models import neighbors
+    fps = neighbors.farthest_point_sampling
+    spans = []
+
+    def timed_fps(pos, n_samples):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        cent = fps(pos, n_samples)
+        end.record()
+        spans.append((start, end))
+        return cent
+
+    attach_ms = time_ms(torch, lambda: model.attach_neighbors(batch))
+    neighbors.farthest_point_sampling = timed_fps
+    try:
+        for _ in range(20):
+            model.attach_neighbors(batch)
+        torch.cuda.synchronize()
+    finally:
+        neighbors.farthest_point_sampling = fps
+    fps_ms = sum(s.elapsed_time(e) for s, e in spans) / 20
+    return {"cases": batch.data.shape[0], "attach_ms": attach_ms, "fps_ms": fps_ms,
+            "fps_share": fps_ms / attach_ms}
 
 
 def check_chain(model, cpu_model, data, n_levels=len(PP_RADIUS), k=PP_NEIGHBORS):
@@ -1134,7 +1263,8 @@ def check_chain(model, cpu_model, data, n_levels=len(PP_RADIUS), k=PP_NEIGHBORS)
     centroids must be equal; the (centroid, slot) entries whose index or
     mask differ are counted (a point within about 1e-6 of r may fall on
     either side), and the float entries compared where the indices agree.
-    Also the mean valid neighbours per level (at most ``k``)."""
+    Also the mean valid neighbours per level (at most ``k``), and the time of
+    ``attach_neighbors`` of one batch of BATCH cases with FPS's part."""
     import torch
     dev = torch.device("cuda", 0)
     card = {key: v.cpu() for key, v in model.neighbor_precompute(data.to(dev)).items()}
@@ -1162,6 +1292,12 @@ def check_chain(model, cpu_model, data, n_levels=len(PP_RADIUS), k=PP_NEIGHBORS)
     report["xg_max_abs_diff"] = float((card["_sa_xg_0"] - cpu["_sa_xg_0"])
                                       .reshape(*same0.shape, -1)[same0].abs().max())
     log(f"  chain level 0: xg within {report['xg_max_abs_diff']:.2e} where the entries agree")
+    from porous_cfd_tpu_torch.train.engine import gather_cases
+    attach = time_attach(torch, model, gather_cases(data, torch.arange(BATCH)).to(dev))
+    log(f"  attach_neighbors of {attach['cases']} cases (a new batch's cost before its first "
+        f"prediction): {attach['attach_ms']:.4f} ms, FPS {attach['fps_ms']:.4f} ms of it "
+        f"({100 * attach['fps_share']:.1f}%)")
+    report["attach_neighbors"] = attach
     return report
 
 

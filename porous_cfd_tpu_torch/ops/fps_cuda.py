@@ -7,21 +7,95 @@ and of ``models/neighbors.py:farthest_point_sampling``).
 fallback: a CUDA tensor either runs the kernel or raises.
 
 Both versions compute each squared distance in difference form, the
-coordinates in order, ``((x - xs)^2 + (y - ys)^2) + ...`` with every product
-and sum rounded on its own (the kernel uses ``__fmul_rn``/``__fadd_rn``, so
-the compiler cannot contract them into an FMA), and take the first index of
-the maximum. So the kernel's indices equal the plain version's: one
-differing centroid would change every later level of a SetAbstraction chain.
+coordinates in order, ``((x - xs)^2 + (y - ys)^2) + ...`` with every
+subtraction, product and sum rounded on its own (the kernel uses
+``__fsub_rn``/``__fmul_rn``/``__fadd_rn``, so the compiler cannot contract
+them into an FMA), and take the first index of the maximum. So the kernel's
+indices equal the plain version's: one differing centroid would change
+every later level of a SetAbstraction chain.
+
+The kernel has two designs, and ``fps_design`` (a plain host function)
+chooses between them by the cloud's size: design A runs a cloud in one
+block, its points in registers; design B runs it in a thread-block cluster
+of ``CLUSTER`` blocks, each holding a slice. A cloud past ``MAX_POINTS``
+(131,072) raises ``ValueError`` before any launch.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
 from porous_cfd_tpu_torch.ops import build
 
 MAX_DIMS = 3
+# points a thread holds in registers: the kernel's instantiations
+PER_THREAD = (1, 2, 4, 8, 16, 32)
+# threads a block: at most eight warps (one barrier and one warp-wide
+# reduction a pick read every warp's candidates)
+MAX_THREADS = 256
+# design A's block: the fewest points a thread that need no more than four
+# warps, one for each of the SM's schedulers
+A_THREADS = 128
+# design B: CTAs a cluster (a non-portable size on Hopper)
+CLUSTER = 16
+# the most points a block holds, and design B's limit: a cluster of full blocks
+BLOCK_CAPACITY = MAX_THREADS * PER_THREAD[-1]
+MAX_POINTS = CLUSTER * BLOCK_CAPACITY
+# design A up to this many points, design B past them: from the card's times
+# (tools/time_engine.py --parts fps_sweep; the source note of csrc/fps.cu)
+CROSSOVER = 2048
+# fps_forward's code when no GPC can hold one cluster of the launch
+NO_CLUSTER = -1
+
+
+class Design(NamedTuple):
+    """A launch of the kernel: ``kind`` "A" (a block a cloud, ``ctas`` 1) or
+    "B" (a cluster of ``ctas`` blocks a cloud); ``threads`` a block and
+    ``per_thread`` points a thread in registers."""
+    kind: str
+    ctas: int
+    threads: int
+    per_thread: int
+
+
+def block_shape(points: int) -> tuple[int, int]:
+    """(threads, per_thread) of a block holding ``points`` points: the
+    fewest points a thread that need at most A_THREADS threads, else the
+    most points a thread and more threads."""
+    for p in PER_THREAD:
+        if points <= A_THREADS * p:
+            break
+    return 32 * math.ceil(points / (32 * p)), p
+
+
+def cta_shape(points: int) -> tuple[int, int]:
+    """(threads, per_thread) of a cluster's CTA holding ``points`` points:
+    one warp while 16 points a lane hold them (no barrier in the CTA), else
+    as ``block_shape``."""
+    for p in PER_THREAD[:-1]:
+        if points <= 32 * p:
+            return 32, p
+    return block_shape(points)
+
+
+def fps_design(b: int, n: int, d: int) -> Design:
+    """The launch for ``b`` clouds of ``n`` points in ``d`` dimensions:
+    design A up to CROSSOVER points, design B past them, up to
+    MAX_POINTS; past that it raises ValueError. The batch does not
+    change the choice (the source note of ``csrc/fps.cu`` says why)."""
+    if not 1 <= d <= MAX_DIMS or n < 1 or b < 1:
+        raise ValueError(f"farthest_point_sampling: no design for {b} clouds of {n} "
+                         f"points in {d}D")
+    if n > MAX_POINTS:
+        raise ValueError(f"farthest_point_sampling: {n} points exceed the kernel's limit "
+                         f"of {MAX_POINTS} (a cluster of {CLUSTER} blocks of "
+                         f"{BLOCK_CAPACITY})")
+    if n <= CROSSOVER:
+        return Design("A", 1, *block_shape(n))
+    return Design("B", CLUSTER, *cta_shape(math.ceil(n / CLUSTER)))
 
 
 def _sqdist(pts: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -54,9 +128,28 @@ def _library() -> ctypes.CDLL:
     lib = build.library("fps")
     if lib.fps_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fps_forward.argtypes = [p, i, i, i, i, p, p]
+        lib.fps_forward.argtypes = [p, i, i, i, i, i, i, i, p, p]
         lib.fps_forward.restype = i
     return lib
+
+
+def launch(pts: torch.Tensor, n_samples: int, design: Design) -> torch.Tensor:
+    """One launch of the kernel in ``design`` over pts (B, N, D), contiguous
+    f32 on the card -> (B, n_samples) int64. The wrapper passes
+    ``fps_design``'s choice; tools/time_engine.py times the others."""
+    b, n, dims = pts.shape
+    out = torch.empty((b, n_samples), dtype=torch.int64, device=pts.device)
+    lib = _library()
+    with torch.cuda.device(pts.device):
+        code = lib.fps_forward(pts.data_ptr(), b, n, dims, n_samples, design.ctas,
+                               design.threads, design.per_thread, out.data_ptr(),
+                               torch.cuda.current_stream(pts.device).cuda_stream)
+    if code == NO_CLUSTER:
+        raise RuntimeError(f"farthest_point_sampling: no GPC of this card holds a cluster "
+                           f"of {design.ctas} blocks of {design.threads} threads")
+    build.check_launch("farthest_point_sampling", code)
+    farthest_point_sampling.launches += 1
+    return out
 
 
 def farthest_point_sampling(pos: torch.Tensor, n_samples: int) -> torch.Tensor:
@@ -72,15 +165,9 @@ def farthest_point_sampling(pos: torch.Tensor, n_samples: int) -> torch.Tensor:
                          f"{MAX_DIMS} coordinates, got {tuple(pos.shape)} {pos.dtype}")
     if n < 1 or n_samples < 1:
         raise ValueError(f"farthest_point_sampling: {n_samples} samples of {n} points")
-    pts = pos.detach().reshape(-1, n, dims).contiguous()
-    out = torch.empty((pts.shape[0], n_samples), dtype=torch.int64, device=pos.device)
-    lib = _library()
-    with torch.cuda.device(pos.device):
-        code = lib.fps_forward(pts.data_ptr(), pts.shape[0], n, dims, n_samples,
-                               out.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream)
-    build.check_launch("farthest_point_sampling", code)
-    farthest_point_sampling.launches += 1
-    return out.reshape(*lead, n_samples)
+    pts = pos.detach().reshape(-1, n, dims)
+    design = fps_design(pts.shape[0], n, dims)
+    return launch(pts.contiguous(), n_samples, design).reshape(*lead, n_samples)
 
 
 farthest_point_sampling.launches = 0

@@ -556,16 +556,24 @@ def test_sa_shapes_past_the_kernel_limits_raise(cuda, static, layers):
         torch.autograd.grad(out.sum(), wrt)
 
 
-@pytest.mark.parametrize("b,n,d,n_samples", [(52, 1000, 2, 500), (52, 500, 2, 125),
-                                             (2, 57, 3, 19), (3, 300, 1, 50)])
+@pytest.mark.parametrize("b,n,d,n_samples", [
+    (52, 1000, 2, 500), (52, 500, 2, 125), (1, 1000, 2, 500), (2, 57, 3, 19), (3, 300, 1, 50),
+    (4, 33, 2, 20), (2, 1001, 2, 300), (2, 1000, 1, 250), (2, 1000, 3, 250),
+    (1, 40000, 2, 1000), (2, 20000, 3, 300), (1, 5000, 1, 500), (2, 200, 2, 200),
+    (2, 100, 3, 150)])
 def test_fps_kernel_equals_plain(cuda, b, n, d, n_samples):
-    """Indices equal, not close: the first two are PIPN++'s levels."""
+    """Indices equal, not close, and one launch a call: PIPN++'s levels at
+    52 cases and at one; sizes that are no multiple of a block's threads;
+    1D and 3D; clouds past the old one-block cap of shared memory, which
+    run as thread-block clusters (design B); as many samples as points and
+    more (the picks then repeat point 0)."""
     from porous_cfd_tpu_torch.ops import fps_cuda
     pos = (torch.rand((b, n, d), generator=torch.Generator().manual_seed(n)) * 2 - 1).to(cuda)
     before = fps_cuda.farthest_point_sampling.launches
     got = fps_cuda.farthest_point_sampling(pos, n_samples)
     torch.cuda.synchronize()
     assert fps_cuda.farthest_point_sampling.launches == before + 1
+    assert got.shape == (b, n_samples) and got.dtype == torch.int64
     assert torch.equal(got, fps_cuda.farthest_point_sampling_plain(pos, n_samples))
 
 
@@ -574,6 +582,32 @@ def test_fps_kernel_ties_take_the_first_index(cuda):
     square = torch.tensor([[0, 0], [1, 0], [0, 1], [1, 1]] * 2, dtype=torch.float32,
                           device=cuda)[None]
     assert fps_cuda.farthest_point_sampling(square, 4).tolist() == [[0, 3, 1, 2]]
+
+
+@pytest.mark.parametrize("first,second", [(3000, 35000), (35000, 3000)])
+def test_fps_cluster_ties_take_the_first_index(cuda, first, second):
+    """A farthest point held twice, in two CTAs' slices of one cluster
+    (design B): the lowest index wins, whichever CTA reports first."""
+    from porous_cfd_tpu_torch.ops import fps_cuda
+    n = 40000
+    assert fps_cuda.fps_design(1, n, 2).kind == "B"
+    pos = torch.rand((1, n, 2), generator=torch.Generator().manual_seed(5))
+    pos[0, 0] = 0.0
+    pos[0, first] = pos[0, second] = 9.0
+    got = fps_cuda.farthest_point_sampling(pos.to(cuda), 50)
+    assert got[0, 1].item() == min(first, second)
+    assert torch.equal(got.cpu(), fps_cuda.farthest_point_sampling_plain(pos, 50))
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_fps_past_the_cluster_limit_raises(cuda, d):
+    """A cloud past design B's limit raises ValueError before any launch."""
+    from porous_cfd_tpu_torch.ops import fps_cuda
+    pos = torch.zeros((1, fps_cuda.MAX_POINTS + 1, d), device=cuda)
+    before = fps_cuda.farthest_point_sampling.launches
+    with pytest.raises(ValueError, match="exceed the kernel's limit"):
+        fps_cuda.farthest_point_sampling(pos, 10)
+    assert fps_cuda.farthest_point_sampling.launches == before
 
 
 def test_pipn_pp_slice_on_card_matches_cpu(cuda):

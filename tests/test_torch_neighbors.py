@@ -41,6 +41,20 @@ def test_fps_equals_jax_and_the_pallas_kernel(b, n, d, n_samples):
     assert neighbors.farthest_point_sampling is fps_cuda.farthest_point_sampling
 
 
+def test_fps_equals_jax_at_a_cluster_size():
+    """(1, 20000, 3) -> 300: a cloud past one block of the kernel (its
+    design B) through the plain version, against JAX's ``batched_fps``
+    (the ``fori_loop`` the JAX package's models run). The Pallas kernel in
+    interpret mode is left out at this size: it is slow there, and the
+    cases above hold it to the same indices."""
+    pos = cloud(1, 20000, 3, seed=20000)
+    got = fps_cuda.farthest_point_sampling_plain(torch.from_numpy(pos), 300)
+    assert got.dtype == torch.int64 and got.shape == (1, 300)
+    ref = np.asarray(jax_neighbors.batched_fps(jnp.asarray(pos), 300, 0))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert fps_cuda.fps_design(1, 20000, 3).kind == "B"
+
+
 def test_fps_single_cloud():
     """An unbatched (N, D) cloud gives (n_samples,) indices."""
     pos = cloud(1, 30, 2, seed=4)[0]

@@ -1,6 +1,6 @@
-"""Time the (v, J, H) engine, pointnet_global and sa_neighborhood on the card.
+"""Time the (v, J, H) engine, pointnet_global, sa_neighborhood and FPS on the card.
 
-    python tools/time_engine.py [--root DIR] [--label NAME] [--kernels]
+    python tools/time_engine.py [--root DIR] [--label NAME] [--kernels] [--parts LIST]
 
 Imports ``porous_cfd_tpu_torch`` from ``--root`` (default: this checkout),
 so the same script times another tree of the port (a ``git archive`` of a
@@ -23,8 +23,13 @@ graph, so that trees with other backward entry points are timed alike.
 sa_neighborhood is timed the same way at pipn-pp's and pi-gano-pp's two
 radius levels, on each model's own neighbour chain; with ``--kernels`` also
 each of its kernels' device ms per call under ``torch.profiler`` (10 calls),
-for either direction. Prints one JSON line, with the card's name and power
-limit. Needs a CUDA device.
+for either direction. FPS is timed through ``farthest_point_sampling`` at
+PIPN++'s two levels over 52 cases' boundary clouds and over one case's, and
+at the latency floor's 32-point cloud; ``--parts fps_sweep`` times every
+design the kernel can run around its crossover (a tree with
+``fps_cuda.launch``). ``--parts`` picks what is timed (default: all but the
+sweep). Prints one JSON line, with the card's name and power limit. Needs
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ BATCH, N_INT, N_BND, SEED = cs.BATCH, cs.N_INT, cs.N_BND, cs.SEED
 SEG, SEG_LOCAL, SEG_DROPOUT = cs.SEG, cs.FE_LOCAL[-1], cs.SEG_DROPOUT
 PG_LOCAL, PG_F = cs.PG_LOCAL[-1], cs.PG_BRANCH[-1]
 PG_OPERATORS, PG_DROPOUT = cs.PG_OPERATORS, cs.PG_DROPOUT
-time_ms = cs.time_ms
+time_ms, kernel_times = cs.time_ms, cs.kernel_times
 
 
 def time_decoder(torch, gen, dev):
@@ -181,22 +186,6 @@ def time_pointnet(torch, gen, dev):
     return res
 
 
-def kernel_times(torch, fn, runs=10):
-    """Device ms per call of each kernel ``fn`` launches, under
-    torch.profiler, largest first, and their sum."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-        if us and e.count:
-            rows.append({"ms": us / runs / 1e3, "count": e.count // runs, "name": e.key[:90]})
-    rows.sort(key=lambda r: -r["ms"])
-    return {"device_ms": sum(r["ms"] for r in rows), "kernels": rows}
-
-
 def time_sa(torch, gen, dev, kernels=False):
     """sa_neighborhood's forward and backward (ms) at pipn-pp's and
     pi-gano-pp's two radius levels, on each model's own chain of BATCH
@@ -261,6 +250,89 @@ def time_sa(torch, gen, dev, kernels=False):
     return res
 
 
+def time_fps(torch, gen, dev):
+    """FPS through the public wrapper (ms, CUDA events; at the levels also
+    the kernel's device ms under torch.profiler, free of the host's time
+    between launches): PIPN++'s two levels over 52 cases' boundary clouds
+    and over one case's, and the latency floor's 32-point cloud to 32 and
+    to cs.FLOOR_PICKS picks (its cost a pick: the slope of device ms)."""
+    from porous_cfd_tpu_torch.data.synthetic import make_foam_batch
+    from porous_cfd_tpu_torch.models.neighbors import fps_count, gather_points
+    from porous_cfd_tpu_torch.ops import fps_cuda
+    fps = fps_cuda.farthest_point_sampling
+    data = make_foam_batch(cs.N_CASES, N_INT, N_BND, cs.N_OBS, seed=SEED)
+    pos = data.data[:, N_INT:, data.column_indices("C")].contiguous().to(dev)
+    levels = [fps_count(N_BND, cs.PP_FRACTION[0])]
+    levels.append(fps_count(levels[0], cs.PP_FRACTION[1]))
+    res = {}
+    for tag, cloud in ((f"b{cs.N_CASES}", pos), ("b1", pos[:1].contiguous())):
+        total = 0.0
+        for i, n_samples in enumerate(levels):
+            ms = time_ms(torch, lambda: fps(cloud, n_samples))
+            res[f"{tag}_level_{i}_ms"] = ms
+            res[f"{tag}_level_{i}_device_ms"] = kernel_times(
+                torch, lambda: fps(cloud, n_samples))["device_ms"]
+            total += ms
+            cloud = gather_points(cloud, fps(cloud, n_samples))
+        res[f"{tag}_levels_ms"] = total
+    floor_pos = (torch.rand((1, cs.FLOOR_N, 2), generator=gen) * 2 - 1).to(dev)
+    for picks in (cs.FLOOR_N, cs.FLOOR_PICKS):
+        res[f"floor_{picks}_picks_ms"] = time_ms(torch, lambda: fps(floor_pos, picks))
+        res[f"floor_{picks}_picks_device_ms"] = kernel_times(
+            torch, lambda: fps(floor_pos, picks))["device_ms"]
+    res["floor_us_per_pick"] = 1e3 * (res[f"floor_{cs.FLOOR_PICKS}_picks_device_ms"]
+                                      - res[f"floor_{cs.FLOOR_N}_picks_device_ms"]) / (
+                                          cs.FLOOR_PICKS - cs.FLOOR_N)
+    return res
+
+
+def fps_sweep(torch, gen, dev, picks=500, timed_picks=4096):
+    """Every design the kernel can run (design A at each points-a-thread,
+    design B at 8 and 16 CTAs a cluster) at cloud sizes around the
+    crossover and the paths', one cloud, 2D and 3D: the first ``picks``
+    picks held equal to the plain version's, then ms a pick over
+    ``timed_picks`` picks (past N the picks repeat point 0, the same work a
+    pick), and which design ``fps_design`` takes. Needs a tree with
+    ``fps_cuda.launch``."""
+    import math
+    from porous_cfd_tpu_torch.ops import fps_cuda
+    rows = []
+    for d in (2, 3):
+        for n in (32, 500, 1000, 2048, 3072, 4096, 8192, 16384, 40000, 100000):
+            pts = (torch.rand((1, n, d), generator=gen) * 2 - 1).to(dev)
+            n_check = min(picks, n)
+            ref = fps_cuda.farthest_point_sampling_plain(pts, n_check)
+            chosen = fps_cuda.fps_design(1, n, d)
+            for ctas in (1, 8, 16):
+                slice_ = math.ceil(n / ctas)
+                if ctas > 1 and slice_ < 64:
+                    continue
+                for p in fps_cuda.PER_THREAD:
+                    threads = 32 * math.ceil(slice_ / (32 * p))
+                    if threads > fps_cuda.MAX_THREADS:
+                        continue
+                    des = fps_cuda.Design("A" if ctas == 1 else "B", ctas, threads, p)
+                    try:
+                        got = fps_cuda.launch(pts, n_check, des)
+                    except RuntimeError as exc:
+                        rows.append({"d": d, "n": n, "design": des._asdict(), "error": str(exc)})
+                        continue
+                    ms = time_ms(torch, lambda: fps_cuda.launch(pts, timed_picks, des), n=5)
+                    rows.append({"d": d, "n": n, "design": des._asdict(), "chosen": des == chosen,
+                                 "equal": bool(torch.equal(got, ref)), "ms": ms,
+                                 "us_per_pick": 1e3 * ms / (timed_picks - 1)})
+    # a batch of clouds past the crossover: fps_design's cluster against one
+    # block a cloud
+    for b in (13, 52):
+        pts = (torch.rand((b, 4096, 2), generator=gen) * 2 - 1).to(dev)
+        for des in (fps_cuda.fps_design(b, 4096, 2), fps_cuda.Design("A", 1, 128, 32)):
+            ms = time_ms(torch, lambda: fps_cuda.launch(pts, timed_picks, des), n=5)
+            rows.append({"d": 2, "b": b, "n": 4096, "design": des._asdict(), "ms": ms,
+                         "chosen": des == fps_cuda.fps_design(b, 4096, 2),
+                         "us_per_pick": 1e3 * ms / (timed_picks - 1)})
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(HERE),
@@ -268,6 +340,10 @@ def main() -> int:
     parser.add_argument("--label", default="")
     parser.add_argument("--kernels", action="store_true",
                         help="add sa_neighborhood's device time kernel by kernel")
+    parser.add_argument("--parts", default="decoder,trunk,pointnet,sa,fps",
+                        help="comma-separated parts to time, of decoder, trunk, pointnet, "
+                             "sa, fps and fps_sweep (every FPS design, on a tree that has "
+                             "fps_cuda.launch)")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -277,20 +353,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from porous_cfd_tpu_torch.ops import build
-    build.build_all(("decoder_prop", "neural_op_prop", "pointnet_global", "sa_neighborhood"))
+    parts = args.parts.split(",")
+    sources = {"decoder": "decoder_prop", "trunk": "neural_op_prop",
+               "pointnet": "pointnet_global", "sa": "sa_neighborhood", "fps": "fps",
+               "fps_sweep": "fps"}
+    build.build_all(tuple(dict.fromkeys(sources[p] for p in parts)))
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     res = {"label": args.label, "root": str(args.root), "device": torch.cuda.get_device_name(0),
-           "nvidia_smi": smi, "decoder_pipn": time_decoder(torch, gen, dev)}
-    torch.cuda.empty_cache()
-    res["trunk_pi_gano"] = time_trunk(torch, gen, dev)
-    torch.cuda.empty_cache()
-    res["pointnet"] = time_pointnet(torch, gen, dev)
-    torch.cuda.empty_cache()
-    res["sa"] = time_sa(torch, gen, dev, args.kernels)
+           "nvidia_smi": smi}
+    timers = {"decoder": ("decoder_pipn", lambda: time_decoder(torch, gen, dev)),
+              "trunk": ("trunk_pi_gano", lambda: time_trunk(torch, gen, dev)),
+              "pointnet": ("pointnet", lambda: time_pointnet(torch, gen, dev)),
+              "sa": ("sa", lambda: time_sa(torch, gen, dev, args.kernels)),
+              "fps": ("fps", lambda: time_fps(torch, gen, dev)),
+              "fps_sweep": ("fps_sweep", lambda: fps_sweep(torch, gen, dev))}
+    for part in parts:
+        key, timer = timers[part]
+        res[key] = timer()
+        torch.cuda.empty_cache()
     print(json.dumps({"time_engine": res}), flush=True)
     return 0
 
