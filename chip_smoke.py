@@ -41,7 +41,11 @@ Phases, in order; any failure exits non-zero:
      included), (j) neural_ops_prop's other modes at pi-gano-full's shapes:
      a linear last operator and no reduction together (pi-gano-full's
      trunks), and each alone, forward and backward, dropout on and off;
-     sa_neighborhood also at PI-GANO++'s two levels (32 neighbours);
+     sa_neighborhood also at PI-GANO++'s two levels (32 neighbours), (k)
+     PIPN++ MRG's five shapes on a real chain: sa_neighborhood at [8, 64,
+     128] and [8, 64, 128, 256] (static) and [130, 256] (dynamic, one
+     layer), pointnet_global at [8, 128, 256, 512] over 1000 rows and [258,
+     512] (one layer) over 63 + 500;
   4. pipn prediction: verbose prediction (fields + PDE residuals) of 52
      synthetic cases at 1500/1000/700 internal/boundary/observation points, in
      4 batches of 13, through the full-width duct_fixed_boundary ``pipn``
@@ -92,10 +96,25 @@ Phases, in order; any failure exits non-zero:
      .train --model pi-gano-full`` trains it for 30 epochs in a subprocess
      at its default bf16-mixed precision: checkpoints, model_meta.json, the
      training loss falling by CLI_MIN_FALL of itself at least, ms per epoch
-     over the whole fit and after its first chunk of 10 epochs.
-Each of phases 4-14 sets every launch count to 0 just before it and reads
-them just after; every training phase also counts the synchronizing calls
-of one step, which must be none. The second-to-last lines are the
+     over the whole fit and after its first chunk of 10 epochs;
+ 16, 17. pipn_pp_mrg prediction and training: phases 8 and 9 for the
+     full-width duct_fixed_boundary ``pipn-pp-mrg`` model (three radius
+     levels and two global ones on one boundary chain: 3 sa_neighborhood, 2
+     pointnet_global and 2 decoder_prop launches each way a step);
+ 18. the duct_fixed_boundary CLIs: the port's FVM solver writes FIX_TRAIN +
+     FIX_VAL golden-duct cases at the golden grid; the training CLI trains
+     ``pipn`` (decoupled) and ``pipn-pp-mrg`` for FIX_EPOCHS epochs at the
+     golden points, the loss without dropout falling by FIX_MIN_FALL of
+     itself at least; the inference CLI restores each checkpoint and
+     predicts as the trained model does within RTOL; the evaluate CLI
+     prints finite errors and pressure drops;
+ 19. the bench: ``python -m porous_cfd_tpu_torch.bench`` with BENCH_RUNS
+     runs of BENCH_EPOCHS epochs; its line parses, with steps/s for every
+     ported family and not_ported for the two U-Nets.
+Each of phases 4-14 and 16-17 sets every launch count to 0 just before it
+and reads them just after (phase 18 around each training command); every
+training phase also counts the synchronizing calls of one step, which must
+be none. The second-to-last lines are the
 ``{"kernels": [...]}`` JSON and the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Each kernel's ``bound_ms`` is the
 least time of its work at f32 accuracy: the larger of its operations in
@@ -158,6 +177,30 @@ MS_FE_GLOBAL = [64 + 2 + 1, 64, 128, 1024]
 # the boundary cloud's [C || boundaryId] rows and a global one, 32 neighbours
 PGP_GEOMETRY = [[2 * 2 + N_BID, 64, 64], [64 + 2, 176, 176], [176 + 2, 176, 176]]
 PGP_RADIUS, PGP_FRACTION, PGP_NEIGHBORS = [0.5, 1], [0.5, 0.25], 32
+# the duct_fixed_boundary "pipn-pp-mrg" configuration at full width
+# (examples/duct_fixed_boundary/train.py:62-70): the MRG encoder's own widths
+# over the boundary cloud's [boundaryId || C] rows, 64 neighbours
+MRG_LOCAL, MRG_IN = [2, 64, 64], N_BID + 2
+MRG_SEG = [1024 + 64, 384, 128, 3]
+MRG_DROPOUT = [0.05, 0, 0]
+# MRG's five kernel shapes: (level, widths)
+MRG_SA = (("branch1_sa0", [MRG_IN + 2, 64, 128]), ("branch2_sa", [MRG_IN + 2, 64, 128, 256]),
+          ("branch1_sa1", [128 + 2, 256]))
+MRG_GLOBAL = (("branch3_gsa", [MRG_IN + 2, 128, 256, 512]), ("branch4_gsa", [256 + 2, 512]))
+# the fixed-boundary CLI phase: golden cases solved by the port's FVM solver
+# at the golden grid and written with their meta, the golden run's points
+# (the grid exposes 2 * (120 + 72) boundary faces), FIX_EPOCHS epochs of the
+# training CLI for each model; FIX_TRAIN + FIX_VAL cases, not the golden
+# run's 13 + 4, since each costs seconds of host time to solve
+FIX_GRID, FIX_TRAIN, FIX_VAL, FIX_EPOCHS = (120, 72), 4, 2, 30
+FIX_POINTS = (1500, 350, 700)
+# the least relative fall of the fixed-boundary CLI's training loss
+# (without dropout) over its FIX_EPOCHS steps from the seeded weights
+FIX_MIN_FALL = 1e-2
+FIX_MODELS = ("pipn", "pipn-pp-mrg")
+# the bench phase: its line at the envelope, fewer runs and epochs than its
+# defaults (5 of 10), which the standalone bench keeps
+BENCH_RUNS, BENCH_EPOCHS = 1, 2
 # the CLI phase: a variable split written by the port, cases of
 # CLI_CASE_POINTS internal points and four patches of CLI_PATCH_POINTS
 CLI_TRAIN, CLI_VAL, CLI_EPOCHS = 13, 4, 30
@@ -972,142 +1015,166 @@ def sa_blocks_at(layers, n_cent, k, n_src, static):
     return sa_cuda.blocks(sa_cuda.level_call(lin, x, idx, mask, rel, "silu", xg))
 
 
-def check_sa(seq, chain, gen, pk, n_levels=len(PP_RADIUS)):
-    """sa_neighborhood against the plain version on the card at the two
-    radius levels of ``seq`` (a SetAbstractionSeq: PIPN++'s, or PI-GANO++'s
-    at 32 neighbours): level 0 static on ``chain`` (the model's precompute
-    of BATCH cases: xg, rel, mask), level 1 dynamic on random level-0
-    features with the chain's idx, rel and mask. The forward's values within
-    RTOL of the plain version and its argmax equal to the plain first
-    maximal valid neighbour wherever the top two differ by more than RTOL;
-    every gradient (dx through dP too) within RTOL of the plain level at the
-    kernel's argmax (sa_neighborhood_at: a near-tie may pick another row
-    than torch.max, as pointnet's check allows); the backward's compaction
-    equal to sa_winner_rows, two backward runs bit for bit; level 1 again
-    with every seventh neighbourhood emptied (0 out, no gradient). Timed
-    with CUDA events; the forward's work counts the valid neighbour rows,
-    the backward's its winners (sa_backward_flops, with the count before the
-    winner-row backward logged beside it). Returns (fwd, bwd) dicts with the
-    two levels summed and each level's numbers in ``extra``."""
+def check_sa_level(tag, conv_mlp, level, xg, n_src, gen, pk, empty_every=0):
+    """sa_neighborhood against the plain version on the card at one radius
+    level: ``level`` is the chain's entry (cent, idx, mask, rel, posc) of
+    BATCH cases; static when ``xg`` (the chain's level-0 rows) is given,
+    else dynamic on random features of ``n_src`` source rows. The forward's
+    values within RTOL of the plain version and its argmax equal to the
+    plain first maximal valid neighbour wherever the top two differ by more
+    than RTOL; every gradient (dx through dP too) within RTOL of the plain
+    level at the kernel's argmax (sa_neighborhood_at: a near-tie may pick
+    another row than torch.max, as pointnet's check allows); the backward's
+    compaction equal to sa_winner_rows, two backward runs bit for bit; with
+    ``empty_every``, the level again with that share of its neighbourhoods
+    emptied (0 out, no gradient). Timed with CUDA events; the forward's
+    work counts the valid neighbour rows, the backward's its winners
+    (sa_backward_flops, with the count before the winner-row backward
+    logged beside it). Returns {"fwd": ..., "bwd": ...}, each the level's
+    shape and shape_timing."""
     import torch
-    from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors
     from porous_cfd_tpu_torch.ops import sa_cuda
     dev = torch.device("cuda", 0)
+    res = {}
+    lin = conv_mlp.linears
+    _, idx, mask, rel, _ = level[:5]
+    static = xg is not None
+    f_in = lin[0].weight.shape[1] - rel.shape[-1]
+    x = None
+    if not static:
+        x = torch.randn((BATCH, n_src, f_in), generator=gen).to(dev).requires_grad_()
+    params = [t for layer in lin for t in (layer.weight, layer.bias)]
+    wrt = params + ([] if static else [x])
+    names = [f"d{n}" for n, _ in conv_mlp.named_parameters()]
+    names += [] if static else ["dx"]
+    out = sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, "silu", xg)
+    cot = torch.randn(out.shape, generator=gen).to(dev)
+    got = torch.autograd.grad((out * cot).sum(), wrt)
+    x_in = None if x is None else x.detach()
+    call = sa_cuda.level_call(lin, x_in, idx, mask, rel, "silu", xg)
+    with torch.no_grad():  # the argmax the backward was given: same kernel, same inputs
+        arg = sa_cuda._forward(call)[1]
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        ref_out, ref_arg = sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel, "silu", xg,
+                                                         with_argmax=True)
+        h = sa_cuda._plain_rows(lin, x, idx, mask, rel, "silu", xg)
+        top2 = torch.topk(h.masked_fill(~mask[..., None], -1e30), 2, dim=2).values
+        decided = (top2[:, :, 0] - top2[:, :, 1]) > RTOL * ref_out.abs().max()
+        decided |= mask.sum(-1, keepdim=True) < 2
+        mismatch = int((arg != ref_arg)[decided].sum())
+        del h, top2
+    err_f = check_close(f"sa_neighborhood {tag}", [("out", out.detach(), ref_out)])
+    log(f"  sa_neighborhood {tag} argmax: {int(decided.sum())} of {decided.numel()} "
+        f"channels decided, {mismatch} disagree")
+    if mismatch:
+        fail(f"sa_neighborhood {tag}: argmax disagrees with the plain version")
+    ref_at = sa_cuda.sa_neighborhood_at(lin, x, idx, mask, rel, "silu", arg, xg)
+    loss_ref = (ref_at * cot).sum()
+    ref = torch.autograd.grad(loss_ref, wrt, retain_graph=True)
+    err_b = check_close(f"sa_neighborhood {tag} backward", list(zip(names, got, ref)))
+
+    def backward(winners=False):
+        return sa_cuda.sa_neighborhood_backward(call, arg, cot, winners)
+
+    # the card's compaction against the plain one, two runs bit for bit
+    first = backward(winners=True)
+    rows_p, slot_p, count_p = sa_cuda.sa_winner_rows(arg, mask)
+    rows_k, slot_k, count_k = first[3]
+    if not (torch.equal(count_k.long(), count_p) and torch.equal(slot_k.long(), slot_p)
+            and torch.equal(rows_k.long(), rows_p)):
+        fail(f"sa_neighborhood {tag} backward: the compaction differs from sa_winner_rows")
+    second = backward()
+    flat = lambda r: [t for t in (*r[0], *r[1], r[2]) if t is not None]  # noqa: E731
+    if not all(torch.equal(u, v) for u, v in zip(flat(first), flat(second))):
+        fail(f"sa_neighborhood {tag} backward: two runs differ")
+    with torch.no_grad():
+        ms_f = time_ms(torch, lambda: sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, "silu",
+                                                              xg))
+        ms_fp = time_ms(torch, lambda: sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel,
+                                                                     "silu", xg))
+        ms_b = time_ms(torch, backward)
+    ms_bp = time_ms(torch, lambda: torch.autograd.grad(loss_ref, wrt, retain_graph=True),
+                    n=5)
+    # the forward's work: the valid neighbour rows through the first
+    # layer on [xg || rel] (static) or rel (dynamic, P's row is added)
+    # and the other layers; the backward's at its winners
+    rows = int(mask.sum())
+    widths = call.widths
+    macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    flops_f = 2.0 * rows * macs + (0.0 if static else rows * widths[1])
+    winners = int((arg >= 0).sum())
+    winner_rows = int(count_p.sum())
+    flops_b = sa_backward_flops(widths, static, winners, winner_rows)
+    flops_b_old = sa_backward_flops_with_forward(widths, flops_f, winners, winner_rows)
+    inputs = [xg if static else call.tensors[3], rel, *params]
+    side = mask.numel() + (0 if static else 8 * idx.numel())
+    bytes_f = nbytes_of(inputs + [out]) + side + arg.numel()
+    bytes_b = sa_backward_bytes(call, arg, cot, rows_p)
+    mean_nbrs = float(mask.sum(-1).float().mean())
+    shape = {"centroids": list(mask.shape[:2]), "neighbors": mask.shape[2],
+             "widths": widths, "valid_rows": rows, "mean_valid_neighbors": mean_nbrs}
+    shapes = {"fwd": shape,
+              "bwd": {**shape, "winners": winners, "winner_rows": winner_rows,
+                      "flop_counted_with_forward": flops_b_old}}
+    for key, err, ms, pms, fl, by in (("fwd", err_f, ms_f, ms_fp, flops_f, bytes_f),
+                                      ("bwd", err_b, ms_b, ms_bp, flops_b, bytes_b)):
+        res[key] = {**shapes[key], **shape_timing({"err": err, "ms": ms,
+                                                   "plain_ms": pms, "flops": fl,
+                                                   "nbytes": by}, pk)}
+    log(f"  sa_neighborhood {tag}: {rows} valid rows, {mean_nbrs:.2f} valid neighbours "
+        f"per centroid, {winners} winners on {winner_rows} distinct rows (compaction equal "
+        f"to sa_winner_rows, two backwards bitwise equal); backward work {flops_b:.4g} "
+        f"FLOP at the winners ({flops_b_old:.4g} as counted with a forward); forward "
+        f"{ms_f:.4f} ms (plain {ms_fp:.4f}), backward {ms_b:.4f} ms (plain {ms_bp:.4f})")
+    if empty_every:  # every empty_every-th neighbourhood emptied
+        empty = mask.clone()
+        empty[:, ::empty_every] = False
+        out_e = sa_cuda.sa_neighborhood(lin, x, idx, empty, rel, "silu")
+        got_e = torch.autograd.grad((out_e * cot).sum(), wrt)
+        with torch.no_grad():
+            arg_e = sa_cuda._forward(sa_cuda.level_call(lin, x_in, idx, empty, rel,
+                                                        "silu"))[1]
+        ref_e = sa_cuda.sa_neighborhood_plain(lin, x, idx, empty, rel, "silu")
+        ref_ge = torch.autograd.grad(
+            (sa_cuda.sa_neighborhood_at(lin, x, idx, empty, rel, "silu", arg_e) * cot).sum(),
+            wrt)
+        check_close("sa_neighborhood emptied", [("out", out_e.detach(), ref_e.detach())]
+                    + list(zip(names, got_e, ref_ge)), quiet=True)
+        if not (bool((out_e.detach()[:, ::empty_every] == 0).all())
+                and bool((arg_e[:, ::empty_every] == -1).all())):
+            fail("sa_neighborhood: an empty neighbourhood did not give 0 and argmax -1")
+        log(f"  sa_neighborhood {tag}: every neighbourhood {empty_every} apart emptied "
+            "gives 0")
+    del out, got, ref, ref_out, ref_at, loss_ref, call, first, second
+    return res
+
+
+def check_sa(seq, chain, gen, pk, n_levels=len(PP_RADIUS)):
+    """sa_neighborhood (check_sa_level) at the two radius levels of ``seq``
+    (a SetAbstractionSeq: PIPN++'s, or PI-GANO++'s at 32 neighbours): level
+    0 static on ``chain`` (the model's precompute of BATCH cases: xg, rel,
+    mask), level 1 dynamic on random level-0 features with the chain's idx,
+    rel and mask, and again with every seventh neighbourhood emptied.
+    Returns (fwd, bwd) dicts with the two levels summed and each level's
+    numbers in ``extra``."""
+    from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors
     nbrs = extract_sa_neighbors(chain, n_levels)
     res = {"fwd": {}, "bwd": {}}
     for i, tag in ((0, "level 0 static"), (1, "level 1 dynamic")):
-        lin = getattr(seq, f"sa_{i}").conv_mlp.linears
-        _, idx, mask, rel, _ = nbrs[i][:5]
         static = i == 0
-        xg = nbrs[0][5] if static else None
-        f_in = lin[0].weight.shape[1] - rel.shape[-1]
-        x = None
-        if not static:
-            n_src = nbrs[i - 1][0].shape[1]
-            x = torch.randn((BATCH, n_src, f_in), generator=gen).to(dev).requires_grad_()
-        params = [t for layer in lin for t in (layer.weight, layer.bias)]
-        wrt = params + ([] if static else [x])
-        names = [f"d{n}" for n, _ in getattr(seq, f"sa_{i}").conv_mlp.named_parameters()]
-        names += [] if static else ["dx"]
-        out = sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, "silu", xg)
-        cot = torch.randn(out.shape, generator=gen).to(dev)
-        got = torch.autograd.grad((out * cot).sum(), wrt)
-        x_in = None if x is None else x.detach()
-        call = sa_cuda.level_call(lin, x_in, idx, mask, rel, "silu", xg)
-        with torch.no_grad():  # the argmax the backward was given: same kernel, same inputs
-            arg = sa_cuda._forward(call)[1]
-        torch.cuda.synchronize()
-        with torch.no_grad():
-            ref_out, ref_arg = sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel, "silu", xg,
-                                                             with_argmax=True)
-            h = sa_cuda._plain_rows(lin, x, idx, mask, rel, "silu", xg)
-            top2 = torch.topk(h.masked_fill(~mask[..., None], -1e30), 2, dim=2).values
-            decided = (top2[:, :, 0] - top2[:, :, 1]) > RTOL * ref_out.abs().max()
-            decided |= mask.sum(-1, keepdim=True) < 2
-            mismatch = int((arg != ref_arg)[decided].sum())
-            del h, top2
-        err_f = check_close(f"sa_neighborhood {tag}", [("out", out.detach(), ref_out)])
-        log(f"  sa_neighborhood {tag} argmax: {int(decided.sum())} of {decided.numel()} "
-            f"channels decided, {mismatch} disagree")
-        if mismatch:
-            fail(f"sa_neighborhood {tag}: argmax disagrees with the plain version")
-        ref_at = sa_cuda.sa_neighborhood_at(lin, x, idx, mask, rel, "silu", arg, xg)
-        loss_ref = (ref_at * cot).sum()
-        ref = torch.autograd.grad(loss_ref, wrt, retain_graph=True)
-        err_b = check_close(f"sa_neighborhood {tag} backward", list(zip(names, got, ref)))
+        level = check_sa_level(tag, getattr(seq, f"sa_{i}").conv_mlp, nbrs[i],
+                               nbrs[0][5] if static else None,
+                               0 if static else nbrs[i - 1][0].shape[1], gen, pk,
+                               0 if static else 7)
+        for key in res:
+            res[key][tag] = level[key]
+    return sum_levels(res)
 
-        def backward(winners=False):
-            return sa_cuda.sa_neighborhood_backward(call, arg, cot, winners)
 
-        # the card's compaction against the plain one, two runs bit for bit
-        first = backward(winners=True)
-        rows_p, slot_p, count_p = sa_cuda.sa_winner_rows(arg, mask)
-        rows_k, slot_k, count_k = first[3]
-        if not (torch.equal(count_k.long(), count_p) and torch.equal(slot_k.long(), slot_p)
-                and torch.equal(rows_k.long(), rows_p)):
-            fail(f"sa_neighborhood {tag} backward: the compaction differs from sa_winner_rows")
-        second = backward()
-        flat = lambda r: [t for t in (*r[0], *r[1], r[2]) if t is not None]  # noqa: E731
-        if not all(torch.equal(u, v) for u, v in zip(flat(first), flat(second))):
-            fail(f"sa_neighborhood {tag} backward: two runs differ")
-        with torch.no_grad():
-            ms_f = time_ms(torch, lambda: sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, "silu",
-                                                                  xg))
-            ms_fp = time_ms(torch, lambda: sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel,
-                                                                         "silu", xg))
-            ms_b = time_ms(torch, backward)
-        ms_bp = time_ms(torch, lambda: torch.autograd.grad(loss_ref, wrt, retain_graph=True),
-                        n=5)
-        # the forward's work: the valid neighbour rows through the first
-        # layer on [xg || rel] (static) or rel (dynamic, P's row is added)
-        # and the other layers; the backward's at its winners
-        rows = int(mask.sum())
-        widths = call.widths
-        macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-        flops_f = 2.0 * rows * macs + (0.0 if static else rows * widths[1])
-        winners = int((arg >= 0).sum())
-        winner_rows = int(count_p.sum())
-        flops_b = sa_backward_flops(widths, static, winners, winner_rows)
-        flops_b_old = sa_backward_flops_with_forward(widths, flops_f, winners, winner_rows)
-        inputs = [xg if static else call.tensors[3], rel, *params]
-        side = mask.numel() + (0 if static else 8 * idx.numel())
-        bytes_f = nbytes_of(inputs + [out]) + side + arg.numel()
-        bytes_b = sa_backward_bytes(call, arg, cot, rows_p)
-        mean_nbrs = float(mask.sum(-1).float().mean())
-        shape = {"centroids": list(mask.shape[:2]), "neighbors": mask.shape[2],
-                 "widths": widths, "valid_rows": rows, "mean_valid_neighbors": mean_nbrs}
-        shapes = {"fwd": shape,
-                  "bwd": {**shape, "winners": winners, "winner_rows": winner_rows,
-                          "flop_counted_with_forward": flops_b_old}}
-        for key, err, ms, pms, fl, by in (("fwd", err_f, ms_f, ms_fp, flops_f, bytes_f),
-                                          ("bwd", err_b, ms_b, ms_bp, flops_b, bytes_b)):
-            res[key][tag] = {**shapes[key], **shape_timing({"err": err, "ms": ms,
-                                                            "plain_ms": pms, "flops": fl,
-                                                            "nbytes": by}, pk)}
-        log(f"  sa_neighborhood {tag}: {rows} valid rows, {mean_nbrs:.2f} valid neighbours "
-            f"per centroid, {winners} winners on {winner_rows} distinct rows (compaction equal "
-            f"to sa_winner_rows, two backwards bitwise equal); backward work {flops_b:.4g} "
-            f"FLOP at the winners ({flops_b_old:.4g} as counted with a forward); forward "
-            f"{ms_f:.4f} ms (plain {ms_fp:.4f}), backward {ms_b:.4f} ms (plain {ms_bp:.4f})")
-        if not static:  # every seventh neighbourhood emptied
-            empty = mask.clone()
-            empty[:, ::7] = False
-            out_e = sa_cuda.sa_neighborhood(lin, x, idx, empty, rel, "silu")
-            got_e = torch.autograd.grad((out_e * cot).sum(), wrt)
-            with torch.no_grad():
-                arg_e = sa_cuda._forward(sa_cuda.level_call(lin, x_in, idx, empty, rel,
-                                                            "silu"))[1]
-            ref_e = sa_cuda.sa_neighborhood_plain(lin, x, idx, empty, rel, "silu")
-            ref_ge = torch.autograd.grad(
-                (sa_cuda.sa_neighborhood_at(lin, x, idx, empty, rel, "silu", arg_e) * cot).sum(),
-                wrt)
-            check_close("sa_neighborhood emptied", [("out", out_e.detach(), ref_e.detach())]
-                        + list(zip(names, got_e, ref_ge)), quiet=True)
-            if not (bool((out_e.detach()[:, ::7] == 0).all())
-                    and bool((arg_e[:, ::7] == -1).all())):
-                fail("sa_neighborhood: an empty neighbourhood did not give 0 and argmax -1")
-            log("  sa_neighborhood: every seventh level-1 neighbourhood emptied gives 0")
-        del out, got, ref, ref_out, ref_at, loss_ref, call, first, second
+def sum_levels(res):
+    """(fwd, bwd) of several levels' checks: the worst error, the summed
+    times and work, each level's numbers in ``extra``."""
     summed = []
     for key in ("fwd", "bwd"):
         levels = res[key].values()
@@ -1829,6 +1896,202 @@ def cli_phase(name, smi):
             "model_meta": model_meta}
 
 
+def check_mrg(model, batch, gen, pk):
+    """PIPN++ MRG's five kernel shapes on a real chain of BATCH cases, each
+    against its plain version both ways: the three radius levels through
+    check_sa_level (branch 1's level 0 and branch 2, static on the chain's
+    level 0, branch 2 three layers deep; branch 1's level 1, dynamic and one
+    layer deep, on random level-0 features, and again with every seventh
+    neighbourhood emptied), the two global levels through check_pointnet at
+    their inputs' shapes (branch 3 over every boundary point; branch 4, one
+    layer, over branch 1's and branch 2's centroids together). Returns
+    {kernel key: {level: numbers}} for both kernels, both directions."""
+    from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors
+    mrg = model.module.global_fe
+    nb0, nb1 = extract_sa_neighbors(batch.domain, 2)
+    out = {k: {} for k in ("sa_neighborhood", "sa_neighborhood_bwd", "pointnet_global",
+                           "pointnet_global_bwd")}
+    for key, widths in MRG_SA:
+        conv = getattr(mrg, key).conv_mlp
+        have = [conv.linears[0].weight.shape[1]] + [lin.weight.shape[0] for lin in conv.linears]
+        if have != widths:
+            fail(f"mrg {key}: widths {have} != {widths}")
+        dynamic = key == "branch1_sa1"
+        level = check_sa_level(f"mrg {key}", conv, nb1 if dynamic else nb0,
+                               None if dynamic else nb0[5], nb0[0].shape[1] if dynamic else 0,
+                               gen, pk, 7 if dynamic else 0)
+        for direction, k in (("fwd", "sa_neighborhood"), ("bwd", "sa_neighborhood_bwd")):
+            out[k][key] = {"static": not dynamic, **level[direction]}
+    rows = {"branch3_gsa": N_BND, "branch4_gsa": nb1[0].shape[1] + nb0[0].shape[1]}
+    for key, widths in MRG_GLOBAL:
+        fwd, bwd = check_pointnet(widths, rows[key], True, gen, f"mrg {key}")
+        shape = {"input": [BATCH, rows[key], widths[0]], "widths": widths}
+        out["pointnet_global"][key] = {**shape, **shape_timing(fwd, pk)}
+        out["pointnet_global_bwd"][key] = {**shape, **shape_timing(bwd, pk),
+                                           "winner_rows": bwd["winner_rows"]}
+    return out
+
+
+def fixed_cli_phase(name, smi, counters):
+    """The port's duct_fixed_boundary experiment on the card, through the
+    entry points a user calls: the port's FVM solver writes FIX_TRAIN +
+    FIX_VAL golden-duct cases at FIX_GRID with their meta; for each of
+    FIX_MODELS the training CLI (``examples/duct_fixed_boundary/train.py``,
+    ``run``) trains FIX_EPOCHS epochs at the golden points, bf16-mixed
+    validation; checks model.ckpt, best.ckpt and model_meta.json, the launch
+    counts of the whole command, and that the training loss without dropout
+    fell by FIX_MIN_FALL of itself at least (the trained weights against the
+    CLI's initial ones on the training split); the inference CLI
+    (``load_model_and_params`` and ``predict``, f32) restores the checkpoint
+    and predicts each held-out case as the trained model predicts the split,
+    within RTOL; the evaluate CLI prints finite errors and pressure drops."""
+    import contextlib
+    import io
+    import re
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.data.dataset import FoamDataset
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary import evaluate, inference, train
+    from porous_cfd_tpu_torch.tools.train_golden_duct import TRAIN_CASES, VAL_CASES, generate
+    from porous_cfd_tpu_torch.train.engine import (compute_losses, gather_cases,
+                                                   make_predict_functions)
+    dev = torch.device("cuda", 0)
+    n_int, n_bnd, n_obs = FIX_POINTS
+    points = ["--n-internal", str(n_int), "--n-boundary", str(n_bnd),
+              "--n-observations", str(n_obs)]
+    report = {"grid": list(FIX_GRID), "train_cases": FIX_TRAIN, "val_cases": FIX_VAL,
+              "points": list(FIX_POINTS), "epochs": FIX_EPOCHS}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        report["solve_s_per_split"] = generate(root, *FIX_GRID, TRAIN_CASES[:FIX_TRAIN],
+                                               VAL_CASES[:FIX_VAL])
+        report["solve_s"] = time.perf_counter() - t0
+        log(f"fixed cli: {FIX_TRAIN} + {FIX_VAL} golden-duct cases solved by the port's FVM "
+            f"solver and written at {FIX_GRID[0]}x{FIX_GRID[1]} in {report['solve_s']:.1f} s "
+            f"(cut from the golden run's 13 + 4 cases for this script's time; grid, points "
+            f"and model widths are the golden run's)")
+        split_args = ["--train-dir", str(root / "train"), "--val-dir", str(root / "val")]
+        held_out = ["--data-dir", str(root / "val"), "--meta-dir", str(root / "train")]
+        for model_type in FIX_MODELS:
+            argv = ["--model", model_type, "--epochs", str(FIX_EPOCHS), "--log-every", "10",
+                    "--batch-size", str(FIX_TRAIN), *points, *split_args,
+                    "--logs-dir", str(Path(tmp) / "logs"), "--name", model_type]
+            for c in counters.values():
+                c.launches = 0
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                model = train.run(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items() if c.launches}
+            for line in printed.getvalue().splitlines():
+                log(f"  | {line}")
+            want = ({"pointnet_global", "decoder_prop"} if model_type == "pipn" else
+                    {"sa_neighborhood", "pointnet_global", "decoder_prop",
+                     "farthest_point_sampling"})
+            if not want <= {k for k in launches if not k.endswith("_bwd")} or \
+                    "decoder_prop_bwd" not in launches:
+                fail(f"fixed cli {model_type}: launches {launches} lack a kernel of {want}")
+            log_dir = Path(tmp) / "logs" / "lightning_logs" / model_type
+            for fname in ("model.ckpt", "best.ckpt", "model_meta.json"):
+                if not (log_dir / fname).exists():
+                    fail(f"fixed cli {model_type}: the CLI did not write {fname}")
+            model_meta = json.loads((log_dir / "model_meta.json").read_text())
+            if model_meta["Model type"] != model_type or model_meta["N boundary"] != n_bnd:
+                fail(f"fixed cli {model_type}: model_meta.json {model_meta}")
+            found = re.search(r"fit: \d+ epochs in ([0-9.]+) s, ([0-9.]+) ms per epoch; the "
+                              r"first (\d+) in ([0-9.]+) s, then ([0-9.]+) ms per epoch",
+                              printed.getvalue())
+            if found is None:
+                fail(f"fixed cli {model_type}: the CLI did not report its fit time")
+            ms_epoch, ms_steady = float(found.group(2)), float(found.group(5))
+
+            # the training loss without dropout: the CLI's initial weights
+            # against the trained module, on the training split as the CLI
+            # sampled it (its rng draws the training cases first)
+            args = train.build_arg_parser().parse_args(argv)
+            train_data = FoamDataset(str(root / "train"), n_int, n_bnd, n_obs,
+                                     rng=np.random.default_rng(train.SEED))
+            weights = torch.tensor(train.get_loss_scaler(args).weights, device=dev)
+            totals = []
+            for mdl in (train.get_model(args, train_data.normalizers, dev), model):
+                batch = mdl.attach_neighbors(train_data.stacked().to(dev))
+                with torch.no_grad():
+                    losses, _ = compute_losses(mdl, batch, deterministic=True)
+                totals.append(float((weights * losses).sum()))
+            fall = (totals[0] - totals[1]) / totals[0]
+            if not fall >= FIX_MIN_FALL:
+                fail(f"fixed cli {model_type}: the training loss fell by {fall:.3e} of itself, "
+                     f"less than {FIX_MIN_FALL:.0e}")
+
+            # inference: the checkpoint restored, each held-out case alone
+            # in f32, against the trained model on the whole split
+            inf_argv = ["--checkpoint", str(log_dir / "model.ckpt"), *held_out, *points]
+            preds = inference.run(inf_argv + ["--precision", "32-true"])
+            val_data = FoamDataset(str(root / "val"), n_int, n_bnd, n_obs,
+                                   np.random.default_rng(train.SEED), str(root / "train"))
+            stacked = model.attach_neighbors(val_data.stacked().to(dev))
+            ref = make_predict_functions(model).predict_batch(
+                gather_cases(stacked, torch.arange(len(val_data), device=dev))).data.cpu()
+            err_inf = check_close(f"fixed cli {model_type} inference against the trained model",
+                                  [(f"case {i}", torch.as_tensor(p_.data), ref[i])
+                                   for i, p_ in enumerate(preds)])
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                summary = evaluate.run(inf_argv)
+            log(f"  | {printed.getvalue().strip()}")
+            if not all(np.isfinite(v) for v in summary.values()):
+                fail(f"fixed cli {model_type}: evaluate printed a non-finite number {summary}")
+            log(f"fixed cli {model_type}: {FIX_EPOCHS} epochs of {FIX_TRAIN} cases at "
+                f"{n_int}/{n_bnd}/{n_obs} points in {wall_s:.1f} s for the whole command, "
+                f"{ms_epoch:.3f} ms per epoch (the trainer's clock, bf16-mixed validation every "
+                f"10 epochs included), {ms_steady:.3f} after the first chunk; training loss "
+                f"without dropout {totals[0]:.6f} -> {totals[1]:.6f}, a fall of {fall:.3e} of "
+                f"it; inference within {err_inf:.3e} of the trained model; evaluate "
+                f"{json.dumps(summary)} ({name}; {smi})")
+            report[model_type] = {"command_s": wall_s, "ms_per_epoch": ms_epoch,
+                                  "ms_per_epoch_after_first": ms_steady,
+                                  "launches": launches, "loss_initial_trained": totals,
+                                  "loss_fall": fall, "inference_max_abs_err": err_inf,
+                                  "evaluate": summary, "model_meta": model_meta}
+            del model
+            torch.cuda.empty_cache()
+    return report
+
+
+def bench_phase(name, smi):
+    """``python -m porous_cfd_tpu_torch.bench`` at the envelope with
+    BENCH_RUNS runs of BENCH_EPOCHS epochs: its line parses, every ported
+    family has a steps/s number and the two U-Net families read
+    not_ported."""
+    from porous_cfd_tpu_torch import bench
+    cmd = [sys.executable, "-m", "porous_cfd_tpu_torch.bench", "--runs", str(BENCH_RUNS),
+           "--epochs", str(BENCH_EPOCHS)]
+    log("bench: running " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    unported = {"pipn_pp_full", "pi_gano_pp_full"}
+    for family in bench.FAMILIES:
+        got = line["families"].get(family)
+        if family in unported:
+            if not (isinstance(got, str) and got.startswith("not_ported:")):
+                fail(f"bench: {family} reads {got!r}, not not_ported")
+        elif not (isinstance(got, float) and got > 0):
+            fail(f"bench: {family} has no steps/s number ({got!r})")
+    if line["card"] != smi:
+        fail(f"bench: its card {line['card']!r} is not {smi!r}")
+    log(f"bench: {wall_s:.1f} s; steps/s "
+        + ", ".join(f"{k} {v:.2f}" for k, v in line["families"].items() if k not in unported)
+        + f" ({line['timing']}; {name}; {smi})")
+    return {"command_s": wall_s, "line": line}
+
+
 def main() -> int:
     if not (ROOT / "porous_cfd_tpu_torch").is_dir():
         print("chip_smoke: porous_cfd_tpu_torch/ not found beside this script",
@@ -1843,7 +2106,7 @@ def main() -> int:
                                                      make_scalers)
     from porous_cfd_tpu_torch.models.neighbors import fps_count
     from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp
-    from porous_cfd_tpu_torch.models.pipn import pipn_foam, pipn_foam_pp
+    from porous_cfd_tpu_torch.models.pipn import pipn_foam, pipn_foam_pp, pipn_foam_pp_mrg
     from porous_cfd_tpu_torch.ops import (build, decoder_cuda, dropout, fps_cuda,
                                           mlp_prop_cuda, neural_op_cuda, pointnet_cuda,
                                           sa_cuda)
@@ -2040,6 +2303,11 @@ def main() -> int:
                             scalers, seg_dropout=PP_DROPOUT, max_neighbors=PP_NEIGHBORS,
                             generator=torch.Generator().manual_seed(SEED), device=device)
 
+    def pipn_pp_mrg_model(device):
+        return pipn_foam_pp_mrg(2, MRG_IN, NU, D, F, MRG_LOCAL, MRG_SEG, scalers,
+                                seg_dropout=MRG_DROPOUT, max_neighbors=PP_NEIGHBORS,
+                                generator=torch.Generator().manual_seed(SEED), device=device)
+
     # ---- 3f. sa_neighborhood at PIPN++'s level shapes, on a real chain --------
     pp_card = pipn_pp_model(dev)
     chain = pp_card.neighbor_precompute(gather_cases(data, torch.arange(BATCH)).to(dev))
@@ -2082,6 +2350,16 @@ def main() -> int:
         for i, k in enumerate((key, f"{key}_bwd")):
             kernels[k][at] = {**shape, **shape_timing(pair[i], pk), **pair[i].get("extra", {})}
             kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], pair[i]["err"])
+
+    # ---- 3k. PIPN++ MRG's five kernel shapes, on a real chain ---------------------
+    mrg_card = pipn_pp_mrg_model(dev)
+    mrg_batch = mrg_card.attach_neighbors(gather_cases(data, torch.arange(BATCH)).to(dev))
+    for key, levels in check_mrg(mrg_card, mrg_batch, gen, pk).items():
+        kernels[key]["at_pipn_pp_mrg_shapes"] = levels
+        kernels[key]["max_abs_err"] = max([kernels[key]["max_abs_err"]]
+                                          + [v["max_abs_err"] for v in levels.values()])
+    del mrg_card, mrg_batch
+    torch.cuda.empty_cache()
 
     # ---- 3i. decoder_prop's coupled modes at the pipn shape, real winners --------
     coupled = check_decoder_coupled(pipn_coupled_model(dev),
@@ -2199,6 +2477,28 @@ def main() -> int:
 
     # ---- 15. the duct_variable_boundary CLI, pi-gano-full ---------------------------
     cli_report = cli_phase(name, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 16, 17. pipn_pp_mrg: the chain, verbose prediction, then training ----------
+    log("pipn_pp_mrg boundary chain, card against CPU:")
+    mrg_chain = check_chain(pipn_pp_mrg_model(dev), pipn_pp_mrg_model("cpu"), data)
+    want_mrg = dict(sa_neighborhood=3, pointnet_global=2, decoder_prop=2)
+    mrg_pred = prediction_phase("pipn_pp_mrg", pipn_pp_mrg_model(dev), pipn_pp_mrg_model("cpu"),
+                                data, scalers, counters, counts(**want_mrg), name, smi,
+                                per_evaluate=counts(farthest_point_sampling=2), share_aux=True)
+    mrg_train = training_phase("pipn_pp_mrg", pipn_pp_mrg_model, data, counters,
+                               counts(**want_mrg, sa_neighborhood_bwd=3, pointnet_global_bwd=2,
+                                      decoder_prop_bwd=2),
+                               name, smi, "pipn-pp-mrg",
+                               want_attach=counts(farthest_point_sampling=2), share_aux=True)
+    torch.cuda.empty_cache()
+
+    # ---- 18. the duct_fixed_boundary CLIs on golden-duct data ----------------------
+    fixed_report = fixed_cli_phase(name, smi, counters)
+    torch.cuda.empty_cache()
+
+    # ---- 19. the port's bench ------------------------------------------------------
+    bench_report = bench_phase(name, smi)
 
     # launches on each kernel's main path (per training step; FPS per
     # attach_neighbors, the only place it runs), and per path; the ctx_width
@@ -2208,7 +2508,7 @@ def main() -> int:
     paths = {"pipn": (pipn_pred, pipn_train), "pi_gano": (pg_pred, pg_train),
              "pi_gano_full": (pgf_pred, pgf_train), "pi_gano_pp": (pgp_pred, pgp_train),
              "pipn_pp": (pp_pred, pp_train), "pipn_coupled": (pc_pred, pc_train),
-             "pipn_exact": (ex_pred, ex_train)}
+             "pipn_exact": (ex_pred, ex_train), "pipn_pp_mrg": (mrg_pred, mrg_train)}
     for k, kern in kernels.items():
         main_path = ("pi_gano_full" if k.startswith("neural_ops_prop_") and
                      k != "neural_ops_prop_bwd" else
@@ -2247,6 +2547,11 @@ def main() -> int:
     log(json.dumps({"pipn_exact_train": ex_train}))
     log(json.dumps({"manufactured": ms_report}))
     log(json.dumps({"cli": cli_report}))
+    log(json.dumps({"pipn_pp_mrg_chain": mrg_chain}))
+    log(json.dumps({"pipn_pp_mrg_slice": mrg_pred}))
+    log(json.dumps({"pipn_pp_mrg_train": mrg_train}))
+    log(json.dumps({"fixed_cli": fixed_report}))
+    log(json.dumps({"bench": bench_report}))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,8 +1,9 @@
 """PIPN models (counterpart of ``porous_cfd_tpu/models/pipn.py``): the plain
 ``PipnModule`` and ``PipnPpModule`` forwards, the ``pipn_foam``,
-``pipn_manufactured`` and ``pipn_foam_pp`` factories and their analytic
-derivative paths, which carry verbose prediction and training (a model
-without one takes the exact autodiff operator, ``physics/operators.py``).
+``pipn_manufactured``, ``pipn_foam_pp`` and ``pipn_foam_pp_mrg`` factories
+and their analytic derivative paths, which carry verbose prediction and
+training (a model without one takes the exact autodiff operator,
+``physics/operators.py``).
 
 Per-point features + a pooled global geometry embedding, decoded by a shared
 segmentation MLP. PIPN's analytic path runs two CUDA kernels on the card:
@@ -13,8 +14,10 @@ layer-0 J/H terms built from the pooling winners' rows). PIPN++
 pools its embedding with a SetAbstraction chain over the boundary cloud:
 ``sa_neighborhood`` per radius level (static at level 0, dynamic at level
 1) and ``pointnet_global`` for the trailing global level, on a neighbour
-chain precomputed once per dataset (FPS through its own kernel). Under
-autograd the backward kernels carry the gradients.
+chain precomputed once per dataset (FPS through its own kernel); PIPN++
+MRG's encoder runs three radius levels through ``sa_neighborhood`` and two
+global ones through ``pointnet_global`` on one such chain. Under autograd the
+backward kernels carry the gradients.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from porous_cfd_tpu_torch.device import not_ported, resolve_device
 from porous_cfd_tpu_torch.models.base import PinnModel
 from porous_cfd_tpu_torch.models.mlp import MLP, PointNetFeatureExtract
 from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors, sa_chain_precompute
-from porous_cfd_tpu_torch.models.set_abstraction import PointNetFeatureExtractPp
+from porous_cfd_tpu_torch.models.set_abstraction import (PointNetFeatureExtractPp,
+                                                          SetAbstractionMrgSeq)
 from porous_cfd_tpu_torch.ops import decoder_cuda, pointnet_cuda, sa_cuda
 from porous_cfd_tpu_torch.physics import analytic
 from porous_cfd_tpu_torch.physics.losses import (ContinuityLoss, ContinuityLossStandardized,
@@ -67,11 +71,15 @@ class PipnModule(nn.Module):
         return self.decoder(seg_in, deterministic, seed)
 
 
-def _geometry_features(boundary: FoamData) -> torch.Tensor:
-    """The geometry branch's input rows ``[C || boundaryId]``, the foam
-    models' order (the manufactured variant's ``[boundaryId || C]`` is not
-    ported)."""
-    return torch.cat([boundary["C"], boundary["boundaryId"]], dim=-1)
+def _geometry_features(boundary: FoamData, order: str = "C_first") -> torch.Tensor:
+    """The geometry branch's input rows: ``[C || boundaryId]`` for
+    ``"C_first"`` (PIPN++ on the foam data), ``[boundaryId || C]`` for
+    ``"id_first"`` (PIPN++ MRG and the manufactured PIPN++)."""
+    if order == "C_first":
+        return torch.cat([boundary["C"], boundary["boundaryId"]], dim=-1)
+    if order == "id_first":
+        return torch.cat([boundary["boundaryId"], boundary["C"]], dim=-1)
+    raise ValueError(f"geometry feature order {order!r} is not C_first or id_first")
 
 
 class PipnPpModule(nn.Module):
@@ -103,6 +111,40 @@ class PipnPpModule(nn.Module):
         geom = _geometry_features(boundary)
         nbrs = extract_sa_neighbors(batch.domain, len(self.fe_radius))
         local, g = self.feature_extract(geom, boundary["C"], points, deterministic, nbrs)
+        exp_g = g.expand(*local.shape[:-1], g.shape[-1])
+        return self.decoder(torch.cat([local, exp_g], dim=-1), deterministic)
+
+
+class PipnPpMrgModule(nn.Module):
+    """PIPN++ MRG forward: a local shared MLP ``local_fe`` on the
+    differentiable points, the multi-resolution-grouping encoder
+    ``global_fe`` over the boundary points' ``[boundaryId || C]`` rows, the
+    tiled concat and the decoder."""
+
+    def __init__(self, n_dims: int, mrg_in_features: int, fe_local_layers: Sequence[int],
+                 seg_layers: Sequence[int], seg_dropout: Optional[Sequence[float]] = None,
+                 activation: str = "silu", max_neighbors: int = 64,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_dims = n_dims
+        self.mrg_in_features = mrg_in_features
+        self.fe_local_layers = tuple(fe_local_layers)
+        self.seg_layers = tuple(seg_layers)
+        self.seg_dropout = None if seg_dropout is None else tuple(seg_dropout)
+        self.activation = activation
+        self.max_neighbors = max_neighbors
+        self.local_fe = MLP(fe_local_layers, activation=activation, generator=generator)
+        self.global_fe = SetAbstractionMrgSeq(mrg_in_features, n_dims, activation,
+                                              max_neighbors, generator)
+        self.decoder = MLP(seg_layers, seg_dropout, activation, last_activation=False,
+                           generator=generator)
+
+    def forward(self, points, batch: FoamData, deterministic: bool = True):
+        local = self.local_fe(points, deterministic)
+        boundary = batch["boundary"]
+        nbrs = extract_sa_neighbors(batch.domain, len(SetAbstractionMrgSeq.radii))
+        g = self.global_fe(_geometry_features(boundary, "id_first"), boundary["C"],
+                           deterministic, nbrs)
         exp_g = g.expand(*local.shape[:-1], g.shape[-1])
         return self.decoder(torch.cat([local, exp_g], dim=-1), deterministic)
 
@@ -325,55 +367,66 @@ def _foam_model(module, nu, d, f, scalers, device, derivative_apply,
         neighbor_precompute=neighbor_precompute)
 
 
-def _boundary_sa_precompute(fractions, radii, max_neighbors: int):
+def _boundary_sa_precompute(fractions, radii, max_neighbors: int,
+                            feats_order: str = "C_first"):
     """The per-dataset aux of a boundary-cloud SetAbstraction chain
     (``neighbors.sa_chain_precompute`` over the boundary points), with level
-    0's input rows gathered in the model's own concat order (``xg``), so
-    that the first level runs the kernel's static variant."""
+    0's input rows gathered in the model's own concat order ``feats_order``
+    (``_sa_xg_0``), so that the first level runs the kernel's static
+    variant."""
 
     def precompute(dataset: FoamData) -> dict:
         _, boundary = split_contiguous(dataset)
         return sa_chain_precompute(boundary["C"], fractions, radii, max_neighbors,
-                                   feats=_geometry_features(boundary))
+                                   feats=_geometry_features(boundary, feats_order))
 
     return precompute
 
 
-def pipn_pp_apply_with_derivatives(module: PipnPpModule):
-    """The analytic derivative path of a PipnPpModule:
+def pipn_pp_apply_with_derivatives(module):
+    """The analytic derivative path of a PipnPpModule or a PipnPpMrgModule:
     ``fn(batch, deterministic=True, seed=None) -> (out_full, jac, lap)`` with
     jac/lap shaped (..., Ni, O, D). The geometry embedding pools over the
     boundary points only, which are not differentiated, so it is a per-case
     context exactly (no max-pool coupling): the SetAbstraction chain runs
-    value-only (``sa_cuda.sa_seq_fused``) on the dataset's precomputed chain
+    value-only (``sa_cuda.sa_seq_fused``; MRG's encoder through
+    ``sa_cuda.sa_mrg_fused``) on the dataset's precomputed chain
     (``attach_neighbors``); the local MLP and the decoder propagate (v, J, H).
     Dropout as in ``pipn_apply_with_derivatives``. Without an attached chain
     a CPU batch builds one here, as the reference module builds its
     neighbours on the fly; a batch on the card raises, so that a loop which
     forgot ``attach_neighbors`` does not run FPS and the radius search on
     every call."""
-    precompute = _boundary_sa_precompute(module.fe_fraction, module.fe_radius,
-                                         module.max_neighbors)
+    is_mrg = isinstance(module, PipnPpMrgModule)
+    if is_mrg:
+        fractions, radii = SetAbstractionMrgSeq.fractions, SetAbstractionMrgSeq.radii
+        order, local_linears = "id_first", module.local_fe.linears
+    else:
+        fractions, radii = module.fe_fraction, module.fe_radius
+        order = "C_first"
+        local_linears = module.feature_extract.local_feature.linears
+    precompute = _boundary_sa_precompute(fractions, radii, module.max_neighbors, order)
 
     def fn(batch: FoamData, deterministic: bool = True, seed=None):
         internal_view, boundary_view = split_contiguous(batch)
         x_int = internal_view["C"]
         x_bnd = boundary_view["C"]
         act = module.activation
-        fe = module.feature_extract
-        n_levels = len(module.fe_radius)
-        nbrs = extract_sa_neighbors(batch.domain, n_levels)
+        nbrs = extract_sa_neighbors(batch.domain, len(radii))
         if nbrs is None:
             if x_bnd.device.type != "cpu":
                 raise ValueError("pipn_pp: the batch holds no SetAbstraction chain; attach "
                                  "it once per dataset with model.attach_neighbors(dataset)")
-            nbrs = extract_sa_neighbors(precompute(batch), n_levels)
-        g = sa_cuda.sa_seq_fused(fe.global_feature, act, _geometry_features(boundary_view),
-                                 nbrs)
+            nbrs = extract_sa_neighbors(precompute(batch), len(radii))
+        geom = _geometry_features(boundary_view, order)
+        if is_mrg:
+            g = sa_cuda.sa_mrg_fused(module.global_fe, act, geom, x_bnd, nbrs)
+        else:
+            g = sa_cuda.sa_seq_fused(module.feature_extract.global_feature, act, geom, nbrs)
 
         j0, h0 = analytic.identity_jacobian_t(x_int)
-        lv_i, lj, lh = analytic.mlp_prop_t(fe.local_feature.linears, x_int, j0, h0, act)
-        lv_b = analytic.mlp_value(fe.local_feature.linears, x_bnd, act)
+        lv_i, lj, lh = analytic.mlp_prop_t(local_linears, x_int, j0, h0, act)
+        lv_b = analytic.mlp_value(local_linears, x_bnd, act)
         return _decoder_prop_dispatch(
             module.decoder, lv_i.shape[-1], lv_i, lj, lh, lv_b, g, act,
             module.seg_dropout, deterministic, seed)
@@ -401,14 +454,31 @@ def pipn_foam_pp(nu: float, d: float, f: float, fe_local_layers, fe_global_layer
                        _boundary_sa_precompute(fe_fraction, fe_radius, max_neighbors))
 
 
-def pipn_foam_pp_mrg(*args, **kwargs):
-    """PIPN++ MRG needs SetAbstractionMrgSeq and sa_mrg_fused."""
-    raise not_ported("pipn_foam_pp_mrg (PIPN++ MRG)")
+def pipn_foam_pp_mrg(n_dims: int, mrg_in_features: int, nu: float, d: float, f: float,
+                     fe_local_layers, seg_layers, scalers: dict, seg_dropout=None,
+                     activation: str = "silu", max_neighbors: int = 64,
+                     fast_derivatives: bool = True,
+                     generator: Optional[torch.Generator] = None, device=None) -> PinnModel:
+    """PIPN++ MRG with standardized features, on ``device`` (the CUDA card
+    unless ``"cpu"`` is asked for). Its analytic path is exact for this
+    family, as PIPN++'s is, and the only one ported. ``attach_neighbors``
+    builds the boundary cloud's 2-level chain once per dataset, level 0's
+    rows gathered in ``[boundaryId || C]`` order."""
+    if not fast_derivatives:
+        raise not_ported("the exact autodiff derivative path (fast_derivatives=False)")
+    device = resolve_device(device)
+    module = PipnPpMrgModule(n_dims, mrg_in_features, fe_local_layers, seg_layers,
+                             seg_dropout, activation, max_neighbors, generator).to(device)
+    return _foam_model(module, nu, d, f, scalers, device,
+                       pipn_pp_apply_with_derivatives(module),
+                       _boundary_sa_precompute(SetAbstractionMrgSeq.fractions,
+                                               SetAbstractionMrgSeq.radii, max_neighbors,
+                                               feats_order="id_first"))
 
 
 def pipn_manufactured_pp(*args, **kwargs):
-    """The physics-only PIPN++ needs its ``"id_first"`` feature order in the
-    SetAbstraction chain."""
+    """The physics-only PIPN++ (``PipnPpModule`` with the ``"id_first"``
+    order) waits for the manufactured-solutions CLI and its dataset."""
     raise not_ported("pipn_manufactured_pp (manufactured-solutions PIPN++)")
 
 

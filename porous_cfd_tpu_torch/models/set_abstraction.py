@@ -12,9 +12,9 @@ sa_seq_fused``). Submodule names are the flax ones (``sa_{i}/conv_mlp``,
 
 The JAX package's semantics notes hold: relative positions are
 ``(pos_j - pos_i) / r``, FPS starts at index 0, and an empty neighbourhood
-gives 0. ``GeometryEncoderPp`` is PI-GANO++'s geometry encoder. The U-Net
-blocks (FeaturePropagation), the MRG encoder and ``k_chunks`` are not ported
-yet.
+gives 0. ``GeometryEncoderPp`` is PI-GANO++'s geometry encoder and
+``SetAbstractionMrgSeq`` PIPN++ MRG's. The U-Net blocks
+(FeaturePropagation) and ``k_chunks`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -99,6 +99,47 @@ class SetAbstractionSeq(nn.Module):
         if self.has_global:
             x, pos = self.global_sa(x, pos, deterministic)
         return x, pos
+
+
+class SetAbstractionMrgSeq(nn.Module):
+    """Multi-resolution-grouping encoder: four branches whose global
+    descriptors are concatenated, (B, 1, 1024). Branch 1 is two radius
+    levels, branch 2 one three-layer level on branch 1's first grouping,
+    branch 3 a global level on the input, branch 4 a global level on
+    branches 1 and 2's outputs and centroids, concatenated along the points.
+
+    ``neighbors``: an optional 2-level chain over ``pos`` with (fraction,
+    radius) = (0.5, 0.5), (0.125, 1.0) (``fractions``, ``radii``); FPS
+    starts at point 0, so branch 2's grouping is branch 1's first level and
+    one chain serves all three radius levels."""
+
+    fractions = (0.5, 0.125)
+    radii = (0.5, 1.0)
+
+    def __init__(self, in_features: int, n_dims: int, activation: str = "tanh",
+                 max_neighbors: int = 64, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        d = n_dims
+        (f0, f1), (r0, r1) = self.fractions, self.radii
+        self.branch1_sa0 = SetAbstraction(f0, r0, [in_features + d, 64, 128], max_neighbors,
+                                          activation, generator)
+        self.branch1_sa1 = SetAbstraction(f1, r1, [128 + d, 256], max_neighbors, activation,
+                                          generator)
+        self.branch2_sa = SetAbstraction(f0, r0, [in_features + d, 64, 128, 256],
+                                         max_neighbors, activation, generator)
+        self.branch3_gsa = GlobalSetAbstraction([in_features + d, 128, 256, 512], activation,
+                                                generator)
+        self.branch4_gsa = GlobalSetAbstraction([256 + d, 512], activation, generator)
+
+    def forward(self, x, pos, deterministic: bool = True, neighbors=None):
+        nb0, nb1 = neighbors[:2] if neighbors is not None else (None, None)
+        x1, p1 = self.branch1_sa0(x, pos, deterministic, nb0)
+        x1, p1 = self.branch1_sa1(x1, p1, deterministic, nb1)
+        x2, p2 = self.branch2_sa(x, pos, deterministic, nb0)
+        x3, _ = self.branch3_gsa(x, pos, deterministic)
+        x4, _ = self.branch4_gsa(torch.cat([x1, x2], dim=-2), torch.cat([p1, p2], dim=-2),
+                                 deterministic)
+        return torch.cat([x3, x4], dim=-1)
 
 
 class PointNetFeatureExtractPp(nn.Module):

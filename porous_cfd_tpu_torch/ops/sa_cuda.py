@@ -1,7 +1,8 @@
 """``sa_neighborhood``: one SetAbstraction radius level, the masked max over
 each centroid's neighbours of an MLP on ``[x_j || (pos_j - pos_c) / r]``
 (counterpart of ``porous_cfd_tpu/ops/sa_pallas.py``), forward and backward,
-and ``sa_seq_fused``, the SetAbstraction chain through it.
+``sa_seq_fused``, the SetAbstraction chain through it, and
+``sa_mrg_fused``, PIPN++ MRG's encoder through it.
 
 ``sa_neighborhood`` launches the hand-written CUDA kernel
 (``csrc/sa_neighborhood.cu``) for CUDA tensors and takes the plain PyTorch
@@ -409,6 +410,35 @@ def sa_seq_fused(seq, activation: str, x, neighbors):
                                           torch.cat([x, pos], dim=-1).contiguous(),
                                           activation)[0]
     return x
+
+
+def sa_mrg_fused(mrg, activation: str, x, pos, neighbors):
+    """``SetAbstractionMrgSeq`` (``models/set_abstraction.py``) on a
+    precomputed 2-level chain: branch 1's two levels and branch 2's through
+    ``sa_neighborhood`` (level 0 static when its entry holds xg, and shared
+    by both branches), branches 3 and 4 through
+    ``pointnet_cuda.pointnet_global``; branch 4 pools branch 1's and branch
+    2's outputs beside their centroids, concatenated along the points.
+
+    :param x: (B, N, F_in) input rows, pos (B, N, D) their positions.
+    :param neighbors: the chain's two levels (cent, idx, mask, rel, posc[,
+        xg]), as ``neighbors.extract_sa_neighbors`` gives them.
+    :return: (B, 1, 1024).
+    """
+    nb0, nb1 = neighbors[:2]
+    _, idx0, mask0, rel0, posc0 = nb0[:5]
+    _, idx1, mask1, rel1, posc1 = nb1[:5]
+    xg = nb0[5] if len(nb0) > 5 else None
+    x1 = sa_neighborhood(mrg.branch1_sa0.conv_mlp.linears, x, idx0, mask0, rel0, activation,
+                         xg)
+    x1 = sa_neighborhood(mrg.branch1_sa1.conv_mlp.linears, x1, idx1, mask1, rel1, activation)
+    x2 = sa_neighborhood(mrg.branch2_sa.conv_mlp.linears, x, idx0, mask0, rel0, activation, xg)
+    x3 = pointnet_cuda.pointnet_global(mrg.branch3_gsa.mlp.linears,
+                                       torch.cat([x, pos], dim=-1).contiguous(), activation)[0]
+    x12 = torch.cat([torch.cat([x1, x2], dim=-2), torch.cat([posc1, posc0], dim=-2)], dim=-1)
+    x4 = pointnet_cuda.pointnet_global(mrg.branch4_gsa.mlp.linears, x12.contiguous(),
+                                       activation)[0]
+    return torch.cat([x3, x4], dim=-1)
 
 
 sa_neighborhood.launches = 0

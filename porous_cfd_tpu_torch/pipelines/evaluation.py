@@ -1,27 +1,36 @@
-"""Evaluation core (counterpart of ``porous_cfd_tpu/pipelines/evaluation.py``):
-verbose prediction of every case, batch by batch, timed with a real device
-synchronization, then per-batch error and residual extraction on the host.
+"""Evaluation (counterpart of ``porous_cfd_tpu/pipelines/evaluation.py``):
+the core, ``evaluate``, predicts every case verbosely, batch by batch, timed
+with a real device synchronization, then extracts errors and residuals per
+batch on the host; the CLI side, ``build_arg_parser`` and
+``evaluate_split``, runs it over a loaded ``FoamDataset`` with the
+experiment's hooks.
 
-Plots, ``Errors.csv`` and dataset loading from OpenFOAM cases are not ported
-yet; the caller passes the stacked cases and their normalizers.
+The plots and ``Errors.csv`` (``--save-plots``) are not ported yet: the
+flag raises.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import time
+from argparse import ArgumentParser, Namespace
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from porous_cfd_tpu_torch.data.dataset import FoamDataset
 from porous_cfd_tpu_torch.data.foam_data import FoamData
+from porous_cfd_tpu_torch.device import not_ported
 from porous_cfd_tpu_torch.models.base import PinnModel
+from porous_cfd_tpu_torch.pipelines.inference import default_checkpoint
 from porous_cfd_tpu_torch.train.engine import gather_cases, make_predict_functions
 from porous_cfd_tpu_torch.utils import profiling
 
 
-def _inverse(scaler, x: np.ndarray) -> np.ndarray:
-    return scaler.to("cpu").inverse_transform(torch.as_tensor(x)).numpy()
+def inverse_transform(scaler, x) -> np.ndarray:
+    """``scaler``'s inverse of ``x`` (an array or a tensor) on the host."""
+    return scaler.to("cpu").inverse_transform(torch.as_tensor(np.asarray(x))).numpy()
 
 
 def get_normalized_signed_distance(points: np.ndarray, target: np.ndarray
@@ -40,11 +49,11 @@ def get_common_data(normalizers: dict, predicted: FoamData, target: FoamData,
     predicted_u, predicted_p = np.asarray(predicted["U"]), np.asarray(predicted["p"])
     target_u, target_p = np.asarray(target["U"]), np.asarray(target["p"])
     if "U" in normalizers:
-        predicted_u = _inverse(normalizers["U"], predicted_u)
-        target_u = _inverse(normalizers["U"], target_u)
+        predicted_u = inverse_transform(normalizers["U"], predicted_u)
+        target_u = inverse_transform(normalizers["U"], target_u)
     if "p" in normalizers:
-        predicted_p = _inverse(normalizers["p"], predicted_p)
-        target_p = _inverse(normalizers["p"], target_p)
+        predicted_p = inverse_transform(normalizers["p"], predicted_p)
+        target_p = inverse_transform(normalizers["p"], target_p)
 
     u_error = np.abs(predicted_u - target_u)
     p_error = np.abs(predicted_p - target_p)
@@ -61,8 +70,8 @@ def get_common_data(normalizers: dict, predicted: FoamData, target: FoamData,
         all_points = np.asarray(target["C"])
         interface_points = np.asarray(target["interface"]["C"])
         if "C" in normalizers:
-            all_points = _inverse(normalizers["C"], all_points)
-            interface_points = _inverse(normalizers["C"], interface_points)
+            all_points = inverse_transform(normalizers["C"], all_points)
+            interface_points = inverse_transform(normalizers["C"], interface_points)
         interface_dist = get_normalized_signed_distance(all_points,
                                                         interface_points)
     else:
@@ -76,6 +85,11 @@ def get_common_data(normalizers: dict, predicted: FoamData, target: FoamData,
             "Target divergence": target_div,
             "Region id": np.asarray(target["cellToRegion"]),
             "Interface distance": interface_dist}
+
+
+def get_pressure_drop(inlet_p, outlet_p) -> float:
+    """Mean inlet pressure less mean outlet pressure."""
+    return np.mean(inlet_p) - np.mean(outlet_p)
 
 
 @dataclasses.dataclass
@@ -124,3 +138,37 @@ def evaluate(model: PinnModel, dataset: FoamData, batch_size: int,
                 results[k].append(np.asarray(v))
     results = {k: np.concatenate(v) if v else None for k, v in results.items()}
     return Evaluation(results, inference_time, inference_time / n, predictions)
+
+
+def build_arg_parser() -> ArgumentParser:
+    """Reference CLI (evaluation.py:112-133)."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--save-plots", action="store_true", default=False,
+                   help="save the plots and Errors.csv (not ported yet)")
+    p.add_argument("--checkpoint", type=str, default=default_checkpoint())
+    p.add_argument("--data-dir", type=str, default="data/test")
+    p.add_argument("--meta-dir", type=str, default="data/train")
+    p.add_argument("--n-internal", type=int, default=1000)
+    p.add_argument("--n-boundary", type=int, default=200)
+    p.add_argument("--n-observations", type=int, default=500)
+    p.add_argument("--precision", type=str, default="bf16-mixed")
+    p.add_argument("--batch-size", type=int, default=4)
+    return p
+
+
+PostFn = Callable[[FoamDataset, dict], None]
+
+
+def evaluate_split(args: Namespace, model: PinnModel, data: FoamDataset,
+                   sample_process_fn: SampleFn | None = None,
+                   postprocess_fn: PostFn | None = None) -> Evaluation:
+    """The CLI's evaluation loop (evaluation.py:260-328): ``evaluate`` over
+    every case of ``data`` in batches of ``--batch-size``, each batch's
+    extraction extended by ``sample_process_fn``, then ``postprocess_fn``
+    on the concatenated results, which it may extend in place."""
+    if args.save_plots:
+        raise not_ported("the evaluation plots and Errors.csv (--save-plots)")
+    ev = evaluate(model, data.stacked(), args.batch_size, data.normalizers, sample_process_fn)
+    if postprocess_fn:
+        postprocess_fn(data, ev.results)
+    return ev

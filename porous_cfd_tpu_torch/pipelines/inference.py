@@ -1,0 +1,76 @@
+"""Inference pipeline (counterpart of ``porous_cfd_tpu/pipelines/inference.py``):
+the CLI's flags and per-case prediction, a batch of one case as the
+reference's DataLoader gives them, with an optional per-case callback.
+
+The field plots (``--save-plots``) are not ported yet: no callback draws
+them, and the flag raises.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from argparse import ArgumentParser, Namespace
+from pathlib import Path
+from typing import Callable, Optional
+
+import torch
+
+from porous_cfd_tpu_torch.data.dataset import FoamDataset
+from porous_cfd_tpu_torch.data.foam_data import FoamData
+from porous_cfd_tpu_torch.device import not_ported
+from porous_cfd_tpu_torch.models.base import PinnModel
+from porous_cfd_tpu_torch.train.engine import gather_cases, make_predict_functions
+
+
+def default_checkpoint() -> str:
+    """The last run under ``lightning_logs``, alphabetically
+    (inference.py:23-26)."""
+    try:
+        last = sorted(os.listdir("lightning_logs"))[-1]
+        return str(Path("lightning_logs") / last / "model.ckpt")
+    except (FileNotFoundError, IndexError):
+        return "model.ckpt"
+
+
+def build_arg_parser() -> ArgumentParser:
+    """Reference CLI (inference.py:19-39)."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--save-plots", action="store_true", default=False,
+                   help="save all the inference plots (not ported yet)")
+    p.add_argument("--checkpoint", type=str, default=default_checkpoint(),
+                   help="path of the saved model checkpoint")
+    p.add_argument("--data-dir", type=str, default="data/test")
+    p.add_argument("--meta-dir", type=str, default="data/train",
+                   help="directory containing the meta.json file")
+    p.add_argument("--n-internal", type=int, default=1000)
+    p.add_argument("--n-boundary", type=int, default=200)
+    p.add_argument("--n-observations", type=int, default=500)
+    p.add_argument("--precision", type=str, default="bf16-mixed")
+    return p
+
+
+# (dataset, target case, predicted case, case directory) -> None
+ResultFn = Callable[[FoamDataset, FoamData, FoamData, Path], None]
+
+
+def predict(args: Namespace, model: PinnModel, data: FoamDataset,
+            result_process_fn: Optional[ResultFn] = None) -> list[FoamData]:
+    """Predict each case of ``data`` alone on the model's device, in the
+    ``--precision`` the arguments ask for (bf16 compute with f32 weights
+    under ``bf16*``), after the model's per-dataset aux is attached once.
+    Returns each case's prediction as a host ``FoamData`` (N, F) and hands
+    it to ``result_process_fn`` beside the case's target."""
+    if getattr(args, "save_plots", False):
+        raise not_ported("the inference field plots (--save-plots)")
+    model = model.with_precision(getattr(args, "precision", "32-true"))
+    fns = make_predict_functions(model)
+    device = model.device
+    stacked = model.attach_neighbors(data.stacked().to(device))
+    predictions = []
+    for i in range(len(data)):
+        batch = gather_cases(stacked, torch.tensor([i], device=device))
+        predicted = fns.predict_batch(batch, False).numpy().squeeze()
+        predictions.append(predicted)
+        if result_process_fn is not None:
+            result_process_fn(data, data[i], predicted, Path(data.samples[i]))
+    return predictions

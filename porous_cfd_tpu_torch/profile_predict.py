@@ -2,14 +2,15 @@
 card.
 
     python -m porous_cfd_tpu_torch.profile_predict
-        [--model pipn|pipn_coupled|pipn_exact|pi_gano|pi_gano_full|pi_gano_pp|pipn_pp]
+        [--model pipn|pipn_coupled|pipn_exact|pi_gano|pi_gano_full|pi_gano_pp|pipn_pp|
+                 pipn_pp_mrg]
         [--mode predict|train] [--batches 8] [--trace DIR]
 
 Builds a full-width model (random weights from seed 8421): the
 duct_fixed_boundary ``pipn`` model (decoupled analytic path; ``pipn_coupled``:
 the max-pool-coupled one, winner gather and decoder_prop's j0_add mode;
-``pipn_exact``: the exact autodiff operator, no kernel) or ``pipn-pp``
-model, or the duct_variable_boundary ``pi-gano``, ``pi-gano-full`` or
+``pipn_exact``: the exact autodiff operator, no kernel), ``pipn-pp`` or
+``pipn-pp-mrg`` model, or the duct_variable_boundary ``pi-gano``, ``pi-gano-full`` or
 ``pi-gano-pp`` model, and one batch of 13 synthetic cases at 1500/1000/700
 points (with the model's per-dataset aux attached), warms up, then runs
 ``--batches`` verbose predictions (``predict``) or training steps with the examples' fixed loss
@@ -42,7 +43,7 @@ import torch
 from porous_cfd_tpu_torch.data.synthetic import (VARIABLE_BOUNDARIES, make_foam_batch,
                                                  make_scalers)
 from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp
-from porous_cfd_tpu_torch.models.pipn import pipn_foam, pipn_foam_pp
+from porous_cfd_tpu_torch.models.pipn import pipn_foam, pipn_foam_pp, pipn_foam_pp_mrg
 from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
 from porous_cfd_tpu_torch.train.engine import (make_optimizer, make_predict_functions,
                                                make_train_functions)
@@ -70,6 +71,10 @@ CONFIGS = {
                                                      [130, 256, 1024]],
                                    fe_radius=[0.5, 1], fe_fraction=[0.5, 0.25],
                                    seg_layers=[1088, 378, 128, 3], seg_dropout=[0.05, 0, 0])),
+    "pipn_pp_mrg": (pipn_foam_pp_mrg, dict(n_dims=2, mrg_in_features=6, nu=NU, d=14000.0,
+                                           f=17.11, fe_local_layers=[2, 64, 64],
+                                           seg_layers=[1088, 384, 128, 3],
+                                           seg_dropout=[0.05, 0, 0])),
 }
 LOSS_WEIGHTS = (1, 1, 1, 1, 1, 1, 100, 100, 100)
 # device-kernel names of the port's hand-written CUDA kernels (the decoder's

@@ -1043,11 +1043,13 @@ def _pointnet_case(case, act, cuda):
     return mlp, x.to(cuda), torch.randn((b, 1, layers[-1]), generator=gen).to(cuda)
 
 
-@pytest.mark.parametrize("act", ["silu", "tanh"])
-@pytest.mark.parametrize("case", ["n_lt_f", "ragged_128", "one_layer", "r_is_1", "r_is_f",
-                                  "ties_across_blocks", "f_gt_1024"])
-def test_pointnet_winner_backward_cases(cuda, case, act):
-    mlp, x, cot = _pointnet_case(case, act, cuda)
+def _check_pointnet_winners(mlp, x, cot, act, exact=False):
+    """The public wrapper's forward and backward against the plain version:
+    values, the argmax (equal everywhere when ``exact``, else where the top
+    two rows differ by more than RTOL), every gradient at the kernel's
+    argmax; the backward's compaction against pointnet_winner_rows, two runs
+    bit for bit and equal to autograd's, no synchronizing call. Returns the
+    winner count per case."""
     xg = x.clone().requires_grad_()
     m, arg = pointnet_cuda.pointnet_global(mlp.linears, xg, act)
     got = torch.autograd.grad((m * cot).sum(), [xg, *_params(mlp)])
@@ -1056,12 +1058,13 @@ def test_pointnet_winner_backward_cases(cuda, case, act):
         rm, ra = pointnet_cuda.pointnet_global_plain(mlp.linears, x, act)
         g = analytic.mlp_value(mlp.linears, x, act)
     assert_close(m.detach(), rm)
-    if case in ("r_is_1", "r_is_f", "ties_across_blocks"):
+    if exact:
         assert torch.equal(arg, ra)      # exact ties and clear winners
     else:
         top2 = torch.topk(g, 2, dim=-2).values
         decided = (top2[:, 0] - top2[:, 1]) > RTOL * rm.abs().max()
         assert torch.equal(arg[:, 0][decided], ra[:, 0][decided])
+    del g
     ref_m = pointnet_cuda.pointnet_global_at(mlp.linears, xg, act, arg)
     ref = torch.autograd.grad((ref_m * cot).sum(), [xg, *_params(mlp)])
     for a, r in zip(got, ref):
@@ -1081,11 +1084,116 @@ def test_pointnet_winner_backward_cases(cuda, case, act):
     k_rows, k_slot, k_count = runs[0][3]
     assert torch.equal(k_count.long(), count) and torch.equal(k_slot.long(), slot)
     assert torch.equal(k_rows.long(), rows[:, :k_rows.shape[1]])
-    if case == "r_is_1":
-        assert count.tolist() == [1] * x.shape[0]
-    if case == "r_is_f":
-        assert count.tolist() == [x.shape[-1]] * x.shape[0]
     flat = [[r[0], *r[1], *r[2]] for r in runs]
     assert all(torch.equal(u, v) for u, v in zip(*flat))
     for a, r in zip(flat[0], [got[0], *got[1::2], *got[2::2]]):
         assert torch.equal(a, r)
+    return count
+
+
+@pytest.mark.parametrize("act", ["silu", "tanh"])
+@pytest.mark.parametrize("case", ["n_lt_f", "ragged_128", "one_layer", "r_is_1", "r_is_f",
+                                  "ties_across_blocks", "f_gt_1024"])
+def test_pointnet_winner_backward_cases(cuda, case, act):
+    mlp, x, cot = _pointnet_case(case, act, cuda)
+    count = _check_pointnet_winners(mlp, x, cot, act,
+                                    exact=case in ("r_is_1", "r_is_f", "ties_across_blocks"))
+    if case == "r_is_1":
+        assert count.tolist() == [1] * x.shape[0]
+    if case == "r_is_f":
+        assert count.tolist() == [x.shape[-1]] * x.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# PIPN++ MRG: its five kernel shapes on a real chain, and its slice
+
+MRG_LEVELS = ["branch1_sa0", "branch2_sa", "branch1_sa1", "branch3_gsa", "branch4_gsa"]
+MRG_CFG = dict(n_dims=2, mrg_in_features=6, nu=1e-3, d=100.0, f=1.0,
+               fe_local_layers=[2, 32, 32], seg_layers=[1024 + 32, 96, 32, 3])
+
+
+def mrg_level_inputs(model, batch):
+    """The inputs each of MRG's five levels gets on ``batch`` (its chain
+    attached), as ``sa_cuda.sa_mrg_fused`` gives them, the levels below
+    run plainly: {level: (mlp, x, idx, mask, rel, xg)} for the radius
+    levels (xg None at the dynamic one) and {level: (mlp, x)} for the
+    global ones."""
+    from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors
+    from porous_cfd_tpu_torch.models.pipn import _geometry_features
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    mrg = model.module.global_fe
+    bnd = batch["boundary"]
+    geom = _geometry_features(bnd, "id_first").contiguous()
+    (_, idx0, mask0, rel0, posc0, xg), (_, idx1, mask1, rel1, posc1) = \
+        extract_sa_neighbors(batch.domain, 2)
+    with torch.no_grad():
+        x1 = sa_cuda.sa_neighborhood_plain(mrg.branch1_sa0.conv_mlp.linears, geom, idx0, mask0,
+                                           rel0, "silu", xg)
+        x1b = sa_cuda.sa_neighborhood_plain(mrg.branch1_sa1.conv_mlp.linears, x1, idx1, mask1,
+                                            rel1, "silu")
+        x2 = sa_cuda.sa_neighborhood_plain(mrg.branch2_sa.conv_mlp.linears, geom, idx0, mask0,
+                                           rel0, "silu", xg)
+    x12 = torch.cat([torch.cat([x1b, x2], dim=-2), torch.cat([posc1, posc0], dim=-2)], dim=-1)
+    return {"branch1_sa0": (mrg.branch1_sa0.conv_mlp, geom, idx0, mask0, rel0, xg),
+            "branch2_sa": (mrg.branch2_sa.conv_mlp, geom, idx0, mask0, rel0, xg),
+            "branch1_sa1": (mrg.branch1_sa1.conv_mlp, x1.contiguous(), idx1, mask1, rel1, None),
+            "branch3_gsa": (mrg.branch3_gsa.mlp, torch.cat([geom, bnd["C"]], dim=-1)),
+            "branch4_gsa": (mrg.branch4_gsa.mlp, x12.contiguous())}
+
+
+@pytest.mark.parametrize("b", [13, 2])
+@pytest.mark.parametrize("level", MRG_LEVELS)
+def test_mrg_levels_match_plain(cuda, level, b):
+    """Each of PIPN++ MRG's five kernel shapes at the reference envelope's
+    1000 boundary points and 64 neighbours ([8, 64, 128] and [8, 64, 128,
+    256] static, [130, 256] dynamic: a one-layer level; [8, 128, 256, 512]
+    and [258, 512] pointnet: a one-layer stack on 63 + 500 rows), at full
+    and at small batch, forward and backward against the plain versions as
+    SA_CASES and the pointnet cases are checked."""
+    from porous_cfd_tpu_torch.models.pipn import pipn_foam_pp_mrg
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    model = pipn_foam_pp_mrg(**MRG_CFG, scalers=make_scalers(),
+                             generator=torch.Generator().manual_seed(b), device=cuda)
+    batch = model.attach_neighbors(make_foam_batch(b, 64, 1000, 16, seed=b).to(cuda))
+    inputs = mrg_level_inputs(model, batch)[level]
+    gen = torch.Generator().manual_seed(len(level))
+    mlp, x = inputs[:2]
+    width = mlp.linears[-1].weight.shape[0]
+    if level.endswith("gsa"):
+        assert x.shape == ((b, 1000, 8) if level == "branch3_gsa" else (b, 63 + 500, 258))
+        cot = torch.randn((b, 1, width), generator=gen).to(cuda)
+        _check_pointnet_winners(mlp, x, cot, "silu")
+        return
+    _, _, idx, mask, rel, xg = inputs
+    assert idx.shape == ((b, 500, 64) if level != "branch1_sa1" else (b, 63, 64))
+    cot = torch.randn((b, idx.shape[1], width), generator=gen).to(cuda)
+    call = sa_cuda.level_call(mlp.linears, x, idx, mask, rel, "silu", xg)
+    _check_winner_backward(mlp, x, idx, mask, rel, xg, cot, call, "silu", xg is not None)
+
+
+def test_pipn_pp_mrg_slice_on_card_matches_cpu(cuda):
+    """derivative_apply with dropout on, on one neighbour chain (built on the
+    CPU, copied to the card): outputs and parameter gradients on the card
+    equal the CPU's; launches 3 sa_neighborhood, 2 pointnet_global and 2
+    decoder_prop per batch, their backwards 3, 2 and 2, no FPS."""
+    from porous_cfd_tpu_torch.models.pipn import pipn_foam_pp_mrg
+    from porous_cfd_tpu_torch.ops import fps_cuda, sa_cuda
+    cfg = dict(MRG_CFG, seg_dropout=[0.1, 0.0, 0.0], scalers=make_scalers())
+    gpu = pipn_foam_pp_mrg(**cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    cpu = pipn_foam_pp_mrg(**cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    batch = cpu.attach_neighbors(make_foam_batch(3, 200, 160, 20, seed=2))
+    counters = (sa_cuda.sa_neighborhood, sa_cuda.sa_neighborhood_backward,
+                pointnet_cuda.pointnet_global, pointnet_cuda.pointnet_global_backward,
+                decoder_cuda.decoder_prop, decoder_cuda.decoder_prop_backward,
+                fps_cuda.farthest_point_sampling)
+    before = [c.launches for c in counters]
+    results = []
+    for model, b in ((gpu, batch.to(cuda)), (cpu, batch)):
+        out = model.derivative_apply(b, deterministic=False, seed=77)
+        loss = sum((o ** 2).mean() for o in out)
+        results.append((out, torch.autograd.grad(loss, list(model.module.parameters()))))
+    assert [c.launches - n for c, n in zip(counters, before)] == [3, 3, 2, 2, 2, 2, 0]
+    for a, r in zip(results[0][0], results[1][0]):
+        assert_close(a.detach().cpu(), r.detach())
+    for a, r in zip(results[0][1], results[1][1]):
+        assert_close(a.cpu(), r)

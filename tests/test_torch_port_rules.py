@@ -33,6 +33,10 @@ PP_SMALL = dict(fe_local_layers=[2, 8, 8], fe_global_layers=[[8, 8, 8], [10, 8, 
 PI_GANO_PP_SMALL = dict(PI_GANO_SMALL, geometry_layers=[[8, 8], [10, 8], [10, 8]],
                         geometry_radius=[0.5, 1.0], geometry_fraction=[0.5, 0.25],
                         max_neighbors=8)
+# the MRG encoder's widths are the model's own; the local and decoder stacks
+# are narrow
+MRG_SMALL = dict(n_dims=2, mrg_in_features=6, fe_local_layers=[2, 8, 8],
+                 seg_layers=[1024 + 8, 8, 3], max_neighbors=8)
 
 
 def small_module(seed):
@@ -94,6 +98,19 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
         pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers())
     with pytest.raises(RuntimeError, match="CUDA"):
         pipn_manufactured(1e-2, 50.0, 1.0, [2, 8, 8], [11, 8, 16], [24, 8, 3])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipn_foam_pp_mrg(nu=1e-3, d=1.0, f=1.0, **MRG_SMALL, scalers=make_scalers())
+    # the entry points ask for the card before they read or write anything
+    from porous_cfd_tpu_torch import bench
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary import evaluate, inference, train
+    from porous_cfd_tpu_torch.tools import golden_spread, train_golden_duct
+    missing = ["--checkpoint", "no/model.ckpt", "--data-dir", "no/split"]
+    for entry, argv in ((train.run, ["--model", "pipn", "--train-dir", "no/split"]),
+                        (inference.run, missing), (evaluate.run, missing), (bench.run, []),
+                        (train_golden_duct.main, ["--root", "no/golden"]),
+                        (golden_spread.main, ["--root", "no/golden"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(argv)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -109,8 +126,9 @@ def test_unported_paths_raise():
                                  make_optimizer(model, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_functions(model, make_optimizer(model, 1), mesh=object())
-    # PIPN's exact and coupled paths, PiGanoFull, PI-GANO++ and bf16-mixed
-    # are ported; PI-GANO's, PI-GANO++'s and PIPN++'s exact paths are not
+    # PIPN's exact and coupled paths, PiGanoFull, PI-GANO++, PIPN++ MRG and
+    # bf16-mixed are ported; PI-GANO's, PI-GANO++'s, PIPN++'s and PIPN++
+    # MRG's exact paths are not
     for kwargs in (dict(fast_derivatives=False), dict(coupled_context=True)):
         assert pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(), device="cpu",
                          **kwargs) is not None
@@ -125,8 +143,12 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pi_gano_pp(1e-3, **PI_GANO_PP_SMALL, scalers=make_scalers(), device="cpu",
                    fast_derivatives=False)
-    for factory in (pi_gano_pp_full, pipn_foam_pp_mrg, pipn_manufactured_pp,
-                    pipn_foam_pp_full):
+    assert pipn_foam_pp_mrg(nu=1e-3, d=1.0, f=1.0, **MRG_SMALL, scalers=make_scalers(),
+                            device="cpu") is not None
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipn_foam_pp_mrg(nu=1e-3, d=1.0, f=1.0, **MRG_SMALL, scalers=make_scalers(),
+                         fast_derivatives=False, device="cpu")
+    for factory in (pi_gano_pp_full, pipn_manufactured_pp, pipn_foam_pp_full):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             factory(1e-3, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -136,6 +158,9 @@ def test_unported_paths_raise():
     from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(build_arg_parser().parse_args(["--model", "pi-gano-pp-full"]), {}, "cpu")
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary import train as fixed
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fixed.get_model(build_arg_parser().parse_args(["--model", "pipn-pp-full"]), {}, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(build_arg_parser().parse_args(["--mesh-data", "2"]), model, None, None)
 
@@ -153,8 +178,16 @@ def test_no_jax_import_anywhere_in_the_port():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     # the data layer, the case writer, the pipelines and the CLIs included
-    for sub in ("data", "datagen", "pipelines", "examples"):
+    for sub in ("data", "datagen", "pipelines", "examples", "tools"):
         assert any(PORT / sub in f.parents for f in files), sub
+    # the FVM solver, the fixed-boundary CLIs, the inference pipeline, the
+    # golden-duct run and the bench
+    for rel in ("datagen/fvm.py", "examples/duct_fixed_boundary/train.py",
+                "examples/duct_fixed_boundary/inference.py",
+                "examples/duct_fixed_boundary/evaluate.py", "pipelines/inference.py",
+                "pipelines/evaluation.py", "tools/train_golden_duct.py",
+                "tools/golden_spread.py", "bench.py"):
+        assert PORT / rel in files, rel
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -169,6 +202,10 @@ def test_port_imports_with_jax_blocked():
         "import porous_cfd_tpu_torch.models.pipn\n"
         "import porous_cfd_tpu_torch.models.pi_gano\n"
         "import porous_cfd_tpu_torch.examples.duct_variable_boundary.train\n"
+        "import porous_cfd_tpu_torch.examples.duct_fixed_boundary.evaluate\n"
+        "import porous_cfd_tpu_torch.datagen.fvm\n"
+        "import porous_cfd_tpu_torch.tools.train_golden_duct\n"
+        "import porous_cfd_tpu_torch.bench\n"
         "for info in pkgutil.walk_packages(porous_cfd_tpu_torch.__path__,"
         " 'porous_cfd_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
@@ -215,7 +252,9 @@ def test_kernel_modules_need_no_nvcc_or_gpu(monkeypatch):
                           full=True),
                   pi_gano_pp(1e-3, **PI_GANO_PP_SMALL, scalers=make_scalers(), device="cpu"),
                   pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(),
-                               seg_dropout=[0.1, 0.0], device="cpu")):
+                               seg_dropout=[0.1, 0.0], device="cpu"),
+                  pipn_foam_pp_mrg(nu=1e-3, d=1.0, f=1.0, **MRG_SMALL, scalers=make_scalers(),
+                                   seg_dropout=[0.1, 0.0], device="cpu")):
         batch = model.attach_neighbors(make_foam_batch(1, 8, 4, 2, seed=0))
         out, jac, lap = model.derivative_apply(batch, deterministic=False, seed=5)
         assert out.shape == (1, 12, 3) and jac.shape == lap.shape == (1, 8, 3, 2)
@@ -260,6 +299,12 @@ def test_wrappers_reject_other_devices():
                                 torch.empty((1, 16, 8), device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         fps_cuda.farthest_point_sampling(torch.empty((2, 10, 2), device="meta"), 4)
+    mrg = pipn_foam_pp_mrg(nu=1e-3, d=1.0, f=1.0, **MRG_SMALL, scalers=make_scalers(),
+                           device="cpu").module.global_fe
+    level = (None, idx, mask, rel, torch.empty((1, 2, 2), device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        sa_cuda.sa_mrg_fused(mrg, "silu", torch.empty((1, 4, 6), device="meta"),
+                             torch.empty((1, 4, 2), device="meta"), [level, level])
 
 
 def test_sync_sites_count_calls_and_not_the_modes_notice(monkeypatch):
