@@ -45,7 +45,14 @@ Phases, in order; any failure exits non-zero:
      PIPN++ MRG's five shapes on a real chain: sa_neighborhood at [8, 64,
      128] and [8, 64, 128, 256] (static) and [130, 256] (dynamic, one
      layer), pointnet_global at [8, 128, 256, 512] over 1000 rows and [258,
-     512] (one layer) over 63 + 500;
+     512] (one layer) over 63 + 500, (m) the manufactured PIPN++'s shapes,
+     all at tanh, on a real chain of make_manufactured_batch cases of
+     1000 / 200 points: sa_neighborhood at [6, 64] (static, one layer) and
+     [66, 128] (dynamic, one layer), FPS 200 -> 100 -> 25 over 52 cases'
+     and one case's boundary clouds, pointnet_global one layer [130, 1024]
+     over 25 centroids, the decoupled decoder [1088, 512, 256, 128, 3]
+     without dropout, with blocks per SM; and pointnet_global's backward at
+     the four ++ global levels timed in turns (PN_PP_LEVELS);
   4. pipn prediction: verbose prediction (fields + PDE residuals) of 52
      synthetic cases at 1500/1000/700 internal/boundary/observation points, in
      4 batches of 13, through the full-width duct_fixed_boundary ``pipn``
@@ -110,9 +117,26 @@ Phases, in order; any failure exits non-zero:
      prints finite errors and pressure drops;
  19. the bench: ``python -m porous_cfd_tpu_torch.bench`` with BENCH_RUNS
      runs of BENCH_EPOCHS epochs; its line parses, with steps/s for every
-     ported family and not_ported for the two U-Nets.
-Each of phases 4-14 and 16-17 sets every launch count to 0 just before it
-and reads them just after (phase 18 around each training command); every
+     ported family and not_ported for the two U-Nets;
+ 20, 21. pipn_pp_manufactured prediction and training: phases 8 and 9 for
+     the full-width manufactured_solutions ``pipn-pp`` model on 52 cases of
+     make_manufactured_batch(rng(8421), 52, 1000, 200), its six physics
+     losses weighted 1 (2 sa_neighborhood, 1 pointnet_global and 2
+     decoder_prop launches each way a step, FPS twice an attach);
+ 22. the manufactured_solutions CLIs: ``generate_data`` writes its 16 / 4 /
+     4 split; the training CLI trains ``pipn-pp`` (the four kernels) and
+     ``pipn`` (the exact operator, no launch) for MS_CLI_EPOCHS epochs; the
+     loss without dropout falls; inference restores each checkpoint and
+     predicts as the trained model does within RTOL; evaluate prints finite
+     errors;
+ 23. the exact paths (``fast_derivatives=False``) of pipn-pp, pipn-pp-mrg,
+     pi-gano and pi-gano-pp at full width: values, J and H equal to the
+     analytic path's within RTOL for one seed, dropout on, over BATCH cases;
+     EXACT_STEPS training steps launching no kernel, the loss without
+     dropout falling.
+Each of phases 4-14, 16-17 and 20-21 sets every launch count to 0 just before it
+and reads them just after (phases 18 and 22 around each training command, 23
+around its steps); every
 training phase also counts the synchronizing calls of one step, which must
 be none. The second-to-last lines are the
 ``{"kernels": [...]}`` JSON and the card's name and power limit; the last
@@ -198,6 +222,41 @@ FIX_POINTS = (1500, 350, 700)
 # (without dropout) over its FIX_EPOCHS steps from the seeded weights
 FIX_MIN_FALL = 1e-2
 FIX_MODELS = ("pipn", "pipn-pp-mrg")
+# the manufactured_solutions "pipn-pp" configuration at full width
+# (examples/manufactured_solutions/train.py): one-layer static and dynamic
+# radius levels over the boundary cloud's [boundaryId || C] rows, a
+# one-layer 1024-wide global level and the decoupled decoder, all at tanh,
+# on cases of 1000 internal and 200 boundary points; physics-only, so six
+# losses (continuity, momentum x/y, boundary u x/y and p), each weighted 1
+MSP_LOCAL = [2, 64, 64]
+MSP_GLOBAL = [[2 * 2 + 2, 64], [64 + 2, 128], [128 + 2, 1024]]
+MSP_RADIUS, MSP_FRACTION, MSP_NEIGHBORS = [0.6, 1.2], [0.5, 0.25], 64
+MSP_SEG = [1024 + 64, 512, 256, 128, 3]
+MSP_INT, MSP_BND = 1000, 200
+MSP_WEIGHTS = (1,) * 6
+# pointnet_global's backward at the ++ global levels, timed in turns:
+# (label, widths, rows a case); MRG's one-layer branch-4 level pools its two
+# branches' centroids (63 + 500)
+PN_TURNS = 3
+PN_PP_LEVELS = (("pipn_pp", PP_GLOBAL[-1], 125), ("pi-gano-pp", PGP_GEOMETRY[-1], 125),
+                ("pipn_pp_mrg branch4", [256 + 2, 512], 563),
+                ("pipn_pp manufactured", MSP_GLOBAL[-1], 25))
+# the manufactured CLI phase: generate_data's 16 / 4 / 4 split (200 internal
+# and 40 + 40 boundary points a case), MS_CLI_EPOCHS epochs of each zoo model
+# at batch MS_CLI_BATCH
+MS_CLI_EPOCHS, MS_CLI_BATCH = 30, 8
+MS_CLI_POINTS = (200, 80)
+# the exact-path phase: EXACT_STEPS training steps with dropout on over
+# EXACT_CASES cases for each family (pipn-pp-mrg's loss first rises, for
+# about 15 steps from the seeded weights, before it falls)
+EXACT_STEPS, EXACT_CASES = 40, 4
+# the parameters of the max-pooled encoders (SetAbstraction and global
+# levels, PI-GANO's geometry encoder and branch): a channel whose top two
+# rows lie within rounding of each other may pool a different winner on
+# the exact path (plain PyTorch, cuBLAS f32) than on the analytic path (the
+# kernels, 3xTF32), and its gradient then lands on another row
+POOLED_PARAMS = ("feature_extract.global_feature.", "global_fe.", "geometry_encoder.",
+                 "branch.")
 # the bench phase: its line at the envelope, fewer runs and epochs than its
 # defaults (5 of 10), which the standalone bench keeps
 BENCH_RUNS, BENCH_EPOCHS = 1, 2
@@ -407,10 +466,10 @@ def shape_timing(res, pk):
             "bytes": res["nbytes"], "max_abs_err": res["err"]}
 
 
-def grad_shapes(int_widths, widths, dims=2):
+def grad_shapes(int_widths, widths, dims=2, n_int=N_INT, n_bnd=N_BND):
     """(rows, K, N) of every weight gradient one engine backward contracts:
     the internal launch's (v, J, H) stash rows, then the boundary launch's."""
-    rows = (BATCH * N_INT * (1 + 2 * dims), BATCH * N_BND)
+    rows = (BATCH * n_int * (1 + 2 * dims), BATCH * n_bnd)
     return ([(rows[0], int_widths[i], int_widths[i + 1]) for i in range(len(widths) - 1)]
             + [(rows[1], widths[i], widths[i + 1]) for i in range(len(widths) - 1)])
 
@@ -508,26 +567,27 @@ def adam_first_step_spread(g, tau, lr, eps):
     return (u(g + tau) - u(g)).abs().maximum((u(g - tau) - u(g)).abs())
 
 
-def check_pointnet(layers, n_pts, x_grad, gen, tag):
+def check_pointnet(layers, n_pts, x_grad, gen, tag, act="silu"):
     """pointnet_global forward (max and argmax) and backward against the
-    plain version at (BATCH, n_pts, layers[0]), timed. Returns the forward's
-    and the backward's (err, ms, plain ms, flops, bytes)."""
+    plain version at (BATCH, n_pts, layers[0]) with activation ``act``,
+    timed. Returns the forward's and the backward's (err, ms, plain ms,
+    flops, bytes)."""
     import torch
     from porous_cfd_tpu_torch.models.mlp import MLP
     from porous_cfd_tpu_torch.ops import pointnet_cuda
     from porous_cfd_tpu_torch.physics import analytic
     dev = torch.device("cuda", 0)
     name = f"pointnet_global {tag}"
-    mlp = MLP(layers, activation="silu", generator=gen).to(dev)
+    mlp = MLP(layers, activation=act, generator=gen).to(dev)
     x = torch.randn((BATCH, n_pts, layers[0]), generator=gen).to(dev)
     lin = mlp.linears
     with torch.no_grad():
-        m_k, a_k = pointnet_cuda.pointnet_global(lin, x, "silu")
+        m_k, a_k = pointnet_cuda.pointnet_global(lin, x, act)
         torch.cuda.synchronize()
-        m_p, a_p = pointnet_cuda.pointnet_global_plain(lin, x, "silu")
+        m_p, a_p = pointnet_cuda.pointnet_global_plain(lin, x, act)
         torch.cuda.synchronize()
         err_f = check_close(name, [("max", m_k, m_p)])
-        g_full = analytic.mlp_value(lin, x, "silu")
+        g_full = analytic.mlp_value(lin, x, act)
         top2 = torch.topk(g_full, 2, dim=-2).values
         decided = (top2[:, 0] - top2[:, 1]) > RTOL * m_p.abs().max()
         mismatch = int(((a_k[:, 0] != a_p[:, 0]) & decided).sum())
@@ -536,8 +596,8 @@ def check_pointnet(layers, n_pts, x_grad, gen, tag):
         if mismatch:
             fail(f"{name} argmax disagrees with the plain version")
         del g_full, top2
-        ms_f = time_ms(torch, lambda: pointnet_cuda.pointnet_global(lin, x, "silu"))
-        ms_fp = time_ms(torch, lambda: pointnet_cuda.pointnet_global_plain(lin, x, "silu"))
+        ms_f = time_ms(torch, lambda: pointnet_cuda.pointnet_global(lin, x, act))
+        ms_fp = time_ms(torch, lambda: pointnet_cuda.pointnet_global_plain(lin, x, act))
     macs = sum(a * b for a, b in zip(layers[:-1], layers[1:]))
     fwd = {"err": err_f, "ms": ms_f, "plain_ms": ms_fp,
            "flops": 2.0 * BATCH * n_pts * macs,
@@ -549,11 +609,11 @@ def check_pointnet(layers, n_pts, x_grad, gen, tag):
     params = list(mlp.parameters())
     xg = x.clone().requires_grad_(x_grad)
     wrt = ([xg] if x_grad else []) + params
-    m_k, a_k = pointnet_cuda.pointnet_global(lin, xg, "silu")
+    m_k, a_k = pointnet_cuda.pointnet_global(lin, xg, act)
     cot = torch.randn((BATCH, 1, layers[-1]), generator=gen).to(dev)
     got = torch.autograd.grad((m_k * cot).sum(), wrt)
     torch.cuda.synchronize()
-    m_ref = pointnet_cuda.pointnet_global_at(lin, xg, "silu", a_k)
+    m_ref = pointnet_cuda.pointnet_global_at(lin, xg, act, a_k)
     loss_ref = (m_ref * cot).sum()
     ref = torch.autograd.grad(loss_ref, wrt, retain_graph=True)
     names = (["dx"] if x_grad else []) + [f"d{n}" for n, _ in mlp.named_parameters()]
@@ -564,7 +624,7 @@ def check_pointnet(layers, n_pts, x_grad, gen, tag):
     a_k = a_k.contiguous()
 
     def backward(winners=False):
-        return pointnet_cuda.pointnet_global_backward(w_g, b_g, x, "silu", a_k, dm, x_grad,
+        return pointnet_cuda.pointnet_global_backward(w_g, b_g, x, act, a_k, dm, x_grad,
                                                       winners)
 
     # the kernel's compaction against the plain one, and two runs bit for bit
@@ -723,29 +783,31 @@ def check_trunk(gen, last_activation=True, reduction=True):
     return fwd, bwd
 
 
-def check_decoder(seg, seg_dropout, gen, tag):
-    """decoder_prop against the plain version at ``seg`` widths over BATCH
-    cases of N_INT internal and N_BND boundary rows: forward without dropout
-    (both launches, and the internal launch alone), then forward and
-    backward with ``seg_dropout`` and without, timed. Returns the forward's
-    and the backward's (err, ms, plain ms, flops, bytes, extra timings)."""
+def check_decoder(seg, seg_dropout, gen, tag, act="silu", n_int=N_INT, n_bnd=N_BND):
+    """decoder_prop against the plain version at ``seg`` widths and
+    activation ``act`` over BATCH cases of ``n_int`` internal and ``n_bnd``
+    boundary rows: forward without dropout (both launches, and the internal
+    launch alone), then forward and backward with ``seg_dropout`` (when the
+    model has dropout) and without, timed at the first of those. Returns the
+    forward's and the backward's (err, ms, plain ms, flops, bytes, extra
+    timings)."""
     import torch
     from porous_cfd_tpu_torch.models.mlp import MLP
     from porous_cfd_tpu_torch.ops import decoder_cuda, mlp_prop_cuda
     dev = torch.device("cuda", 0)
-    dec = MLP(seg, seg_dropout, "silu", last_activation=False, generator=gen).to(dev)
+    dec = MLP(seg, seg_dropout, act, last_activation=False, generator=gen).to(dev)
     lin_d = dec.linears
     n_local, dims = FE_LOCAL[-1], 2
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
-    v = rnd(BATCH, N_INT, n_local)
-    jt = rnd(BATCH, dims, N_INT, n_local, scale=0.5)
-    ht = rnd(BATCH, dims, N_INT, n_local, scale=0.5)
-    v_b = rnd(BATCH, N_BND, n_local)
+    v = rnd(BATCH, n_int, n_local)
+    jt = rnd(BATCH, dims, n_int, n_local, scale=0.5)
+    ht = rnd(BATCH, dims, n_int, n_local, scale=0.5)
+    v_b = rnd(BATCH, n_bnd, n_local)
     g = rnd(BATCH, 1, seg[0] - n_local)
-    args = (lin_d, n_local, v, jt, ht, v_b, g, "silu")
+    args = (lin_d, n_local, v, jt, ht, v_b, g, act)
     with torch.no_grad():
         out_k = decoder_cuda.decoder_prop(*args)
         torch.cuda.synchronize()
@@ -755,10 +817,10 @@ def check_decoder(seg, seg_dropout, gen, tag):
                                                               out_p)))
         ms_dec = time_ms(torch, lambda: decoder_cuda.decoder_prop(*args))
         ms_dec_p = time_ms(torch, lambda: decoder_cuda.decoder_prop_plain(*args))
-        args_int = (lin_d, n_local, v, jt, ht, None, g, "silu")
+        args_int = (lin_d, n_local, v, jt, ht, None, g, act)
         ms_dec_int = time_ms(torch, lambda: decoder_cuda.decoder_prop(*args_int))
     macs_d = n_local * seg[1] + sum(a * b for a, b in zip(seg[1:-1], seg[2:]))
-    rows = BATCH * N_INT * (1 + 2 * dims) + BATCH * N_BND
+    rows = BATCH * n_int * (1 + 2 * dims) + BATCH * n_bnd
     flops = 2.0 * rows * macs_d + 2.0 * BATCH * (seg[0] - n_local) * seg[1]
     fwd_bytes = nbytes_of([v, jt, ht, v_b, g, *dec.parameters(), *out_k])
     del out_k, out_p
@@ -767,10 +829,10 @@ def check_decoder(seg, seg_dropout, gen, tag):
     params_d = list(dec.parameters())
     names = ["dv", "djt", "dht", "dv_b", "dg"] + [f"d{n}" for n, _ in dec.named_parameters()]
     errs, timing = [], {}
-    rate = max(seg_dropout)
-    for drop in (seg_dropout, None):
-        dtag = f"dropout {rate}" if drop else "no dropout"
-        dargs = (lin_d, n_local, *leaves, "silu", drop, drop is None, SEED)
+    configs = (seg_dropout, None) if seg_dropout and max(seg_dropout) > 0 else (None,)
+    for drop in configs:
+        dtag = f"dropout {max(drop)}" if drop else "no dropout"
+        dargs = (lin_d, n_local, *leaves, act, drop, drop is None, SEED)
         out_k = decoder_cuda.decoder_prop(*dargs)
         cots = [torch.randn(o.shape, generator=gen).to(dev) for o in out_k]
         got = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out_k, cots)),
@@ -783,15 +845,16 @@ def check_decoder(seg, seg_dropout, gen, tag):
         ref = torch.autograd.grad(loss_ref, leaves + params_d, retain_graph=True)
         errs.append(check_close(f"decoder_prop {tag} backward, {dtag}",
                                 list(zip(names, got, ref))))
-        if drop:
+        if drop is configs[0]:
             with torch.no_grad():
                 timing["ms"] = time_ms(torch, lambda: decoder_cuda.decoder_prop(*dargs))
                 timing["plain_ms"] = time_ms(torch,
                                              lambda: decoder_cuda.decoder_prop_plain(*dargs))
             timing["plain_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
                 loss_ref, leaves + params_d, retain_graph=True))
-            meta = mlp_prop_cuda.Meta(n_local, "silu", tuple(float(r) for r in drop), SEED,
-                                      dims, BATCH, N_INT, N_BND, tuple([n_local] + seg[1:]))
+            rates = mlp_prop_cuda.dropout_rates(drop, len(lin_d), drop is None)
+            meta = mlp_prop_cuda.Meta(n_local, act, rates, SEED, dims, BATCH, n_int, n_bnd,
+                                      tuple([n_local] + seg[1:]))
             with torch.no_grad():
                 weights = [p.detach() for p in (lin.weight for lin in lin_d)]
                 ctx = torch.nn.functional.linear(g[:, 0], lin_d[0].weight[:, n_local:],
@@ -805,17 +868,17 @@ def check_decoder(seg, seg_dropout, gen, tag):
                 gj_none = torch.zeros_like(gj)
                 timing["bwd_internal_ms"] = time_ms(
                     torch, lambda: decoder_cuda.decoder_prop_backward(
-                        mlp_prop_cuda.Meta(n_local, "silu", meta.rates, SEED, dims, BATCH,
-                                           N_INT, 0, meta.widths),
-                        weights, stashes[:2], gv[:, :N_INT].contiguous(), gj_none, gj_none))
+                        mlp_prop_cuda.Meta(n_local, act, meta.rates, SEED, dims, BATCH,
+                                           n_int, 0, meta.widths),
+                        weights, stashes[:2], gv[:, :n_int].contiguous(), gj_none, gj_none))
             bwd_bytes = nbytes_of([v, jt, ht, v_b, g, *params_d, *cots, *got])
             del stashes
         del out_k, out_p, got, ref, loss_ref
-    fwd = {"err": max(err_dec, errs[0], errs[2]), "ms": timing["ms"],
+    fwd = {"err": max([err_dec] + errs[::2]), "ms": timing["ms"],
            "plain_ms": timing["plain_ms"], "flops": flops, "nbytes": fwd_bytes,
            "extra": {"ms_no_dropout": ms_dec, "plain_ms_no_dropout": ms_dec_p,
                      "ms_internal_launch_no_dropout": ms_dec_int}}
-    bwd = {"err": max(errs[1], errs[3]), "ms": timing["bwd_ms"],
+    bwd = {"err": max(errs[1::2]), "ms": timing["bwd_ms"],
            "plain_ms": timing["plain_bwd_ms"], "flops": 2.0 * flops, "nbytes": bwd_bytes,
            "extra": {"ms_internal_launch": timing["bwd_internal_ms"]}}
     return fwd, bwd
@@ -1015,7 +1078,7 @@ def sa_blocks_at(layers, n_cent, k, n_src, static):
     return sa_cuda.blocks(sa_cuda.level_call(lin, x, idx, mask, rel, "silu", xg))
 
 
-def check_sa_level(tag, conv_mlp, level, xg, n_src, gen, pk, empty_every=0):
+def check_sa_level(tag, conv_mlp, level, xg, n_src, gen, pk, empty_every=0, act="silu"):
     """sa_neighborhood against the plain version on the card at one radius
     level: ``level`` is the chain's entry (cent, idx, mask, rel, posc) of
     BATCH cases; static when ``xg`` (the chain's level-0 rows) is given,
@@ -1031,7 +1094,7 @@ def check_sa_level(tag, conv_mlp, level, xg, n_src, gen, pk, empty_every=0):
     work counts the valid neighbour rows, the backward's its winners
     (sa_backward_flops, with the count before the winner-row backward
     logged beside it). Returns {"fwd": ..., "bwd": ...}, each the level's
-    shape and shape_timing."""
+    shape and shape_timing. ``act`` is the level's activation."""
     import torch
     from porous_cfd_tpu_torch.ops import sa_cuda
     dev = torch.device("cuda", 0)
@@ -1047,18 +1110,18 @@ def check_sa_level(tag, conv_mlp, level, xg, n_src, gen, pk, empty_every=0):
     wrt = params + ([] if static else [x])
     names = [f"d{n}" for n, _ in conv_mlp.named_parameters()]
     names += [] if static else ["dx"]
-    out = sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, "silu", xg)
+    out = sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, act, xg)
     cot = torch.randn(out.shape, generator=gen).to(dev)
     got = torch.autograd.grad((out * cot).sum(), wrt)
     x_in = None if x is None else x.detach()
-    call = sa_cuda.level_call(lin, x_in, idx, mask, rel, "silu", xg)
+    call = sa_cuda.level_call(lin, x_in, idx, mask, rel, act, xg)
     with torch.no_grad():  # the argmax the backward was given: same kernel, same inputs
         arg = sa_cuda._forward(call)[1]
     torch.cuda.synchronize()
     with torch.no_grad():
-        ref_out, ref_arg = sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel, "silu", xg,
+        ref_out, ref_arg = sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel, act, xg,
                                                          with_argmax=True)
-        h = sa_cuda._plain_rows(lin, x, idx, mask, rel, "silu", xg)
+        h = sa_cuda._plain_rows(lin, x, idx, mask, rel, act, xg)
         top2 = torch.topk(h.masked_fill(~mask[..., None], -1e30), 2, dim=2).values
         decided = (top2[:, :, 0] - top2[:, :, 1]) > RTOL * ref_out.abs().max()
         decided |= mask.sum(-1, keepdim=True) < 2
@@ -1069,7 +1132,7 @@ def check_sa_level(tag, conv_mlp, level, xg, n_src, gen, pk, empty_every=0):
         f"channels decided, {mismatch} disagree")
     if mismatch:
         fail(f"sa_neighborhood {tag}: argmax disagrees with the plain version")
-    ref_at = sa_cuda.sa_neighborhood_at(lin, x, idx, mask, rel, "silu", arg, xg)
+    ref_at = sa_cuda.sa_neighborhood_at(lin, x, idx, mask, rel, act, arg, xg)
     loss_ref = (ref_at * cot).sum()
     ref = torch.autograd.grad(loss_ref, wrt, retain_graph=True)
     err_b = check_close(f"sa_neighborhood {tag} backward", list(zip(names, got, ref)))
@@ -1089,10 +1152,10 @@ def check_sa_level(tag, conv_mlp, level, xg, n_src, gen, pk, empty_every=0):
     if not all(torch.equal(u, v) for u, v in zip(flat(first), flat(second))):
         fail(f"sa_neighborhood {tag} backward: two runs differ")
     with torch.no_grad():
-        ms_f = time_ms(torch, lambda: sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, "silu",
+        ms_f = time_ms(torch, lambda: sa_cuda.sa_neighborhood(lin, x, idx, mask, rel, act,
                                                               xg))
         ms_fp = time_ms(torch, lambda: sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel,
-                                                                     "silu", xg))
+                                                                     act, xg))
         ms_b = time_ms(torch, backward)
     ms_bp = time_ms(torch, lambda: torch.autograd.grad(loss_ref, wrt, retain_graph=True),
                     n=5)
@@ -1130,14 +1193,14 @@ def check_sa_level(tag, conv_mlp, level, xg, n_src, gen, pk, empty_every=0):
     if empty_every:  # every empty_every-th neighbourhood emptied
         empty = mask.clone()
         empty[:, ::empty_every] = False
-        out_e = sa_cuda.sa_neighborhood(lin, x, idx, empty, rel, "silu")
+        out_e = sa_cuda.sa_neighborhood(lin, x, idx, empty, rel, act)
         got_e = torch.autograd.grad((out_e * cot).sum(), wrt)
         with torch.no_grad():
             arg_e = sa_cuda._forward(sa_cuda.level_call(lin, x_in, idx, empty, rel,
-                                                        "silu"))[1]
-        ref_e = sa_cuda.sa_neighborhood_plain(lin, x, idx, empty, rel, "silu")
+                                                        act))[1]
+        ref_e = sa_cuda.sa_neighborhood_plain(lin, x, idx, empty, rel, act)
         ref_ge = torch.autograd.grad(
-            (sa_cuda.sa_neighborhood_at(lin, x, idx, empty, rel, "silu", arg_e) * cot).sum(),
+            (sa_cuda.sa_neighborhood_at(lin, x, idx, empty, rel, act, arg_e) * cot).sum(),
             wrt)
         check_close("sa_neighborhood emptied", [("out", out_e.detach(), ref_e.detach())]
                     + list(zip(names, got_e, ref_ge)), quiet=True)
@@ -1150,7 +1213,7 @@ def check_sa_level(tag, conv_mlp, level, xg, n_src, gen, pk, empty_every=0):
     return res
 
 
-def check_sa(seq, chain, gen, pk, n_levels=len(PP_RADIUS)):
+def check_sa(seq, chain, gen, pk, n_levels=len(PP_RADIUS), act="silu"):
     """sa_neighborhood (check_sa_level) at the two radius levels of ``seq``
     (a SetAbstractionSeq: PIPN++'s, or PI-GANO++'s at 32 neighbours): level
     0 static on ``chain`` (the model's precompute of BATCH cases: xg, rel,
@@ -1166,7 +1229,7 @@ def check_sa(seq, chain, gen, pk, n_levels=len(PP_RADIUS)):
         level = check_sa_level(tag, getattr(seq, f"sa_{i}").conv_mlp, nbrs[i],
                                nbrs[0][5] if static else None,
                                0 if static else nbrs[i - 1][0].shape[1], gen, pk,
-                               0 if static else 7)
+                               0 if static else 7, act)
         for key in res:
             res[key][tag] = level[key]
     return sum_levels(res)
@@ -1377,7 +1440,8 @@ def derivatives_no_grad(model, batch):
 
 
 def prediction_phase(label, model, cpu_model, data, scalers, counters, want, name, smi,
-                     per_evaluate=None, share_aux=False, compare_cases=BATCH, row_mask=None):
+                     per_evaluate=None, share_aux=False, compare_cases=BATCH, row_mask=None,
+                     points=(N_INT, N_BND, N_OBS)):
     """Verbose prediction of every case in batches of BATCH through
     ``evaluate``: launch counts per batch (``want``; ``per_evaluate`` more per
     call, from its ``attach_neighbors``), shapes, finiteness, the median time
@@ -1385,11 +1449,13 @@ def prediction_phase(label, model, cpu_model, data, scalers, counters, want, nam
     against the same module on the CPU, which builds its own per-dataset aux
     unless ``share_aux``. ``row_mask(model, cpu_model, on_card, on_cpu)``,
     if given, says which internal rows' derivatives and residuals are
-    compared (all where None)."""
+    compared (all where None). ``points`` are the cases' (internal,
+    boundary, observation) rows."""
     import torch
     from porous_cfd_tpu_torch.pipelines.evaluation import evaluate
     from porous_cfd_tpu_torch.train.engine import gather_cases, make_predict_functions
     dev = model.device
+    n_int, n_bnd = points[:2]
     evaluate(model, gather_cases(data, torch.arange(BATCH)), BATCH, scalers)  # warm-up
 
     for c in counters.values():
@@ -1403,9 +1469,9 @@ def prediction_phase(label, model, cpu_model, data, scalers, counters, want, nam
         fail(f"{label} launch counts {counts} != {want} per batch over {n_batches} batches "
              f"and {per_evaluate} per evaluate")
     for i, (pred, extras) in enumerate(ev.predictions):
-        if tuple(pred.data.shape) != (BATCH, N_INT + N_BND, 3):
+        if tuple(pred.data.shape) != (BATCH, n_int + n_bnd, 3):
             fail(f"{label} batch {i}: fields shape {tuple(pred.data.shape)}")
-        if tuple(extras.data.shape) != (BATCH, N_INT, 3):
+        if tuple(extras.data.shape) != (BATCH, n_int, 3):
             fail(f"{label} batch {i}: residual shape {tuple(extras.data.shape)}")
         if not (bool(pred.data.isfinite().all()) and bool(extras.data.isfinite().all())):
             fail(f"{label} batch {i}: non-finite fields or residuals")
@@ -1446,7 +1512,7 @@ def prediction_phase(label, model, cpu_model, data, scalers, counters, want, nam
         ("Momentum", extras_g["Momentum"].cpu()[rows], extras_c["Momentum"][rows]),
         ("div", extras_g["div"].cpu()[rows], extras_c["div"][rows])])
     return {"ms_per_batch": ms_batch, "cases_per_s": cases_s, "runs_ms_per_batch": runs_ms,
-            "batches": n_batches, "batch_size": BATCH, "points": [N_INT, N_BND, N_OBS],
+            "batches": n_batches, "batch_size": BATCH, "points": list(points),
             "launches_per_batch": {k: (v - per_evaluate.get(k, 0)) // n_batches
                                    for k, v in counts.items()},
             "launches_per_evaluate": per_evaluate}
@@ -1454,7 +1520,7 @@ def prediction_phase(label, model, cpu_model, data, scalers, counters, want, nam
 
 def training_phase(label, full_model, data, counters, want, name, smi, model_type,
                    want_attach=None, share_aux=False, runs=TRAIN_RUNS, epochs=TRAIN_EPOCHS,
-                   two_cases=(0, 1)):
+                   two_cases=(0, 1), weights=LOSS_WEIGHTS, points=(N_INT, N_BND, N_OBS)):
     """Training of ``full_model(device)`` with the fixed loss weights at
     batch BATCH: launch counts of ``attach_neighbors`` (``want_attach``,
     default none) and per step (``want``), finite non-zero gradients in
@@ -1462,7 +1528,8 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
     ``runs`` runs of ``epochs`` epochs), one step on the cases ``two_cases``
     against the CPU with dropout on (each side with its own per-dataset aux,
     or both with the card's if ``share_aux``), and a Trainer.fit whose
-    checkpoints restore."""
+    checkpoints restore. ``weights`` are the fixed loss weights, ``points``
+    the cases' (internal, boundary, observation) rows."""
     import numpy as np
     import torch
     from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
@@ -1471,7 +1538,7 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
                                                    make_train_functions)
     from porous_cfd_tpu_torch.train.trainer import Trainer, TrainerConfig, load_checkpoint
     dev = torch.device("cuda", 0)
-    scaler = FixedLossScaler(LOSS_WEIGHTS)
+    scaler = FixedLossScaler(weights)
     steps_per_epoch = N_CASES // BATCH
     model = full_model(dev)
     train_fns = make_train_functions(model, make_optimizer(model, steps_per_epoch), scaler)
@@ -1606,7 +1673,7 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
                           TrainerConfig(epochs=3, batch_size=BATCH, logs_dir=tmp,
                                         name="smoke", checkpoint_every=2, seed=SEED),
                           loss_scaler=scaler, model_type=model_type)
-        trainer.write_model_meta(N_INT, N_BND, N_OBS)
+        trainer.write_model_meta(*points)
         st = trainer.fit()
         log_dir = Path(tmp) / "lightning_logs" / "smoke"
         written = sorted(p.name for p in log_dir.iterdir())
@@ -2092,6 +2159,311 @@ def bench_phase(name, smi):
     return {"command_s": wall_s, "line": line}
 
 
+def pointnet_backward_turns(gen):
+    """pointnet_global's backward (the winner-row kernel, through
+    ``pointnet_global_backward``) at the ++ global levels, PN_PP_LEVELS,
+    timed in PN_TURNS turns (each turn times every level once, with CUDA
+    events) so that a level's spread across turns shows the card's own
+    drift. Returns {level: {"turns_ms": [...], ...}}."""
+    import torch
+    from porous_cfd_tpu_torch.models.mlp import MLP
+    from porous_cfd_tpu_torch.ops import pointnet_cuda
+    dev = torch.device("cuda", 0)
+    calls = {}
+    for label, widths, rows in PN_PP_LEVELS:
+        act = "tanh" if "manufactured" in label else "silu"
+        mlp = MLP(widths, activation=act, generator=gen).to(dev)
+        x = torch.randn((BATCH, rows, widths[0]), generator=gen).to(dev)
+        w = [lin.weight.detach() for lin in mlp.linears]
+        b = [lin.bias.detach() for lin in mlp.linears]
+        with torch.no_grad():
+            _, arg = pointnet_cuda.pointnet_global(mlp.linears, x, act)
+        dm = torch.randn((BATCH, 1, widths[-1]), generator=gen).to(dev)
+        calls[label] = (lambda w=w, b=b, x=x, act=act, arg=arg.contiguous(), dm=dm:
+                        pointnet_cuda.pointnet_global_backward(w, b, x, act, arg, dm, True))
+    out = {label: {"widths": widths, "rows": rows, "turns_ms": []}
+           for label, widths, rows in PN_PP_LEVELS}
+    for _ in range(PN_TURNS):
+        for label, fn in calls.items():
+            out[label]["turns_ms"].append(time_ms(torch, fn))
+    for label, r in out.items():
+        r["spread_ms"] = max(r["turns_ms"]) - min(r["turns_ms"])
+        log(f"  pointnet_global backward {label} {r['widths']} over {r['rows']} rows, in "
+            f"turns: " + ", ".join(f"{t:.4f}" for t in r["turns_ms"]) + " ms")
+    return out
+
+
+def check_manufactured_pp(model, data, gen, pk):
+    """Phase 3m: the manufactured PIPN++'s kernel shapes on a real chain of
+    BATCH cases of ``data`` (make_manufactured_batch, MSP_INT / MSP_BND
+    points), all at tanh, each against its plain version both ways: SA level
+    0 static and one layer ([6, 64], from the chain's [boundaryId || C]
+    rows), SA level 1 dynamic and one layer ([66, 128], on random level-0
+    features, and again with every seventh neighbourhood emptied), FPS at
+    both levels over every case's boundary cloud and over one case's
+    (indices equal), pointnet_global one layer [130, 1024] over the 25
+    level-1 centroids with dx, and the decoupled decoder MSP_SEG with no
+    dropout over MSP_INT + MSP_BND rows; blocks per SM at each SA level and
+    pointnet's blocks. Returns {kernel key: numbers at these shapes}."""
+    import torch
+    from porous_cfd_tpu_torch.models.neighbors import fps_count
+    from porous_cfd_tpu_torch.ops import pointnet_cuda
+    from porous_cfd_tpu_torch.train.engine import gather_cases
+    dev = torch.device("cuda", 0)
+    seq = model.module.feature_extract.global_feature
+    have = [[m.linears[0].weight.shape[1]] + [lin.weight.shape[0] for lin in m.linears]
+            for m in (seq.sa_0.conv_mlp, seq.sa_1.conv_mlp, seq.global_sa.mlp)]
+    if have != MSP_GLOBAL or model.module.activation != "tanh":
+        fail(f"manufactured pipn_pp: widths {have}, activation {model.module.activation}")
+    n_pts = [MSP_BND]
+    for f in MSP_FRACTION:
+        n_pts.append(fps_count(n_pts[-1], f))
+    blocks = {}
+    for i, static in ((0, True), (1, False)):
+        blk = sa_blocks_at(MSP_GLOBAL[i], n_pts[i + 1], MSP_NEIGHBORS, n_pts[i], static)
+        blocks[f"sa level {i}"] = blk
+        log(f"  blocks sa_neighborhood manufactured level {i} {MSP_GLOBAL[i]}, {n_pts[i + 1]} "
+            f"centroids of {MSP_NEIGHBORS}: " + ", ".join(f"{k} {v}" for k, v in blk.items()))
+        if min(blk["fwd_blocks_per_sm"], blk["bwd_blocks_per_sm"]) < 1:
+            fail(f"sa_neighborhood manufactured level {i}: no block fits an SM ({blk})")
+    cols, pts, fwd_b, bwd_b = pointnet_cuda.blocks(MSP_GLOBAL[-1])
+    blocks["pointnet"] = {"columns": cols, "points": pts, "fwd_smem": fwd_b, "bwd_smem": bwd_b}
+    log(f"  blocks pointnet_global manufactured global {MSP_GLOBAL[-1]}: forward {pts} "
+        f"points, two warpgroups of {cols} columns each, {fwd_b} bytes of shared memory; "
+        f"backward {bwd_b} bytes")
+    chain = model.neighbor_precompute(gather_cases(data, torch.arange(BATCH)).to(dev))
+    sa_fwd, sa_bwd = check_sa(seq, chain, gen, pk, len(MSP_RADIUS), act="tanh")
+    pos = data.data[:, MSP_INT:, data.column_indices("C")].contiguous().to(dev)
+    fps = fps_levels(torch, pos, n_pts[1:], f"manufactured B={pos.shape[0]}")
+    fps_one = fps_levels(torch, pos[:1].contiguous(), n_pts[1:], "manufactured B=1")
+    pn_fwd, pn_bwd = check_pointnet(MSP_GLOBAL[-1], n_pts[-1], True, gen,
+                                    "pipn_pp manufactured global", act="tanh")
+    dec_fwd, dec_bwd = check_decoder(MSP_SEG, None, gen, "pipn_pp manufactured", act="tanh",
+                                     n_int=MSP_INT, n_bnd=MSP_BND)
+    split_backward(torch, dec_bwd, grad_shapes(*[[MSP_LOCAL[-1]] + MSP_SEG[1:]] * 2,
+                                               n_int=MSP_INT, n_bnd=MSP_BND), pk)
+    turns = pointnet_backward_turns(gen)
+    fps_numbers = {k: fps[k] for k in ("ms", "device_ms", "plain_ms", "flops", "nbytes")}
+    out = {}
+    for key, res, shape in (
+            ("sa_neighborhood", sa_fwd, {"widths": MSP_GLOBAL[:2], "activation": "tanh"}),
+            ("sa_neighborhood_bwd", sa_bwd, {"widths": MSP_GLOBAL[:2], "activation": "tanh"}),
+            ("pointnet_global", pn_fwd, {"input": [BATCH, n_pts[-1], MSP_GLOBAL[-1][0]],
+                                         "widths": MSP_GLOBAL[-1], "activation": "tanh"}),
+            ("pointnet_global_bwd", pn_bwd, {"input": [BATCH, n_pts[-1], MSP_GLOBAL[-1][0]],
+                                             "widths": MSP_GLOBAL[-1], "activation": "tanh",
+                                             "winner_rows": pn_bwd["winner_rows"],
+                                             "pp_global_levels_in_turns": turns}),
+            ("decoder_prop", dec_fwd, {"widths": MSP_SEG, "activation": "tanh",
+                                       "points": [MSP_INT, MSP_BND]}),
+            ("decoder_prop_bwd", dec_bwd, {"widths": MSP_SEG, "activation": "tanh",
+                                           "points": [MSP_INT, MSP_BND]}),
+            ("farthest_point_sampling", {**fps_numbers, "err": 0.0},
+             {"levels": fps["levels"], "at_b1": fps_one["levels"]})):
+        out[key] = {**shape, **shape_timing(res, pk), **res.get("extra", {})}
+    out["sa_neighborhood"]["blocks"] = blocks
+    return out
+
+
+def manufactured_cli_phase(name, smi, counters):
+    """Phase 22: the port's manufactured_solutions experiment on the card,
+    through the entry points a user calls: ``generate_data`` writes its
+    16 / 4 / 4 split into a temporary directory; the training CLI trains
+    ``pipn-pp`` (its analytic path, the four kernels) and ``pipn`` (the
+    exact operator, no kernel) for MS_CLI_EPOCHS epochs at MS_CLI_POINTS
+    points; checks model.ckpt, best.ckpt and model_meta.json, the launches
+    of each command, and that the loss without dropout fell (the trained
+    weights against the CLI's initial ones on the training split); the
+    inference CLI restores each checkpoint and predicts each held-out case
+    as the trained model does, within RTOL; the evaluate CLI prints finite
+    errors."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.examples.manufactured_solutions import (evaluate, generate_data,
+                                                                      inference, train)
+    from porous_cfd_tpu_torch.train.engine import (compute_losses, gather_cases,
+                                                   make_predict_functions)
+    dev = torch.device("cuda", 0)
+    n_int, n_bnd = MS_CLI_POINTS
+    points = ["--n-internal", str(n_int), "--n-boundary", str(n_bnd), "--n-observations", "0"]
+    report = {"splits": dict(generate_data.SPLITS), "points": list(MS_CLI_POINTS),
+              "epochs": MS_CLI_EPOCHS, "batch_size": MS_CLI_BATCH}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        generate_data.run(str(root))
+        log(f"manufactured cli: generate_data wrote {generate_data.SPLITS} cases in "
+            f"{time.perf_counter() - t0:.2f} s")
+        held_out = ["--data-dir", str(root / "val"), "--meta-dir", str(root / "train")]
+        for model_type in ("pipn-pp", "pipn"):
+            argv = ["--model", model_type, "--epochs", str(MS_CLI_EPOCHS), "--log-every", "10",
+                    "--batch-size", str(MS_CLI_BATCH), *points,
+                    "--train-dir", str(root / "train"), "--val-dir", str(root / "val"),
+                    "--logs-dir", str(Path(tmp) / "logs"), "--name", model_type]
+            for c in counters.values():
+                c.launches = 0
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                model = train.run(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items() if c.launches}
+            for line in printed.getvalue().splitlines():
+                log(f"  | {line}")
+            if model_type == "pipn-pp":
+                want = {"sa_neighborhood", "sa_neighborhood_bwd", "pointnet_global",
+                        "pointnet_global_bwd", "decoder_prop", "decoder_prop_bwd",
+                        "farthest_point_sampling"}
+                if set(launches) != want:
+                    fail(f"manufactured cli pipn-pp: launches {launches}, not of {want}")
+            elif launches:
+                fail(f"manufactured cli pipn (the exact operator) launched {launches}")
+            log_dir = Path(tmp) / "logs" / "lightning_logs" / model_type
+            for fname in ("model.ckpt", "best.ckpt", "model_meta.json"):
+                if not (log_dir / fname).exists():
+                    fail(f"manufactured cli {model_type}: the CLI did not write {fname}")
+            model_meta = json.loads((log_dir / "model_meta.json").read_text())
+            if model_meta["Model type"] != model_type or model_meta["N boundary"] != n_bnd:
+                fail(f"manufactured cli {model_type}: model_meta.json {model_meta}")
+            # the loss without dropout, the CLI's initial weights against the
+            # trained module on the training split as the CLI sampled it
+            args = train.build_arg_parser().parse_args(argv)
+            train_data = train.make_datasets(args)[0]
+            totals = []
+            for mdl in (train.get_model(model_type, device=dev), model):
+                batch = mdl.attach_neighbors(train_data.stacked().to(dev))
+                with torch.enable_grad() if mdl.derivative_apply is None else torch.no_grad():
+                    losses, _ = compute_losses(mdl, batch, deterministic=True)
+                totals.append(float(losses.detach().sum()))
+            if not totals[1] < totals[0]:
+                fail(f"manufactured cli {model_type}: the training loss did not fall {totals}")
+            inf_argv = ["--checkpoint", str(log_dir / "model.ckpt"), *held_out, *points[:4]]
+            preds = inference.run(inf_argv + ["--precision", "32-true"])
+            val_data = inference.load_split(inference.build_arg_parser().parse_args(inf_argv))
+            stacked = model.attach_neighbors(val_data.stacked().to(dev))
+            ref = make_predict_functions(model).predict_batch(
+                gather_cases(stacked, torch.arange(len(val_data), device=dev))).data.cpu()
+            err_inf = check_close(f"manufactured cli {model_type} inference against the "
+                                  "trained model",
+                                  [(f"case {i}", torch.as_tensor(p_.data), ref[i])
+                                   for i, p_ in enumerate(preds)])
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                summary = evaluate.run(inf_argv)
+            log(f"  | {printed.getvalue().strip()}")
+            if not all(np.isfinite(v) for v in summary.values()):
+                fail(f"manufactured cli {model_type}: evaluate printed a non-finite number "
+                     f"{summary}")
+            log(f"manufactured cli {model_type}: {MS_CLI_EPOCHS} epochs in {wall_s:.1f} s for "
+                f"the whole command; loss without dropout {totals[0]:.6f} -> {totals[1]:.6f}; "
+                f"inference within {err_inf:.3e} of the trained model; launches {launches}; "
+                f"evaluate {json.dumps(summary)} ({name}; {smi})")
+            report[model_type] = {"command_s": wall_s, "launches": launches,
+                                  "loss_initial_trained": totals,
+                                  "inference_max_abs_err": err_inf, "evaluate": summary,
+                                  "model_meta": model_meta}
+            del model
+            torch.cuda.empty_cache()
+    return report
+
+
+def exact_paths_phase(families, data, counters, name, smi):
+    """Phase 23: the exact autodiff paths on the card. For each family of
+    ``families`` ({label: factory(device, fast)}): the exact path
+    (``fast_derivatives=False``) and the analytic path, same weights, same
+    seed, dropout on, over BATCH cases: values, J and H equal within RTOL
+    (each of these families' analytic path is exact: its pooled context
+    does not depend on the differentiated coordinates); one training step
+    of each path from the same weights over EXACT_CASES cases, dropout on:
+    the loss vector and the gradients of every parameter outside the pooled
+    encoders (POOLED_PARAMS) equal within RTOL, the encoders' largest
+    difference logged beside their largest gradient; then EXACT_STEPS
+    training steps of the exact path, no kernel launched in a step, and the
+    loss without dropout falling over them."""
+    import torch
+    from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
+    from porous_cfd_tpu_torch.train.engine import (compute_losses, gather_cases,
+                                                   make_optimizer, make_train_functions,
+                                                   model_derivatives)
+    dev = torch.device("cuda", 0)
+    scaler = FixedLossScaler(LOSS_WEIGHTS)
+    weights = torch.tensor(LOSS_WEIGHTS, dtype=torch.float32, device=dev)
+    report = {}
+    for label, factory in families.items():
+        fast, exact = factory(dev, True), factory(dev, False)
+        if exact.derivative_apply is not None:
+            fail(f"exact {label}: fast_derivatives=False kept an analytic path")
+        batch = fast.attach_neighbors(gather_cases(data, torch.arange(BATCH)).to(dev))
+        with torch.no_grad():
+            ref = model_derivatives(fast, batch, False, seed=SEED)
+        got = [t.detach() for t in model_derivatives(exact, batch, False, seed=SEED)]
+        err = check_close(f"exact {label} against its analytic path, dropout on",
+                          list(zip(("values", "J", "H"), got, ref)))
+        del ref, got
+        train_batch = gather_cases(batch, torch.arange(EXACT_CASES, device=dev))
+        stepped = []
+        for mdl in (fast, exact):
+            f1 = make_train_functions(mdl, make_optimizer(mdl, 1), scaler)
+            _, m1 = f1.train_step(f1.init_state(seed=SEED), train_batch)
+            stepped.append((m1, [p.grad.detach().clone() for p in mdl.module.parameters()]))
+        names = [n for n, _ in exact.module.named_parameters()]
+        grads = list(zip(names, stepped[1][1], stepped[0][1]))
+        err_step = check_close(f"exact {label} one step against its analytic path",
+                               [("metrics", stepped[1][0], stepped[0][0])]
+                               + [(f"grad {n}", a, r) for n, a, r in grads
+                                  if not n.startswith(POOLED_PARAMS)], quiet=True)
+        pooled = [(float((a - r).abs().max()), float(r.abs().max())) for n, a, r in grads
+                  if n.startswith(POOLED_PARAMS)]
+        pooled_err = max(pooled, default=(0.0, 0.0))
+        log(f"  exact {label}: the pooled encoders' gradients ({len(pooled)} tensors) differ "
+            f"by up to {pooled_err[0]:.3e} (largest gradient there {pooled_err[1]:.3e}; "
+            f"near-tie winners, not gated)")
+        del stepped, grads
+        exact = factory(dev, False)
+
+        def loss_now():
+            with torch.enable_grad():
+                losses, _ = compute_losses(exact, train_batch, deterministic=True)
+            return float((weights * losses.detach()).sum())
+
+        before = loss_now()
+        fns = make_train_functions(exact, make_optimizer(exact, 1), scaler)
+        state = fns.init_state(seed=SEED)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        totals = []
+        for _ in range(EXACT_STEPS):
+            state, m = fns.train_step(state, train_batch)
+            totals.append(m[0])
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) * 1e3 / EXACT_STEPS
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        totals = [float(t) for t in totals]
+        after = loss_now()
+        log(f"exact {label}: {EXACT_STEPS} steps over {EXACT_CASES} cases, total loss with "
+            f"dropout {totals[0]:.6f} -> {totals[-1]:.6f}, without {before:.6f} -> "
+            f"{after:.6f}; {ms_step:.2f} ms a step with a sync each (the host's clock); "
+            f"launches {launches} ({name}; {smi})")
+        if launches:
+            fail(f"exact {label}: the exact path launched {launches}")
+        if not all(t == t and abs(t) < float("inf") for t in totals) or not after < before:
+            fail(f"exact {label}: the loss is not finite or did not fall")
+        report[label] = {"max_abs_err_against_analytic": err,
+                         "step_max_abs_err_against_analytic": err_step,
+                         "step_pooled_grad_max_abs_diff": pooled_err[0],
+                         "loss_with_dropout": totals,
+                         "loss_without_dropout_before_after": [before, after],
+                         "ms_per_step": ms_step}
+        del fast, exact, fns, state, batch, train_batch
+        torch.cuda.empty_cache()
+    return report
+
+
 def main() -> int:
     if not (ROOT / "porous_cfd_tpu_torch").is_dir():
         print("chip_smoke: porous_cfd_tpu_torch/ not found beside this script",
@@ -2106,7 +2478,9 @@ def main() -> int:
                                                      make_scalers)
     from porous_cfd_tpu_torch.models.neighbors import fps_count
     from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp
-    from porous_cfd_tpu_torch.models.pipn import pipn_foam, pipn_foam_pp, pipn_foam_pp_mrg
+    from porous_cfd_tpu_torch.data.manufactured import make_manufactured_batch
+    from porous_cfd_tpu_torch.models.pipn import (pipn_foam, pipn_foam_pp, pipn_foam_pp_mrg,
+                                                  pipn_manufactured_pp)
     from porous_cfd_tpu_torch.ops import (build, decoder_cuda, dropout, fps_cuda,
                                           mlp_prop_cuda, neural_op_cuda, pointnet_cuda,
                                           sa_cuda)
@@ -2282,31 +2656,38 @@ def main() -> int:
                          seg_dropout=SEG_DROPOUT, fast_derivatives=False,
                          generator=torch.Generator().manual_seed(SEED), device=device)
 
-    def pi_gano_model(device):
+    def pi_gano_model(device, fast=True):
         return pi_gano(NU, 3, PG_BRANCH, PG_GEOMETRY, PG_LOCAL, PG_OPERATORS, PG_DROPOUT,
-                       scalers, VARIABLE_BOUNDARIES,
+                       scalers, VARIABLE_BOUNDARIES, fast_derivatives=fast,
                        generator=torch.Generator().manual_seed(SEED), device=device)
 
     def pi_gano_full_model(device):
         return pi_gano(NU, 3, PG_BRANCH, PG_GEOMETRY, PG_LOCAL, PG_OPERATORS, PG_DROPOUT,
-                       scalers, VARIABLE_BOUNDARIES, full=True,
+                       scalers, VARIABLE_BOUNDARIES, full=True, fast_derivatives=True,
                        generator=torch.Generator().manual_seed(SEED), device=device)
 
-    def pi_gano_pp_model(device):
+    def pi_gano_pp_model(device, fast=True):
         return pi_gano_pp(NU, 3, PG_BRANCH, PGP_GEOMETRY, PGP_RADIUS, PGP_FRACTION, PG_LOCAL,
                           PG_OPERATORS, PG_DROPOUT, scalers, VARIABLE_BOUNDARIES,
-                          max_neighbors=PGP_NEIGHBORS,
+                          max_neighbors=PGP_NEIGHBORS, fast_derivatives=fast,
                           generator=torch.Generator().manual_seed(SEED), device=device)
 
-    def pipn_pp_model(device):
+    def pipn_pp_model(device, fast=True):
         return pipn_foam_pp(NU, D, F, PP_LOCAL, PP_GLOBAL, PP_RADIUS, PP_FRACTION, PP_SEG,
                             scalers, seg_dropout=PP_DROPOUT, max_neighbors=PP_NEIGHBORS,
-                            generator=torch.Generator().manual_seed(SEED), device=device)
+                            fast_derivatives=fast, generator=torch.Generator().manual_seed(SEED), device=device)
 
-    def pipn_pp_mrg_model(device):
+    def pipn_pp_mrg_model(device, fast=True):
         return pipn_foam_pp_mrg(2, MRG_IN, NU, D, F, MRG_LOCAL, MRG_SEG, scalers,
                                 seg_dropout=MRG_DROPOUT, max_neighbors=PP_NEIGHBORS,
+                                fast_derivatives=fast,
                                 generator=torch.Generator().manual_seed(SEED), device=device)
+
+    def pipn_pp_ms_model(device):
+        return pipn_manufactured_pp(0.01, 50.0, 1.0, MSP_LOCAL, MSP_GLOBAL, MSP_RADIUS,
+                                    MSP_FRACTION, MSP_SEG, max_neighbors=MSP_NEIGHBORS,
+                                    generator=torch.Generator().manual_seed(SEED),
+                                    device=device)
 
     # ---- 3f. sa_neighborhood at PIPN++'s level shapes, on a real chain --------
     pp_card = pipn_pp_model(dev)
@@ -2371,6 +2752,14 @@ def main() -> int:
                                    widths), pk)
         add_entry(key, coupled[mode][0], mode=mode)
         add_entry(f"{key}_bwd", coupled[mode][1], mode=mode)
+    torch.cuda.empty_cache()
+
+    # ---- 3m. the manufactured PIPN++'s shapes at tanh, on a real chain --------------
+    import numpy as np
+    data_ms = make_manufactured_batch(np.random.default_rng(SEED), N_CASES, MSP_INT, MSP_BND)
+    for key, numbers in check_manufactured_pp(pipn_pp_ms_model(dev), data_ms, gen, pk).items():
+        kernels[key]["at_pipn_pp_manufactured_shape"] = numbers
+        kernels[key]["max_abs_err"] = max(kernels[key]["max_abs_err"], numbers["max_abs_err"])
     for kern in kernels.values():
         log(json.dumps({"kernel_timing": kern}))
     torch.cuda.empty_cache()
@@ -2499,6 +2888,36 @@ def main() -> int:
 
     # ---- 19. the port's bench ------------------------------------------------------
     bench_report = bench_phase(name, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 20, 21. pipn_pp_manufactured: the chain, verbose prediction, training -------
+    log("pipn_pp_manufactured boundary chain, card against CPU:")
+    msp_chain = check_chain(pipn_pp_ms_model(dev), pipn_pp_ms_model("cpu"), data_ms,
+                            len(MSP_RADIUS), MSP_NEIGHBORS)
+    want_msp = dict(sa_neighborhood=2, pointnet_global=1, decoder_prop=2)
+    msp_points = (MSP_INT, MSP_BND, 0)
+    msp_pred = prediction_phase("pipn_pp_manufactured", pipn_pp_ms_model(dev),
+                                pipn_pp_ms_model("cpu"), data_ms, {}, counters,
+                                counts(**want_msp), name, smi,
+                                per_evaluate=counts(farthest_point_sampling=2), share_aux=True,
+                                points=msp_points)
+    msp_train = training_phase("pipn_pp_manufactured", pipn_pp_ms_model, data_ms, counters,
+                               counts(**want_msp, sa_neighborhood_bwd=2, pointnet_global_bwd=1,
+                                      decoder_prop_bwd=2),
+                               name, smi, "pipn-pp",
+                               want_attach=counts(farthest_point_sampling=2), share_aux=True,
+                               weights=MSP_WEIGHTS, points=msp_points)
+    torch.cuda.empty_cache()
+
+    # ---- 22. the manufactured_solutions CLIs ------------------------------------------
+    ms_cli_report = manufactured_cli_phase(name, smi, counters)
+    torch.cuda.empty_cache()
+
+    # ---- 23. the exact paths of PIPN++, PIPN++ MRG, PI-GANO and PI-GANO++ --------------
+    exact_report = exact_paths_phase({"pipn-pp": pipn_pp_model,
+                                      "pipn-pp-mrg": pipn_pp_mrg_model,
+                                      "pi-gano": pi_gano_model,
+                                      "pi-gano-pp": pi_gano_pp_model}, data, counters, name, smi)
 
     # launches on each kernel's main path (per training step; FPS per
     # attach_neighbors, the only place it runs), and per path; the ctx_width
@@ -2508,7 +2927,8 @@ def main() -> int:
     paths = {"pipn": (pipn_pred, pipn_train), "pi_gano": (pg_pred, pg_train),
              "pi_gano_full": (pgf_pred, pgf_train), "pi_gano_pp": (pgp_pred, pgp_train),
              "pipn_pp": (pp_pred, pp_train), "pipn_coupled": (pc_pred, pc_train),
-             "pipn_exact": (ex_pred, ex_train), "pipn_pp_mrg": (mrg_pred, mrg_train)}
+             "pipn_exact": (ex_pred, ex_train), "pipn_pp_mrg": (mrg_pred, mrg_train),
+             "pipn_pp_manufactured": (msp_pred, msp_train)}
     for k, kern in kernels.items():
         main_path = ("pi_gano_full" if k.startswith("neural_ops_prop_") and
                      k != "neural_ops_prop_bwd" else
@@ -2552,6 +2972,11 @@ def main() -> int:
     log(json.dumps({"pipn_pp_mrg_train": mrg_train}))
     log(json.dumps({"fixed_cli": fixed_report}))
     log(json.dumps({"bench": bench_report}))
+    log(json.dumps({"pipn_pp_manufactured_chain": msp_chain}))
+    log(json.dumps({"pipn_pp_manufactured_slice": msp_pred}))
+    log(json.dumps({"pipn_pp_manufactured_train": msp_train}))
+    log(json.dumps({"manufactured_cli": ms_cli_report}))
+    log(json.dumps({"exact_paths": exact_report}))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,14 +9,17 @@ The Taylor-Green-like solution
 with the exact Navier-Stokes-Darcy forcing (the Darcy-Forchheimer
 penalization inside the porous zone included) synthesized analytically, so
 the PDE-residual machinery can be checked end to end without a CFD solver.
-The file-based ``ManufacturedDataset`` needs the dataset loader, which is
-not ported yet.
+``ManufacturedDataset`` reads the cases ``datagen/synthetic_case.py:
+write_manufactured_split`` writes (geometry only) and synthesizes the
+fields at load time; ``make_manufactured_batch`` fabricates a batch in
+memory.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from porous_cfd_tpu_torch.data.dataset import FoamDataset
 from porous_cfd_tpu_torch.data.foam_data import FoamData
 
 
@@ -54,6 +57,29 @@ MANUFACTURED_LABELS = {
     "U": ["Ux", "Uy"],
     "boundaryId": ["boundaryIdwalls", "boundaryIdinterface"],
 }
+
+
+class ManufacturedDataset(FoamDataset):
+    """File-based manufactured-solutions dataset: a ``FoamDataset`` of
+    geometry-only cases whose ``add_features`` synthesizes ``U``, ``p`` and
+    the exact forcing ``f`` (``manufactured_fields``) on the internal table
+    and on each patch. It samples no observation points."""
+
+    def __init__(self, data_dir, n_internal: int, n_boundary: int, d: float, f: float,
+                 rng: np.random.Generator, meta_dir=None, extra_fields=(),
+                 nu: float = 0.01):
+        self.nu, self.d, self.f = nu, d, f
+        super().__init__(data_dir, n_internal, n_boundary, 0, rng, meta_dir=meta_dir,
+                         extra_fields=list(extra_fields))
+
+    def add_features(self, internal, patches):
+        super().add_features(internal, patches)
+        for table in (internal, *patches.values()):
+            u, p, forcing = manufactured_fields(table["C"], table["cellToRegion"],
+                                                self.nu, self.d, self.f)
+            table["f"] = forcing
+            table["U"] = u
+            table["p"] = p
 
 
 def make_manufactured_batch(rng: np.random.Generator, batch_size: int, n_internal: int,

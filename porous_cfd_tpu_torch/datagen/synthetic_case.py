@@ -5,8 +5,8 @@ without JAX can make a dataset.
 Fabricates complete on-disk OpenFOAM cases (field files, postProcessing
 surfaceFieldValue dumps, fvOptions, transportProperties, timing) in the exact
 layout the parsers and ``FoamDataset`` consume; the same rng writes the same
-bytes as the JAX package's writer. The manufactured-solutions split is not
-ported yet.
+bytes as the JAX package's writer, the manufactured-solutions split
+included.
 """
 from __future__ import annotations
 
@@ -125,6 +125,37 @@ nu          [ 0 2 -1 0 0 0 0 ]  {nu} ;
     (case / "timing.txt").write_text(str(int(elapsed_ns)))
     if solver_meta is not None:
         (case / "solver.json").write_text(json.dumps(solver_meta))
+
+
+def write_manufactured_split(split_dir: str | Path, n_cases: int,
+                             rng: np.random.Generator,
+                             n_internal: int = 200, n_per_patch: int = 40,
+                             extent: float = 2 * np.pi,
+                             porous_band=(0.25, 0.5)) -> None:
+    """A split of geometry-only cases (fields C + cellToRegion, like the
+    manufactured_solutions experiment) with patches walls/interface:
+    ``n_internal`` points uniform in the square [0, extent]^2, porous inside
+    the vertical band ``porous_band * extent``, ``n_per_patch`` wall points
+    on the square's border and as many on the band's two edges."""
+    lo, hi = porous_band[0] * extent, porous_band[1] * extent
+    for i in range(n_cases):
+        pts = rng.uniform(0, extent, size=(n_internal, 2))
+        zone = ((pts[:, 0] >= lo) & (pts[:, 0] <= hi)).astype(np.float64)
+
+        tw = rng.uniform(0, 4, size=n_per_patch)
+        side = np.floor(tw).astype(int)
+        frac = (tw - side) * extent
+        walls = np.zeros((n_per_patch, 2))
+        walls[side == 0] = np.stack([frac[side == 0], np.zeros((side == 0).sum())], -1)
+        walls[side == 1] = np.stack([np.full((side == 1).sum(), extent), frac[side == 1]], -1)
+        walls[side == 2] = np.stack([frac[side == 2], np.full((side == 2).sum(), extent)], -1)
+        walls[side == 3] = np.stack([np.zeros((side == 3).sum()), frac[side == 3]], -1)
+        ix = np.where(rng.uniform(size=n_per_patch) < 0.5, lo, hi)
+        iface = np.stack([ix, rng.uniform(0, extent, size=n_per_patch)], -1)
+
+        write_case(Path(split_dir) / f"case_{i}", pts, zone,
+                   {"walls": walls, "interface": iface},
+                   elapsed_ns=int(rng.integers(5, 50) * 1e8))
 
 
 def write_foam_split(split_dir: str | Path, n_cases: int,

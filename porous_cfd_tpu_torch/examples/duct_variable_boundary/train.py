@@ -49,10 +49,11 @@ def get_model(args, normalizers, device=None):
                   generator=torch.Generator().manual_seed(SEED), device=device)
     match args.model:
         case "pi-gano":
-            return pi_gano(geometry_layers=[n_dim + n_bid + 1, 64, 176, 176, 176], **common)
+            return pi_gano(geometry_layers=[n_dim + n_bid + 1, 64, 176, 176, 176],
+                           fast_derivatives=True, **common)
         case "pi-gano-full":
             return pi_gano(geometry_layers=[n_dim + n_bid + 1, 64, 176, 176, 176], full=True,
-                           **common)
+                           fast_derivatives=True, **common)
         case "pi-gano-pp":
             return pi_gano_pp(geometry_layers=[[n_dim * 2 + n_bid, 64, 64],
                                                [64 + n_dim, 176, 176],

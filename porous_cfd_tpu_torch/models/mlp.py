@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from porous_cfd_tpu_torch.device import not_ported
+from porous_cfd_tpu_torch.ops.neural_op_cuda import trunk_seed
 from porous_cfd_tpu_torch.physics.analytic import ACTIVATIONS, merged_mask
 
 # std of a unit normal truncated to [-2, 2]; flax divides by it so that the
@@ -136,7 +136,10 @@ class GeometryEncoder(nn.Module):
 class NeuralOperator(nn.Module):
     """One PI-GANO trunk layer: dense -> activation -> dropout, the output
     multiplied by the branch embedding. The dense layer is ``Dense_0``, the
-    flax name."""
+    flax name. The dropout mask is the trunk kernel's: ``merged_mask`` of the
+    trunk's seed (``trunk_seed``) and the operator's index ``layer`` over the
+    input's rows, so a trunk applied to the merged [internal || boundary]
+    rows drops what the analytic trunk path drops for the same seed."""
 
     def __init__(self, in_channels: int, out_channels: int, dropout: float = 0.0,
                  activation: Optional[str] = "silu",
@@ -146,12 +149,15 @@ class NeuralOperator(nn.Module):
         self.activation = activation
         self.Dense_0 = dense(in_channels, out_channels, generator)
 
-    def forward(self, x, par_embedding, deterministic: bool = True):
-        if not deterministic and self.dropout > 0:
-            raise not_ported("NeuralOperator dropout (deterministic=False, training)")
+    def forward(self, x, par_embedding, deterministic: bool = True,
+                seed: Optional[int] = None, layer: int = 0):
         y = self.Dense_0(x)
         if self.activation is not None:
             y = ACTIVATIONS[self.activation](y)
+        if not deterministic and self.dropout > 0:
+            if seed is None:
+                raise ValueError("NeuralOperator: dropout needs a seed")
+            y = y * merged_mask(trunk_seed(seed), layer, self.dropout, y)
         return y * par_embedding
 
 
@@ -186,7 +192,8 @@ class NeuralOperatorSequential(nn.Module):
     def linears(self) -> list[nn.Linear]:
         return [op.Dense_0 for op in self.operators]
 
-    def forward(self, x, par_embedding, deterministic: bool = True):
-        for op in self.operators:
-            x = op(x, par_embedding, deterministic)
+    def forward(self, x, par_embedding, deterministic: bool = True,
+                seed: Optional[int] = None):
+        for i, op in enumerate(self.operators):
+            x = op(x, par_embedding, deterministic, seed, i)
         return x

@@ -17,8 +17,9 @@ for PI-GANO++'s radius levels on a chain precomputed once per dataset, and
 ``neural_ops_prop`` (the fused (v, J, H) trunk with dropout, internal and
 boundary launches: with the reduction, or, for each of PiGanoFull's trunks,
 without it and with a linear last operator); under autograd their backward
-kernels carry the gradients. The exact autodiff path and PI-GANO++ full are
-not ported yet.
+kernels carry the gradients. The exact autodiff path (the default of
+``pi_gano``, as in the JAX package) differentiates the plain module forward
+and runs no kernel. PI-GANO++ full is not ported yet.
 """
 from __future__ import annotations
 
@@ -94,7 +95,12 @@ class PiGanoModule(nn.Module):
         """PiGanoFull's per-output trunks."""
         return [getattr(self, f"neural_ops_{k}") for k in range(self.out_features)]
 
-    def forward(self, points, batch: FoamData, deterministic: bool = True):
+    def forward(self, points, batch: FoamData, deterministic: bool = True,
+                seed: Optional[int] = None):
+        """``points`` (..., N, D) are the [internal || boundary] rows; the
+        trunk's dropout (unless ``deterministic``) draws its masks from
+        ``seed`` over those rows, as the analytic path does: every one of
+        PiGanoFull's trunks takes the one seed."""
         geom_in = torch.cat([batch["boundaryId"], batch["sdf"]], dim=-1)
         param_features = gather_parameters(batch, self.variable_boundaries)
         # the geometry encoder sees the coordinates without a gradient
@@ -104,9 +110,9 @@ class PiGanoModule(nn.Module):
         par = self.branch(param_features, deterministic)
         operator_in = torch.cat([local, geom], dim=-1)
         if self.full:
-            return torch.cat([trunk(operator_in, par, deterministic).sum(-1, keepdim=True)
+            return torch.cat([trunk(operator_in, par, deterministic, seed).sum(-1, keepdim=True)
                               for trunk in self.trunks], dim=-1)
-        return self.reduction(self.neural_ops(operator_in, par, deterministic))
+        return self.reduction(self.neural_ops(operator_in, par, deterministic, seed))
 
 
 class PiGanoPpModule(nn.Module):
@@ -140,7 +146,9 @@ class PiGanoPpModule(nn.Module):
                                                    activation, generator=generator)
         self.reduction = dense(n_feat, out_features, generator)
 
-    def forward(self, points, batch: FoamData, deterministic: bool = True):
+    def forward(self, points, batch: FoamData, deterministic: bool = True,
+                seed: Optional[int] = None):
+        """As ``PiGanoModule.forward``."""
         param_features = gather_parameters(batch, self.variable_boundaries)
         boundary = batch["boundary"]
         b_pos = boundary["C"].detach()
@@ -150,7 +158,7 @@ class PiGanoPpModule(nn.Module):
         local = self.points_encoder(points, deterministic)
         geom = geom.expand(*local.shape[:-1], geom.shape[-1])
         par = self.branch(param_features, deterministic)
-        y = self.neural_ops(torch.cat([local, geom], dim=-1), par, deterministic)
+        y = self.neural_ops(torch.cat([local, geom], dim=-1), par, deterministic, seed)
         return self.reduction(y)
 
 
@@ -276,18 +284,18 @@ def _pi_gano_model(module, dims, nu, scalers, device, derivative_apply=None,
 def pi_gano(nu: float, out_features: int, branch_layers, geometry_layers, local_layers,
             n_operators: int, operator_dropout, scalers: dict,
             variable_boundaries: VariableBoundaries, activation: str = "silu",
-            full: bool = False, fast_derivatives: bool = True,
+            full: bool = False, fast_derivatives: bool = False,
             generator: Optional[torch.Generator] = None, device=None) -> PinnModel:
     """PI-GANO, or with ``full`` PiGanoFull, on ``device`` (the CUDA card
-    unless ``"cpu"`` is asked for). Only the analytic derivative path is
-    ported, so ``fast_derivatives`` defaults to True here (the JAX factory's
-    default, False, selects the exact autodiff path)."""
-    if not fast_derivatives:
-        raise not_ported("the exact autodiff derivative path (fast_derivatives=False)")
+    unless ``"cpu"`` is asked for). As in the JAX factory, the default is
+    the exact autodiff operator on the module; ``fast_derivatives`` takes
+    the analytic path, whose per-dataset aux is the encoders' inputs."""
     device = resolve_device(device)
     module = PiGanoModule(out_features, branch_layers, geometry_layers, local_layers,
                           n_operators, operator_dropout, variable_boundaries, activation,
                           full, generator).to(device)
+    if not fast_derivatives:
+        return _pi_gano_model(module, out_features - 1, nu, scalers, device)
     return _pi_gano_model(module, out_features - 1, nu, scalers, device,
                           pi_gano_apply_with_derivatives(module),
                           _gano_inputs_precompute(variable_boundaries))
@@ -300,19 +308,19 @@ def pi_gano_pp(nu: float, out_features: int, branch_layers, geometry_layers,
                fast_derivatives: bool = True, generator: Optional[torch.Generator] = None,
                device=None) -> PinnModel:
     """PI-GANO++ on ``device`` (the CUDA card unless ``"cpu"`` is asked
-    for). Its analytic path is exact for this family and the only one
-    ported. ``attach_neighbors`` builds the boundary cloud's
-    SetAbstraction chain, ``[C || boundaryId]`` features first, once per
-    dataset."""
-    if not fast_derivatives:
-        raise not_ported("the exact autodiff derivative path (fast_derivatives=False)")
+    for). Its analytic path is exact for this family and the default;
+    ``fast_derivatives=False`` takes the exact autodiff operator on the
+    module. ``attach_neighbors`` builds the boundary cloud's SetAbstraction
+    chain, ``[C || boundaryId]`` features first, once per dataset, for
+    either path."""
     device = resolve_device(device)
     module = PiGanoPpModule(out_features, branch_layers, geometry_layers, geometry_radius,
                             geometry_fraction, local_layers, n_operators, operator_dropout,
                             variable_boundaries, activation, max_neighbors,
                             generator).to(device)
     return _pi_gano_model(module, out_features - 1, nu, scalers, device,
-                          pi_gano_pp_apply_with_derivatives(module),
+                          pi_gano_pp_apply_with_derivatives(module) if fast_derivatives
+                          else None,
                           _boundary_sa_precompute(geometry_fraction, geometry_radius,
                                                   max_neighbors))
 

@@ -1,6 +1,7 @@
 """PIPN models (counterpart of ``porous_cfd_tpu/models/pipn.py``): the plain
 ``PipnModule`` and ``PipnPpModule`` forwards, the ``pipn_foam``,
-``pipn_manufactured``, ``pipn_foam_pp`` and ``pipn_foam_pp_mrg`` factories
+``pipn_manufactured``, ``pipn_foam_pp``, ``pipn_foam_pp_mrg`` and
+``pipn_manufactured_pp`` factories
 and their analytic derivative paths, which carry verbose prediction and
 training (a model without one takes the exact autodiff operator,
 ``physics/operators.py``).
@@ -84,15 +85,19 @@ def _geometry_features(boundary: FoamData, order: str = "C_first") -> torch.Tens
 
 class PipnPpModule(nn.Module):
     """PIPN++ forward: the geometry branch is a SetAbstraction chain over the
-    boundary points with ``[C || boundaryId]`` features, beside a local
-    shared MLP on the differentiable points; tiled concat; decoder."""
+    boundary points, beside a local shared MLP on the differentiable points;
+    tiled concat; decoder. ``geom_features_order`` is the geometry rows'
+    concat order (``_geometry_features``): ``"C_first"`` for PIPN++ on the
+    foam data, ``"id_first"`` for the manufactured PIPN++."""
 
     def __init__(self, fe_local_layers: Sequence[int],
                  fe_global_layers: Sequence[Sequence[int]], fe_radius: Sequence[float],
                  fe_fraction: Sequence[float], seg_layers: Sequence[int],
                  seg_dropout: Optional[Sequence[float]] = None, activation: str = "silu",
-                 max_neighbors: int = 64, generator: Optional[torch.Generator] = None):
+                 max_neighbors: int = 64, geom_features_order: str = "C_first",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.geom_features_order = geom_features_order
         self.fe_local_layers = tuple(fe_local_layers)
         self.fe_radius = tuple(fe_radius)
         self.fe_fraction = tuple(fe_fraction)
@@ -106,13 +111,15 @@ class PipnPpModule(nn.Module):
         self.decoder = MLP(seg_layers, seg_dropout, activation, last_activation=False,
                            generator=generator)
 
-    def forward(self, points, batch: FoamData, deterministic: bool = True):
+    def forward(self, points, batch: FoamData, deterministic: bool = True,
+                seed: Optional[int] = None):
+        """``points`` and the decoder's dropout as in ``PipnModule.forward``."""
         boundary = batch["boundary"]
-        geom = _geometry_features(boundary)
+        geom = _geometry_features(boundary, self.geom_features_order)
         nbrs = extract_sa_neighbors(batch.domain, len(self.fe_radius))
         local, g = self.feature_extract(geom, boundary["C"], points, deterministic, nbrs)
         exp_g = g.expand(*local.shape[:-1], g.shape[-1])
-        return self.decoder(torch.cat([local, exp_g], dim=-1), deterministic)
+        return self.decoder(torch.cat([local, exp_g], dim=-1), deterministic, seed)
 
 
 class PipnPpMrgModule(nn.Module):
@@ -139,14 +146,16 @@ class PipnPpMrgModule(nn.Module):
         self.decoder = MLP(seg_layers, seg_dropout, activation, last_activation=False,
                            generator=generator)
 
-    def forward(self, points, batch: FoamData, deterministic: bool = True):
+    def forward(self, points, batch: FoamData, deterministic: bool = True,
+                seed: Optional[int] = None):
+        """``points`` and the decoder's dropout as in ``PipnModule.forward``."""
         local = self.local_fe(points, deterministic)
         boundary = batch["boundary"]
         nbrs = extract_sa_neighbors(batch.domain, len(SetAbstractionMrgSeq.radii))
         g = self.global_fe(_geometry_features(boundary, "id_first"), boundary["C"],
                            deterministic, nbrs)
         exp_g = g.expand(*local.shape[:-1], g.shape[-1])
-        return self.decoder(torch.cat([local, exp_g], dim=-1), deterministic)
+        return self.decoder(torch.cat([local, exp_g], dim=-1), deterministic, seed)
 
 
 def _decoder_prop_dispatch(decoder: MLP, n_local, v, jt, ht, v_b, g,
@@ -403,7 +412,7 @@ def pipn_pp_apply_with_derivatives(module):
         order, local_linears = "id_first", module.local_fe.linears
     else:
         fractions, radii = module.fe_fraction, module.fe_radius
-        order = "C_first"
+        order = module.geom_features_order
         local_linears = module.feature_extract.local_feature.linears
     precompute = _boundary_sa_precompute(fractions, radii, module.max_neighbors, order)
 
@@ -441,16 +450,15 @@ def pipn_foam_pp(nu: float, d: float, f: float, fe_local_layers, fe_global_layer
                  generator: Optional[torch.Generator] = None, device=None) -> PinnModel:
     """PIPN++ with standardized features, on ``device`` (the CUDA card unless
     ``"cpu"`` is asked for). Its analytic path is exact for this family and
-    the only one ported. ``attach_neighbors`` builds the boundary cloud's
-    SetAbstraction chain once per dataset."""
-    if not fast_derivatives:
-        raise not_ported("the exact autodiff derivative path (fast_derivatives=False)")
+    the default; ``fast_derivatives=False`` takes the exact autodiff operator
+    on the module. ``attach_neighbors`` builds the boundary cloud's
+    SetAbstraction chain once per dataset, for either path."""
     device = resolve_device(device)
     module = PipnPpModule(fe_local_layers, fe_global_layers, fe_radius, fe_fraction,
                           seg_layers, seg_dropout, activation, max_neighbors,
-                          generator).to(device)
+                          generator=generator).to(device)
     return _foam_model(module, nu, d, f, scalers, device,
-                       pipn_pp_apply_with_derivatives(module),
+                       pipn_pp_apply_with_derivatives(module) if fast_derivatives else None,
                        _boundary_sa_precompute(fe_fraction, fe_radius, max_neighbors))
 
 
@@ -461,25 +469,47 @@ def pipn_foam_pp_mrg(n_dims: int, mrg_in_features: int, nu: float, d: float, f: 
                      generator: Optional[torch.Generator] = None, device=None) -> PinnModel:
     """PIPN++ MRG with standardized features, on ``device`` (the CUDA card
     unless ``"cpu"`` is asked for). Its analytic path is exact for this
-    family, as PIPN++'s is, and the only one ported. ``attach_neighbors``
-    builds the boundary cloud's 2-level chain once per dataset, level 0's
-    rows gathered in ``[boundaryId || C]`` order."""
-    if not fast_derivatives:
-        raise not_ported("the exact autodiff derivative path (fast_derivatives=False)")
+    family, as PIPN++'s is, and the default; ``fast_derivatives=False``
+    takes the exact autodiff operator. ``attach_neighbors`` builds the
+    boundary cloud's 2-level chain once per dataset, level 0's rows gathered
+    in ``[boundaryId || C]`` order."""
     device = resolve_device(device)
     module = PipnPpMrgModule(n_dims, mrg_in_features, fe_local_layers, seg_layers,
                              seg_dropout, activation, max_neighbors, generator).to(device)
     return _foam_model(module, nu, d, f, scalers, device,
-                       pipn_pp_apply_with_derivatives(module),
+                       pipn_pp_apply_with_derivatives(module) if fast_derivatives else None,
                        _boundary_sa_precompute(SetAbstractionMrgSeq.fractions,
                                                SetAbstractionMrgSeq.radii, max_neighbors,
                                                feats_order="id_first"))
 
 
-def pipn_manufactured_pp(*args, **kwargs):
-    """The physics-only PIPN++ (``PipnPpModule`` with the ``"id_first"``
-    order) waits for the manufactured-solutions CLI and its dataset."""
-    raise not_ported("pipn_manufactured_pp (manufactured-solutions PIPN++)")
+def pipn_manufactured_pp(nu: float, d: float, f: float, fe_local_layers, fe_global_layers,
+                         fe_global_radius, fe_global_fraction, seg_layers,
+                         activation: str = "tanh", max_neighbors: int = 64,
+                         fast_derivatives: bool = True,
+                         generator: Optional[torch.Generator] = None,
+                         device=None) -> PinnModel:
+    """Physics-only PIPN++ on raw coordinates (the manufactured-solutions
+    workload), on ``device`` (the CUDA card unless ``"cpu"`` is asked for):
+    ``PipnPpModule`` with the ``"id_first"`` order, which its module forward,
+    its analytic path and its chain's level-0 rows (``_sa_xg_0``) all take.
+    The analytic path is exact for this family and the default;
+    ``fast_derivatives=False`` takes the exact autodiff operator."""
+    device = resolve_device(device)
+    module = PipnPpModule(fe_local_layers, fe_global_layers, fe_global_radius,
+                          fe_global_fraction, seg_layers, None, activation, max_neighbors,
+                          "id_first", generator).to(device)
+    return PinnModel(
+        module=module,
+        dims=seg_layers[-1] - 1,
+        momentum_loss=MomentumLossManufactured(nu, d, f),
+        continuity_loss=ContinuityLoss(),
+        enable_data_loss=False,
+        learning_rate=1e-3, lr_gamma=0.9995, adam_eps=1e-6,
+        derivative_apply=(pipn_pp_apply_with_derivatives(module)
+                          if fast_derivatives else None),
+        neighbor_precompute=_boundary_sa_precompute(fe_global_fraction, fe_global_radius,
+                                                    max_neighbors, "id_first"))
 
 
 def pipn_foam_pp_full(*args, **kwargs):

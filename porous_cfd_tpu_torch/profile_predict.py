@@ -55,7 +55,7 @@ PIPN = dict(nu=NU, d=14000.0, f=17.11, fe_local_layers=[2, 64, 64],
 PI_GANO = dict(nu=NU, out_features=3, branch_layers=[8, 128, 352, 352, 352],
                geometry_layers=[7, 64, 176, 176, 176], local_layers=[2, 64, 176, 176, 176],
                n_operators=4, operator_dropout=[0, 0.1, 0.1, 0],
-               variable_boundaries=VARIABLE_BOUNDARIES)
+               variable_boundaries=VARIABLE_BOUNDARIES, fast_derivatives=True)
 CONFIGS = {
     "pipn": (pipn_foam, PIPN),
     "pipn_coupled": (pipn_foam, dict(PIPN, coupled_context=True)),

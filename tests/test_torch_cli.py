@@ -102,7 +102,7 @@ def test_bf16_validation_errors_match_jax(full):
     ref = np.asarray(jfns.eval_batch(params, batch_j))
 
     model = pi_gano(**CFG, operator_dropout=[0, 0, 0], full=full, scalers=make_scalers(),
-                    device="cpu")
+                    fast_derivatives=True, device="cpu")
     params_from_flax(jax.tree_util.tree_map(np.asarray, params), model.module)
     batch = make_foam_batch(4, 40, 16, 8, rng=np.random.default_rng(3))
     mixed = model.with_precision("bf16-mixed")

@@ -3,6 +3,7 @@ card. Skipped without a CUDA device. On the GPU machine (no JAX there):
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_cuda_kernels.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -283,7 +284,7 @@ def test_pi_gano_slice_on_card_matches_cpu(cuda):
     cfg = dict(nu=1e-3, out_features=3, branch_layers=[8, 32, 80, 80],
                geometry_layers=[7, 16, 40, 40], local_layers=[2, 16, 40, 40], n_operators=3,
                operator_dropout=[0, 0.1, 0.1], variable_boundaries=VARIABLE_BOUNDARIES,
-               scalers=make_scalers())
+               scalers=make_scalers(), fast_derivatives=True)
     gpu = pi_gano(**cfg, generator=torch.Generator().manual_seed(1), device=cuda)
     cpu = pi_gano(**cfg, generator=torch.Generator().manual_seed(1), device="cpu")
     batch = make_foam_batch(3, 200, 96, 20, seed=2)
@@ -819,7 +820,7 @@ def test_pi_gano_variants_on_card_match_cpu(cuda, variant):
     if variant == "full":
         def make(device):
             return pi_gano(**PG_CFG, geometry_layers=[7, 16, 40, 40], full=True,
-                           generator=torch.Generator().manual_seed(1), device=device)
+                           fast_derivatives=True, generator=torch.Generator().manual_seed(1), device=device)
         want = [0, 0, 2, 2, 6, 6]
     else:
         def make(device):
@@ -1193,6 +1194,130 @@ def test_pipn_pp_mrg_slice_on_card_matches_cpu(cuda):
         loss = sum((o ** 2).mean() for o in out)
         results.append((out, torch.autograd.grad(loss, list(model.module.parameters()))))
     assert [c.launches - n for c, n in zip(counters, before)] == [3, 3, 2, 2, 2, 2, 0]
+    for a, r in zip(results[0][0], results[1][0]):
+        assert_close(a.detach().cpu(), r.detach())
+    for a, r in zip(results[0][1], results[1][1]):
+        assert_close(a.cpu(), r)
+
+
+# ---------------------------------------------------------------------------
+# The manufactured PIPN++: its kernel shapes at tanh on a real chain, and its
+# slice
+
+MS_LEVELS = ["sa_0", "sa_1", "global_sa", "decoder"]
+# the manufactured_solutions zoo's pipn-pp at full width
+MS_PP_CFG = dict(nu=0.01, d=50.0, f=1.0, fe_local_layers=[2, 64, 64],
+                 fe_global_layers=[[2 * 2 + 2, 64], [64 + 2, 128], [128 + 2, 1024]],
+                 fe_global_radius=[0.6, 1.2], fe_global_fraction=[0.5, 0.25],
+                 seg_layers=[1024 + 64, 512, 256, 128, 3])
+
+
+def ms_level_inputs(model, batch):
+    """What each kernel of the manufactured PIPN++ gets on ``batch`` (its
+    chain attached), the levels below run plainly: {"sa_0": (mlp, x, idx,
+    mask, rel, xg), "sa_1": (...), "global_sa": (mlp, x)}, and for the
+    decoder its (v, jt, ht, v_b, g)."""
+    from porous_cfd_tpu_torch.data.foam_data import split_contiguous
+    from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors
+    from porous_cfd_tpu_torch.models.pipn import _geometry_features
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    seq = model.module.feature_extract.global_feature
+    (_, idx0, mask0, rel0, posc0, xg), (_, idx1, mask1, rel1, posc1) = \
+        extract_sa_neighbors(batch.domain, 2)
+    internal, boundary = split_contiguous(batch)
+    geom = _geometry_features(boundary, "id_first").contiguous()
+    with torch.no_grad():
+        x1 = sa_cuda.sa_neighborhood_plain(seq.sa_0.conv_mlp.linears, geom, idx0, mask0, rel0,
+                                           "tanh", xg)
+        x2 = sa_cuda.sa_neighborhood_plain(seq.sa_1.conv_mlp.linears, x1, idx1, mask1, rel1,
+                                           "tanh")
+        g = pointnet_cuda.pointnet_global_plain(seq.global_sa.mlp.linears,
+                                                torch.cat([x2, posc1], dim=-1), "tanh")[0]
+        local = model.module.feature_extract.local_feature.linears
+        j0, h0 = analytic.identity_jacobian_t(internal["C"])
+        v, jt, ht = analytic.mlp_prop_t(local, internal["C"], j0, h0, "tanh")
+        v_b = analytic.mlp_value(local, boundary["C"], "tanh")
+    return {"sa_0": (seq.sa_0.conv_mlp, geom, idx0, mask0, rel0, xg),
+            "sa_1": (seq.sa_1.conv_mlp, x1.contiguous(), idx1, mask1, rel1, None),
+            "global_sa": (seq.global_sa.mlp, torch.cat([x2, posc1], dim=-1).contiguous()),
+            "decoder": (v.contiguous(), jt.contiguous(), ht.contiguous(), v_b.contiguous(),
+                        g.contiguous())}
+
+
+@pytest.mark.parametrize("b", [13, 2])
+@pytest.mark.parametrize("level", MS_LEVELS)
+def test_manufactured_pp_levels_match_plain(cuda, level, b):
+    """Each kernel shape of the manufactured PIPN++ at the verification
+    envelope's 1000 internal and 200 boundary points, all at tanh: SA level
+    0 static and one layer ([6, 64], 100 centroids), SA level 1 dynamic and
+    one layer ([66, 128], 25 centroids), pointnet_global one layer [130,
+    1024] over the 25 centroids, and the decoupled decoder [1088, 512, 256,
+    128, 3]; at full and small batch, forward and backward against the
+    plain versions."""
+    from porous_cfd_tpu_torch.data.manufactured import make_manufactured_batch
+    from porous_cfd_tpu_torch.models.pipn import pipn_manufactured_pp
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    model = pipn_manufactured_pp(**MS_PP_CFG, generator=torch.Generator().manual_seed(b),
+                                 device=cuda)
+    batch = model.attach_neighbors(make_manufactured_batch(np.random.default_rng(b), b, 1000,
+                                                           200).to(cuda))
+    inputs = ms_level_inputs(model, batch)[level]
+    gen = torch.Generator().manual_seed(len(level))
+    if level == "decoder":
+        v, jt, ht, v_b, g = inputs
+        assert v.shape == (b, 1000, 64) and v_b.shape == (b, 200, 64) and g.shape == (b, 1, 1024)
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        dec = model.module.decoder
+        wrt = leaves + _params(dec)
+        args = (dec.linears, 64, *leaves, "tanh", None, True, None)
+        out = decoder_cuda.decoder_prop(*args)
+        cots = [torch.randn(o.shape, generator=gen).to(cuda) for o in out]
+        got = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cots)), wrt)
+        ref_out = decoder_cuda.decoder_prop_plain(*args)
+        for a, r in zip(out, ref_out):
+            assert_close(a.detach(), r.detach())
+        ref = torch.autograd.grad(sum((o * c).sum() for o, c in zip(ref_out, cots)), wrt)
+        for a, r in zip(got, ref):
+            assert_close(a, r)
+        return
+    mlp, x = inputs[:2]
+    width = mlp.linears[-1].weight.shape[0]
+    assert len(mlp.linears) == 1
+    if level == "global_sa":
+        assert x.shape == (b, 25, 130) and width == 1024
+        cot = torch.randn((b, 1, width), generator=gen).to(cuda)
+        _check_pointnet_winners(mlp, x, cot, "tanh")
+        return
+    _, _, idx, mask, rel, xg = inputs
+    assert idx.shape == ((b, 100, 64) if level == "sa_0" else (b, 25, 64))
+    cot = torch.randn((b, idx.shape[1], width), generator=gen).to(cuda)
+    call = sa_cuda.level_call(mlp.linears, x, idx, mask, rel, "tanh", xg)
+    _check_winner_backward(mlp, x, idx, mask, rel, xg, cot, call, "tanh", xg is not None)
+
+
+def test_manufactured_pp_slice_on_card_matches_cpu(cuda):
+    """derivative_apply on one neighbour chain (built on the CPU, copied to
+    the card): outputs and parameter gradients on the card equal the
+    CPU's; launches 2 sa_neighborhood, 1 pointnet_global and 2 decoder_prop
+    per batch, their backwards 2, 1 and 2, no FPS."""
+    from porous_cfd_tpu_torch.data.manufactured import make_manufactured_batch
+    from porous_cfd_tpu_torch.models.pipn import pipn_manufactured_pp
+    from porous_cfd_tpu_torch.ops import fps_cuda, sa_cuda
+    cfg = dict(MS_PP_CFG, fe_local_layers=[2, 32, 32], seg_layers=[1024 + 32, 96, 32, 3])
+    gpu = pipn_manufactured_pp(**cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    cpu = pipn_manufactured_pp(**cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    batch = cpu.attach_neighbors(make_manufactured_batch(np.random.default_rng(2), 3, 300, 120))
+    counters = (sa_cuda.sa_neighborhood, sa_cuda.sa_neighborhood_backward,
+                pointnet_cuda.pointnet_global, pointnet_cuda.pointnet_global_backward,
+                decoder_cuda.decoder_prop, decoder_cuda.decoder_prop_backward,
+                fps_cuda.farthest_point_sampling)
+    before = [c.launches for c in counters]
+    results = []
+    for model, b in ((gpu, batch.to(cuda)), (cpu, batch)):
+        out = model.derivative_apply(b, deterministic=True)
+        loss = sum((o ** 2).mean() for o in out)
+        results.append((out, torch.autograd.grad(loss, list(model.module.parameters()))))
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 2, 1, 1, 2, 2, 0]
     for a, r in zip(results[0][0], results[1][0]):
         assert_close(a.detach().cpu(), r.detach())
     for a, r in zip(results[0][1], results[1][1]):

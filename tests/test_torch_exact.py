@@ -192,10 +192,23 @@ def test_exact_training_step_learns_with_dropout():
 
 
 def test_other_families_keep_raising_for_the_exact_path():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pi_gano(1e-3, 3, [8, 16], [7, 8], [2, 8], 2, [0.0, 0.1], make_scalers(),
-                VARIABLE_BOUNDARIES, fast_derivatives=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipn_foam_pp(1e-3, 1.0, 1.0, [2, 8, 8], [[8, 8, 8], [10, 8, 8], [10, 8, 16]],
-                     [0.5, 1.0], [0.5, 0.25], [24, 8, 3], make_scalers(),
-                     fast_derivatives=False, device="cpu")
+    """Named when PI-GANO's and PIPN++'s exact paths raised: both now build
+    with no analytic path and take a training step with dropout on, finite
+    and with a gradient in every parameter (tests/test_torch_exact_pp.py
+    holds them to the JAX package)."""
+    models = (pi_gano(1e-3, 3, [8, 16], [7, 8], [2, 8], 2, [0.0, 0.1], make_scalers(),
+                      VARIABLE_BOUNDARIES, fast_derivatives=False, device="cpu",
+                      generator=torch.Generator().manual_seed(1)),
+              pipn_foam_pp(1e-3, 1.0, 1.0, [2, 8, 8], [[8, 8, 8], [10, 8, 8], [10, 8, 16]],
+                           [0.5, 1.0], [0.5, 0.25], [24, 8, 3], make_scalers(),
+                           seg_dropout=[0.1, 0.0], fast_derivatives=False, device="cpu",
+                           generator=torch.Generator().manual_seed(1)))
+    for model in models:
+        assert model.derivative_apply is None
+        fns = engine.make_train_functions(model, engine.make_optimizer(model, 1))
+        state = fns.init_state(seed=3)
+        batch = model.attach_neighbors(make_foam_batch(B, NI, NB, NO, seed=9))
+        state, m = fns.train_step(state, batch)
+        assert state.step == 1 and bool(torch.isfinite(m).all())
+        for name, p in model.module.named_parameters():
+            assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name

@@ -87,7 +87,8 @@ def jax_side():
 
 
 def port_model(params, dropout=(0, 0, 0)):
-    model = pi_gano(**CFG, operator_dropout=dropout, scalers=make_scalers(), device="cpu")
+    model = pi_gano(**CFG, operator_dropout=dropout, scalers=make_scalers(),
+                    fast_derivatives=True, device="cpu")
     params_from_flax(jax.tree_util.tree_map(np.asarray, params), model.module)
     return model
 
@@ -212,7 +213,7 @@ def test_precompute_gives_the_same_outputs(jax_side):
 def test_trains_with_dropout_and_reproducibly():
     def run():
         model = pi_gano(**CFG, operator_dropout=[0, 0.1, 0.1], scalers=make_scalers(),
-                        generator=torch.Generator().manual_seed(4), device="cpu")
+                        fast_derivatives=True, generator=torch.Generator().manual_seed(4), device="cpu")
         fns = engine.make_train_functions(model, engine.make_optimizer(model, 1),
                                           scaling.FixedLossScaler(WEIGHTS))
         state = fns.init_state(seed=21)
@@ -232,7 +233,7 @@ def test_split_derivatives_of_the_slice_feed_the_residual():
     """Verbose prediction's residual channels are [Momentum x, y, div] on
     internal rows, from the model's own MomentumLossVariable."""
     model = pi_gano(**CFG, operator_dropout=[0, 0, 0], scalers=make_scalers(),
-                    generator=torch.Generator().manual_seed(2), device="cpu")
+                    fast_derivatives=True, generator=torch.Generator().manual_seed(2), device="cpu")
     batch = port_batch(9)
     with torch.no_grad():
         out, jac, lap = model.derivative_apply(batch)
@@ -253,7 +254,7 @@ def test_trainer_and_evaluate_attach_the_precompute(tmp_path):
     from porous_cfd_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     model = pi_gano(**CFG, operator_dropout=[0, 0.1, 0], scalers=make_scalers(),
-                    generator=torch.Generator().manual_seed(5), device="cpu")
+                    fast_derivatives=True, generator=torch.Generator().manual_seed(5), device="cpu")
     seen = []
 
     def counting(dataset):

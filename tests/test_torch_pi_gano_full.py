@@ -42,7 +42,7 @@ def jax_side():
 
 def port_model(params=None, dropout=(0, 0, 0), seed=0):
     model = pi_gano(**CFG, operator_dropout=dropout, full=True, scalers=make_scalers(),
-                    generator=torch.Generator().manual_seed(seed), device="cpu")
+                    fast_derivatives=True, generator=torch.Generator().manual_seed(seed), device="cpu")
     if params is not None:
         params_from_flax(jax.tree_util.tree_map(np.asarray, params), model.module)
     return model

@@ -301,6 +301,20 @@ def test_trains_with_dropout_and_reproducibly():
 
 
 def test_exact_path_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pipn.pipn_foam_pp_mrg(**CFG, scalers=make_scalers(), fast_derivatives=False,
-                              device="cpu")
+    """Named when MRG's exact path raised: it now builds with no analytic
+    path, keeps the chain precompute, and takes a training step whose
+    loss equals the analytic path's (the analytic path is exact for this
+    family; tests/test_torch_exact_pp.py holds it to the JAX package)."""
+    losses = []
+    for fast in (True, False):
+        model = pipn.pipn_foam_pp_mrg(**CFG, scalers=make_scalers(), seg_dropout=[0.05, 0],
+                                      fast_derivatives=fast, device="cpu",
+                                      generator=torch.Generator().manual_seed(4))
+        assert (model.derivative_apply is None) == (not fast)
+        assert model.neighbor_precompute is not None
+        fns = engine.make_train_functions(model, engine.make_optimizer(model, 1))
+        state, m = fns.train_step(fns.init_state(seed=21), port_batch(model, 6))
+        assert state.step == 1 and bool(torch.isfinite(m).all())
+        losses.append(m)
+    torch.testing.assert_close(losses[1], losses[0], rtol=1e-4,
+                               atol=1e-4 * float(losses[0].abs().max()))

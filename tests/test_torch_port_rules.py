@@ -127,33 +127,42 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_functions(model, make_optimizer(model, 1), mesh=object())
     # PIPN's exact and coupled paths, PiGanoFull, PI-GANO++, PIPN++ MRG and
-    # bf16-mixed are ported; PI-GANO's, PI-GANO++'s, PIPN++'s and PIPN++
-    # MRG's exact paths are not
+    # bf16-mixed are ported; so are the exact paths of PI-GANO (its default,
+    # with full too), PI-GANO++, PIPN++ and PIPN++ MRG, and the manufactured
+    # PIPN++: each builds and takes a training step
     for kwargs in (dict(fast_derivatives=False), dict(coupled_context=True)):
         assert pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(), device="cpu",
                          **kwargs) is not None
     assert model.with_precision("bf16-mixed").eval_dtype == torch.bfloat16
     assert pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu",
                    full=True).module.full
-    assert pi_gano_pp(1e-3, **PI_GANO_PP_SMALL, scalers=make_scalers(),
-                      device="cpu") is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu",
-                fast_derivatives=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pi_gano_pp(1e-3, **PI_GANO_PP_SMALL, scalers=make_scalers(), device="cpu",
-                   fast_derivatives=False)
-    assert pipn_foam_pp_mrg(nu=1e-3, d=1.0, f=1.0, **MRG_SMALL, scalers=make_scalers(),
-                            device="cpu") is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipn_foam_pp_mrg(nu=1e-3, d=1.0, f=1.0, **MRG_SMALL, scalers=make_scalers(),
-                         fast_derivatives=False, device="cpu")
-    for factory in (pi_gano_pp_full, pipn_manufactured_pp, pipn_foam_pp_full):
+    from porous_cfd_tpu_torch.data.manufactured import make_manufactured_batch
+    foam = make_foam_batch(2, 20, 16, 4, seed=5)
+    manufactured = make_manufactured_batch(np.random.default_rng(5), 2, 20, 16)
+    exact = [(pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu"), foam),
+             (pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu",
+                      full=True), foam),
+             (pi_gano_pp(1e-3, **PI_GANO_PP_SMALL, scalers=make_scalers(), device="cpu",
+                         fast_derivatives=False), foam),
+             (pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(),
+                           fast_derivatives=False, device="cpu"), foam),
+             (pipn_foam_pp_mrg(nu=1e-3, d=1.0, f=1.0, **MRG_SMALL, scalers=make_scalers(),
+                               fast_derivatives=False, device="cpu"), foam),
+             (pipn_manufactured_pp(1e-2, 50.0, 1.0, [2, 8, 8], [[6, 8], [10, 8], [10, 16]],
+                                   [0.6, 1.2], [0.5, 0.25], [24, 8, 3], max_neighbors=8,
+                                   fast_derivatives=False, device="cpu"), manufactured)]
+    for exact_model, batch in exact:
+        assert exact_model.derivative_apply is None
+        fns = make_train_functions(exact_model, make_optimizer(exact_model, 1))
+        state, m = fns.train_step(fns.init_state(seed=1), exact_model.attach_neighbors(batch))
+        assert state.step == 1 and bool(torch.isfinite(m).all())
+    assert pipn_manufactured_pp(1e-2, 50.0, 1.0, [2, 8, 8], [[6, 8], [10, 8], [10, 16]],
+                                [0.6, 1.2], [0.5, 0.25], [24, 8, 3],
+                                device="cpu").derivative_apply is not None
+    # the U-Nets are not
+    for factory in (pi_gano_pp_full, pipn_foam_pp_full):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             factory(1e-3, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(),
-                     fast_derivatives=False, device="cpu")
     from porous_cfd_tpu_torch.examples.duct_variable_boundary.train import get_model
     from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -181,12 +190,18 @@ def test_no_jax_import_anywhere_in_the_port():
     for sub in ("data", "datagen", "pipelines", "examples", "tools"):
         assert any(PORT / sub in f.parents for f in files), sub
     # the FVM solver, the fixed-boundary CLIs, the inference pipeline, the
-    # golden-duct run and the bench
+    # golden-duct run, the bench, the manufactured dataset and split writer,
+    # the manufactured CLIs and the verification run
     for rel in ("datagen/fvm.py", "examples/duct_fixed_boundary/train.py",
                 "examples/duct_fixed_boundary/inference.py",
                 "examples/duct_fixed_boundary/evaluate.py", "pipelines/inference.py",
                 "pipelines/evaluation.py", "tools/train_golden_duct.py",
-                "tools/golden_spread.py", "bench.py"):
+                "tools/golden_spread.py", "bench.py", "data/manufactured.py",
+                "datagen/synthetic_case.py", "examples/manufactured_solutions/train.py",
+                "examples/manufactured_solutions/generate_data.py",
+                "examples/manufactured_solutions/inference.py",
+                "examples/manufactured_solutions/evaluate.py",
+                "tools/convergence_report.py"):
         assert PORT / rel in files, rel
     for path in files:
         for name in _imports(path):
@@ -247,9 +262,10 @@ def test_kernel_modules_need_no_nvcc_or_gpu(monkeypatch):
                             seg_dropout=[0.1, 0.0], device="cpu"),
                   pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
                             seg_dropout=[0.1, 0.0], coupled_context=True, device="cpu"),
-                  pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu"),
                   pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu",
-                          full=True),
+                          fast_derivatives=True),
+                  pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu",
+                          full=True, fast_derivatives=True),
                   pi_gano_pp(1e-3, **PI_GANO_PP_SMALL, scalers=make_scalers(), device="cpu"),
                   pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(),
                                seg_dropout=[0.1, 0.0], device="cpu"),
