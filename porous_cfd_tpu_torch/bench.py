@@ -7,14 +7,14 @@ and the other model families.
     python -m porous_cfd_tpu_torch.bench [--runs 5] [--epochs 10]
 
 It prints ONE JSON line: the headline steps/s under ``value``, each
-family's steps/s under ``families`` (``"not_ported: ..."`` for a family the
-port does not have), every run's steps/s under ``runs``, the envelope, and
-the card's name and power limit as ``nvidia-smi`` gives them. Timing: after
-a warm-up epoch, the median of ``--runs`` runs of ``--epochs`` whole epochs
-(4 steps each at the envelope), each run between two device syncs. Weights
-come from seed 8421 and the models are the examples' zoo at full width,
-trained with the examples' fixed loss weights. Any error but a family that
-is not ported fails the run. It runs on the CUDA card; ``run(argv,
+family's steps/s under ``families`` (the U-Nets ``pipn_pp_full`` and
+``pi_gano_pp_full`` among them), every run's steps/s under ``runs``, the
+envelope, and the card's name and power limit as ``nvidia-smi`` gives them.
+Timing: after a warm-up epoch, the median of ``--runs`` runs of
+``--epochs`` whole epochs (4 steps each at the envelope), each run between
+two device syncs. Weights come from seed 8421 and the models are the
+examples' zoo at full width, trained with the examples' fixed loss weights.
+Any error fails the run. It runs on the CUDA card; ``run(argv,
 device="cpu")`` runs on the CPU.
 """
 from __future__ import annotations
@@ -39,7 +39,7 @@ SEED = 8421
 # the envelope: make_foam_batch(CASES, *POINTS, seed=SEED) in batches of BATCH
 CASES, BATCH = 52, 13
 POINTS = (1500, 1000, 700)  # internal, boundary, observation
-# family -> (example, --model, extra flags); None: not ported
+# family -> (example, --model, extra flags)
 FAMILIES = {
     "pipn": (fixed, "pipn", []),
     "pipn_coupled": (fixed, "pipn", ["--coupled-context"]),
@@ -56,7 +56,7 @@ FAMILIES = {
 
 def make_model(family: str, device):
     """The family's model at full width with its example's fixed loss
-    scaler; raises ``NotImplementedError`` for a family not ported."""
+    scaler."""
     example, model_type, flags = FAMILIES[family]
     args = example.build_arg_parser().parse_args(["--model", model_type, *flags])
     return example.get_model(args, make_scalers(), device), example.get_loss_scaler(args)
@@ -120,13 +120,7 @@ def run(argv=None, device=None) -> dict:
     steps = {}
     runs = {}
     for family in FAMILIES:
-        try:
-            rates = measure_family(family, data, device, BATCH, args.runs, args.epochs)
-        except NotImplementedError as e:
-            if "not ported" not in str(e):
-                raise
-            steps[family] = f"not_ported: {e}"
-            continue
+        rates = measure_family(family, data, device, BATCH, args.runs, args.epochs)
         steps[family] = statistics.median(rates)
         runs[family] = rates
         if device.type == "cuda":

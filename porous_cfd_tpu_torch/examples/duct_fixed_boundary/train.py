@@ -8,10 +8,10 @@ the same model zoo at full width and the same loss scalers).
 
 ``pipn`` takes the decoupled analytic derivative path by default,
 ``--coupled-context`` the max-pool-coupled one and ``--exact-derivatives``
-the exact autodiff operator; ``pipn-pp`` and ``pipn-pp-mrg`` take their
+the exact autodiff operator; ``pipn-pp``, ``pipn-pp-mrg`` and
+``pipn-pp-full`` (the U-Net, on its decoupled-hierarchy path) take their
 analytic paths. From the command line it trains on the CUDA card;
-``run(argv, device="cpu")`` trains on the CPU. ``pipn-pp-full`` (the U-Net
-variant) is not ported yet.
+``run(argv, device="cpu")`` trains on the CPU.
 """
 from __future__ import annotations
 
@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 from porous_cfd_tpu_torch.data.dataset import FoamDataset
-from porous_cfd_tpu_torch.device import not_ported, resolve_device
-from porous_cfd_tpu_torch.models.pipn import pipn_foam, pipn_foam_pp, pipn_foam_pp_mrg
+from porous_cfd_tpu_torch.device import resolve_device
+from porous_cfd_tpu_torch.models.pipn import (pipn_foam, pipn_foam_pp, pipn_foam_pp_full,
+                                              pipn_foam_pp_mrg)
 from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler, RelobraloScaler
 from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, train
 
@@ -40,9 +41,10 @@ def get_loss_scaler(args):
                                       "observations": [100] * 3})
 
 
-def get_model(args, normalizers, device=None):
+def get_model(args, normalizers, device=None, fast_derivatives: bool = True):
     """The reference zoo (duct_fixed_boundary/train.py:20-80), weights drawn
-    from seed 8421."""
+    from seed 8421. ``fast_derivatives`` picks ``pipn-pp-full``'s path (the
+    CLI trains the analytic one)."""
     n_dim, n_bid = N_DIM, N_BOUNDARY_IDS
     common = dict(nu=NU, d=D, f=F, fe_local_layers=[n_dim, 64, 64], scalers=normalizers,
                   activation="silu", generator=torch.Generator().manual_seed(SEED),
@@ -67,7 +69,17 @@ def get_model(args, normalizers, device=None):
                                     seg_layers=[1024 + 64, 384, 128, 3],
                                     seg_dropout=[0.05, 0, 0], **common)
         case "pipn-pp-full":
-            raise not_ported("pipn-pp-full (the PIPN++ U-Net)")
+            return pipn_foam_pp_full(
+                enc_layers=[[n_dim * 2 + 1 + n_bid, 64, 64, 128],
+                            [128 + n_dim, 128, 128, 256],
+                            [256 + n_dim, 1024]],
+                enc_radius=[0.4, 0.8], enc_fraction=[0.5, 0.25],
+                dec_layers=[[1024 + 256, 256, 256],
+                            [128 + 256, 128, 128],
+                            [128 + n_bid + n_dim + 1, 128, 128, 128, 3]],
+                dec_k=[3, 3, 3], dec_dropout=[0.0, 0.0, [0.15, 0.15, 0.0, 0.0]],
+                fast_derivatives=fast_derivatives,
+                **{k: v for k, v in common.items() if k != "fe_local_layers"})
         case _:
             raise NotImplementedError(args.model)
 

@@ -6,9 +6,9 @@ width and the same loss scalers).
     python -m porous_cfd_tpu_torch.examples.duct_variable_boundary.train \\
         --model pi-gano-full --train-dir data/train --val-dir data/val
 
-From the command line it trains on the CUDA card; ``run(argv,
-device="cpu")`` trains on the CPU. ``pi-gano-pp-full`` (the U-Net variant)
-is not ported yet.
+``pi-gano-pp-full`` is the U-Net, on its decoupled-hierarchy analytic
+path. From the command line it trains on the CUDA card; ``run(argv,
+device="cpu")`` trains on the CPU.
 """
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from porous_cfd_tpu_torch.data.dataset import FoamDataset
-from porous_cfd_tpu_torch.device import not_ported, resolve_device
-from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp
+from porous_cfd_tpu_torch.device import resolve_device
+from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp, pi_gano_pp_full
 from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler, RelobraloScaler
 from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, train
 
@@ -38,15 +38,17 @@ def get_loss_scaler(args):
                                       "observations": [100] * 3})
 
 
-def get_model(args, normalizers, device=None):
+def get_model(args, normalizers, device=None, fast_derivatives: bool = True):
     """The reference zoo (duct_variable_boundary/train.py:21-83), weights
-    drawn from seed 8421."""
+    drawn from seed 8421. ``fast_derivatives`` picks ``pi-gano-pp-full``'s
+    path (the CLI trains the analytic one)."""
     n_dim, n_bid = N_DIM, N_BOUNDARY_ID
-    common = dict(nu=NU, out_features=3, branch_layers=[8, 128, 352, 352, 352],
+    base = dict(nu=NU, out_features=3, scalers=normalizers,
+                variable_boundaries=VARIABLE_BOUNDARIES,
+                generator=torch.Generator().manual_seed(SEED), device=device)
+    common = dict(base, branch_layers=[8, 128, 352, 352, 352],
                   local_layers=[n_dim, 64, 176, 176, 176], n_operators=4,
-                  operator_dropout=[0, 0.1, 0.1, 0], scalers=normalizers,
-                  variable_boundaries=VARIABLE_BOUNDARIES,
-                  generator=torch.Generator().manual_seed(SEED), device=device)
+                  operator_dropout=[0, 0.1, 0.1, 0])
     match args.model:
         case "pi-gano":
             return pi_gano(geometry_layers=[n_dim + n_bid + 1, 64, 176, 176, 176],
@@ -61,7 +63,17 @@ def get_model(args, normalizers, device=None):
                               geometry_radius=[0.5, 1], geometry_fraction=[0.5, 0.25],
                               max_neighbors=32, **common)
         case "pi-gano-pp-full":
-            raise not_ported("pi-gano-pp-full (the PI-GANO++ U-Net)")
+            return pi_gano_pp_full(
+                branch_layers=[8, 128, 256, 256, 256],
+                enc_layers=[[n_dim * 2 + n_bid + 1, 64, 64, 128],
+                            [128 + n_dim, 128, 128, 256],
+                            [256 + n_dim, 512]],
+                enc_radius=[0.5, 1], enc_fraction=[0.5, 0.25],
+                dec_layers=[[512 + 256, 256, 256],
+                            [128 + 256, 128, 128],
+                            [128 + n_dim + n_bid + 1, 128, 128, 128, 3]],
+                dec_k=[3, 3, 3], fp_dropout=[0.0, 0.0, [0.0, 0.2, 0.2, 0.0]],
+                fast_derivatives=fast_derivatives, **base)
         case _:
             raise NotImplementedError(args.model)
 

@@ -69,9 +69,9 @@ class PinnModel:
         forward then also takes ``seed=`` for its dropout.
     :param neighbor_precompute: ``FoamData -> dict`` of per-case aux built
         once per dataset (``attach_neighbors``), or None.
-    :param microbatch/remat: gradient accumulation and rematerialisation
-        (the U-Net variants' memory knobs); not ported, and training raises
-        when either is set.
+    :param microbatch: the U-Net variants' memory knob on their exact path:
+        a training step accumulates gradients over groups of at most
+        ``microbatch`` cases.
     :param eval_dtype: the compute type of the forward-only surfaces
         (validation, non-verbose prediction), set by ``with_precision``;
         None is f32. Training and every derivative graph stay f32.
@@ -88,7 +88,6 @@ class PinnModel:
     adam_eps: float = 1e-8
     derivative_apply: Optional[Any] = None
     neighbor_precompute: Optional[Any] = None
-    remat: bool = False
     microbatch: Optional[int] = None
     eval_dtype: Optional[torch.dtype] = None
 

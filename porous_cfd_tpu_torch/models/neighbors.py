@@ -1,6 +1,9 @@
 """Static-shape point-cloud neighbour ops (counterpart of
 ``porous_cfd_tpu/models/neighbors.py``): farthest-point sampling, the radius
-search and the precompute of a SetAbstraction chain over a static cloud.
+search, k-nearest neighbours and their inverse-square-distance
+interpolation, and the precomputes of a SetAbstraction chain and of a U-Net
+(the chain and each FeaturePropagation level's kNN indices) over a static
+cloud.
 
 Everything works on dense batched tensors with static output shapes
 (padded and masked). The documented deviations of the JAX package hold
@@ -10,8 +13,7 @@ lowest-indexed neighbours within r.
 The precompute's keys start with ``_`` (``_sa_cent_0``, ``_sa_rel_0``,
 ...): ``FoamData`` keeps such entries as they are, so the float entries
 (relative positions, centroid positions, pre-gathered features) are not
-cast to integers. ``knn``, ``knn_interpolate`` and the U-Net precompute are
-not ported yet.
+cast to integers; the U-Net precompute adds ``_fp_idx_{i}``.
 """
 from __future__ import annotations
 
@@ -67,6 +69,44 @@ def gather_points(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(*idx.shape, arr.shape[-1])
 
 
+def knn(src: torch.Tensor, query: torch.Tensor, k: int):
+    """The k nearest of src (..., N, D) to each query point (..., M, D),
+    nearest first, k clamped to N (the first U-Net level interpolates from
+    one global descriptor): (idx (..., M, k') int64, sqdist (..., M, k')).
+
+    They are chosen on the expansion-form distances (``pairwise_sqdist``, the
+    JAX package's form) with ties to the lower index, as ``lax.top_k`` breaks
+    them: the key is the distance's bits (a non-negative float orders as its
+    bits do) above the index. The distances returned are recomputed in
+    difference form, so a self-hit gives an exact 0 that the interpolation
+    weight clamps."""
+    n = src.shape[-2]
+    d2 = pairwise_sqdist(query, src).abs()     # -0.0 would order before 0.0
+    key = (d2.view(torch.int32).to(torch.int64) << 32) | torch.arange(n, device=src.device)
+    idx = torch.topk(key, min(k, n), dim=-1, largest=False).indices
+    diff = query[..., :, None, :] - gather_points(src, idx)
+    return idx, torch.sum(diff * diff, dim=-1)
+
+
+def knn_interpolate_with_idx(x: torch.Tensor, pos_src: torch.Tensor, pos_query: torch.Tensor,
+                             idx: torch.Tensor) -> torch.Tensor:
+    """Inverse-square-distance interpolation of x (B, N, F) at pos_src (B,
+    N, D) to pos_query (B, M, D) from given neighbours idx (B, M, k): weights
+    1 / max(d^2, 1e-12) recomputed (differentiably) from the positions. The
+    floor is 1e-12, not torch_geometric's 1e-16, so that the second
+    derivative 2 / floor^3 stays finite in f32 at an exact hit."""
+    diff = pos_query[..., :, None, :] - gather_points(pos_src, idx)
+    w = 1.0 / torch.clamp(torch.sum(diff * diff, dim=-1), min=1e-12)
+    return torch.sum(gather_points(x, idx) * w[..., None], dim=-2) / torch.sum(
+        w, dim=-1, keepdim=True)
+
+
+def knn_interpolate(x: torch.Tensor, pos_src: torch.Tensor, pos_query: torch.Tensor,
+                    k: int = 3) -> torch.Tensor:
+    """``knn_interpolate_with_idx`` on the k nearest source points."""
+    return knn_interpolate_with_idx(x, pos_src, pos_query, knn(pos_src, pos_query, k)[0])
+
+
 def sa_chain_precompute(pos: torch.Tensor, fractions: Sequence[float],
                         radii: Sequence[float], max_neighbors: int,
                         feats: Optional[torch.Tensor] = None) -> dict:
@@ -111,6 +151,38 @@ def extract_sa_neighbors(domain: dict, n_layers: int):
             entry = entry + (domain["_sa_xg_0"],)
         out.append(entry)
     return out
+
+
+def unet_chain_precompute(pos: torch.Tensor, fractions: Sequence[float],
+                          radii: Sequence[float], max_neighbors: int, dec_k: Sequence[int],
+                          has_global: bool) -> dict:
+    """The neighbour structures of a U-Net over a static cloud pos (B, N, D):
+    the SetAbstraction chain (``sa_chain_precompute``, no level-0 rows) and
+    the kNN indices of each FeaturePropagation level, ``_fp_idx_{i}``. FP
+    level i interpolates from encoder level L - i to level L - i - 1, where
+    level 0 is the cloud and a global level is one point at the origin. The
+    indices are discrete, so caching them is the same as finding them in
+    every step; the interpolation weights are recomputed from them.
+
+    :param dec_k: k of each FP level, the decoder's order.
+    """
+    out = sa_chain_precompute(pos, fractions, radii, max_neighbors)
+    level_pos = [pos] + [out[f"_sa_posc_{i}"] for i in range(len(fractions))]
+    if has_global:
+        level_pos.append(pos.new_zeros((pos.shape[0], 1, pos.shape[-1])))
+    n_levels = len(level_pos)
+    for i, k in enumerate(dec_k):
+        out[f"_fp_idx_{i}"] = knn(level_pos[n_levels - 1 - i], level_pos[n_levels - 2 - i],
+                                  k)[0]
+    return out
+
+
+def extract_fp_idx(domain: dict, n_layers: int):
+    """The FP levels' kNN indices of a FoamData domain (``_fp_idx_{i}``), or
+    None when the domain holds none."""
+    if "_fp_idx_0" not in domain:
+        return None
+    return [domain[f"_fp_idx_{i}"] for i in range(n_layers)]
 
 
 def masked_max(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -19,24 +19,31 @@ boundary launches: with the reduction, or, for each of PiGanoFull's trunks,
 without it and with a linear last operator); under autograd their backward
 kernels carry the gradients. The exact autodiff path (the default of
 ``pi_gano``, as in the JAX package) differentiates the plain module forward
-and runs no kernel. PI-GANO++ full is not ported yet.
+and runs no kernel. PI-GANO++ full (``PiGanoPpFullModule``, the U-Net)
+runs its all-points encoder through ``sa_neighborhood`` and
+``pointnet_global`` and its branch through ``pointnet_global`` on its
+analytic path (``models/fp_analytic.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from porous_cfd_tpu_torch.data.foam_data import FoamData, split_contiguous
-from porous_cfd_tpu_torch.device import not_ported, resolve_device
+from porous_cfd_tpu_torch.device import resolve_device
+from porous_cfd_tpu_torch.models import fp_analytic
 from porous_cfd_tpu_torch.models.base import PinnModel
 from porous_cfd_tpu_torch.models.mlp import (MLP, Branch, GeometryEncoder,
                                              NeuralOperatorSequential, dense)
 from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors
 from porous_cfd_tpu_torch.models.pipn import (_boundary_sa_precompute, _geometry_features,
-                                              _pointnet_global_dispatch)
-from porous_cfd_tpu_torch.models.set_abstraction import GeometryEncoderPp
+                                              _pointnet_global_dispatch, _unet_forward,
+                                              all_points_unet_precompute)
+from porous_cfd_tpu_torch.models.set_abstraction import (FeaturePropagationSeq,
+                                                          GeometryEncoderPp, SetAbstractionSeq)
 from porous_cfd_tpu_torch.ops import neural_op_cuda, sa_cuda
 from porous_cfd_tpu_torch.physics import analytic
 from porous_cfd_tpu_torch.physics.losses import (ContinuityLossStandardized,
@@ -325,6 +332,61 @@ def pi_gano_pp(nu: float, out_features: int, branch_layers, geometry_layers,
                                                   max_neighbors))
 
 
-def pi_gano_pp_full(*args, **kwargs):
-    """PI-GANO++ full needs the SetAbstraction U-Net."""
-    raise not_ported("pi_gano_pp_full (PI-GANO++ full)")
+class PiGanoPpFullModule(nn.Module):
+    """The U-Net PI-GANO++ forward: the branch net ``branch`` on the
+    variable-boundary features, a SetAbstraction encoder ``encoder`` over all
+    points with ``[sdf || boundaryId || C]`` features, and a
+    FeaturePropagation neural-operator decoder ``decoder`` whose every level
+    is modulated by the branch embedding. The decoder's last level emits
+    ``out_features`` channels."""
+
+    def __init__(self, out_features: int, branch_layers, enc_layers, enc_radius,
+                 enc_fraction, dec_layers, dec_k, fp_dropout,
+                 variable_boundaries: VariableBoundaries, activation: str = "silu",
+                 max_neighbors: int = 64, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.out_features = out_features
+        self.variable_boundaries = variable_boundaries
+        self.activation = activation
+        self.max_neighbors = max_neighbors
+        self.branch = Branch(branch_layers, activation, generator)
+        self.encoder = SetAbstractionSeq(enc_fraction, enc_radius, enc_layers, activation,
+                                         max_neighbors, generator)
+        self.decoder = FeaturePropagationSeq(dec_layers, dec_k, fp_dropout, activation,
+                                             generator, par_width=branch_layers[-1])
+
+    def forward(self, points, batch: FoamData, deterministic: bool = True,
+                seed: Optional[int] = None):
+        """As ``PiGanoModule.forward``; FP level i drops with
+        ``fp_level_seed(seed, i)``."""
+        par = self.branch(gather_parameters(batch, self.variable_boundaries), deterministic)
+        return _unet_forward(self, points, batch, deterministic, seed, par)
+
+
+def pi_gano_pp_full(nu: float, out_features: int, branch_layers, enc_layers, enc_radius,
+                    enc_fraction, dec_layers, dec_k, fp_dropout, scalers: dict,
+                    variable_boundaries: VariableBoundaries, activation: str = "silu",
+                    max_neighbors: int = 64, fast_derivatives: bool = True,
+                    generator: Optional[torch.Generator] = None, device=None) -> PinnModel:
+    """The U-Net PI-GANO++ on ``device`` (the CUDA card unless ``"cpu"`` is
+    asked for), with ``dec_layers[-1][-1] == out_features``. Its default
+    derivative path is the decoupled-hierarchy analytic one
+    (``models/fp_analytic.py``: the encoder through ``sa_neighborhood`` and
+    ``pointnet_global``, the branch through ``pointnet_global``);
+    ``fast_derivatives=False``, or dropout on a middle level, takes the exact
+    autodiff operator with micro-batches of 2 cases, as
+    ``pipn_foam_pp_full`` does."""
+    device = resolve_device(device)
+    module = PiGanoPpFullModule(out_features, branch_layers, enc_layers, enc_radius,
+                                enc_fraction, dec_layers, dec_k, fp_dropout,
+                                variable_boundaries, activation, max_neighbors,
+                                generator=generator).to(device)
+    precompute = all_points_unet_precompute(enc_fraction, enc_radius, max_neighbors, dec_k,
+                                            len(enc_layers) > len(enc_radius))
+    derivative_apply = (fp_analytic.pi_gano_pp_full_apply_with_derivatives(module, precompute)
+                        if fast_derivatives else None)
+    model = _pi_gano_model(module, out_features - 1, nu, scalers, device, derivative_apply,
+                           precompute)
+    if derivative_apply is not None:
+        return model
+    return dataclasses.replace(model, microbatch=2)

@@ -1,7 +1,8 @@
 """PIPN models (counterpart of ``porous_cfd_tpu/models/pipn.py``): the plain
-``PipnModule`` and ``PipnPpModule`` forwards, the ``pipn_foam``,
-``pipn_manufactured``, ``pipn_foam_pp``, ``pipn_foam_pp_mrg`` and
-``pipn_manufactured_pp`` factories
+``PipnModule``, ``PipnPpModule``, ``PipnPpMrgModule`` and
+``PipnPpFullModule`` (the U-Net) forwards, the ``pipn_foam``,
+``pipn_manufactured``, ``pipn_foam_pp``, ``pipn_foam_pp_mrg``,
+``pipn_manufactured_pp`` and ``pipn_foam_pp_full`` factories
 and their analytic derivative paths, which carry verbose prediction and
 training (a model without one takes the exact autodiff operator,
 ``physics/operators.py``).
@@ -17,23 +18,30 @@ pools its embedding with a SetAbstraction chain over the boundary cloud:
 1) and ``pointnet_global`` for the trailing global level, on a neighbour
 chain precomputed once per dataset (FPS through its own kernel); PIPN++
 MRG's encoder runs three radius levels through ``sa_neighborhood`` and two
-global ones through ``pointnet_global`` on one such chain. Under autograd the
-backward kernels carry the gradients.
+global ones through ``pointnet_global`` on one such chain. The U-Net's
+analytic path (``models/fp_analytic.py``) runs its all-points encoder
+through ``sa_neighborhood`` (two dynamic levels) and ``pointnet_global``.
+Under autograd the backward kernels carry the gradients.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from porous_cfd_tpu_torch.data.foam_data import FoamData, split_contiguous
-from porous_cfd_tpu_torch.device import not_ported, resolve_device
+from porous_cfd_tpu_torch.device import resolve_device
+from porous_cfd_tpu_torch.models import fp_analytic
 from porous_cfd_tpu_torch.models.base import PinnModel
 from porous_cfd_tpu_torch.models.mlp import MLP, PointNetFeatureExtract
-from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors, sa_chain_precompute
-from porous_cfd_tpu_torch.models.set_abstraction import (PointNetFeatureExtractPp,
-                                                          SetAbstractionMrgSeq)
+from porous_cfd_tpu_torch.models.neighbors import (extract_fp_idx, extract_sa_neighbors,
+                                                   sa_chain_precompute, unet_chain_precompute)
+from porous_cfd_tpu_torch.models.set_abstraction import (FeaturePropagationSeq,
+                                                          PointNetFeatureExtractPp,
+                                                          SetAbstractionMrgSeq,
+                                                          SetAbstractionSeq)
 from porous_cfd_tpu_torch.ops import decoder_cuda, pointnet_cuda, sa_cuda
 from porous_cfd_tpu_torch.physics import analytic
 from porous_cfd_tpu_torch.physics.losses import (ContinuityLoss, ContinuityLossStandardized,
@@ -512,6 +520,78 @@ def pipn_manufactured_pp(nu: float, d: float, f: float, fe_local_layers, fe_glob
                                                     max_neighbors, "id_first"))
 
 
-def pipn_foam_pp_full(*args, **kwargs):
-    """The U-Net PIPN++ needs FeaturePropagation and its analytic path."""
-    raise not_ported("pipn_foam_pp_full (U-Net PIPN++)")
+class PipnPpFullModule(nn.Module):
+    """The U-Net PIPN++ forward: a SetAbstraction encoder ``encoder`` over
+    all points with ``[sdf || boundaryId || C]`` features, and a
+    FeaturePropagation decoder ``decoder`` back to every point (its level i
+    drops with ``fp_level_seed(seed, i)``)."""
+
+    def __init__(self, enc_layers, enc_radius, enc_fraction, dec_layers, dec_k,
+                 dec_dropout=None, activation: str = "silu", max_neighbors: int = 64,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.activation = activation
+        self.max_neighbors = max_neighbors
+        self.encoder = SetAbstractionSeq(enc_fraction, enc_radius, enc_layers, activation,
+                                         max_neighbors, generator)
+        self.decoder = FeaturePropagationSeq(dec_layers, dec_k, dec_dropout, activation,
+                                             generator)
+        self.seg_layers = tuple(dec_layers[-1])  # the output MLP's widths, as PIPN's decoder
+
+    def forward(self, points, batch: FoamData, deterministic: bool = True,
+                seed: Optional[int] = None):
+        """``points`` (..., N, 2) are the [internal || boundary] rows."""
+        return _unet_forward(self, points, batch, deterministic, seed)
+
+
+def _unet_forward(module, points, batch, deterministic, seed, par_embedding=None):
+    """The U-Net forward of a PipnPpFullModule or a PiGanoPpFullModule: the
+    encoder on ``[sdf || boundaryId || points]`` with its skips, then the
+    decoder, on the batch's precomputed neighbours where it holds them."""
+    nbrs = extract_sa_neighbors(batch.domain, len(module.encoder.radius))
+    fp_idx = extract_fp_idx(batch.domain, len(module.decoder.fp_layers))
+    x_in = torch.cat([batch["sdf"], batch["boundaryId"], points], dim=-1)
+    (x, pos), skips = module.encoder(x_in, points, deterministic, nbrs, return_skip=True)
+    return module.decoder(x, pos, skips, deterministic, fp_idx, seed, par_embedding)[0]
+
+
+def all_points_unet_precompute(fractions, radii, max_neighbors: int, dec_k,
+                               has_global: bool):
+    """The per-dataset aux of a U-Net over all points [internal || boundary]
+    (``neighbors.unet_chain_precompute``): the clouds are static, so the SA
+    chain and the FP levels' kNN indices are found once per dataset."""
+
+    def precompute(dataset: FoamData) -> dict:
+        internal, boundary = split_contiguous(dataset)
+        pos = torch.cat([internal["C"], boundary["C"]], dim=-2)
+        return unet_chain_precompute(pos, fractions, radii, max_neighbors, dec_k, has_global)
+
+    return precompute
+
+
+def pipn_foam_pp_full(nu: float, d: float, f: float, enc_layers, enc_radius, enc_fraction,
+                      dec_layers, dec_k, scalers: dict, dec_dropout=None,
+                      activation: str = "silu", max_neighbors: int = 64,
+                      fast_derivatives: bool = True,
+                      generator: Optional[torch.Generator] = None, device=None) -> PinnModel:
+    """The U-Net PIPN++ on ``device`` (the CUDA card unless ``"cpu"`` is
+    asked for). ``attach_neighbors`` builds the SA chain and the FP levels'
+    kNN indices over all points once per dataset. The default derivative
+    path is the decoupled-hierarchy analytic one (``models/fp_analytic.py``:
+    the encoder through ``sa_neighborhood`` and ``pointnet_global``);
+    ``fast_derivatives=False``, or dropout on a middle level, takes the
+    exact autodiff operator on the module, with micro-batches of 2 cases
+    to bound its second-order graphs, as the JAX factory sets them (its
+    remat has no counterpart: ROADMAP, deliberate differences)."""
+    device = resolve_device(device)
+    module = PipnPpFullModule(enc_layers, enc_radius, enc_fraction, dec_layers, dec_k,
+                              dec_dropout, activation, max_neighbors,
+                              generator=generator).to(device)
+    precompute = all_points_unet_precompute(enc_fraction, enc_radius, max_neighbors, dec_k,
+                                            len(enc_layers) > len(enc_radius))
+    derivative_apply = (fp_analytic.pipn_pp_full_apply_with_derivatives(module, precompute)
+                        if fast_derivatives else None)
+    model = _foam_model(module, nu, d, f, scalers, device, derivative_apply, precompute)
+    if derivative_apply is not None:
+        return model
+    return dataclasses.replace(model, microbatch=2)

@@ -1,20 +1,23 @@
 """PointNet++ building blocks (counterpart of
 ``porous_cfd_tpu/models/set_abstraction.py``): SetAbstraction levels, the
-trailing GlobalSetAbstraction, their sequence, and the PIPN++ encoder.
+trailing GlobalSetAbstraction, their sequence, the PIPN++ encoder, and the
+U-Net decoders' FeaturePropagation levels (plain and neural-operator).
 
 These are the plain forwards on dense, padded and masked neighbourhoods
 (``models/neighbors.py``): with a precomputed chain or, without one, FPS
-and the radius search on the fly. The analytic derivative path runs the
-same parameters through the fused kernels instead (``ops/sa_cuda.py:
+and the radius search on the fly. The analytic derivative paths run the
+encoders' parameters through the fused kernels instead (``ops/sa_cuda.py:
 sa_seq_fused``). Submodule names are the flax ones (``sa_{i}/conv_mlp``,
-``global_sa/mlp``, ``local_feature``, ``global_feature``), so
-``convert.params_from_flax`` carries trees across unchanged.
+``global_sa/mlp``, ``local_feature``, ``global_feature``, ``fp_{i}/mlp``,
+``fpno_{i}/mlp``, ``fpno_{i}/par_reduce``), so ``convert.params_from_flax``
+carries trees across unchanged.
 
 The JAX package's semantics notes hold: relative positions are
 ``(pos_j - pos_i) / r``, FPS starts at index 0, and an empty neighbourhood
 gives 0. ``GeometryEncoderPp`` is PI-GANO++'s geometry encoder and
-``SetAbstractionMrgSeq`` PIPN++ MRG's. The U-Net blocks
-(FeaturePropagation) and ``k_chunks`` are not ported yet.
+``SetAbstractionMrgSeq`` PIPN++ MRG's. A FeaturePropagation level's dropout
+draws ``analytic.merged_mask`` of its own seed, ``fp_level_seed(seed, i)``,
+which the U-Nets' analytic paths draw too.
 """
 from __future__ import annotations
 
@@ -23,16 +26,21 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from porous_cfd_tpu_torch.models.mlp import MLP
+from porous_cfd_tpu_torch.models.mlp import MLP, dense
 from porous_cfd_tpu_torch.models.neighbors import (farthest_point_sampling, fps_count,
-                                                   gather_points, masked_max,
-                                                   radius_neighbors)
+                                                   gather_points, knn, knn_interpolate_with_idx,
+                                                   masked_max, radius_neighbors)
+from porous_cfd_tpu_torch.ops import dropout as dropout_ops
+from porous_cfd_tpu_torch.physics.analytic import ACTIVATIONS
 
 
 class SetAbstraction(nn.Module):
     """FPS -> radius graph -> shared MLP on ``[x_j || (pos_j - pos_c) / r]``
     -> masked max over neighbours: (B, N, F), (B, N, D) -> (B, C, F'), (B,
-    C, D) with C = ceil(ratio * N)."""
+    C, D) with C = ceil(ratio * N). The JAX module's ``k_chunks`` running
+    max has no counterpart: the max is the same, and under torch's autograd
+    every chunk's activations are saved all the same (PERF.md, phase 28 of
+    ``chip_smoke.py``)."""
 
     def __init__(self, ratio: float, r: float, mlp_layers: Sequence[int],
                  max_neighbors: int = 64, activation: str = "tanh",
@@ -76,7 +84,8 @@ class GlobalSetAbstraction(nn.Module):
 class SetAbstractionSeq(nn.Module):
     """SetAbstraction levels ``sa_{i}``, and a trailing GlobalSetAbstraction
     ``global_sa`` when there are more conv stacks than radii. Returns (x,
-    pos)."""
+    pos), and with ``return_skip`` ((x, pos), skips): each level's input
+    (x, pos), the U-Net decoder's skip connections."""
 
     def __init__(self, fraction: Sequence[float], radius: Sequence[float],
                  conv_mlp: Sequence[Sequence[int]], activation: str = "tanh",
@@ -92,13 +101,17 @@ class SetAbstractionSeq(nn.Module):
         if self.has_global:
             self.global_sa = GlobalSetAbstraction(conv_mlp[-1], activation, generator)
 
-    def forward(self, x, pos, deterministic: bool = True, neighbors=None):
+    def forward(self, x, pos, deterministic: bool = True, neighbors=None,
+                return_skip: bool = False):
+        skips = [(x, pos)]
         for i in range(len(self.radius)):
             x, pos = getattr(self, f"sa_{i}")(x, pos, deterministic,
                                               None if neighbors is None else neighbors[i])
+            skips.append((x, pos))
         if self.has_global:
             x, pos = self.global_sa(x, pos, deterministic)
-        return x, pos
+            skips.append((x, pos))
+        return ((x, pos), skips[:-1]) if return_skip else (x, pos)
 
 
 class SetAbstractionMrgSeq(nn.Module):
@@ -176,3 +189,108 @@ class GeometryEncoderPp(nn.Module):
     def forward(self, x, pos, deterministic: bool = True, neighbors=None):
         g, _ = self.set_abstraction(x, pos, deterministic, neighbors)
         return g
+
+
+def fp_level_seed(seed: Optional[int], i: int) -> Optional[int]:
+    """FeaturePropagation level i's dropout seed, derived from the step's."""
+    return None if seed is None else dropout_ops.fold_in(seed, i)
+
+
+def level_dropout(dropout, i: int, layers: Sequence[int]) -> Optional[list]:
+    """Level i's dropout rates, one a layer: a scalar 0 is none, another
+    scalar every layer's rate, a list taken as given."""
+    if dropout is None:
+        return None
+    d = dropout[i]
+    if isinstance(d, (int, float)):
+        return None if d == 0 else [float(d)] * (len(layers) - 1)
+    return [float(r) for r in d]
+
+
+class FeaturePropagation(nn.Module):
+    """kNN-interpolate coarse features (B, M, F) at pos (B, M, D) to the
+    skip level's points, concatenate the skip features, shared MLP ``mlp``
+    (its last layer plain with ``plain_last``). ``knn_idx`` gives the
+    neighbours (``_fp_idx_{i}`` of the U-Net precompute), else they are
+    found here."""
+
+    def __init__(self, k: int, mlp_layers: Sequence[int], dropout=None,
+                 plain_last: bool = False, activation: str = "tanh",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.k = k
+        self.mlp = MLP(mlp_layers, dropout, activation, last_activation=not plain_last,
+                       generator=generator)
+
+    def upsample(self, x, pos, x_skip, pos_skip, knn_idx=None):
+        """The MLP's input: ``[interpolated x || x_skip]`` at pos_skip."""
+        if knn_idx is None:
+            knn_idx = knn(pos, pos_skip, self.k)[0]
+        x_up = knn_interpolate_with_idx(x, pos, pos_skip, knn_idx)
+        return x_up if x_skip is None else torch.cat([x_up, x_skip], dim=-1)
+
+    def forward(self, x, pos, x_skip, pos_skip, deterministic: bool = True, knn_idx=None,
+                seed: Optional[int] = None):
+        return self.mlp(self.upsample(x, pos, x_skip, pos_skip, knn_idx), deterministic,
+                        seed), pos_skip
+
+
+class FeaturePropagationNeuralOperator(FeaturePropagation):
+    """FeaturePropagation whose output is multiplied by the activated
+    ``par_reduce`` (a dense layer from ``par_width``) of a per-case branch
+    embedding (B, 1, par_width)."""
+
+    def __init__(self, k: int, mlp_layers: Sequence[int], par_width: int, dropout=None,
+                 plain_last: bool = False, activation: str = "tanh",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(k, mlp_layers, dropout, plain_last, activation, generator)
+        self.activation = activation
+        self.par_reduce = dense(par_width, mlp_layers[-1], generator)
+
+    def modulation(self, par_embedding):
+        """The activated ``par_reduce`` of the branch embedding, (B, 1, F)."""
+        return ACTIVATIONS[self.activation](self.par_reduce(par_embedding))
+
+    def forward(self, par_embedding, x, pos, x_skip, pos_skip, deterministic: bool = True,
+                knn_idx=None, seed: Optional[int] = None):
+        y, pos_skip = super().forward(x, pos, x_skip, pos_skip, deterministic, knn_idx, seed)
+        return y * self.modulation(par_embedding), pos_skip
+
+
+class FeaturePropagationSeq(nn.Module):
+    """FeaturePropagation levels ``fp_{i}`` walking the skips backwards, the
+    last level plain; level i drops with ``fp_level_seed(seed, i)``. With a
+    ``par_width`` they are FeaturePropagationNeuralOperator levels
+    ``fpno_{i}`` (the JAX package's FeaturePropagationNeuralOperatorSeq),
+    each modulated by the branch embedding given to ``forward``."""
+
+    def __init__(self, fp_layers: Sequence[Sequence[int]], k: Sequence[int], dropout=None,
+                 activation: str = "tanh", generator: Optional[torch.Generator] = None,
+                 par_width: Optional[int] = None):
+        super().__init__()
+        self.fp_layers = tuple(tuple(layers) for layers in fp_layers)
+        self.k = tuple(k)
+        self.dropout = dropout
+        self.prefix = "fp" if par_width is None else "fpno"
+        n = len(fp_layers)
+        for i, (layers, k_i) in enumerate(zip(fp_layers, k)):
+            rates = level_dropout(dropout, i, layers)
+            self.add_module(f"{self.prefix}_{i}", FeaturePropagation(
+                k_i, layers, rates, i == n - 1, activation, generator) if par_width is None
+                else FeaturePropagationNeuralOperator(k_i, layers, par_width, rates, i == n - 1,
+                                                      activation, generator))
+
+    @property
+    def levels(self) -> list[FeaturePropagation]:
+        return [getattr(self, f"{self.prefix}_{i}") for i in range(len(self.fp_layers))]
+
+    def forward(self, x, pos, skips, deterministic: bool = True, knn_idx=None,
+                seed: Optional[int] = None, par_embedding=None,
+                n_levels: Optional[int] = None):
+        """Levels [:n_levels] (all when None) from the coarsest (x, pos)."""
+        for i, level in enumerate(self.levels[:n_levels]):
+            x_skip, pos_skip = skips[-(i + 1)]
+            args = (x, pos, x_skip, pos_skip, deterministic,
+                    None if knn_idx is None else knn_idx[i], fp_level_seed(seed, i))
+            x, pos = level(*args) if par_embedding is None else level(par_embedding, *args)
+        return x, pos

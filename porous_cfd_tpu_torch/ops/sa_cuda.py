@@ -389,7 +389,7 @@ def sa_neighborhood(linears: Sequence, x, idx, mask, rel, activation: str, xg=No
                            idx=idx, f_in=f_in))[0]
 
 
-def sa_seq_fused(seq, activation: str, x, neighbors):
+def sa_seq_fused(seq, activation: str, x, neighbors, pos=None, return_skip: bool = False):
     """``SetAbstractionSeq`` (``models/set_abstraction.py``) on a precomputed
     chain: each radius level through ``sa_neighborhood`` (level 0 static
     when its entry holds xg), and a trailing GlobalSetAbstraction through
@@ -397,19 +397,27 @@ def sa_seq_fused(seq, activation: str, x, neighbors):
 
     :param neighbors: per level (cent, idx, mask, rel, posc[, xg]), as
         ``neighbors.extract_sa_neighbors`` gives them.
-    :return: (B, C_last, F) features; (B, 1, F) after a global level.
+    :param pos: (B, N, D) the input's positions, needed with
+        ``return_skip``.
+    :return: (B, C_last, F) features; (B, 1, F) after a global level. With
+        ``return_skip``, as the module gives them: ((x, pos), skips), each
+        level's input (x, pos), the U-Net decoder's skip connections.
     """
+    skips = [(x, pos)]
     for i in range(len(seq.radius)):
         _, idx, mask, rel, posc = neighbors[i][:5]
         xg = neighbors[i][5] if i == 0 and len(neighbors[i]) > 5 else None
         x = sa_neighborhood(getattr(seq, f"sa_{i}").conv_mlp.linears, x, idx, mask, rel,
                             activation, xg)
         pos = posc
+        skips.append((x, pos))
     if seq.has_global:
         x = pointnet_cuda.pointnet_global(seq.global_sa.mlp.linears,
                                           torch.cat([x, pos], dim=-1).contiguous(),
                                           activation)[0]
-    return x
+        pos = pos.new_zeros((pos.shape[0], 1, pos.shape[-1]))
+        skips.append((x, pos))
+    return ((x, pos), skips[:-1]) if return_skip else x
 
 
 def sa_mrg_fused(mrg, activation: str, x, pos, neighbors):

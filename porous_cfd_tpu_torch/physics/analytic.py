@@ -152,6 +152,27 @@ def dropout_prop_merged(seed: int, layer: int, rate: float, v, j, h, n_int: int)
     return v * mask, j * mask_i, h * mask_i
 
 
+def mlp_prop_merged(linears: Sequence, v, j, h, n_int: int, activation: str,
+                    dropout: Optional[Sequence[float]] = None, last_activation: bool = True,
+                    deterministic: bool = True, seed: Optional[int] = None):
+    """(v, J, H) through an MLP whose value rows ``v`` (..., N, F) are the
+    merged [internal || boundary] rows while J/H (..., Ni, D, F) cover the
+    first ``n_int``: one product a layer feeds all rows, and layer i's
+    dropout (after its activation, unless ``deterministic``) is
+    ``merged_mask(seed, i)`` over the merged rows, the mask ``MLP`` draws
+    on the same rows."""
+    n_out = len(linears)
+    for i, lin in enumerate(linears):
+        v, j, h = dense_prop(lin, v, j, h)
+        if i < n_out - 1 or last_activation:
+            v, j, h = activation_prop_merged(activation, v, j, h, n_int)
+        if dropout is not None and dropout[i] > 0 and not deterministic:
+            if seed is None:
+                raise ValueError("mlp_prop_merged: dropout needs a seed")
+            v, j, h = dropout_prop_merged(seed, i, float(dropout[i]), v, j, h, n_int)
+    return v, j, h
+
+
 def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
                  activation: str, dropout: Optional[Sequence[float]] = None,
                  deterministic: bool = True, seed: Optional[int] = None,

@@ -3,15 +3,16 @@ card.
 
     python -m porous_cfd_tpu_torch.profile_predict
         [--model pipn|pipn_coupled|pipn_exact|pi_gano|pi_gano_full|pi_gano_pp|pipn_pp|
-                 pipn_pp_mrg]
+                 pipn_pp_mrg|pipn_pp_full|pi_gano_pp_full]
         [--mode predict|train] [--batches 8] [--trace DIR]
 
 Builds a full-width model (random weights from seed 8421): the
 duct_fixed_boundary ``pipn`` model (decoupled analytic path; ``pipn_coupled``:
 the max-pool-coupled one, winner gather and decoder_prop's j0_add mode;
-``pipn_exact``: the exact autodiff operator, no kernel), ``pipn-pp`` or
-``pipn-pp-mrg`` model, or the duct_variable_boundary ``pi-gano``, ``pi-gano-full`` or
-``pi-gano-pp`` model, and one batch of 13 synthetic cases at 1500/1000/700
+``pipn_exact``: the exact autodiff operator, no kernel), ``pipn-pp``,
+``pipn-pp-mrg`` or ``pipn-pp-full`` (the U-Net) model, or the
+duct_variable_boundary ``pi-gano``, ``pi-gano-full``, ``pi-gano-pp`` or
+``pi-gano-pp-full`` model, and one batch of 13 synthetic cases at 1500/1000/700
 points (with the model's per-dataset aux attached), warms up, then runs
 ``--batches`` verbose predictions (``predict``) or training steps with the examples' fixed loss
 weights (``train``) under ``torch.profiler``. Prints the device time per
@@ -36,12 +37,15 @@ import statistics
 import time
 import traceback
 import warnings
+from argparse import Namespace
 from pathlib import Path
 
 import torch
 
 from porous_cfd_tpu_torch.data.synthetic import (VARIABLE_BOUNDARIES, make_foam_batch,
                                                  make_scalers)
+from porous_cfd_tpu_torch.examples.duct_fixed_boundary import train as fixed_train
+from porous_cfd_tpu_torch.examples.duct_variable_boundary import train as variable_train
 from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp
 from porous_cfd_tpu_torch.models.pipn import pipn_foam, pipn_foam_pp, pipn_foam_pp_mrg
 from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
@@ -76,6 +80,22 @@ CONFIGS = {
                                            seg_layers=[1088, 384, 128, 3],
                                            seg_dropout=[0.05, 0, 0])),
 }
+
+
+def cli_model(cli, model_type: str):
+    """A factory of ``model_type`` as the CLI module ``cli`` builds it (its
+    ``get_model``, weights from its own seed 8421)."""
+
+    def factory(scalers, generator, device):
+        return cli.get_model(Namespace(model=model_type), scalers, device)
+
+    return factory
+
+
+# the U-Nets, with their encoders over all points
+CONFIGS["pipn_pp_full"] = (cli_model(fixed_train, "pipn-pp-full"), {})
+CONFIGS["pi_gano_pp_full"] = (cli_model(variable_train, "pi-gano-pp-full"), {})
+
 LOSS_WEIGHTS = (1, 1, 1, 1, 1, 1, 100, 100, 100)
 # device-kernel names of the port's hand-written CUDA kernels (the decoder's
 # coupled modes run as mlp_prop_fwd / mlp_prop_bwd_rows too)

@@ -209,31 +209,62 @@ def make_train_functions(model: PinnModel, tx: AdamExpLR,
                          mesh=None, shard_points: bool = False) -> TrainFunctions:
     if mesh is not None or shard_points:
         raise not_ported("multi-device training (mesh / shard_points)")
-    if model.microbatch or model.remat:
-        raise not_ported("micro-batch gradient accumulation and remat "
-                         "(microbatch / remat)")
     loss_scaler = loss_scaler or LossScaler()
     predict = make_predict_functions(model)
+
+    def grads_of(state: TrainState, batch: FoamData, seed: int, scaler_seed: int):
+        """Back-propagate one batch's weighted loss into the parameters'
+        ``.grad`` (adding to what is there). Returns (metrics, raw losses,
+        the scaler's next state)."""
+        losses, predicted = compute_losses(model, batch, deterministic=False, seed=seed)
+        raw = losses.detach()
+        weights, scaler_state = loss_scaler(state.scaler_state, raw, state.step, scaler_seed)
+        total = torch.sum(weights * losses)
+        total.backward()
+        with torch.no_grad():
+            pred = FoamData(predicted.data.detach(), predicted.labels, predicted.domain)
+            u_err, p_err = compute_errors(model, pred, batch)
+            metrics = torch.cat([total.detach()[None], weights * raw, p_err[None], u_err])
+        return metrics, raw, scaler_state
+
+    def accumulated_grads(state: TrainState, batch: FoamData, seed: int, scaler_seed: int):
+        """Micro-batch accumulation (the JAX engine's ``_accumulated_grads``):
+        the cases in groups of the largest size <= ``model.microbatch`` that
+        divides the batch (13 cases with 2 give groups of 1), so that one
+        group's second-order graph is alive at a time. Every group weighs
+        its losses from the step's starting scaler state with the one scaler
+        seed, and drops with its own seed; the gradients and metrics are the
+        groups' means, and the scaler advances once, on the mean raw
+        losses."""
+        b = batch.data.shape[0]
+        m = next(m for m in range(min(model.microbatch, b), 0, -1) if b % m == 0)
+        groups = b // m
+        metrics = raw_sum = 0.0
+        for i in range(groups):
+            mb = gather_cases(batch, slice(i * m, (i + 1) * m))
+            mets, raw, _ = grads_of(state, mb, dropout.fold_in(seed, i), scaler_seed)
+            metrics, raw_sum = metrics + mets, raw_sum + raw
+        for p in state.module.parameters():
+            if p.grad is not None:
+                p.grad.div_(groups)
+        _, scaler_state = loss_scaler(state.scaler_state, raw_sum / groups, state.step,
+                                      scaler_seed)
+        return metrics / groups, scaler_state
 
     def train_step(state: TrainState, batch: FoamData):
         """One step on ``batch``; updates ``state`` in place and returns it
         with the metric vector (on the device)."""
         seed = dropout.fold_in(state.seed, state.step)
-        losses, predicted = compute_losses(model, batch, deterministic=False, seed=seed)
-        raw = losses.detach()
-        weights, scaler_state = loss_scaler(state.scaler_state, raw, state.step,
-                                            dropout.fold_in(seed, 1))
-        total = torch.sum(weights * losses)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        total.backward()
+        if model.microbatch and model.microbatch < batch.data.shape[0]:
+            metrics, scaler_state = accumulated_grads(state, batch, seed,
+                                                      dropout.fold_in(seed, 1))
+        else:
+            metrics, _, scaler_state = grads_of(state, batch, seed, dropout.fold_in(seed, 1))
         for group in opt.param_groups:
             group["lr"] = tx.lr(state.step)
         opt.step()
-        with torch.no_grad():
-            pred = FoamData(predicted.data.detach(), predicted.labels, predicted.domain)
-            u_err, p_err = compute_errors(model, pred, batch)
-            metrics = torch.cat([total.detach()[None], weights * raw, p_err[None], u_err])
         state.step += 1
         state.scaler_state = scaler_state
         return state, metrics

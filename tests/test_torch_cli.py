@@ -20,7 +20,8 @@ from porous_cfd_tpu.models.pi_gano import pi_gano as jax_pi_gano
 from porous_cfd_tpu.pipelines.training import build_arg_parser as jax_build_arg_parser
 from porous_cfd_tpu.train import engine as jax_engine
 from porous_cfd_tpu.train.trainer import Trainer as JaxTrainer
-from porous_cfd_tpu_torch.convert import params_from_flax
+from examples.duct_variable_boundary import train as jax_variable_train
+from porous_cfd_tpu_torch.convert import params_from_flax, params_to_flax
 from porous_cfd_tpu_torch.data.synthetic import make_foam_batch, make_scalers
 from porous_cfd_tpu_torch.datagen import meta, synthetic_case
 from porous_cfd_tpu_torch.examples.duct_variable_boundary import train as cli
@@ -83,9 +84,18 @@ def test_cli_trains_and_writes_checkpoint_and_meta(data, tmp_path, model):
 
 
 def test_unported_model_raises():
+    """Named when ``pi-gano-pp-full`` raised: the CLI now builds the U-Net on
+    its analytic path, its parameter tree shaped as the JAX zoo's (the CLI
+    run itself is tests/test_torch_unet_cli.py's)."""
     args = build_arg_parser().parse_args(["--model", "pi-gano-pp-full"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.get_model(args, {}, device="cpu")
+    model = cli.get_model(args, make_scalers(), device="cpu")
+    assert model.derivative_apply is not None and model.neighbor_precompute is not None
+    ref = jax_variable_train.get_model(args, jax_synthetic.make_scalers())
+    batch = ref.attach_neighbors(jax_synthetic.make_foam_batch(1, 40, 24, 8, seed=2))
+    params = jax.eval_shape(lambda: ref.module.init(jax.random.PRNGKey(0), batch["C"],
+                                                    batch))["params"]
+    assert jax.tree_util.tree_map(np.shape, params_to_flax(model.module)) == \
+        jax.tree_util.tree_map(lambda x: x.shape, params)
 
 
 @pytest.mark.parametrize("full", [False, True], ids=["pi-gano", "pi-gano-full"])

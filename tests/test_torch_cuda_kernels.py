@@ -33,10 +33,10 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def assert_close(got, ref):
+def assert_close(got, ref, rtol=RTOL):
     assert got.shape == ref.shape
     scale = ref.abs().max().item()
-    assert (got - ref).abs().max().item() <= RTOL * scale
+    assert (got - ref).abs().max().item() <= rtol * scale
 
 
 @pytest.mark.parametrize("act", ["silu", "tanh"])
@@ -1320,5 +1320,161 @@ def test_manufactured_pp_slice_on_card_matches_cpu(cuda):
     assert [c.launches - n for c, n in zip(counters, before)] == [2, 2, 1, 1, 2, 2, 0]
     for a, r in zip(results[0][0], results[1][0]):
         assert_close(a.detach().cpu(), r.detach())
+    for a, r in zip(results[0][1], results[1][1]):
+        assert_close(a.cpu(), r)
+
+
+# ---------------------------------------------------------------------------
+# The U-Nets: FPS over all the points of a cloud (design B), the all-points
+# SA levels (dynamic from level 0 on), the one-layer global levels and
+# PI-GANO++ full's branch, at the examples' widths, on a real chain; and
+# their slices
+
+UNET_LEVELS = ["sa_0", "sa_1", "global_sa"]
+# the duct examples' U-Net encoders: (layers of sa_0, sa_1, global_sa),
+# radii, and PI-GANO++ full's branch
+UNET_ENCODERS = {
+    "pipn-pp-full": ([[9, 64, 64, 128], [130, 128, 128, 256], [258, 1024]], [0.4, 0.8]),
+    "pi-gano-pp-full": ([[9, 64, 64, 128], [130, 128, 128, 256], [258, 512]], [0.5, 1.0]),
+}
+UNET_GANO_BRANCH = [8, 128, 256, 256, 256]
+# The U-Nets' H on the card against the CPU: the JAX package's own U-Net
+# tolerance (tests/test_fp_analytic.py:205-207), of the largest entry here. A
+# point near a coarse point has an interpolation weight w = 1 / d^2 of 1e4
+# and more, and H's w^3 terms amplify rounding (the SA kernels' 3xTF32
+# against the CPU's f32) by as much.
+UNET_H_RTOL = 5e-3
+
+
+def unet_level_inputs(seq, batch, chain):
+    """What each kernel of a U-Net encoder ``seq`` gets on ``batch`` with
+    ``chain`` (the U-Net precompute), the levels below run plainly:
+    {"sa_0": (mlp, x, idx, mask, rel, None), "sa_1": (...), "global_sa":
+    (mlp, x)}; level 0's x is ``[sdf || boundaryId || C]`` over all points."""
+    from porous_cfd_tpu_torch.data.foam_data import split_contiguous
+    from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    internal, boundary = split_contiguous(batch)
+    pts = torch.cat([internal["C"], boundary["C"]], dim=-2)
+    x0 = torch.cat([batch["sdf"], batch["boundaryId"], pts], dim=-1).contiguous()
+    (_, idx0, mask0, rel0, _), (_, idx1, mask1, rel1, posc1) = extract_sa_neighbors(chain, 2)
+    with torch.no_grad():
+        x1 = sa_cuda.sa_neighborhood_plain(seq.sa_0.conv_mlp.linears, x0, idx0, mask0, rel0,
+                                           "silu")
+        x2 = sa_cuda.sa_neighborhood_plain(seq.sa_1.conv_mlp.linears, x1, idx1, mask1, rel1,
+                                           "silu")
+    return {"sa_0": (seq.sa_0.conv_mlp, x0, idx0, mask0, rel0, None),
+            "sa_1": (seq.sa_1.conv_mlp, x1.contiguous(), idx1, mask1, rel1, None),
+            "global_sa": (seq.global_sa.mlp, torch.cat([x2, posc1], dim=-1).contiguous())}
+
+
+@pytest.mark.parametrize("b", [13, 2])
+@pytest.mark.parametrize("family,level", [(f, lv) for f in UNET_ENCODERS for lv in UNET_LEVELS]
+                         + [("pi-gano-pp-full", "branch")])
+def test_unet_levels_match_plain(cuda, family, level, b):
+    """Each kernel shape of the U-Nets at the reference envelope's 1500 +
+    1000 points and 64 neighbours: SA [9, 64, 64, 128] dynamic over all
+    points (1250 centroids), [130, 128, 128, 256] dynamic (313 centroids),
+    pointnet one layer [258, 1024] / [258, 512] over the 313 centroids and,
+    for PI-GANO++ full, its branch [8, 128, 256, 256, 256]; at full and
+    small batch, forward and backward against the plain versions as SA_CASES
+    and the pointnet cases are checked."""
+    from porous_cfd_tpu_torch.models.neighbors import unet_chain_precompute
+    from porous_cfd_tpu_torch.models.pi_gano import gather_parameters
+    from porous_cfd_tpu_torch.models.set_abstraction import SetAbstractionSeq
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    layers, radii = UNET_ENCODERS[family]
+    gen = torch.Generator().manual_seed(b + len(level))
+    batch = make_foam_batch(b, 1500, 1000, 16, seed=b).to(cuda)
+    cot_gen = torch.Generator().manual_seed(len(level))
+    if level == "branch":
+        mlp = MLP(UNET_GANO_BRANCH, activation="silu", generator=gen).to(cuda)
+        x = gather_parameters(batch, VARIABLE_BOUNDARIES).contiguous()
+        assert x.shape == (b, 250 + 1500, 8)
+        _check_pointnet_winners(mlp, x, torch.randn((b, 1, 256), generator=cot_gen).to(cuda),
+                                "silu")
+        return
+    seq = SetAbstractionSeq([0.5, 0.25], radii, layers, "silu", 64, gen).to(cuda)
+    pts = torch.cat([batch["internal"]["C"], batch["boundary"]["C"]], dim=-2)
+    chain = unet_chain_precompute(pts, [0.5, 0.25], radii, 64, [3, 3, 3], True)
+    inputs = unet_level_inputs(seq, batch, chain)[level]
+    mlp, x = inputs[:2]
+    width = mlp.linears[-1].weight.shape[0]
+    if level == "global_sa":
+        assert x.shape == (b, 313, 258) and len(mlp.linears) == 1
+        cot = torch.randn((b, 1, width), generator=cot_gen).to(cuda)
+        _check_pointnet_winners(mlp, x, cot, "silu")
+        return
+    _, _, idx, mask, rel, _ = inputs
+    assert idx.shape == ((b, 1250, 64) if level == "sa_0" else (b, 313, 64))
+    cot = torch.randn((b, idx.shape[1], width), generator=cot_gen).to(cuda)
+    call = sa_cuda.level_call(mlp.linears, x, idx, mask, rel, "silu")
+    _check_winner_backward(mlp, x, idx, mask, rel, None, cot, call, "silu", False)
+
+
+def test_unet_fps_over_all_points_is_design_b_and_equals_plain(cuda):
+    """The U-Nets' precompute samples all 2,500 points of each cloud: past
+    design A's 2,048, so the clusters run; then 1250 -> 313 in design A.
+    Indices equal the plain version's, one launch a call; the chain and
+    the FP levels' kNN indices equal the CPU's."""
+    from porous_cfd_tpu_torch.models.neighbors import gather_points, unet_chain_precompute
+    from porous_cfd_tpu_torch.ops import fps_cuda
+    batch = make_foam_batch(13, 1500, 1000, 16, seed=5)
+    pts = torch.cat([batch["internal"]["C"], batch["boundary"]["C"]], dim=-2)
+    assert fps_cuda.fps_design(13, 2500, 2).kind == "B"
+    assert fps_cuda.fps_design(13, 1250, 2).kind == "A"
+    pos = pts.to(cuda)
+    for n_samples in (1250, 313):
+        before = fps_cuda.farthest_point_sampling.launches
+        got = fps_cuda.farthest_point_sampling(pos, n_samples)
+        assert fps_cuda.farthest_point_sampling.launches == before + 1
+        assert torch.equal(got, fps_cuda.farthest_point_sampling_plain(pos, n_samples))
+        pos = gather_points(pos, got)
+    card = unet_chain_precompute(pts.to(cuda), [0.5, 0.25], [0.4, 0.8], 64, [3, 3, 3], True)
+    cpu = unet_chain_precompute(pts, [0.5, 0.25], [0.4, 0.8], 64, [3, 3, 3], True)
+    for key in ("_sa_cent_0", "_sa_cent_1", "_fp_idx_0", "_fp_idx_1", "_fp_idx_2"):
+        assert torch.equal(card[key].cpu(), cpu[key]), key
+
+
+@pytest.mark.parametrize("family", list(UNET_ENCODERS))
+def test_unet_slice_on_card_matches_cpu(cuda, family):
+    """derivative_apply with dropout on, on one U-Net precompute (built on
+    the CPU, copied to the card): outputs and parameter gradients on the
+    card equal the CPU's; launches 2 sa_neighborhood and 1 pointnet_global
+    (2 with PI-GANO++ full's branch) each way, no FPS."""
+    from porous_cfd_tpu_torch.models.pi_gano import pi_gano_pp_full
+    from porous_cfd_tpu_torch.models.pipn import pipn_foam_pp_full
+    from porous_cfd_tpu_torch.ops import fps_cuda, sa_cuda
+    layers, radii = UNET_ENCODERS[family]
+    enc = [[9, 32, 32, 48], [50, 48, 48, 64], [66, 96]]
+    dec = [[96 + 64, 64, 64], [48 + 64, 32, 32], [32 + 7, 32, 32, 3]]
+    kw = dict(enc_layers=enc, enc_radius=radii, enc_fraction=[0.5, 0.25], dec_layers=dec,
+              dec_k=[3, 3, 3], scalers=make_scalers())
+    if family == "pipn-pp-full":
+        def build(dev):
+            return pipn_foam_pp_full(1e-3, 100.0, 1.0, **kw, dec_dropout=[0, 0, [0.2, 0, 0]],
+                                     generator=torch.Generator().manual_seed(1), device=dev)
+        n_pointnet = 1
+    else:
+        def build(dev):
+            return pi_gano_pp_full(1e-3, 3, [8, 32, 48], **kw, fp_dropout=[0, 0, [0.2, 0, 0]],
+                                   variable_boundaries=VARIABLE_BOUNDARIES,
+                                   generator=torch.Generator().manual_seed(1), device=dev)
+        n_pointnet = 2
+    gpu, cpu = build(cuda), build("cpu")
+    batch = cpu.attach_neighbors(make_foam_batch(3, 300, 160, 20, seed=2))
+    counters = (sa_cuda.sa_neighborhood, sa_cuda.sa_neighborhood_backward,
+                pointnet_cuda.pointnet_global, pointnet_cuda.pointnet_global_backward,
+                fps_cuda.farthest_point_sampling)
+    before = [c.launches for c in counters]
+    results = []
+    for model, b in ((gpu, batch.to(cuda)), (cpu, batch)):
+        out = model.derivative_apply(b, deterministic=False, seed=77)
+        loss = sum((o ** 2).mean() for o in out)
+        results.append((out, torch.autograd.grad(loss, list(model.module.parameters()))))
+    assert [c.launches - n for c, n in zip(counters, before)] == \
+        [2, 2, n_pointnet, n_pointnet, 0]
+    for a, r, rtol in zip(results[0][0], results[1][0], (RTOL, RTOL, UNET_H_RTOL)):
+        assert_close(a.detach().cpu(), r.detach(), rtol)
     for a, r in zip(results[0][1], results[1][1]):
         assert_close(a.cpu(), r)

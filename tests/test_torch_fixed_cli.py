@@ -1,8 +1,8 @@
 """The port's duct_fixed_boundary experiment on the CPU, on tiny golden-duct
 splits that the port's FVM solver writes: the training CLI trains ``pipn``
 on its three derivative paths, ``pipn-pp`` and ``pipn-pp-mrg`` and writes
-the checkpoint and ``model_meta.json``; ``pipn-pp-full`` raises
-``not_ported``; the inference CLI restores a checkpoint and predicts what
+the checkpoint and ``model_meta.json``; the zoo, ``pipn-pp-full`` too, has
+the JAX package's shapes; the inference CLI restores a checkpoint and predicts what
 the trained weights predict; the evaluate CLI's line agrees with the JAX
 package's evaluation of the same weights on the same split; the golden-duct
 run runs end to end; and the bench prints its line."""
@@ -97,11 +97,12 @@ def test_train_cli_trains_each_model(split, tmp_path, model, extra):
 
 
 def test_the_zoo_is_the_jax_packages_and_pipn_pp_full_is_not_ported(split):
-    """Each model's parameter tree has the JAX zoo's shapes; the paths are
-    the asked ones; the U-Net raises."""
+    """Named when the U-Net raised: each model's parameter tree, the U-Net's
+    too, has the JAX zoo's shapes, and the paths are the asked ones (the
+    U-Net's CLI runs are tests/test_torch_unet_cli.py's)."""
     ds = FoamDataset(str(split / "train"), 48, 40, 16, np.random.default_rng(8421))
     jax_ds = JaxFoamDataset(str(split / "train"), 48, 40, 16, np.random.default_rng(8421))
-    for model_type in ("pipn", "pipn-pp", "pipn-pp-mrg"):
+    for model_type in ("pipn", "pipn-pp", "pipn-pp-mrg", "pipn-pp-full"):
         args = train.build_arg_parser().parse_args(["--model", model_type])
         port = train.get_model(args, ds.normalizers, "cpu")
         ref = jax_fixed_train.get_model(args, jax_ds.normalizers)
@@ -111,12 +112,14 @@ def test_the_zoo_is_the_jax_packages_and_pipn_pp_full_is_not_ported(split):
                                                         jnp.asarray(one["C"]), one))["params"]
         got = jax.tree_util.tree_map(np.shape, params_to_flax(port.module))
         assert got == jax.tree_util.tree_map(lambda x: x.shape, params), model_type
-        assert port.module.seg_dropout == tuple(ref.module.seg_dropout)
+        if model_type == "pipn-pp-full":
+            assert port.module.decoder.dropout == ref.module.dec_dropout
+        else:
+            assert port.module.seg_dropout == tuple(ref.module.seg_dropout)
+        assert (port.derivative_apply is None) == (ref.derivative_apply is None)
     exact = train.get_model(train.build_arg_parser().parse_args(
         ["--model", "pipn", "--exact-derivatives"]), ds.normalizers, "cpu")
     assert exact.derivative_apply is None
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train.run(train_argv(split, split, "pipn-pp-full", "unet"), device="cpu")
 
 
 def test_parsers_have_the_jax_flags_and_defaults():
@@ -269,16 +272,13 @@ def test_bench_prints_its_line_at_a_tiny_envelope(capsys, monkeypatch):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
     fams = out["families"]
     assert list(fams) == list(bench.FAMILIES)
-    assert fams["pipn_pp_full"].startswith("not_ported:")
-    assert fams["pi_gano_pp_full"].startswith("not_ported:")
-    ported = [k for k in fams if k not in ("pipn_pp_full", "pi_gano_pp_full")]
-    for family in ported:
+    for family in fams:
         assert isinstance(fams[family], float) and fams[family] > 0, family
         assert len(out["runs"][family]) == 2
     assert out["value"] == fams["pipn"] and out["card"] is None
     assert out["metric"] == "train_steps_per_sec (2D duct PIPN, batch 1, 32 pts)"
     assert out["envelope"] == {"cases": 1, "batch": 1, "points": [16, 16, 4], "seed": 8421}
-    # a family that fails other than by not being ported fails the run
+    # a family that fails fails the run
     monkeypatch.setattr(bench, "FAMILIES", {"pipn": bench.FAMILIES["pipn"],
                                             "broken": (train, "pipn-unknown", [])})
     with pytest.raises(NotImplementedError, match="pipn-unknown"):

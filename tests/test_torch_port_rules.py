@@ -37,6 +37,12 @@ PI_GANO_PP_SMALL = dict(PI_GANO_SMALL, geometry_layers=[[8, 8], [10, 8], [10, 8]
 # are narrow
 MRG_SMALL = dict(n_dims=2, mrg_in_features=6, fe_local_layers=[2, 8, 8],
                  seg_layers=[1024 + 8, 8, 3], max_neighbors=8)
+UNET_ENC = dict(enc_layers=[[9, 8, 8], [10, 8, 8], [10, 16]], enc_radius=[0.5, 1.0],
+                enc_fraction=[0.5, 0.25], dec_layers=[[24, 8], [16, 8], [15, 8, 3]],
+                dec_k=[3, 3, 3], max_neighbors=8)
+UNET_SMALL = dict(UNET_ENC, nu=1e-3, d=1.0, f=1.0, dec_dropout=[0, 0, [0.1, 0]])
+UNET_GANO_SMALL = dict(UNET_ENC, nu=1e-3, out_features=3, branch_layers=[8, 16],
+                       fp_dropout=[0, 0, [0.1, 0]], variable_boundaries=VARIABLE_BOUNDARIES)
 
 
 def small_module(seed):
@@ -115,15 +121,23 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
 
 
 def test_unported_paths_raise():
+    """Named when more of the port raised: now multi-device training alone
+    does, and every path it once refused builds and steps."""
     import dataclasses
 
     from porous_cfd_tpu_torch.train.engine import make_optimizer, make_train_functions
     model = pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
                       seg_dropout=[0.1, 0.0], device="cpu")
-    for knob in (dict(microbatch=1), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_functions(dataclasses.replace(model, **knob),
-                                 make_optimizer(model, 1))
+    # micro-batch accumulation is ported (tests/test_torch_unet.py holds it
+    # to the JAX engine): it takes a training step on either path
+    foam = make_foam_batch(2, 20, 16, 4, seed=5)
+    for fast in (True, False):
+        base = pipn_foam(1e-3, 1.0, 1.0, **SMALL, scalers=make_scalers(),
+                         fast_derivatives=fast, device="cpu")
+        knobbed = dataclasses.replace(base, microbatch=1)
+        fns = make_train_functions(knobbed, make_optimizer(knobbed, 1))
+        state, m = fns.train_step(fns.init_state(seed=1), foam)
+        assert state.step == 1 and bool(torch.isfinite(m).all())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_functions(model, make_optimizer(model, 1), mesh=object())
     # PIPN's exact and coupled paths, PiGanoFull, PI-GANO++, PIPN++ MRG and
@@ -137,7 +151,6 @@ def test_unported_paths_raise():
     assert pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu",
                    full=True).module.full
     from porous_cfd_tpu_torch.data.manufactured import make_manufactured_batch
-    foam = make_foam_batch(2, 20, 16, 4, seed=5)
     manufactured = make_manufactured_batch(np.random.default_rng(5), 2, 20, 16)
     exact = [(pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu"), foam),
              (pi_gano(1e-3, **PI_GANO_SMALL, scalers=make_scalers(), device="cpu",
@@ -159,17 +172,26 @@ def test_unported_paths_raise():
     assert pipn_manufactured_pp(1e-2, 50.0, 1.0, [2, 8, 8], [[6, 8], [10, 8], [10, 16]],
                                 [0.6, 1.2], [0.5, 0.25], [24, 8, 3],
                                 device="cpu").derivative_apply is not None
-    # the U-Nets are not
-    for factory in (pi_gano_pp_full, pipn_foam_pp_full):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            factory(1e-3, 3)
+    # the U-Nets are ported too: both factories build on both paths, and
+    # both CLIs build them (full width, no step)
+    for factory, kwargs in ((pi_gano_pp_full, UNET_GANO_SMALL), (pipn_foam_pp_full,
+                                                                  UNET_SMALL)):
+        for fast in (True, False):
+            unet = factory(**kwargs, scalers=make_scalers(), fast_derivatives=fast,
+                           device="cpu")
+            assert (unet.derivative_apply is None) == (not fast)
+            assert unet.microbatch == (None if fast else 2)
     from porous_cfd_tpu_torch.examples.duct_variable_boundary.train import get_model
     from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(build_arg_parser().parse_args(["--model", "pi-gano-pp-full"]), {}, "cpu")
+    assert get_model(build_arg_parser().parse_args(["--model", "pi-gano-pp-full"]),
+                     make_scalers(), "cpu").derivative_apply is not None
+    assert get_model(build_arg_parser().parse_args(["--model", "pi-gano-pp-full"]),
+                     make_scalers(), "cpu", fast_derivatives=False).microbatch == 2
     from porous_cfd_tpu_torch.examples.duct_fixed_boundary import train as fixed
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fixed.get_model(build_arg_parser().parse_args(["--model", "pipn-pp-full"]), {}, "cpu")
+    assert fixed.get_model(build_arg_parser().parse_args(["--model", "pipn-pp-full"]),
+                           make_scalers(), "cpu").derivative_apply is not None
+    assert fixed.get_model(build_arg_parser().parse_args(["--model", "pipn-pp-full"]),
+                           make_scalers(), "cpu", fast_derivatives=False).microbatch == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(build_arg_parser().parse_args(["--mesh-data", "2"]), model, None, None)
 
@@ -191,7 +213,7 @@ def test_no_jax_import_anywhere_in_the_port():
         assert any(PORT / sub in f.parents for f in files), sub
     # the FVM solver, the fixed-boundary CLIs, the inference pipeline, the
     # golden-duct run, the bench, the manufactured dataset and split writer,
-    # the manufactured CLIs and the verification run
+    # the manufactured CLIs, the verification run and the U-Nets' analytic path
     for rel in ("datagen/fvm.py", "examples/duct_fixed_boundary/train.py",
                 "examples/duct_fixed_boundary/inference.py",
                 "examples/duct_fixed_boundary/evaluate.py", "pipelines/inference.py",
@@ -201,7 +223,7 @@ def test_no_jax_import_anywhere_in_the_port():
                 "examples/manufactured_solutions/generate_data.py",
                 "examples/manufactured_solutions/inference.py",
                 "examples/manufactured_solutions/evaluate.py",
-                "tools/convergence_report.py"):
+                "tools/convergence_report.py", "models/fp_analytic.py"):
         assert PORT / rel in files, rel
     for path in files:
         for name in _imports(path):
