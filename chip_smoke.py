@@ -11,6 +11,8 @@ Phases, in order; any failure exits non-zero:
      kernels' registers, stack and spills from ``-Xptxas -v``, the engine's
      blocks per SM
      (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the paths' widths,
+     and at D = 3 (4 points, 28 rows a block) at the 3D experiments'
+     launches and the 2D paths' widths, with their shared bytes,
      pointnet_global's blocks (points, shared bytes) at its five shapes and
      sa_neighborhood's (chunk width, resident or streamed weights, shared
      bytes, blocks per SM) at its four levels;
@@ -58,7 +60,18 @@ Phases, in order; any failure exits non-zero:
      [9, 64, 64, 128] (1250 centroids) and [130, 128, 128, 256] (313), both
      dynamic, 64 neighbours, pointnet_global one layer [258, 1024] and
      [258, 512] over 313 rows with dx, and PI-GANO++ full's branch [8, 128,
-     256, 256, 256];
+     256, 256, 256]; (o) after phase 29 writes the 3D data, the 3D
+     experiments' shapes: the engine at D = 3 (abc's decoders [1088, 512,
+     256, 128, 4] and [1088, 384, 128, 4], windbreaks' trunk of four 512-wide
+     operators on 256 local columns reduced to 4, and the 512 decoder and
+     352 trunk of the 2D paths at D = 3, each timed beside its D = 2 row),
+     forward and backward, dropout on and off; sa_neighborhood on real 3D
+     chains of abc's solved cases and windbreaks' synthetic split at 1500 /
+     1000 / 700 points: abc pipn-pp's [10, 64, 128] and [131, 128, 256] at
+     16 neighbours, windbreaks pi-gano-pp's [11, 64, 128] and [131, 128] at
+     64, both U-Nets' all-points levels; FPS over 3D boundary clouds (design
+     A) and all points (design B); pointnet_global at every 3D global level,
+     geometry encoder and branch;
   4. pipn prediction: verbose prediction (fields + PDE residuals) of 52
      synthetic cases at 1500/1000/700 internal/boundary/observation points, in
      4 batches of 13, through the full-width duct_fixed_boundary ``pipn``
@@ -109,7 +122,10 @@ Phases, in order; any failure exits non-zero:
      .train --model pi-gano-full`` (then ``pi-gano-pp-full``) trains it for
      30 epochs in a subprocess at its default bf16-mixed precision: checkpoints, model_meta.json, the
      training loss falling by CLI_MIN_FALL of itself at least, ms per epoch
-     over the whole fit and after its first chunk of 10 epochs;
+     over the whole fit and after its first chunk of 10 epochs; the
+     variable duct's inference CLI restores the first checkpoint and
+     predicts as its weights do within RTOL, and its evaluate CLI (``python
+     -m``, a subprocess) prints finite numbers;
  16, 17. pipn_pp_mrg prediction and training: phases 8 and 9 for the
      full-width duct_fixed_boundary ``pipn-pp-mrg`` model (three radius
      levels and two global ones on one boundary chain: 3 sa_neighborhood, 2
@@ -156,10 +172,29 @@ Phases, in order; any failure exits non-zero:
      autodiff of the frozen hierarchy, the peak device memory and time of
      one step as built, with the JAX modules' k_chunks running max in the
      SA levels (gradients equal) and in micro-batches of 1, then
-     UNET_EXACT_STEPS steps launching no kernel, the loss falling.
-Each of phases 4-14, 16-17, 20-21 and 24-27 sets every launch count to 0 just
-before it and reads them just after (phases 18 and 22 around each training
-command, 23 and 28 around their steps); every
+     UNET_EXACT_STEPS steps launching no kernel, the loss falling;
+ 29. the batched 3D solver (``datagen/fvm3d_batch.py``): the JAX test's two
+     cases at 20 x 12 x 12 against the port's numpy solver at the JAX
+     test's agreement; then abc's D3_TRAIN zoo cases and the 3D golden
+     run's 3 held-out cases marched at 48 x 28 x 28 and written as the
+     golden run writes them: ms a step, the steps to converge; windbreaks'
+     synthetic 5-patch split written beside them;
+ 30-35. abc ``pipn`` (decoupled) and ``pipn-pp``, on the solver's cases,
+     and windbreaks ``pi-gano`` and ``pi-gano-pp`` on the synthetic split,
+     built at full width by the CLIs' get_model (D = 3): phases 4 and 5 for
+     each (the ++ models' chains card against CPU first), with the
+     examples' 12 loss weights;
+ 36. the 3D CLIs: abc's ``pipn``, ``pipn-pp`` and ``pipn-pp-full`` and
+     windbreaks' ``pi-gano``, ``pi-gano-pp`` and ``pi-gano-pp-full`` train
+     D3_CLI_EPOCHS epochs (the first of each experiment through ``python
+     -m`` in a subprocess, the others in process with their launch counts),
+     the loss without dropout falling; the inference CLI restores each
+     checkpoint and predicts as its weights do within RTOL; the evaluate
+     CLI prints finite numbers (the MAE by inlet speed; the house's surface
+     errors and the MAE by (d, inlet speed)).
+Each of phases 4-14, 16-17, 20-21, 24-27 and 30-35 sets every launch count to 0 just
+before it and reads them just after (phases 18, 22 and 36 around each
+in-process training command, 23 and 28 around their steps); every
 training phase also counts the synchronizing calls of one step, which must
 be none. The second-to-last lines are the
 ``{"kernels": [...]}`` JSON and the card's name and power limit; the last
@@ -314,6 +349,34 @@ CLI_CASE_POINTS, CLI_PATCH_POINTS = 3000, 300
 # its CLI_EPOCHS steps: this loss falls slowly from the seeded weights, by
 # about 6e-4 of itself over 30 steps on an H100; a third of that is asked
 CLI_MIN_FALL = 2e-4
+# The 3D experiments, built at full width by the port's CLIs' own
+# get_model: abc (examples/abc/train.py: the PIPN family, 4 boundary ids,
+# 16 neighbours on the ++ models) and windbreaks (examples/windbreaks/
+# train.py: the PI-GANO family, 5 boundary ids and a solid house patch, the
+# inlet's Ux a branch feature). abc's cases: D3_TRAIN random zoo cases
+# (tools/train_golden_3d.zoo_cases) and the golden run's 3 held out,
+# solved by the batched solver on the card at the golden grid and written
+# as the golden run writes them (4,000 internal points, 500 a patch);
+# windbreaks': a synthetic 5-patch split of as many cases (no solved
+# windbreaks data exists in the repository)
+D3_TRAIN, D3_GRID = 26, (48, 28, 28)
+WB_CASE_POINTS, WB_PATCH_POINTS, WB_VAL = 2000, 250, 3
+WB_PATCHES = ["inlet", "interface", "outlet", "solid", "walls"]
+# the examples' fixed loss weights over their 12 losses (continuity,
+# momentum x/y/z, boundary u x/y/z and p, observations u x/y/z and p)
+ABC_WEIGHTS = (1,) * 8 + (100,) * 4
+WB_WEIGHTS = (10,) * 4 + (1,) * 8
+# the batched solver against the numpy one: the JAX test's grid, cases,
+# tolerance and agreement (tests/test_fvm3d_tpu.py:9-40)
+SOLVER_GRID, SOLVER_TOL, SOLVER_STEPS = (20, 12, 12), 5e-4, 6000
+SOLVER_CASES = [("band", (0.1, 0.0, 0.0), 0.10, 0.20),
+                ("sphere", (0.12, 0.02, -0.02), 0.12, 0.16)]
+# the 3D CLIs: D3_CLI_EPOCHS epochs of each model over the 3D splits at the
+# envelope's points; the first model of each experiment trains through
+# ``python -m`` in a subprocess, the others in process (launch counts)
+D3_CLI_EPOCHS = 20
+ABC_CLI_MODELS = ("pipn", "pipn-pp", "pipn-pp-full")
+WB_CLI_MODELS = ("pi-gano", "pi-gano-pp", "pi-gano-pp-full")
 
 # a kNN near-tie: two expansion-form squared distances |q|^2 - 2 q.s + |s|^2
 # within a few f32 ulps of their largest term (up to 2 on the [-1, 1]
@@ -715,24 +778,28 @@ def trunk_mode(last_activation=True, reduction=True):
                                     ("no_reduction", not reduction)) if on) or None
 
 
-def check_trunk(gen, last_activation=True, reduction=True):
+def check_trunk(gen, last_activation=True, reduction=True, n_local=PG_LOCAL[-1],
+                f=PG_BRANCH[-1], n_ops=PG_OPERATORS, rates=PG_DROPOUT, n_red=3, dims=2,
+                tag=None):
     """neural_ops_prop forward and backward against the plain version at the
-    pi-gano envelope, dropout on and off, timed, in one mode: the default
-    (an activated last operator and the reduction), or without the last
-    activation and/or the reduction (pi-gano-full's trunks run without
-    both, the outputs F wide). Returns the forward's and the backward's
-    (err, ms, plain ms, flops, bytes, extra timings)."""
+    pi-gano envelope (or at ``n_local`` local columns, ``n_ops`` operators
+    ``f`` wide with dropout ``rates``, a reduction to ``n_red`` and ``dims``
+    dimensions: windbreaks' trunk), dropout on and off, timed, in one mode:
+    the default (an activated last operator and the reduction), or without
+    the last activation and/or the reduction (pi-gano-full's trunks run
+    without both, the outputs F wide). Returns the forward's and the
+    backward's (err, ms, plain ms, flops, bytes, extra timings)."""
     import torch
     from porous_cfd_tpu_torch.models.mlp import NeuralOperatorSequential, dense
     from porous_cfd_tpu_torch.ops import dropout, mlp_prop_cuda, neural_op_cuda
     dev = torch.device("cuda", 0)
     mode = trunk_mode(last_activation, reduction)
-    label = "neural_ops_prop" + (f" {mode}" if mode else "")
-    n_local, f = PG_LOCAL[-1], PG_BRANCH[-1]
-    n_out = 3 if reduction else f
-    ops = NeuralOperatorSequential(PG_OPERATORS, f, PG_DROPOUT, "silu",
+    label = "neural_ops_prop" + (f" {mode}" if mode else "") + (f" {tag}" if tag else "")
+    n_out = n_red if reduction else f
+    geom_width = f - n_local
+    ops = NeuralOperatorSequential(n_ops, f, rates, "silu",
                                    last_activation=last_activation, generator=gen).to(dev)
-    red = dense(f, 3, gen).to(dev) if reduction else None
+    red = dense(f, n_red, gen).to(dev) if reduction else None
     linears = ops.linears + ([red] if reduction else [])
     params = [p for lin in linears for p in (lin.weight, lin.bias)]
 
@@ -740,12 +807,13 @@ def check_trunk(gen, last_activation=True, reduction=True):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
     v, v_b = rnd(BATCH, N_INT, n_local), rnd(BATCH, N_BND, n_local)
-    jt, ht = rnd(BATCH, 2, N_INT, n_local, scale=0.5), rnd(BATCH, 2, N_INT, n_local, scale=0.5)
-    geom = rnd(BATCH, 1, PG_GEOMETRY[-1])
+    jt = rnd(BATCH, dims, N_INT, n_local, scale=0.5)
+    ht = rnd(BATCH, dims, N_INT, n_local, scale=0.5)
+    geom = rnd(BATCH, 1, geom_width)
     par = (torch.rand((BATCH, 1, f), generator=gen) + 0.5).to(dev)
 
     seed = neural_op_cuda.trunk_seed(SEED)
-    if mode is None:
+    if mode is None and tag is None:
         mask = dropout.keep_mask(seed, 1, BATCH, N_INT + N_BND, f, 0.1, dev)
         kept = float((mask > 0).float().mean())
         log(f"  kept fraction of a ({BATCH}, {N_INT + N_BND}, {f}) trunk mask at rate 0.1: "
@@ -759,8 +827,8 @@ def check_trunk(gen, last_activation=True, reduction=True):
         f"d{n}" for n, _ in ops.named_parameters()] + ([
             f"dreduction.{n}" for n, _ in red.named_parameters()] if reduction else [])
     errs, timing = [], {}
-    for drop in (PG_DROPOUT, None):
-        tag = "dropout 0.1" if drop else "no dropout"
+    for drop in (rates, None):
+        dtag = "dropout" if drop else "no dropout"
         dargs = (ops.linears, red, n_local, *leaves, "silu", drop, drop is None, SEED)
         kw = {"last_activation": last_activation}
         out_k = neural_op_cuda.neural_ops_prop(*dargs, **kw)
@@ -771,26 +839,26 @@ def check_trunk(gen, last_activation=True, reduction=True):
                                   leaves + params)
         torch.cuda.synchronize()
         out_p = neural_op_cuda.neural_ops_prop_plain(*dargs, **kw)
-        errs.append(check_close(f"{label} forward, {tag}",
+        errs.append(check_close(f"{label} forward, {dtag}",
                                 list(zip(("v", "jac", "lap"), out_k, out_p))))
         loss_ref = sum((o * c).sum() for o, c in zip(out_p, cots))
         ref = torch.autograd.grad(loss_ref, leaves + params, retain_graph=True)
-        errs.append(check_close(f"{label} backward, {tag}", list(zip(names, got, ref)),
+        errs.append(check_close(f"{label} backward, {dtag}", list(zip(names, got, ref)),
                                 quiet=mode is not None))
         with torch.no_grad():
-            timing[f"ms_{tag}"] = time_ms(
+            timing[f"ms_{dtag}"] = time_ms(
                 torch, lambda: neural_op_cuda.neural_ops_prop(*dargs, **kw))
-            timing[f"plain_ms_{tag}"] = time_ms(
+            timing[f"plain_ms_{dtag}"] = time_ms(
                 torch, lambda: neural_op_cuda.neural_ops_prop_plain(*dargs, **kw), n=5)
         if drop:
             timing["plain_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
                 loss_ref, leaves + params, retain_graph=True), n=5)
-            widths = (n_local,) + (f,) * PG_OPERATORS + ((3,) if reduction else ())
-            rates = (mlp_prop_cuda.dropout_rates(drop, PG_OPERATORS, False)
-                     + (0.0,) * reduction)
+            widths = (n_local,) + (f,) * n_ops + ((n_red,) if reduction else ())
+            meta_rates = (mlp_prop_cuda.dropout_rates(drop, n_ops, False)
+                          + (0.0,) * reduction)
             meta_kw = dict(reduction=reduction, last_activation=last_activation)
-            meta = mlp_prop_cuda.Meta(n_local, "silu", rates, seed, 2, BATCH, N_INT, N_BND,
-                                      widths, **meta_kw)
+            meta = mlp_prop_cuda.Meta(n_local, "silu", meta_rates, seed, dims, BATCH, N_INT,
+                                      N_BND, widths, **meta_kw)
             with torch.no_grad():
                 weights = [lin.weight.detach() for lin in linears]
                 biases = [lin.bias.detach() for lin in linears[1:]]
@@ -802,8 +870,8 @@ def check_trunk(gen, last_activation=True, reduction=True):
                 gv, gj, gh = (c.contiguous() for c in cots)
                 timing["bwd_ms"] = time_ms(torch, lambda: neural_op_cuda.neural_ops_prop_backward(
                     meta, weights, par2, stashes, gv, gj, gh))
-                meta_int = mlp_prop_cuda.Meta(n_local, "silu", rates, seed, 2, BATCH, N_INT, 0,
-                                              widths, **meta_kw)
+                meta_int = mlp_prop_cuda.Meta(n_local, "silu", meta_rates, seed, dims, BATCH,
+                                              N_INT, 0, widths, **meta_kw)
                 gv_int = gv[:, :N_INT].contiguous()
                 timing["bwd_internal_ms"] = time_ms(
                     torch, lambda: neural_op_cuda.neural_ops_prop_backward(
@@ -816,16 +884,16 @@ def check_trunk(gen, last_activation=True, reduction=True):
         timing["ms_internal_launch_no_dropout"] = time_ms(
             torch, lambda: neural_op_cuda.neural_ops_prop(*args_int,
                                                           last_activation=last_activation))
-    macs = n_local * f + (PG_OPERATORS - 1) * f * f + (f * 3 if reduction else 0)
-    rows = BATCH * N_INT * 5 + BATCH * N_BND
-    flops = 2.0 * rows * macs + 2.0 * BATCH * PG_GEOMETRY[-1] * f
+    macs = n_local * f + (n_ops - 1) * f * f + (f * n_red if reduction else 0)
+    rows = BATCH * N_INT * (1 + 2 * dims) + BATCH * N_BND
+    flops = 2.0 * rows * macs + 2.0 * BATCH * geom_width * f
     fwd_bytes = nbytes_of([v, jt, ht, v_b, geom, par, *params]) + 4 * (
-        BATCH * (N_INT + N_BND) * n_out + 2 * BATCH * N_INT * n_out * 2)
-    log(f"  {label}: forward {timing['ms_dropout 0.1']:.4f} ms (plain "
-        f"{timing['plain_ms_dropout 0.1']:.3f}), backward {timing['bwd_ms']:.4f} ms (plain "
-        f"{timing['plain_bwd_ms']:.3f}), dropout 0.1")
-    fwd = {"err": max(errs[0], errs[2]), "ms": timing["ms_dropout 0.1"],
-           "plain_ms": timing["plain_ms_dropout 0.1"], "flops": flops, "nbytes": fwd_bytes,
+        BATCH * (N_INT + N_BND) * n_out + 2 * BATCH * N_INT * n_out * dims)
+    log(f"  {label}: forward {timing['ms_dropout']:.4f} ms (plain "
+        f"{timing['plain_ms_dropout']:.3f}), backward {timing['bwd_ms']:.4f} ms (plain "
+        f"{timing['plain_bwd_ms']:.3f}), dropout {list(rates)}")
+    fwd = {"err": max(errs[0], errs[2]), "ms": timing["ms_dropout"],
+           "plain_ms": timing["plain_ms_dropout"], "flops": flops, "nbytes": fwd_bytes,
            "extra": {"ms_no_dropout": timing["ms_no dropout"],
                      "plain_ms_no_dropout": timing["plain_ms_no dropout"],
                      "ms_internal_launch_no_dropout":
@@ -836,10 +904,11 @@ def check_trunk(gen, last_activation=True, reduction=True):
     return fwd, bwd
 
 
-def check_decoder(seg, seg_dropout, gen, tag, act="silu", n_int=N_INT, n_bnd=N_BND):
+def check_decoder(seg, seg_dropout, gen, tag, act="silu", n_int=N_INT, n_bnd=N_BND, dims=2):
     """decoder_prop against the plain version at ``seg`` widths and
     activation ``act`` over BATCH cases of ``n_int`` internal and ``n_bnd``
-    boundary rows: forward without dropout (both launches, and the internal
+    boundary rows in ``dims`` dimensions: forward without dropout (both
+    launches, and the internal
     launch alone), then forward and backward with ``seg_dropout`` (when the
     model has dropout) and without, timed at the first of those. Returns the
     forward's and the backward's (err, ms, plain ms, flops, bytes, extra
@@ -850,7 +919,7 @@ def check_decoder(seg, seg_dropout, gen, tag, act="silu", n_int=N_INT, n_bnd=N_B
     dev = torch.device("cuda", 0)
     dec = MLP(seg, seg_dropout, act, last_activation=False, generator=gen).to(dev)
     lin_d = dec.linears
-    n_local, dims = FE_LOCAL[-1], 2
+    n_local = FE_LOCAL[-1]
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
@@ -1534,7 +1603,7 @@ def derivatives_no_grad(model, batch):
 
 def prediction_phase(label, model, cpu_model, data, scalers, counters, want, name, smi,
                      per_evaluate=None, share_aux=False, compare_cases=BATCH, row_mask=None,
-                     points=(N_INT, N_BND, N_OBS), rtol=None):
+                     points=(N_INT, N_BND, N_OBS), rtol=None, dims=2):
     """Verbose prediction of every case in batches of BATCH through
     ``evaluate``: launch counts per batch (``want``; ``per_evaluate`` more per
     call, from its ``attach_neighbors``), shapes, finiteness, the median time
@@ -1544,7 +1613,8 @@ def prediction_phase(label, model, cpu_model, data, scalers, counters, want, nam
     if given, says which internal rows' derivatives and residuals are
     compared (all where None). ``points`` are the cases' (internal,
     boundary, observation) rows; ``rtol`` maps a compared label ("lap",
-    ...) to a tolerance other than RTOL."""
+    ...) to a tolerance other than RTOL; ``dims`` the cases' dimensions (the
+    fields are U and p, the residuals momentum and divergence)."""
     import torch
     from porous_cfd_tpu_torch.pipelines.evaluation import evaluate
     from porous_cfd_tpu_torch.train.engine import gather_cases, make_predict_functions
@@ -1563,9 +1633,9 @@ def prediction_phase(label, model, cpu_model, data, scalers, counters, want, nam
         fail(f"{label} launch counts {counts} != {want} per batch over {n_batches} batches "
              f"and {per_evaluate} per evaluate")
     for i, (pred, extras) in enumerate(ev.predictions):
-        if tuple(pred.data.shape) != (BATCH, n_int + n_bnd, 3):
+        if tuple(pred.data.shape) != (BATCH, n_int + n_bnd, dims + 1):
             fail(f"{label} batch {i}: fields shape {tuple(pred.data.shape)}")
-        if tuple(extras.data.shape) != (BATCH, n_int, 3):
+        if tuple(extras.data.shape) != (BATCH, n_int, dims + 1):
             fail(f"{label} batch {i}: residual shape {tuple(extras.data.shape)}")
         if not (bool(pred.data.isfinite().all()) and bool(extras.data.isfinite().all())):
             fail(f"{label} batch {i}: non-finite fields or residuals")
@@ -1637,14 +1707,15 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
     from porous_cfd_tpu_torch.train.trainer import Trainer, TrainerConfig, load_checkpoint
     dev = torch.device("cuda", 0)
     scaler = FixedLossScaler(weights)
-    steps_per_epoch = N_CASES // BATCH
+    n_cases = len(data)
+    steps_per_epoch = n_cases // BATCH
     model = full_model(dev)
     train_fns = make_train_functions(model, make_optimizer(model, steps_per_epoch), scaler)
     state = train_fns.init_state(seed=SEED)
     host_rng = np.random.default_rng(SEED)
 
     def perm():
-        return host_rng.permutation(N_CASES).reshape(steps_per_epoch, BATCH)
+        return host_rng.permutation(n_cases).reshape(steps_per_epoch, BATCH)
 
     def reset_counts():
         for c in counters.values():
@@ -1659,7 +1730,7 @@ def training_phase(label, full_model, data, counters, want, name, smi, model_typ
     torch.cuda.synchronize()
     attach_counts = read_counts()
     want_attach = want_attach or {k: 0 for k in counters}
-    log(f"{label} training: attach_neighbors of {N_CASES} cases, launches {attach_counts}")
+    log(f"{label} training: attach_neighbors of {n_cases} cases, launches {attach_counts}")
     if attach_counts != want_attach:
         fail(f"{label} launch counts of attach_neighbors {attach_counts} != {want_attach}")
 
@@ -2066,6 +2137,9 @@ def cli_phase(name, smi):
             if not fall >= CLI_MIN_FALL:
                 fail(f"cli ({model_type}): the training loss fell by {fall:.3e} of itself, "
                      f"less than {CLI_MIN_FALL:.0e}")
+            if model_type == CLI_MODELS[0]:
+                reports["inference_evaluate"] = variable_inference_evaluate(
+                    root, log_dir / "model.ckpt", model, name, smi)
             reports[model_type] = {
                 "epochs": CLI_EPOCHS, "train_cases": CLI_TRAIN, "val_cases": CLI_VAL,
                 "points": [N_INT, N_BND, N_OBS], "ms_per_epoch": ms_epoch,
@@ -2243,6 +2317,45 @@ def fixed_cli_phase(name, smi, counters):
             del model
             torch.cuda.empty_cache()
     return report
+
+
+def variable_inference_evaluate(root, ckpt, model, name, smi):
+    """Phase 15's checkpoint through the duct_variable_boundary inference
+    CLI (in process: each held-out case alone in f32 against ``model``, the
+    checkpoint's weights, on the whole split, within RTOL) and its evaluate
+    CLI (``python -m`` in a subprocess: the printed line parses and its
+    numbers are finite)."""
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.data.dataset import FoamDataset
+    from porous_cfd_tpu_torch.examples.duct_variable_boundary import inference, train
+    from porous_cfd_tpu_torch.train.engine import gather_cases, make_predict_functions
+    dev = torch.device("cuda", 0)
+    argv = ["--checkpoint", str(ckpt), "--data-dir", str(root / "val"), "--meta-dir",
+            str(root / "train"), "--n-internal", str(N_INT), "--n-boundary", str(N_BND),
+            "--n-observations", str(N_OBS)]
+    preds = inference.run(argv + ["--precision", "32-true"])
+    val_data = FoamDataset(str(root / "val"), N_INT, N_BND, N_OBS,
+                           np.random.default_rng(train.SEED), str(root / "train"))
+    stacked = model.attach_neighbors(val_data.stacked().to(dev))
+    ref = make_predict_functions(model).predict_batch(
+        gather_cases(stacked, torch.arange(len(val_data), device=dev))).data.cpu()
+    err_inf = check_close("variable inference against the checkpoint's weights",
+                          [(f"case {i}", torch.as_tensor(p_.data), ref[i])
+                           for i, p_ in enumerate(preds)])
+    cmd = [sys.executable, "-m", "porous_cfd_tpu_torch.examples.duct_variable_boundary.evaluate",
+           *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the variable evaluate CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not finite_numbers(summary) or summary["cases"] != len(val_data):
+        fail(f"the variable evaluate CLI printed {summary}")
+    log(f"cli: the variable inference CLI within {err_inf:.3e} of the checkpoint's weights; "
+        f"evaluate ({wall_s:.1f} s, a subprocess) {json.dumps(summary)} ({name}; {smi})")
+    return {"inference_max_abs_err": err_inf, "evaluate": summary, "evaluate_command_s": wall_s}
 
 
 def bench_phase(name, smi):
@@ -2842,6 +2955,401 @@ def unet_exact_phase(families, data, counters, name, smi):
     return report
 
 
+def finite_numbers(obj) -> bool:
+    """Every number in a JSON-like ``obj`` is finite."""
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return all(finite_numbers(v) for v in obj)
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return obj == obj and abs(obj) != float("inf")
+    return True
+
+
+def solver_phase(root, name, smi):
+    """Phase 29, the batched 3D solver on the card: the JAX test's two cases
+    at its grid against the port's numpy solver, at the JAX test's
+    agreement (tests/test_fvm3d_tpu.py:25-40); then abc's D3_TRAIN zoo
+    cases and the golden run's 3 held-out ones marched at D3_GRID (the 3D
+    golden run's tolerance and step limit) and written under ``root`` as
+    the golden run writes them, with each march's ms a step and the steps
+    the cases took to converge. Returns the report."""
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.datagen import fvm3d
+    from porous_cfd_tpu_torch.datagen.fvm3d_batch import solve_duct3_batch
+    from porous_cfd_tpu_torch.tools import train_golden_3d
+    dev = torch.device("cuda", 0)
+    nx, ny, nz = SOLVER_GRID
+    march = {}
+    sols = solve_duct3_batch(SOLVER_CASES, nx=nx, ny=ny, nz=nz, tol=SOLVER_TOL,
+                             max_steps=SOLVER_STEPS, device=dev, stats=march)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-12))
+
+    check = {}
+    for (shape, center, size, u_in), sol in zip(SOLVER_CASES, sols):
+        ref = fvm3d.solve_duct3(shape, center, size, u_inlet=u_in, tol=SOLVER_TOL,
+                                max_steps=SOLVER_STEPS, nx=nx, ny=ny, nz=nz)
+        uscale = float(np.linalg.norm(np.stack([ref.u, ref.v, ref.w])))
+        errs = {"u": rel(sol.u, ref.u),
+                "v": float(np.linalg.norm(sol.v - ref.v)) / uscale,
+                "w": float(np.linalg.norm(sol.w - ref.w)) / uscale, "p": rel(sol.p, ref.p)}
+        m_s = float(np.abs(sol.moment_err[1:-1, 1:-1, 1:-1]).mean())
+        m_r = float(np.abs(ref.moment_err[1:-1, 1:-1, 1:-1]).mean())
+        check[shape] = {"steps": sol.steps, "numpy_steps": ref.steps,
+                        "residual": sol.residual, "rel_err": errs,
+                        "momentum_residual_mean": [m_s, m_r]}
+        log(f"solver: {shape} at {nx}x{ny}x{nz} on the card in {sol.steps} steps (numpy "
+            f"{ref.steps}), residual {sol.residual:.3e}; against numpy u {errs['u']:.3e}, v "
+            f"{errs['v']:.3e}, w {errs['w']:.3e}, p {errs['p']:.3e} (at most 2e-3); momentum "
+            f"residual {m_s:.3e} against {m_r:.3e}")
+        if not (sol.residual < SOLVER_TOL and max(errs.values()) < 2e-3
+                and np.array_equal(sol.zone, ref.zone) and m_s < m_r * 1.5 + 1e-8):
+            fail(f"solver: the batched march misses the numpy solver on {shape}: {check[shape]}")
+    t0 = time.perf_counter()
+    train_cases, _ = train_golden_3d.zoo_cases(D3_TRAIN, 0)
+    solve = train_golden_3d.generate(root, *D3_GRID, train_cases, train_golden_3d.VAL_CASES,
+                                     device=dev)
+    write_s = time.perf_counter() - t0 - sum(v["solve_s"] for v in solve.values())
+    for split, v in solve.items():
+        v["ms_per_step"] = v["solve_s"] * 1e3 / v["steps_marched"]
+        log(f"solver: abc {split}, {v['cases']} cases at {'x'.join(map(str, D3_GRID))} "
+            f"marched together in {v['solve_s']:.3f} s, {v['steps_marched']} steps at "
+            f"{v['ms_per_step']:.4f} ms a step; the cases converged in at most "
+            f"{v['max_case_steps']} steps, residual <= {v['max_residual']:.3e} ({name}; {smi})")
+        if v["max_residual"] > 2e-3:
+            fail(f"solver: an abc {split} case did not converge ({v})")
+    log(f"solver: the cases written with their meta in {write_s:.1f} s")
+    return {"check": {"grid": list(SOLVER_GRID), "ms_per_step": march["seconds"] * 1e3
+                      / march["steps"], "cases": check},
+            "abc": {"grid": list(D3_GRID), "write_s": write_s, **solve}}
+
+
+def write_windbreaks_split(root):
+    """windbreaks' synthetic 3D split: D3_TRAIN training and WB_VAL held-out
+    cases of WB_CASE_POINTS internal points and five patches (the house's
+    ``solid`` among them) of WB_PATCH_POINTS, the example's data config."""
+    import numpy as np
+    from porous_cfd_tpu_torch.datagen import meta, synthetic_case
+    cfg = json.loads((ROOT / "examples" / "windbreaks" / "assets"
+                      / "data_config.json").read_text())
+    rng = np.random.default_rng(SEED)
+    for split, n in (("train", D3_TRAIN), ("val", WB_VAL)):
+        synthetic_case.write_foam_split(root / split, n, rng, n_internal=WB_CASE_POINTS,
+                                        n_per_patch=WB_PATCH_POINTS, dims=3, d=30000.0,
+                                        f=79.731, variable=True, patch_names=WB_PATCHES)
+        synthetic_case.write_data_config(root / split, cfg["Fields"],
+                                         cfg["Variable boundaries"], cfg["Normalize fields"],
+                                         cfg["Dims"])
+        meta.generate_meta(root / split, *cfg["Fields"], max_dim=3)
+    meta.generate_min_points(root)
+
+
+def check_3d_kernels(models, data, gen, pk):
+    """Phase 3o: every kernel at the 3D experiments' shapes against its plain
+    version, both ways, dropout on and off: the engine at D = 3 (abc's two
+    decoders, windbreaks' trunk, and the 2D paths' 512 decoder and 352 trunk
+    at D = 3, each beside its D = 2 row of 3c-3e); sa_neighborhood on real
+    3D chains of ``data`` ({"abc": the solver's cases, "windbreaks": the
+    synthetic split}, at the envelope's points): abc's pipn-pp levels and
+    U-Net levels at 16 neighbours, windbreaks' at 64; pointnet_global at
+    every 3D global level, geometry encoder and branch; FPS over 3D boundary
+    clouds (design A) and all points (design B). ``models`` maps each zoo
+    name to its model on the card. Returns {kernel key: {shape: numbers}}."""
+    import torch
+    from porous_cfd_tpu_torch.data.foam_data import split_contiguous
+    from porous_cfd_tpu_torch.models.neighbors import extract_sa_neighbors, fps_count
+    from porous_cfd_tpu_torch.train.engine import gather_cases
+    dev = torch.device("cuda", 0)
+    out = {k: {} for k in ("decoder_prop", "decoder_prop_bwd", "neural_ops_prop",
+                           "neural_ops_prop_bwd", "sa_neighborhood", "sa_neighborhood_bwd",
+                           "pointnet_global", "pointnet_global_bwd",
+                           "farthest_point_sampling")}
+
+    def put(key, label, res, **shape):
+        out[key][label] = {**shape, **shape_timing(res, pk), **res.get("extra", {})}
+
+    # the engine at D = 3
+    for label, seg, drop in (("abc pipn", [1024 + 64, 512, 256, 128, 4], [0.03, 0.02, 0, 0]),
+                             ("abc pipn-pp", [1024 + 64, 384, 128, 4], [0.03, 0, 0]),
+                             ("pipn's widths at D = 3", SEG, SEG_DROPOUT)):
+        pair = check_decoder(seg, drop, gen, f"{label} D=3", dims=3)
+        for i, key in enumerate(("decoder_prop", "decoder_prop_bwd")):
+            put(key, label, pair[i], widths=seg, dropout=drop, dims=3)
+        torch.cuda.empty_cache()
+    for label, kw in (("windbreaks", dict(n_local=256, f=512, n_ops=4,
+                                          rates=[0, 0.15, 0.15, 0], n_red=4)),
+                      ("pi-gano's widths at D = 3", {})):
+        pair = check_trunk(gen, dims=3, tag=f"{label} D=3", **kw)
+        for i, key in enumerate(("neural_ops_prop", "neural_ops_prop_bwd")):
+            put(key, label, pair[i], dims=3, **{k: v for k, v in kw.items() if k != "rates"})
+        torch.cuda.empty_cache()
+
+    # the ++ models' radius levels, on each experiment's real chain
+    for label, model_name, seq_of in (
+            ("abc pipn-pp", "abc pipn-pp", lambda m: m.module.feature_extract.global_feature),
+            ("windbreaks pi-gano-pp", "windbreaks pi-gano-pp",
+             lambda m: m.module.geometry_encoder.set_abstraction)):
+        model = models[model_name]
+        chain = model.neighbor_precompute(
+            gather_cases(data[label.split()[0]], torch.arange(BATCH)).to(dev))
+        res = check_sa(seq_of(model), chain, gen, pk, 2)
+        for i, key in enumerate(("sa_neighborhood", "sa_neighborhood_bwd")):
+            put(key, label, res[i], neighbors=model.module.max_neighbors
+                if hasattr(model.module, "max_neighbors") else None)
+        del chain
+
+    # FPS over the 3D boundary clouds (PIPN++'s levels) and all points (the
+    # U-Nets'), every case
+    for exp in ("abc", "windbreaks"):
+        internal, boundary = split_contiguous(data[exp])
+        bnd = boundary["C"].contiguous().to(dev)
+        lv = [fps_count(bnd.shape[1], 0.5)]
+        lv.append(fps_count(lv[0], 0.25))
+        fps = fps_levels(torch, bnd, lv, f"{exp} boundary clouds")
+        b_fps = bound(fps["flops"], fps["nbytes"], *pk)
+        out["farthest_point_sampling"][f"{exp} boundary"] = {
+            "input": list(bnd.shape), "samples": lv, "ms": fps["ms"],
+            "device_ms": fps["device_ms"], "plain_ms": fps["plain_ms"], "bound_ms": b_fps[0],
+            "bound_by": b_fps[1], "bound_f32_core_ms": b_fps[2], "flop": fps["flops"],
+            "bytes": fps["nbytes"], "max_abs_err": 0.0, "levels": fps["levels"]}
+        pts = torch.cat([internal["C"], boundary["C"]], dim=-2).contiguous().to(dev)
+        lv_all = [fps_count(pts.shape[1], 0.5)]
+        lv_all.append(fps_count(lv_all[0], 0.25))
+        fps = fps_levels(torch, pts, lv_all, f"{exp} all points")
+        if fps["levels"]["level_0"]["design"]["kind"] != "B":
+            fail(f"FPS over {pts.shape[1]} 3D points did not take design B")
+        b_fps = bound(fps["flops"], fps["nbytes"], *pk)
+        out["farthest_point_sampling"][f"{exp} all points"] = {
+            "input": list(pts.shape), "samples": lv_all, "ms": fps["ms"],
+            "device_ms": fps["device_ms"], "plain_ms": fps["plain_ms"], "bound_ms": b_fps[0],
+            "bound_by": b_fps[1], "bound_f32_core_ms": b_fps[2], "flop": fps["flops"],
+            "bytes": fps["nbytes"], "max_abs_err": 0.0, "levels": fps["levels"]}
+
+    # the U-Nets' levels over all points, and their global levels
+    for label in ("abc pipn-pp-full", "windbreaks pi-gano-pp-full"):
+        model = models[label]
+        exp_data = data[label.split()[0]]
+        chain = model.neighbor_precompute(gather_cases(exp_data, torch.arange(BATCH)).to(dev))
+        nbrs = extract_sa_neighbors(chain, 2)
+        enc = model.module.encoder
+        internal, boundary = split_contiguous(exp_data)
+        n_pts = internal["C"].shape[1] + boundary["C"].shape[1]
+        n_src = [n_pts, fps_count(n_pts, enc.fraction[0])]
+        for i in range(2):
+            res = check_sa_level(f"{label} level {i} dynamic", getattr(enc, f"sa_{i}").conv_mlp,
+                                 nbrs[i], None, n_src[i], gen, pk)
+            out["sa_neighborhood"][f"{label} level {i}"] = res["fwd"]
+            out["sa_neighborhood_bwd"][f"{label} level {i}"] = res["bwd"]
+        del chain
+
+    # pointnet_global at every 3D global level, encoder and branch: (label,
+    # widths, rows a case, with dx)
+    n_pts = N_INT + N_BND
+    wb = models["windbreaks pi-gano"].module
+    n_branch = int(data["windbreaks"]["inlet"]["C"].shape[-2]) + N_INT
+    for label, widths, rows, dx in (
+            ("abc pipn", list(models["abc pipn"].module.feature_extract.global_feature.layers), n_pts, True),
+            ("abc pipn-pp global",
+             list(models["abc pipn-pp"].module.feature_extract.global_feature.global_sa
+                  .mlp.layers), 125, True),
+            ("abc pipn-pp-full global",
+             list(models["abc pipn-pp-full"].module.encoder.global_sa.mlp.layers), 313, True),
+            ("windbreaks geometry", list(wb.geometry_encoder.linear.layers), n_pts, False),
+            ("windbreaks branch", list(wb.branch.linear.layers), n_branch, False),
+            ("windbreaks pi-gano-pp global",
+             list(models["windbreaks pi-gano-pp"].module.geometry_encoder.set_abstraction
+                  .global_sa.mlp.layers), 125, True),
+            ("windbreaks pi-gano-pp-full global",
+             list(models["windbreaks pi-gano-pp-full"].module.encoder.global_sa.mlp.layers),
+             313, True),
+            ("windbreaks pi-gano-pp-full branch",
+             list(models["windbreaks pi-gano-pp-full"].module.branch.linear.layers), n_branch,
+             False)):
+        pair = check_pointnet(widths, rows, dx, gen, label)
+        for i, key in enumerate(("pointnet_global", "pointnet_global_bwd")):
+            put(key, label, pair[i], input=[BATCH, rows, widths[0]], widths=widths)
+    return out
+
+
+def cli_3d_phase(experiment, model_names, root, weights_of, counters, name, smi):
+    """Phase 36, a 3D experiment's CLIs on the card (``experiment`` "abc" or
+    "windbreaks", over the split under ``root``): for each of
+    ``model_names`` the training CLI trains D3_CLI_EPOCHS epochs at the
+    envelope's points and batch BATCH, bf16-mixed validation (the first
+    model through ``python -m`` in a subprocess, the others in process with
+    their launch counts), writing model.ckpt, best.ckpt and model_meta.json;
+    the training loss without dropout falls (the CLI's initial weights
+    against the trained ones on the training split as the CLI sampled it);
+    the inference CLI restores the checkpoint and predicts each held-out
+    case as the trained weights do on the whole split, within RTOL; the
+    evaluate CLI's line holds finite numbers. Returns {model: report}."""
+    import contextlib
+    import importlib
+    import io
+    import re
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.data.dataset import FoamDataset
+    from porous_cfd_tpu_torch.train.engine import (compute_losses, gather_cases,
+                                                   make_predict_functions)
+    pkg = f"porous_cfd_tpu_torch.examples.{experiment}"
+    train, inference, evaluate = (importlib.import_module(f"{pkg}.{m}")
+                                  for m in ("train", "inference", "evaluate"))
+    dev = torch.device("cuda", 0)
+    points = ["--n-internal", str(N_INT), "--n-boundary", str(N_BND),
+              "--n-observations", str(N_OBS)]
+    held_out = ["--data-dir", str(root / "val"), "--meta-dir", str(root / "train")]
+    kernels_of = {"pipn": {"pointnet_global", "decoder_prop"},
+                  "pipn-pp": {"sa_neighborhood", "pointnet_global", "decoder_prop",
+                              "farthest_point_sampling"},
+                  "pipn-pp-full": {"sa_neighborhood", "pointnet_global",
+                                   "farthest_point_sampling"},
+                  "pi-gano": {"pointnet_global", "neural_ops_prop"},
+                  "pi-gano-pp": {"sa_neighborhood", "pointnet_global", "neural_ops_prop",
+                                 "farthest_point_sampling"},
+                  "pi-gano-pp-full": {"sa_neighborhood", "pointnet_global",
+                                      "farthest_point_sampling"}}
+    reports = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for j, model_type in enumerate(model_names):
+            argv = ["--model", model_type, "--epochs", str(D3_CLI_EPOCHS), "--log-every", "10",
+                    "--batch-size", str(BATCH), *points, "--train-dir", str(root / "train"),
+                    "--val-dir", str(root / "val"), "--logs-dir", str(Path(tmp) / "logs"),
+                    "--name", model_type]
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            if j == 0:
+                cmd = [sys.executable, "-m", f"{pkg}.train", *argv]
+                log(f"{experiment} cli: running " + " ".join(cmd[1:]))
+                proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                                      timeout=900)
+                printed, launches = proc.stdout, None
+                if proc.returncode != 0:
+                    fail(f"{experiment} cli ({model_type}) exited {proc.returncode}: "
+                         f"{proc.stderr[-3000:]}")
+                model = None
+            else:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    model = train.run(argv)
+                printed = buf.getvalue()
+                launches = {k: c.launches for k, c in counters.items() if c.launches}
+                if not kernels_of[model_type] <= set(launches) or not any(
+                        k.endswith("_bwd") for k in launches):
+                    fail(f"{experiment} cli {model_type}: launches {launches} lack a kernel "
+                         f"of {kernels_of[model_type]}")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            for line in printed.splitlines():
+                log(f"  | {line}")
+            log_dir = Path(tmp) / "logs" / "lightning_logs" / model_type
+            for fname in ("model.ckpt", "best.ckpt", "model_meta.json"):
+                if not (log_dir / fname).exists():
+                    fail(f"{experiment} cli {model_type}: the CLI did not write {fname}")
+            model_meta = json.loads((log_dir / "model_meta.json").read_text())
+            if model_meta["Model type"] != model_type or model_meta["N boundary"] != N_BND:
+                fail(f"{experiment} cli {model_type}: model_meta.json {model_meta}")
+            found = re.search(r"fit: \d+ epochs in ([0-9.]+) s, ([0-9.]+) ms per epoch; the "
+                              r"first (\d+) in ([0-9.]+) s, then ([0-9.]+) ms per epoch",
+                              printed)
+            if found is None:
+                fail(f"{experiment} cli {model_type}: the CLI did not report its fit time")
+            ms_epoch, ms_steady = float(found.group(2)), float(found.group(5))
+            ckpt = torch.load(log_dir / "model.ckpt", map_location=dev, weights_only=True)
+
+            # the training loss without dropout, the CLI's initial weights
+            # against the trained ones
+            args = train.build_arg_parser().parse_args(argv)
+            train_data = FoamDataset(str(root / "train"), N_INT, N_BND, N_OBS,
+                                     rng=np.random.default_rng(train.SEED))
+            scaler_w = torch.tensor(weights_of, device=dev)
+            initial = train.get_model(args, train_data.normalizers, dev)
+            trained = train.get_model(args, train_data.normalizers, dev)
+            trained.module.load_state_dict(ckpt["module"])
+            totals = []
+            for mdl in (initial, trained):
+                batch = mdl.attach_neighbors(train_data.stacked().to(dev))
+                with torch.no_grad():
+                    losses, _ = compute_losses(mdl, batch, deterministic=True)
+                totals.append(float((scaler_w * losses).sum()))
+            fall = (totals[0] - totals[1]) / totals[0]
+            if not fall > 0:
+                fail(f"{experiment} cli {model_type}: the training loss did not fall "
+                     f"({totals})")
+            if model is not None:
+                for a, b in zip(model.module.parameters(), trained.module.parameters()):
+                    if not torch.equal(a, b):
+                        fail(f"{experiment} cli {model_type}: model.ckpt is not the trained "
+                             "module")
+
+            # inference: the checkpoint restored, each held-out case alone
+            # in f32, against the trained weights on the whole split
+            inf_argv = ["--checkpoint", str(log_dir / "model.ckpt"), *held_out, *points]
+            preds = inference.run(inf_argv + ["--precision", "32-true"])
+            val_data = FoamDataset(str(root / "val"), N_INT, N_BND, N_OBS,
+                                   np.random.default_rng(train.SEED), str(root / "train"))
+            stacked = trained.attach_neighbors(val_data.stacked().to(dev))
+            ref = make_predict_functions(trained).predict_batch(
+                gather_cases(stacked, torch.arange(len(val_data), device=dev))).data.cpu()
+            err_inf = check_close(f"{experiment} cli {model_type} inference against the "
+                                  "trained weights",
+                                  [(f"case {i}", torch.as_tensor(p_.data), ref[i])
+                                   for i, p_ in enumerate(preds)])
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                summary = evaluate.run(inf_argv)
+            log(f"  | {buf.getvalue().strip()}")
+            if not finite_numbers(summary):
+                fail(f"{experiment} cli {model_type}: evaluate printed a non-finite number "
+                     f"{summary}")
+            log(f"{experiment} cli {model_type}: {D3_CLI_EPOCHS} epochs of {D3_TRAIN} cases "
+                f"at {N_INT}/{N_BND}/{N_OBS} points in {wall_s:.1f} s for the whole command"
+                f"{' (a subprocess)' if j == 0 else ''}, {ms_epoch:.3f} ms per epoch (the "
+                f"trainer's clock, bf16-mixed validation every 10 epochs included), "
+                f"{ms_steady:.3f} after the first chunk; training loss without dropout "
+                f"{totals[0]:.6f} -> {totals[1]:.6f}, a fall of {fall:.3e} of it; inference "
+                f"within {err_inf:.3e} of the trained weights; evaluate {json.dumps(summary)} "
+                f"({name}; {smi})")
+            reports[model_type] = {"command_s": wall_s, "subprocess": j == 0,
+                                   "ms_per_epoch": ms_epoch,
+                                   "ms_per_epoch_after_first": ms_steady,
+                                   "launches": launches, "loss_initial_trained": totals,
+                                   "loss_fall": fall, "inference_max_abs_err": err_inf,
+                                   "evaluate": summary, "model_meta": model_meta}
+            del model, initial, trained
+            torch.cuda.empty_cache()
+    return reports
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch count (and each engine mode's), by the
+    key the kernels line uses."""
+    from porous_cfd_tpu_torch.ops import (decoder_cuda, fps_cuda, neural_op_cuda, pointnet_cuda,
+                                          sa_cuda)
+    counters = {"pointnet_global": pointnet_cuda.pointnet_global,
+                "pointnet_global_bwd": pointnet_cuda.pointnet_global_backward,
+                "decoder_prop": decoder_cuda.decoder_prop,
+                "decoder_prop_bwd": decoder_cuda.decoder_prop_backward,
+                "neural_ops_prop": neural_op_cuda.neural_ops_prop,
+                "neural_ops_prop_bwd": neural_op_cuda.neural_ops_prop_backward,
+                "sa_neighborhood": sa_cuda.sa_neighborhood,
+                "sa_neighborhood_bwd": sa_cuda.sa_neighborhood_backward,
+                "farthest_point_sampling": fps_cuda.farthest_point_sampling,
+                "decoder_prop_j0_add": decoder_cuda.MODE_COUNTS["j0_add"][0],
+                "decoder_prop_j0_add_bwd": decoder_cuda.MODE_COUNTS["j0_add"][1],
+                "decoder_prop_ctx": decoder_cuda.MODE_COUNTS["ctx_width"][0],
+                "decoder_prop_ctx_bwd": decoder_cuda.MODE_COUNTS["ctx_width"][1]}
+    for key, mode in (("full", "linear_last_no_reduction"), ("linear_last", "linear_last"),
+                      ("no_reduction", "no_reduction")):
+        counters[f"neural_ops_prop_{key}"] = neural_op_cuda.MODE_COUNTS[mode][0]
+        counters[f"neural_ops_prop_{key}_bwd"] = neural_op_cuda.MODE_COUNTS[mode][1]
+    return counters
+
+
 def main() -> int:
     if not (ROOT / "porous_cfd_tpu_torch").is_dir():
         print("chip_smoke: porous_cfd_tpu_torch/ not found beside this script",
@@ -2866,23 +3374,7 @@ def main() -> int:
                                           sa_cuda)
     from porous_cfd_tpu_torch.train.engine import gather_cases
 
-    counters = {"pointnet_global": pointnet_cuda.pointnet_global,
-                "pointnet_global_bwd": pointnet_cuda.pointnet_global_backward,
-                "decoder_prop": decoder_cuda.decoder_prop,
-                "decoder_prop_bwd": decoder_cuda.decoder_prop_backward,
-                "neural_ops_prop": neural_op_cuda.neural_ops_prop,
-                "neural_ops_prop_bwd": neural_op_cuda.neural_ops_prop_backward,
-                "sa_neighborhood": sa_cuda.sa_neighborhood,
-                "sa_neighborhood_bwd": sa_cuda.sa_neighborhood_backward,
-                "farthest_point_sampling": fps_cuda.farthest_point_sampling,
-                "decoder_prop_j0_add": decoder_cuda.MODE_COUNTS["j0_add"][0],
-                "decoder_prop_j0_add_bwd": decoder_cuda.MODE_COUNTS["j0_add"][1],
-                "decoder_prop_ctx": decoder_cuda.MODE_COUNTS["ctx_width"][0],
-                "decoder_prop_ctx_bwd": decoder_cuda.MODE_COUNTS["ctx_width"][1]}
-    for key, mode in (("full", "linear_last_no_reduction"), ("linear_last", "linear_last"),
-                      ("no_reduction", "no_reduction")):
-        counters[f"neural_ops_prop_{key}"] = neural_op_cuda.MODE_COUNTS[mode][0]
-        counters[f"neural_ops_prop_{key}_bwd"] = neural_op_cuda.MODE_COUNTS[mode][1]
+    counters = kernel_counters()
 
     def counts(**nonzero):
         return {k: nonzero.get(k, 0) for k in counters}
@@ -2930,6 +3422,20 @@ def main() -> int:
         if min(occ["fwd_blocks_per_sm"], occ["bwd_blocks_per_sm"],
                occ["weight_grad_blocks_per_sm"]) < 1:
             fail(f"{label}: a kernel fits no block on an SM ({occ})")
+    # and at D = 3 (4 points, 28 rows a block): the 3D experiments' launches
+    # and the 2D paths' widths
+    for label, kern, widths in (
+            ("decoder_prop abc pipn", decoder_cuda.DECODER, [64, 512, 256, 128, 4]),
+            ("decoder_prop abc pipn-pp", decoder_cuda.DECODER, [64, 384, 128, 4]),
+            ("neural_ops_prop windbreaks", neural_op_cuda.TRUNK, [256] + [512] * 4 + [4]),
+            ("decoder_prop pipn's widths", decoder_cuda.DECODER, [FE_LOCAL[-1]] + SEG[1:]),
+            ("neural_ops_prop pi-gano's widths", neural_op_cuda.TRUNK,
+             [PG_LOCAL[-1]] + [PG_BRANCH[-1]] * PG_OPERATORS + [3])):
+        occ = mlp_prop_cuda.occupancy(kern, widths, d_dims=3)
+        log(f"  occupancy at D = 3 {label} {widths}: "
+            + ", ".join(f"{k} {v}" for k, v in occ.items()))
+        if min(occ["fwd_blocks_per_sm"], occ["bwd_blocks_per_sm"]) < 1:
+            fail(f"{label} at D = 3: a kernel fits no block on an SM ({occ})")
 
     # pointnet_global's blocks at the five shapes of phase 3
     for label, widths in (("pipn", FE_GLOBAL), ("pi-gano geometry", PG_GEOMETRY),
@@ -3157,6 +3663,38 @@ def main() -> int:
         kernels[key]["max_abs_err"] = max([kernels[key]["max_abs_err"]]
                                           + [v["max_abs_err"] for v in numbers.values()])
     del unet_models
+    torch.cuda.empty_cache()
+
+    # ---- 29. the batched 3D solver; the 3D experiments' data --------------------------
+    from porous_cfd_tpu_torch.data.dataset import FoamDataset
+    from porous_cfd_tpu_torch.examples.abc import train as abc_train
+    from porous_cfd_tpu_torch.examples.windbreaks import train as wb_train
+    d3_tmp = tempfile.TemporaryDirectory()
+    d3_root = {"abc": Path(d3_tmp.name) / "abc", "windbreaks": Path(d3_tmp.name) / "windbreaks"}
+    solver_report = solver_phase(d3_root["abc"], name, smi)
+    write_windbreaks_split(d3_root["windbreaks"])
+    d3_sets = {exp: FoamDataset(str(r / "train"), N_INT, N_BND, N_OBS,
+                                rng=np.random.default_rng(SEED)) for exp, r in d3_root.items()}
+    d3_data = {exp: ds.stacked().to("cpu") for exp, ds in d3_sets.items()}
+    d3_scalers = {exp: ds.normalizers for exp, ds in d3_sets.items()}
+
+    def zoo_model(experiment, model_type):
+        cli = abc_train if experiment == "abc" else wb_train
+
+        def build(device, fast=True):
+            return cli.get_model(Namespace(model=model_type), d3_scalers[experiment], device,
+                                 fast)
+        return build
+
+    # ---- 3o. the 3D experiments' kernel shapes ----------------------------------------
+    d3_models = {f"{exp} {m}": zoo_model(exp, m)(dev)
+                 for exp, names in (("abc", ABC_CLI_MODELS), ("windbreaks", WB_CLI_MODELS))
+                 for m in names}
+    for key, numbers in check_3d_kernels(d3_models, d3_data, gen, pk).items():
+        kernels[key]["at_3d_shapes"] = numbers
+        kernels[key]["max_abs_err"] = max([kernels[key]["max_abs_err"]]
+                                          + [v["max_abs_err"] for v in numbers.values()])
+    del d3_models
     for kern in kernels.values():
         log(json.dumps({"kernel_timing": kern}))
     torch.cuda.empty_cache()
@@ -3360,6 +3898,47 @@ def main() -> int:
     unet_exact_report = unet_exact_phase({"pipn-pp-full": pipn_pp_full_model,
                                           "pi-gano-pp-full": pi_gano_pp_full_model},
                                          data, counters, name, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 30-35. the 3D experiments: abc pipn and pipn-pp on the solver's cases,
+    # windbreaks pi-gano and pi-gano-pp on the synthetic split ----------------------------
+    d3 = {}
+    for label, exp, model_type, want, per_attach, weights in (
+            ("abc_pipn", "abc", "pipn", dict(pointnet_global=1, decoder_prop=2), {},
+             ABC_WEIGHTS),
+            ("abc_pipn_pp", "abc", "pipn-pp",
+             dict(sa_neighborhood=2, pointnet_global=1, decoder_prop=2),
+             dict(farthest_point_sampling=2), ABC_WEIGHTS),
+            ("windbreaks_pi_gano", "windbreaks", "pi-gano",
+             dict(pointnet_global=2, neural_ops_prop=2), {}, WB_WEIGHTS),
+            ("windbreaks_pi_gano_pp", "windbreaks", "pi-gano-pp",
+             dict(sa_neighborhood=2, pointnet_global=2, neural_ops_prop=2),
+             dict(farthest_point_sampling=2), WB_WEIGHTS)):
+        build = zoo_model(exp, model_type)
+        chain = None
+        if per_attach:
+            log(f"{label} boundary chain, card against CPU:")
+            card = build(dev)
+            chain = check_chain(card, build("cpu"), d3_data[exp], 2, card.module.max_neighbors)
+            del card
+        pred = prediction_phase(label, build(dev), build("cpu"), d3_data[exp], d3_scalers[exp],
+                                counters, counts(**want), name, smi,
+                                per_evaluate=counts(**per_attach) if per_attach else None,
+                                share_aux=bool(per_attach), dims=3)
+        train = training_phase(label, build, d3_data[exp], counters,
+                               counts(**want, **{f"{k}_bwd": v for k, v in want.items()}),
+                               name, smi, model_type,
+                               want_attach=counts(**per_attach) if per_attach else None,
+                               share_aux=bool(per_attach), weights=weights)
+        d3[label] = {"chain": chain, "slice": pred, "train": train}
+        torch.cuda.empty_cache()
+
+    # ---- 36. the 3D experiments' CLIs ------------------------------------------------------
+    d3_cli = {"abc": cli_3d_phase("abc", ABC_CLI_MODELS, d3_root["abc"], ABC_WEIGHTS,
+                                  counters, name, smi),
+              "windbreaks": cli_3d_phase("windbreaks", WB_CLI_MODELS, d3_root["windbreaks"],
+                                         WB_WEIGHTS, counters, name, smi)}
+    d3_tmp.cleanup()
 
     # launches on each kernel's main path (per training step; FPS per
     # attach_neighbors, the only place it runs), and per path; the ctx_width
@@ -3371,7 +3950,8 @@ def main() -> int:
              "pipn_pp": (pp_pred, pp_train), "pipn_coupled": (pc_pred, pc_train),
              "pipn_exact": (ex_pred, ex_train), "pipn_pp_mrg": (mrg_pred, mrg_train),
              "pipn_pp_manufactured": (msp_pred, msp_train),
-             "pipn_pp_full": (upf_pred, upf_train), "pi_gano_pp_full": (ugf_pred, ugf_train)}
+             "pipn_pp_full": (upf_pred, upf_train), "pi_gano_pp_full": (ugf_pred, ugf_train),
+             **{label: (v["slice"], v["train"]) for label, v in d3.items()}}
     for k, kern in kernels.items():
         main_path = ("pi_gano_full" if k.startswith("neural_ops_prop_") and
                      k != "neural_ops_prop_bwd" else
@@ -3427,6 +4007,12 @@ def main() -> int:
     log(json.dumps({"pi_gano_pp_full_slice": ugf_pred}))
     log(json.dumps({"pi_gano_pp_full_train": ugf_train}))
     log(json.dumps({"unet_exact_paths": unet_exact_report}))
+    log(json.dumps({"solver_3d": solver_report}))
+    for label, v in d3.items():
+        log(json.dumps({f"{label}_chain": v["chain"]}))
+        log(json.dumps({f"{label}_slice": v["slice"]}))
+        log(json.dumps({f"{label}_train": v["train"]}))
+    log(json.dumps({"cli_3d": d3_cli}))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

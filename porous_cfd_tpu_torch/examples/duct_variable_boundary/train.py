@@ -78,9 +78,10 @@ def get_model(args, normalizers, device=None, fast_derivatives: bool = True):
             raise NotImplementedError(args.model)
 
 
-def run(argv=None, device=None) -> None:
+def run(argv=None, device=None):
     """Parse ``argv`` (the command line when None), load the splits and
-    train on ``device`` (the CUDA card unless ``"cpu"`` is asked for)."""
+    train on ``device`` (the CUDA card unless ``"cpu"`` is asked for).
+    Returns the model, its module trained in place."""
     args = build_arg_parser().parse_args(argv)
     device = resolve_device(device)
     rng = np.random.default_rng(SEED)
@@ -90,6 +91,7 @@ def run(argv=None, device=None) -> None:
                            args.n_observations, rng=rng, meta_dir=args.train_dir)
     model = get_model(args, train_data.normalizers, device)
     train(args, model, train_data, val_data, get_loss_scaler(args), device)
+    return model
 
 
 if __name__ == "__main__":

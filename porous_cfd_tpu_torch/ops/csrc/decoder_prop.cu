@@ -154,10 +154,11 @@ extern "C" int decoder_prop_weight_grad(const float* a, const float* g, int rows
                               static_cast<cudaStream_t>(stream));
 }
 
-// Blocks per SM and shared bytes of the decoder's kernels at these widths
-// (see prop_occupancy): out[6].
-extern "C" int decoder_prop_occupancy(int n_layers, const int* widths, int v_width, int* out) {
-  return prop_occupancy<false>(n_layers, widths, v_width, true, out);
+// Blocks per SM and shared bytes of the decoder's kernels at D and these
+// widths (see prop_occupancy): out[6].
+extern "C" int decoder_prop_occupancy(int d_dims, int n_layers, const int* widths, int v_width,
+                                      int* out) {
+  return prop_occupancy<false>(d_dims, n_layers, widths, v_width, true, out);
 }
 
 // Philox4x32-10 of n (c0, c1, c2, c3, k0, k1) sets in device memory.

@@ -33,7 +33,14 @@
 //
 // Forward design. With D = 2 every point carries 1 + 2D = 5 rows. A block
 // holds 40 rows: in the internal launch 8 points x 5 components, row comp * 8
-// + point; in the boundary launch 40 points. Two row buffers as wide as the
+// + point; in the boundary launch 40 points. At D = 3 (7 rows a point) a
+// block holds 4 points, 28 rows, row comp * 4 + point (tile_points): 8
+// points would make 56 rows, whose two buffers beside the weight ring pass
+// the H100's 232,448 bytes a block at the 3D experiments' widths (abc's
+// decoder [1088, 512, 256, 128, 4]: 272,152 B; windbreaks' 512-wide trunk:
+// 329,496 B), where 28 rows take 185,240 and 213,912 B. Lane groups 4-7
+// then idle in the epilogues, and 28 of a wgmma's 64 rows are real. Rows
+// with D <= 2 keep the 8-point tile and its code. Two row buffers as wide as the
 // widest layer keep every intermediate in shared memory (row strides of 8k
 // + 4 words, so the 8 rows a warp reads at once fall in distinct banks).
 // Every dense layer is a product of the block's rows and a 128-column chunk
@@ -148,9 +155,23 @@ inline __host__ __device__ int operators(int n_layers, bool reduce) {
   return reduce ? n_layers - 1 : n_layers;
 }
 
-// A thread's accumulators over NC row groups of 8 (row group i is rows i * 8
-// + g, g = lane / 4): (i, j, e) is row group i, column 2t + e (t = lane % 4)
-// of the warp's n8 tile j, in the mma's C fragment layout.
+// Points of a block's tile with derivatives, one per lane group of a warp:
+// 8 to D = 2 (40 rows at D = 2); 4 at D = 3, whose 7 rows a point would
+// make 56 rows of 8 points, and row buffers that do not fit beside the
+// weight ring at the 3D experiments' widths (28 rows do). Lane groups past
+// the tile's points idle in the epilogues.
+template <int D>
+__host__ __device__ constexpr int tile_points() {
+  return D <= 2 ? kWarps : kWarps / 2;
+}
+template <int D>
+__host__ __device__ constexpr int tile_rows() {
+  return (1 + 2 * D) * tile_points<D>();
+}
+
+// A thread's accumulators over NC rows, one a component of its point (lane
+// group g = lane / 4): (i, j, e) is component i, column 2t + e (t = lane %
+// 4) of the warp's n8 tile j, as the mma's C fragment lays out row groups.
 template <int NC>
 struct RowAcc {
   float v[(NC + 1) / 2][2][4];
@@ -168,19 +189,19 @@ __device__ __forceinline__ int mma_col(int j) {
 }
 
 
-// d += rows x W[kpos .. kpos + k, n0 : n0 + 128] in 3xTF32 for the NC * 8
+// d += rows x W[kpos .. kpos + k, n0 : n0 + 128] in 3xTF32 for the R
 // rows of A (row stride lda, columns [k, round8(k)) zero), over the half of
 // each tile's depth that belongs to this thread's warpgroup: warpgroup h of
 // the block's two takes the 8-deep steps 2h and 2h + 1 of every 32-deep
 // tile, all 128 columns; warp w of it the rows 16w .. 16w + 15 (rows past
-// NC * 8 are zero registers). One thread keeps
+// R are zero registers). One thread keeps
 // kRing - 1 tiles in flight by bulk copy. Per 8-deep step each thread
 // loads its A fragment, splits it, and the warpgroup issues a_big b_small,
 // a_small b_big, a_big b_big on the tile's two parts; two register sets let
 // one step's products run while the next step's fragment is formed. Every
 // thread of the block must call it; it starts with a barrier (the ring's
 // last readers are done and A is complete).
-template <int NC>
+template <int R>
 __device__ __forceinline__ void rows_wgmma(float (&d)[64], const float* A, int lda,
                                            const SplitW& W, int kpos, int k, int n0,
                                            Ring& ring) {
@@ -189,8 +210,8 @@ __device__ __forceinline__ void rows_wgmma(float (&d)[64], const float* A, int l
   const int g = lane_group();
   const int t = threadIdx.x & 3;
   const int r0 = ((warp & 3) << 4) + g;
-  const bool ok0 = r0 < NC * 8;
-  const bool ok1 = r0 + 8 < NC * 8;
+  const bool ok0 = r0 < R;
+  const bool ok1 = r0 + 8 < R;
   const int n_tiles = (k + kChunkK - 1) / kChunkK;
   const int k_end = round8(k);
   const float* src = W.tiles + ((size_t)(n0 / kChunkN) * W.k_tiles + kpos / kChunkK) * kSplitTile;
@@ -242,26 +263,27 @@ __device__ __forceinline__ void rows_wgmma(float (&d)[64], const float* A, int l
   ring.seq += n_tiles;
 }
 
-// The accumulators of the product into acc, in the epilogues' layout
-// (mma_col), through the ring: each warpgroup writes its partial sums to an
-// area of its own, and each thread reads the two areas' sum at its places;
-// columns past n_cols read 0.
-template <int NC>
+// The accumulators of the product over NC * P rows (row i * P + point)
+// into acc, in the epilogues' layout (mma_col; the thread's point is its
+// lane group g), through the ring: each warpgroup writes its partial sums
+// to an area of its own, and each thread reads the two areas' sum at its
+// places; columns past n_cols, and lane groups g >= P, read 0.
+template <int NC, int P>
 __device__ __forceinline__ void rows_dump(RowAcc<NC>& acc, const float (&d)[64], float* ring,
                                           int n0, int n_cols) {
   const int warp = threadIdx.x >> 5;
   const int g = lane_group();
   const int t = threadIdx.x & 3;
   const int r0 = ((warp & 3) << 4) + g;
-  float* mine = ring + (warp >> 2) * (NC * 8 * kDumpLd);
-  const float* other = ring + NC * 8 * kDumpLd;
+  float* mine = ring + (warp >> 2) * (NC * P * kDumpLd);
+  const float* other = ring + NC * P * kDumpLd;
   __syncthreads();  // both warpgroups are done with the ring's tiles
 #pragma unroll
   for (int i = 0; i < 16; ++i)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int r = r0 + ((q >> 1) << 3);
-      if (r < NC * 8) mine[r * kDumpLd + 8 * i + 2 * t + (q & 1)] = d[4 * i + q];
+      if (r < NC * P) mine[r * kDumpLd + 8 * i + 2 * t + (q & 1)] = d[4 * i + q];
     }
   __syncthreads();
 #pragma unroll
@@ -271,8 +293,8 @@ __device__ __forceinline__ void rows_dump(RowAcc<NC>& acc, const float (&d)[64],
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = mma_col(j) + e;
-        const int o = (i * kWarps + g) * kDumpLd + c;
-        acc(i, j, e) = n0 + c < n_cols ? ring[o] + other[o] : 0.f;
+        const int o = (i * P + g) * kDumpLd + c;
+        acc(i, j, e) = (P == kWarps || g < P) && n0 + c < n_cols ? ring[o] + other[o] : 0.f;
       }
 }
 
@@ -285,8 +307,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                  int bw1, float* __restrict__ ov, int ov_rows, int ov_row0,
                  float* __restrict__ oj, float* __restrict__ oh, bool reduce, bool last_linear) {
   constexpr int kComps = 1 + 2 * D;          // rows per point with derivatives
-  constexpr int kRows = kComps * kWarps;     // rows of the block's tile
-  constexpr int kPoints = DERIV ? kWarps : kRows;
+  constexpr int kPts = tile_points<D>();     // points of the tile with derivatives
+  constexpr int kRows = kComps * kPts;       // rows of the block's tile
+  constexpr int kPoints = DERIV ? kPts : kRows;
   constexpr int C = DERIV ? kComps : 1;      // stash rows per point
   // the two row buffers and the weight ring; the buffers are picked by
   // select, not from an array, so that every access stays a shared-memory
@@ -302,18 +325,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.y;
   const int pt0 = blockIdx.x * kPoints;
   const int p = lane_group();
+  const bool live = kPts == kWarps || p < kPts;  // the lane group holds a point
   const int l0 = mlp.layer[0].k;             // J/H (and stash) row width
   const int ld0 = row_ld(lv);                // the staged local columns
   const int f1 = mlp.layer[0].n;
   const bool stash = st.a[0] != nullptr;
 
-  // stage the local input columns: row r = comp * 8 + point (internal) or
+  // stage the local input columns: row r = comp * kPts + point (internal) or
   // point r (boundary); padding columns and rows past n_pts read 0
   for (int e = threadIdx.x; e < kRows * ld0; e += kThreads) {
     const int r = e / ld0;
     const int c = e % ld0;
-    const int comp = DERIV ? r / kWarps : 0;
-    const int pt = pt0 + (DERIV ? r % kWarps : r);
+    const int comp = DERIV ? r / kPts : 0;
+    const int pt = pt0 + (DERIV ? r % kPts : r);
     float val = 0.f;
     if (pt < n_pts && c < lv) {
       if (comp == 0) {
@@ -350,7 +374,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const SplitW W = split_layer(sp, li, L.n);
     for (int n0 = 0; n0 < L.n; n0 += kChunkN) {
       float d[64] = {};
-      rows_wgmma<kComps>(d, A, lda, W, 0, L.k, n0, ring);
+      rows_wgmma<kRows>(d, A, lda, W, 0, L.k, n0, ring);
       if (DERIV && li == 0 && lv < l0) {
         // context columns [lv, l0) of the J/H rows (zeros in the value
         // rows), a chunk at a time through the same accumulators; the
@@ -363,8 +387,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int e = threadIdx.x; e < kRows * ldc; e += kThreads) {
             const int r = e / ldc;
             const int c = e % ldc;
-            const int comp = r / kWarps;
-            const int pt = pt0 + r % kWarps;
+            const int comp = r / kPts;
+            const int pt = pt0 + r % kPts;
             float val = 0.f;
             if (pt < n_pts && c < kc) {
               if (comp > 0) {
@@ -377,20 +401,20 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
             cbuf[e] = val;
           }
-          rows_wgmma<kComps>(d, cbuf, ldc, W, round32(lv) + (c0 - lv), kc, n0, ring);
+          rows_wgmma<kRows>(d, cbuf, ldc, W, round32(lv) + (c0 - lv), kc, n0, ring);
         }
       }
       RowAcc<kComps> acc;
-      rows_dump<kComps>(acc, d, ring.tiles, n0, L.n);
+      rows_dump<kComps, kPts>(acc, d, ring.tiles, n0, L.n);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = n0 + mma_col(j);       // the thread's first column (even)
-        if (c >= n_pad) continue;
+        if (!live || c >= n_pad) continue;
         // dropout factors of columns c, c + 1: one Philox call per point
         float m[DERIV ? 1 : kComps][2];
 #pragma unroll
         for (int i = 0; i < (DERIV ? 1 : kComps); ++i) {
-          const int pt = pt0 + (DERIV ? p : i * kWarps + p);
+          const int pt = pt0 + (DERIV ? p : i * kPts + p);
           keep2(drop, b, ov_row0 + pt, c, m[i]);
         }
 #pragma unroll
@@ -399,7 +423,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (n >= L.n) {  // padding columns of the next layer's input
             if (!last) {
 #pragma unroll
-              for (int i = 0; i < kComps; ++i) out[(i * kWarps + p) * ldo + n] = 0.f;
+              for (int i = 0; i < kComps; ++i) out[(i * kPts + p) * ldo + n] = 0.f;
             }
             continue;
           }
@@ -438,8 +462,8 @@ __global__ void __launch_bounds__(kThreads, 1)
               const float oj_ = d1 * zj * mk;
               const float oh_ = (d2 * zj * zj + d1 * zh) * mk;
               if (!last) {
-                out[((1 + d) * kWarps + p) * ldo + n] = oj_;
-                out[((1 + D + d) * kWarps + p) * ldo + n] = oh_;
+                out[((1 + d) * kPts + p) * ldo + n] = oj_;
+                out[((1 + D + d) * kPts + p) * ldo + n] = oh_;
               }
               if (store) {
                 oj[(((size_t)b * n_pts + pt) * L.n + n) * D + d] = oj_;
@@ -457,10 +481,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           } else {
 #pragma unroll
             for (int i = 0; i < kComps; ++i) {
-              const int pt = pt0 + i * kWarps + p;
+              const int pt = pt0 + i * kPts + p;
               const float z = acc(i, j, e) + bias;
               const float a = (lin ? z : act_value<ACT>(z)) * (m[DERIV ? 0 : i][e] * pm);
-              if (!last) out[(i * kWarps + p) * ldo + n] = a;
+              if (!last) out[(i * kPts + p) * ldo + n] = a;
               if (pt < n_pts) {
                 if (stash) {
                   za[((size_t)b * n_pts + pt) * L.n + n] = z;
@@ -484,19 +508,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const SplitW W = split_layer(sp, nl - 1, L.n);
   for (int n0 = 0; n0 < L.n; n0 += kChunkN) {
     float d[64] = {};
-    rows_wgmma<kComps>(d, A, row_ld(L.k), W, 0, L.k, n0, ring);
+    rows_wgmma<kRows>(d, A, row_ld(L.k), W, 0, L.k, n0, ring);
     RowAcc<kComps> acc;
-    rows_dump<kComps>(acc, d, ring.tiles, n0, L.n);
+    rows_dump<kComps, kPts>(acc, d, ring.tiles, n0, L.n);
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int o = n0 + mma_col(j) + e;
-        if (o >= L.n) continue;
+        if (!live || o >= L.n) continue;
 #pragma unroll
         for (int i = 0; i < kComps; ++i) {
           const int comp = DERIV ? i : 0;
-          const int pt = pt0 + (DERIV ? p : i * kWarps + p);
+          const int pt = pt0 + (DERIV ? p : i * kPts + p);
           if (pt >= n_pts) continue;
           const float z = acc(i, j, e);
           if (comp == 0) {
@@ -529,8 +553,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                       float* __restrict__ dja, float* __restrict__ dha, bool reduce,
                       bool last_linear) {
   constexpr int kComps = 1 + 2 * D;
-  constexpr int kRows = kComps * kWarps;
-  constexpr int kPoints = DERIV ? kWarps : kRows;
+  constexpr int kPts = tile_points<D>();
+  constexpr int kRows = kComps * kPts;
+  constexpr int kPoints = DERIV ? kPts : kRows;
   constexpr int C = DERIV ? kComps : 1;
   // the two row buffers and the weight ring; the buffers are picked by
   // select, not from an array, so that every access stays a shared-memory
@@ -546,6 +571,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.y;
   const int pt0 = blockIdx.x * kPoints;
   const int p = lane_group();
+  const bool live = kPts == kWarps || p < kPts;  // the lane group holds a point
   const int nl = wt.n_layers;
   const int n_out = wt.layer[nl - 1].k;       // O, or F without a reduction
   // without a reduction the staged cotangents are GA of the last operator,
@@ -560,8 +586,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = threadIdx.x; e < kRows * ld; e += kThreads) {
       const int r = e / ld;
       const int c = e % ld;
-      const int comp = DERIV ? r / kWarps : 0;
-      const int pt = pt0 + (DERIV ? r % kWarps : r);
+      const int comp = DERIV ? r / kPts : 0;
+      const int pt = pt0 + (DERIV ? r % kPts : r);
       float val = 0.f;
       if (pt < n_pts && c < n_out) {
         if (comp == 0) {
@@ -605,12 +631,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int n = n0 + mma_col(j) + e;
-              acc(i, j, e) = n < L.n ? A[(i * kWarps + p) * lda + n] : 0.f;
+              acc(i, j, e) = live && n < L.n ? A[(i * kPts + p) * lda + n] : 0.f;
             }
       } else {
         float d[64] = {};
-        rows_wgmma<kComps>(d, A, lda, split_layer(sp, li, L.n), 0, L.k, n0, ring);
-        rows_dump<kComps>(acc, d, ring.tiles, n0, L.n);
+        rows_wgmma<kRows>(d, A, lda, split_layer(sp, li, L.n), 0, L.k, n0, ring);
+        rows_dump<kComps, kPts>(acc, d, ring.tiles, n0, L.n);
       }
       if (li == 0) {  // input cotangents: dv, djt, dht
 #pragma unroll
@@ -618,11 +644,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int n = n0 + mma_col(j) + e;
-            if (n >= L.n) continue;
+            if (!live || n >= L.n) continue;
 #pragma unroll
             for (int i = 0; i < kComps; ++i) {
               const int comp = DERIV ? i : 0;
-              const int pt = pt0 + (DERIV ? p : i * kWarps + p);
+              const int pt = pt0 + (DERIV ? p : i * kPts + p);
               if (pt >= n_pts) continue;
               if (comp == 0) {
                 if (n < lv) dv[((size_t)b * n_pts + pt) * lv + n] = acc(i, j, e);
@@ -638,11 +664,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = n0 + mma_col(j);
-        if (c >= n_pad) continue;
+        if (!live || c >= n_pad) continue;
         float m[DERIV ? 1 : kComps][2];
 #pragma unroll
         for (int i = 0; i < (DERIV ? 1 : kComps); ++i) {
-          const int pt = pt0 + (DERIV ? p : i * kWarps + p);
+          const int pt = pt0 + (DERIV ? p : i * kPts + p);
           keep2(drop, b, ov_row0 + pt, c, m[i]);
         }
 #pragma unroll
@@ -650,7 +676,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int n = c + e;
           if (n >= L.n) {
 #pragma unroll
-            for (int i = 0; i < kComps; ++i) out[(i * kWarps + p) * ldo + n] = 0.f;
+            for (int i = 0; i < kComps; ++i) out[(i * kPts + p) * ldo + n] = 0.f;
             continue;
           }
           const float pm = MOD ? par_row[n] : 1.f;
@@ -658,7 +684,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int pt = pt0 + p;
             if (pt >= n_pts) {
 #pragma unroll
-              for (int i = 0; i < kComps; ++i) out[(i * kWarps + p) * ldo + n] = 0.f;
+              for (int i = 0; i < kComps; ++i) out[(i * kPts + p) * ldo + n] = 0.f;
               continue;
             }
             const size_t g0 = ((size_t)b * n_pts + pt) * C;
@@ -688,8 +714,8 @@ __global__ void __launch_bounds__(kThreads, 1)
               gzv += gjd * zj * d2 + ghd * (zj * zj * d3 + zh * d2);
               const float gzj = gjd * d1 + 2.f * ghd * zj * d2;
               const float gzh = ghd * d1;
-              out[((1 + d) * kWarps + p) * ldo + n] = gzj;
-              out[((1 + D + d) * kWarps + p) * ldo + n] = gzh;
+              out[((1 + d) * kPts + p) * ldo + n] = gzj;
+              out[((1 + D + d) * kPts + p) * ldo + n] = gzh;
               gz[(g0 + 1 + d) * L.n + n] = gzj;
               gz[(g0 + 1 + D + d) * L.n + n] = gzh;
               if (lz == 0 && dja != nullptr) {  // j0_add mode: GZ_0's J/H rows
@@ -704,7 +730,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           } else {
 #pragma unroll
             for (int i = 0; i < kComps; ++i) {
-              const int pt = pt0 + i * kWarps + p;
+              const int pt = pt0 + i * kPts + p;
               float g = 0.f;
               if (pt < n_pts) {
                 const size_t g0 = (size_t)b * n_pts + pt;
@@ -714,7 +740,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 gz[g0 * L.n + n] = g;
                 if (MOD) dpr[g0 * L.n + n] = acc(i, j, e) * (lin ? zv : act_value<ACT>(zv)) * mi;
               }
-              out[(i * kWarps + p) * ldo + n] = g;
+              out[(i * kPts + p) * ldo + n] = g;
             }
           }
         }
@@ -772,8 +798,8 @@ inline size_t bwd_smem(const Mlp& wt, bool reduce, int n_rows, int* bw) {
 template <int D, int ACT, bool DERIV, bool MOD, bool MODES>
 int launch_prop_fwd(const float* v, const float* jt, const float* ht, const float* ctx,
                     const PropArgs& a, float* ov, float* oj, float* oh, cudaStream_t s) {
-  constexpr int kRows = (1 + 2 * D) * kWarps;
-  constexpr int kPoints = DERIV ? kWarps : kRows;
+  constexpr int kRows = tile_rows<D>();
+  constexpr int kPoints = DERIV ? tile_points<D>() : kRows;
   int bw[2];
   const size_t smem = fwd_smem(a.mlp, a.lv, kRows, bw);
   if (smem > (size_t)max_shared_bytes()) return (int)cudaErrorInvalidValue;
@@ -794,8 +820,8 @@ template <int D, int ACT, bool DERIV, bool MOD, bool MODES>
 int launch_prop_bwd(const float* gv, const float* gj, const float* gh, const PropArgs& a,
                     const Mlp& wt, const Stash& gzs, const Stash& dps, float* dv, float* djt,
                     float* dht, cudaStream_t s) {
-  constexpr int kRows = (1 + 2 * D) * kWarps;
-  constexpr int kPoints = DERIV ? kWarps : kRows;
+  constexpr int kRows = tile_rows<D>();
+  constexpr int kPoints = DERIV ? tile_points<D>() : kRows;
   int bw[2];
   const size_t smem = bwd_smem(wt, a.reduce, kRows, bw);
   if (smem > (size_t)max_shared_bytes()) return (int)cudaErrorInvalidValue;
@@ -1007,31 +1033,47 @@ int prop_backward(int d_dims, int act, bool deriv, const float* gv, int ov_rows,
   return 0;
 }
 
-// Blocks per SM and shared bytes of the default mode's row kernels (D = 2,
-// silu, with derivatives; the internal launch) at these widths, and of
+// Blocks per SM and shared bytes of the default mode's row kernels (silu,
+// with derivatives; the internal launch) at D and these widths, and of
 // weight_grad's widest tile: out = {fwd blocks, fwd bytes, bwd blocks, bwd
-// bytes, weight_grad blocks, weight_grad bytes}.
-template <bool MOD>
-int prop_occupancy(int n_layers, const int* widths, int lv, bool reduce, int* out) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
+// bytes, weight_grad blocks, weight_grad bytes}. A launch whose bytes pass
+// the card's limit reads 0 blocks.
+template <int D, bool MOD>
+int prop_occupancy_d(int n_layers, const int* widths, int lv, bool reduce, int* out) {
   const Mlp m = make_mlp(n_layers, nullptr, nullptr, widths);
   const Mlp wt = transposed_mlp(n_layers, nullptr, nullptr, widths);
-  constexpr int kRows = 5 * kWarps;
+  constexpr int kRows = tile_rows<D>();
   int bw[2];
   const size_t fb = fwd_smem(m, lv, kRows, bw);
   const size_t bb = bwd_smem(wt, reduce, kRows, bw);
-  auto fk = mlp_prop_fwd<2, kSilu, true, MOD, false>;
-  auto bk = mlp_prop_bwd_rows<2, kSilu, true, MOD, false>;
-  cudaFuncSetAttribute(fk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fb);
-  cudaFuncSetAttribute(bk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bb);
+  const size_t limit = (size_t)max_shared_bytes();
+  auto fk = mlp_prop_fwd<D, kSilu, true, MOD, false>;
+  auto bk = mlp_prop_bwd_rows<D, kSilu, true, MOD, false>;
   out[0] = out[2] = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fk, kThreads, fb);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], bk, kThreads, bb);
+  if (fb <= limit) {
+    cudaFuncSetAttribute(fk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fb);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fk, kThreads, fb);
+  }
+  if (bb <= limit) {
+    cudaFuncSetAttribute(bk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bb);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], bk, kThreads, bb);
+  }
   out[1] = (int)fb;
   out[3] = (int)bb;
   out[4] = weight_grad_blocks_per_sm();
   out[5] = (int)grad_smem_bytes<128, 128>();
   return (int)cudaGetLastError();
+}
+
+template <bool MOD>
+int prop_occupancy(int d_dims, int n_layers, const int* widths, int lv, bool reduce, int* out) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
+  switch (d_dims) {
+    case 1: return prop_occupancy_d<1, MOD>(n_layers, widths, lv, reduce, out);
+    case 2: return prop_occupancy_d<2, MOD>(n_layers, widths, lv, reduce, out);
+    case 3: return prop_occupancy_d<3, MOD>(n_layers, widths, lv, reduce, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -130,9 +130,9 @@ extern "C" int neural_ops_prop_backward(
                              last_activation == 0);
 }
 
-// Blocks per SM and shared bytes of the trunk's kernels at these widths
-// (see prop_occupancy): out[6].
-extern "C" int neural_ops_prop_occupancy(int n_layers, const int* widths, int reduction,
-                                         int* out) {
-  return prop_occupancy<true>(n_layers, widths, widths[0], reduction != 0, out);
+// Blocks per SM and shared bytes of the trunk's kernels at D and these
+// widths (see prop_occupancy): out[6].
+extern "C" int neural_ops_prop_occupancy(int d_dims, int n_layers, const int* widths,
+                                         int reduction, int* out) {
+  return prop_occupancy<true>(d_dims, n_layers, widths, widths[0], reduction != 0, out);
 }

@@ -36,6 +36,68 @@ from porous_cfd_tpu_torch.ops import build, dropout as dropout_mod
 ACT_CODES = {"silu": 0, "tanh": 1}
 MAX_DIMS = 3
 
+# csrc's block shape: a tile of (1 + 2D) rows a point, 8 points to D = 2
+# and 4 at D = 3 (mlp_prop.cuh, tile_points); row buffers of stride
+# round8(k) + 4 floats (tc.cuh, row_ld); a ring of 3 split weight tiles of
+# 32 x 128 (and its 3 barriers); layer 0's context columns staged 128 at a
+# time
+RING_FLOATS = 3 * 2 * 32 * 128 + 2 * 3
+CTX_CHUNK = 128
+# an H100's shared bytes a block (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+H100_SHARED_BYTES = 232_448
+
+
+def tile_rows(d_dims: int) -> int:
+    """Rows of a row kernel's block at ``d_dims`` dimensions."""
+    return (1 + 2 * d_dims) * (8 if d_dims <= 2 else 4)
+
+
+def _row_ld(k: int) -> int:
+    return ((k + 7) & ~7) + 4
+
+
+def forward_shared_bytes(widths: Sequence[int], n_local: int, d_dims: int) -> int:
+    """Dynamic shared bytes of a forward launch over ``widths`` (layer 0's
+    input first, its first ``n_local`` columns staged with the rows, the
+    rest context columns): csrc's ``fwd_smem``."""
+    bw = [0, 0]
+    for i in range(len(widths) - 1):
+        bw[i & 1] = max(bw[i & 1], _row_ld(n_local if i == 0 else widths[i]))
+    if n_local < widths[0]:
+        bw[0] = max(bw[0], _row_ld(n_local) + _row_ld(CTX_CHUNK))
+    return 4 * (tile_rows(d_dims) * (bw[0] + bw[1]) + RING_FLOATS)
+
+
+def backward_shared_bytes(widths: Sequence[int], reduction: bool, d_dims: int) -> int:
+    """Dynamic shared bytes of a backward row launch over ``widths``:
+    csrc's ``bwd_smem``."""
+    nl = len(widths) - 1
+    top = nl - 1 if reduction else nl
+    bw = [0, 0]
+    for li in range(top, -1, -1):
+        buf = (top - li) & 1
+        bw[buf] = max(bw[buf], _row_ld(widths[nl] if li == nl else widths[li + 1]))
+        if li > 0:
+            bw[buf ^ 1] = max(bw[buf ^ 1], _row_ld(widths[nl] if li == nl else widths[li]))
+    return 4 * (tile_rows(d_dims) * (bw[0] + bw[1]) + RING_FLOATS)
+
+
+def shared_limit(device) -> int:
+    """The card's shared bytes a block (an H100's where torch does not say)."""
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin", H100_SHARED_BYTES))
+
+
+def check_fits(fn: str, meta: "Meta", limit: int) -> None:
+    """Raise ``ValueError`` when a launch of ``meta`` needs more shared bytes
+    a block than ``limit``: the widths, D and the bytes in the message."""
+    need = max(forward_shared_bytes(meta.int_widths, meta.n_local, meta.d_dims),
+               backward_shared_bytes(meta.int_widths, meta.reduction, meta.d_dims))
+    if need > limit:
+        raise ValueError(f"{fn}: widths {list(meta.int_widths)} at D = {meta.d_dims} need "
+                         f"{need} shared bytes a block ({tile_rows(meta.d_dims)} rows), "
+                         f"past the card's {limit}")
+
 
 def dropout_rates(dropout: Optional[Sequence[float]], n_layers: int,
                   deterministic: bool, fn: str = "decoder_prop") -> tuple[float, ...]:
@@ -202,13 +264,15 @@ class Meta:
 
 def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, stash: bool,
             par=None, ja=None, ha=None):
-    """Both launches; with ``stash`` also the training stash of each.
+    """Both launches, after ``check_fits``; with ``stash`` also the training
+    stash of each.
     ``weights`` are the layers' nn.Linear weights (layer 0's local block is
     read, and its context block too in the ctx_width mode), ``biases`` those
     of layers 1 on; ``ctx`` (B, F1) takes layer 0's bias's place; ``par``
     (B, F) for a modulated ``kern``; ``ja``/``ha`` (B, D, Ni, F1) the j0_add
     mode's addends. Returns (ov, oj, oh, [a_int, z_int, a_bnd, z_bnd])."""
     dev = v.device
+    check_fits(kern.prefix, meta, shared_limit(dev))
     b_cases, n_int, n_bnd, d_dims = meta.b_cases, meta.n_int, meta.n_bnd, meta.d_dims
     n_out = meta.widths[-1]
     ov = torch.empty((b_cases, n_int + n_bnd, n_out), dtype=torch.float32, device=dev)
@@ -420,21 +484,22 @@ def weight_grad(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def occupancy(kern: Kernels, widths: Sequence[int], n_local: Optional[int] = None,
-              reduction: bool = True) -> dict:
-    """Blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and
-    dynamic shared bytes of ``kern``'s internal forward and backward
-    kernels in the default mode (D = 2, silu) at ``widths`` (the decoder's
-    layer 0 reads ``n_local`` columns), and of weight_grad's 128 x 128
-    tile. Needs the card."""
+              reduction: bool = True, d_dims: int = 2) -> dict:
+    """Blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 0
+    past the card's shared bytes) and dynamic shared bytes of ``kern``'s
+    internal forward and backward kernels in the default mode (silu) at
+    ``d_dims`` and ``widths`` (the decoder's layer 0 reads ``n_local``
+    columns), and of weight_grad's 128 x 128 tile. Needs the card."""
     lib = kern.library()
     entry = getattr(lib, f"{kern.prefix}_occupancy")
     out = (ctypes.c_int * 6)()
     n_layers = len(widths) - 1
     mode = int(reduction) if kern.modulated else int(n_local or widths[0])
-    entry.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    entry.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p]
     entry.restype = ctypes.c_int
     build.check_launch(f"{kern.prefix}_occupancy",
-                       entry(n_layers, build.int_array(widths), mode, out))
+                       entry(d_dims, n_layers, build.int_array(widths), mode, out))
     keys = ("fwd_blocks_per_sm", "fwd_smem_bytes", "bwd_blocks_per_sm", "bwd_smem_bytes",
             "weight_grad_blocks_per_sm", "weight_grad_smem_bytes")
     return dict(zip(keys, list(out)))

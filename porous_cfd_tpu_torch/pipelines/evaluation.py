@@ -33,6 +33,48 @@ def inverse_transform(scaler, x) -> np.ndarray:
     return scaler.to("cpu").inverse_transform(torch.as_tensor(np.asarray(x))).numpy()
 
 
+def extract_coef(coef, scaler) -> np.ndarray:
+    """The largest denormalised coefficient of each case: (B, N, D) ->
+    (B, 1, 1), from the first column."""
+    coef = inverse_transform(scaler, coef)[..., 0:1]
+    return np.max(coef, axis=-2, keepdims=True)
+
+
+def extract_u_magnitude(u, scaler, spacing: float) -> np.ndarray:
+    """The inlet speed of each case (the largest denormalised |U| of its
+    rows), snapped to multiples of ``spacing``: (B, N, D) -> (B, 1, 1)."""
+    u_mag = np.linalg.norm(inverse_transform(scaler, u), axis=-1, keepdims=True)
+    u_mag = np.max(u_mag, axis=-2, keepdims=True)
+    return np.round(u_mag / spacing) * spacing
+
+
+def extract_angle(u, scaler) -> np.ndarray:
+    """The signed inlet angle of each case in degrees, from its denormalised
+    U rows: (B, N, D) -> (B, 1, 1)."""
+    u = inverse_transform(scaler, u)
+    u_mag = np.linalg.norm(u, axis=-1, keepdims=True)
+    a = np.arccos(u[..., 0:1] / u_mag)
+    a = np.max(a, axis=-2, keepdims=True)
+    a = a * np.max(np.sign(u[..., -1:]), axis=-2, keepdims=True)
+    return np.rad2deg(a)
+
+
+def mae_by(results: dict, keys: list[str]) -> list[dict]:
+    """The per-case MAE of each field averaged over the cases that share the
+    values of ``keys`` (one per case in ``results``): one entry a distinct
+    tuple of values, in sorted order, ``{key: value, ..., "cases": n,
+    "mae": [per field]}``. These are the numbers the reference's MAE-by-
+    variable plots and heatmaps draw."""
+    mae = np.mean(np.concatenate([results["U error"], results["p error"]], -1), axis=-2)
+    values = np.stack([np.asarray(results[k], np.float64).reshape(len(mae)) for k in keys], -1)
+    out = []
+    for row in np.unique(values, axis=0):
+        sel = np.all(values == row, axis=-1)
+        out.append({**{k: float(v) for k, v in zip(keys, row)}, "cases": int(sel.sum()),
+                    "mae": [float(x) for x in np.mean(mae[sel], axis=0)]})
+    return out
+
+
 def get_normalized_signed_distance(points: np.ndarray, target: np.ndarray
                                    ) -> np.ndarray:
     """Min distance of each point from the target cloud, max-normalized."""

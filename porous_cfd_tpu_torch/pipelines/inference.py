@@ -13,13 +13,16 @@ from argparse import ArgumentParser, Namespace
 from pathlib import Path
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from porous_cfd_tpu_torch.data.dataset import FoamDataset
 from porous_cfd_tpu_torch.data.foam_data import FoamData
-from porous_cfd_tpu_torch.device import not_ported
+from porous_cfd_tpu_torch.data.parser import parse_model_type
+from porous_cfd_tpu_torch.device import not_ported, resolve_device
 from porous_cfd_tpu_torch.models.base import PinnModel
 from porous_cfd_tpu_torch.train.engine import gather_cases, make_predict_functions
+from porous_cfd_tpu_torch.train.trainer import load_checkpoint
 
 
 def default_checkpoint() -> str:
@@ -74,3 +77,29 @@ def predict(args: Namespace, model: PinnModel, data: FoamDataset,
         if result_process_fn is not None:
             result_process_fn(data, data[i], predicted, Path(data.samples[i]))
     return predictions
+
+
+def restore(args: Namespace, data: FoamDataset, get_model, device=None):
+    """The model of the checkpoint's type (its ``model_meta.json``) that an
+    experiment's ``get_model(args, normalizers, device)`` builds over
+    ``data``'s normalizers on ``device`` (the CUDA card unless ``"cpu"`` is
+    asked for), with the checkpoint's weights restored into its module.
+    Returns (model, state)."""
+    model = get_model(Namespace(**{**vars(args), "model": parse_model_type(args.checkpoint),
+                                   "loss_scaler": "fixed"}),
+                      data.normalizers, resolve_device(device))
+    state, _ = load_checkpoint(args.checkpoint, model)
+    return model, state
+
+
+def run(argv, get_model, seed: int, device=None) -> list[FoamData]:
+    """An experiment's inference CLI: parse ``argv`` (the command line when
+    None), load the split with the rng of ``seed``, restore the checkpoint
+    through ``get_model`` and predict each case on ``device``; returns the
+    predictions."""
+    args = build_arg_parser().parse_args(argv)
+    device = resolve_device(device)
+    data = FoamDataset(args.data_dir, args.n_internal, args.n_boundary, args.n_observations,
+                       np.random.default_rng(seed), args.meta_dir)
+    model, _ = restore(args, data, get_model, device)
+    return predict(args, model, data)

@@ -1478,3 +1478,177 @@ def test_unet_slice_on_card_matches_cpu(cuda, family):
         assert_close(a.detach().cpu(), r.detach(), rtol)
     for a, r in zip(results[0][1], results[1][1]):
         assert_close(a.cpu(), r)
+
+
+# The (v, J, H) engine at D = 3, at the 3D experiments' widths: abc's
+# decoders (pipn, pipn-pp), windbreaks' trunk (4 operators at 512, local
+# 256, reduction to 4) and the 2D paths' widths (the 512 decoder, the 352
+# trunk) at D = 3. (kind, n_local, widths, dropout rates)
+ENGINE_3D = {
+    "abc_pipn_decoder": ("decoder", 64, [64 + 1024, 512, 256, 128, 4], [0.03, 0.02, 0.0, 0.0]),
+    "abc_pp_decoder": ("decoder", 64, [64 + 1024, 384, 128, 4], [0.03, 0.0, 0.0]),
+    "windbreaks_trunk": ("trunk", 256, [512] * 4 + [4], [0.0, 0.15, 0.15, 0.0]),
+    "duct_decoder_at_3d": ("decoder", 64, [64 + 1024, 512, 256, 128, 3], [0.05, 0.05, 0.0, 0.0]),
+    "duct_trunk_at_3d": ("trunk", 176, [352] * 4 + [3], [0.0, 0.1, 0.1, 0.0]),
+}
+
+
+def engine_3d_call(case, gen, cuda, b, n_int, n_bnd, dropout_on, requires_grad=True):
+    """The engine's arguments for one of ENGINE_3D's launches at D = 3:
+    (fn, plain fn, args, the tensors and parameters to differentiate)."""
+    kind, n_local, widths, rates = ENGINE_3D[case]
+    rates = rates if dropout_on else [0.0] * len(rates)
+    rnd = lambda *s: (torch.randn(s, generator=gen) * 0.5).to(cuda).requires_grad_(  # noqa: E731
+        requires_grad)
+    v, jt, ht = rnd(b, n_int, n_local), rnd(b, 3, n_int, n_local), rnd(b, 3, n_int, n_local)
+    v_b = rnd(b, n_bnd, n_local)
+    if kind == "decoder":
+        mod = MLP(widths, activation="silu", last_activation=False, generator=gen).to(cuda)
+        g = rnd(b, 1, widths[0] - n_local)
+        args = (mod.linears, n_local, v, jt, ht, v_b, g, "silu", rates, False, 1234)
+        return (decoder_cuda.decoder_prop, decoder_cuda.decoder_prop_plain, args,
+                [v, jt, ht, v_b, g] + _params(mod))
+    f, n_out = widths[0], widths[-1]
+    ops = NeuralOperatorSequential(len(widths) - 1, f, (0.0,) * (len(widths) - 1), "silu",
+                                   generator=gen).to(cuda)
+    red = dense(f, n_out, gen).to(cuda)
+    geom = rnd(b, 1, f - n_local)
+    par = (torch.rand((b, 1, f), generator=gen) + 0.5).to(cuda).requires_grad_(requires_grad)
+    args = (ops.linears, red, n_local, v, jt, ht, v_b, geom, par, "silu", rates, False, 4321)
+    return (neural_op_cuda.neural_ops_prop, neural_op_cuda.neural_ops_prop_plain, args,
+            [v, jt, ht, v_b, geom, par] + _params(ops) + _params(red))
+
+
+@pytest.mark.parametrize("dropout_on", [False, True], ids=["no-dropout", "dropout"])
+@pytest.mark.parametrize("case", list(ENGINE_3D))
+def test_engine_3d_launches_match_plain(cuda, case, dropout_on):
+    gen = torch.Generator().manual_seed(len(case))
+    fn, plain, args, inputs = engine_3d_call(case, gen, cuda, 2, 301, 77, dropout_on)
+    out, cots, got = _grads_through(fn, args, inputs, gen, cuda)
+    ref_out = plain(*args)
+    for a, r in zip(out, ref_out):
+        assert_close(a.detach(), r.detach())
+    ref = torch.autograd.grad(sum((o * c).sum() for o, c in zip(ref_out, cots)), inputs)
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+
+def test_engine_3d_past_the_shared_limit_raises(cuda):
+    """A 1024-wide trunk at D = 3 needs 328,600 shared bytes a block (28
+    rows of two 1028-float buffers and the weight ring): refused before any
+    launch, with the widths, D and the bytes in the message."""
+    gen = torch.Generator().manual_seed(3)
+    ops = NeuralOperatorSequential(2, 1024, (0.0, 0.0), "silu", generator=gen).to(cuda)
+    red = dense(1024, 4, gen).to(cuda)
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda)  # noqa: E731
+    v, jt, ht = rnd(1, 9, 512), rnd(1, 3, 9, 512), rnd(1, 3, 9, 512)
+    par = torch.rand((1, 1, 1024), generator=gen).to(cuda)
+    before = (neural_op_cuda.neural_ops_prop.launches,
+              neural_op_cuda.neural_ops_prop_backward.launches)
+    with pytest.raises(ValueError, match=r"D = 3 need 328600 shared bytes"):
+        neural_op_cuda.neural_ops_prop(ops.linears, red, 512, v, jt, ht, None, rnd(1, 1, 512),
+                                       par, "silu")
+    assert (neural_op_cuda.neural_ops_prop.launches,
+            neural_op_cuda.neural_ops_prop_backward.launches) == before
+
+
+# The 3D experiments' shapes on the other kernels: every SetAbstraction
+# level at D = 3 (abc at 16 neighbours, windbreaks at 64; static and
+# dynamic as the models run them), pointnet_global at the 3D zoos' widths,
+# FPS over 3D clouds in both designs. (static, B, source rows, centroids,
+# K, layers)
+SA_3D = {
+    "abc_pp_sa0": (True, 13, 1000, 500, 16, [10, 64, 128]),
+    "abc_pp_sa1": (False, 13, 500, 125, 16, [131, 128, 256]),
+    "abc_unet_sa0": (False, 4, 2500, 1250, 16, [11, 64, 64, 128]),
+    "abc_unet_sa1": (False, 4, 1250, 313, 16, [131, 128, 128, 256]),
+    "wb_pp_sa0": (True, 13, 1000, 500, 64, [11, 64, 128]),
+    "wb_pp_sa1": (False, 13, 500, 125, 64, [131, 128]),
+    "wb_unet_sa0": (False, 4, 2500, 1250, 64, [12, 64, 64, 128]),
+    "wb_unet_sa1": (False, 4, 1250, 313, 64, [131, 128, 128, 256]),
+}
+
+
+@pytest.mark.parametrize("case", list(SA_3D))
+def test_sa_kernel_matches_plain_3d(cuda, case):
+    """Values within RTOL, the argmax equal wherever the top two rows differ
+    by more than RTOL, and every gradient (dx through dP in the dynamic
+    variant) against the plain level at the kernel's argmax (at these sizes
+    some channels' top two rows lie within the kernels' 3xTF32 rounding),
+    at D = 3 with emptied neighbourhoods, one launch each way."""
+    from porous_cfd_tpu_torch.ops import sa_cuda
+    static, b, n, c, k, layers = SA_3D[case]
+    gen = torch.Generator().manual_seed(c + k)
+    mlp = MLP(layers, activation="silu", generator=gen).to(cuda)
+    lin = mlp.linears
+    x, idx, mask, rel, xg = _sa_inputs(gen, cuda, b, n, c, k, layers[0] - 3, 3, 7)
+    xg = xg if static else None
+    xr = x.clone().requires_grad_(not static)
+    cot = torch.randn((b, c, layers[-1]), generator=gen).to(cuda)
+    wrt = ([] if static else [xr]) + _params(mlp)
+    before = (sa_cuda.sa_neighborhood.launches, sa_cuda.sa_neighborhood_backward.launches)
+    out = sa_cuda.sa_neighborhood(lin, xr, idx, mask, rel, "silu", xg)
+    got = torch.autograd.grad((out * cot).sum(), wrt)
+    torch.cuda.synchronize()
+    assert (sa_cuda.sa_neighborhood.launches - before[0],
+            sa_cuda.sa_neighborhood_backward.launches - before[1]) == (1, 1)
+    _, arg = sa_cuda._forward(sa_cuda.level_call(lin, x, idx, mask, rel, "silu", xg))
+    with torch.no_grad():
+        ref_out, ref_arg = sa_cuda.sa_neighborhood_plain(lin, x, idx, mask, rel, "silu", xg,
+                                                         with_argmax=True)
+        h = sa_cuda._plain_rows(lin, x, idx, mask, rel, "silu", xg)
+        top2 = torch.topk(h.masked_fill(~mask[..., None], -1e30), 2, dim=2).values
+        decided = ((top2[:, :, 0] - top2[:, :, 1]) > RTOL * ref_out.abs().max()) | \
+            (mask.sum(-1, keepdim=True) < 2)
+        del h, top2
+    assert_close(out.detach(), ref_out)
+    assert torch.equal(arg[decided], ref_arg[decided])
+    ref_at = sa_cuda.sa_neighborhood_at(lin, xr, idx, mask, rel, "silu", arg, xg)
+    ref = torch.autograd.grad((ref_at * cot).sum(), wrt)
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+
+@pytest.mark.parametrize("layers,n", [
+    ([69, 96, 128, 1024], 2500),     # abc pipn
+    ([259, 256, 1024], 125),         # abc pipn-pp's global level
+    ([259, 1024], 313),              # abc pipn-pp-full's global level
+    ([9, 256, 256, 256], 2500),      # windbreaks' geometry
+    ([10, 256, 256, 512], 1750),     # windbreaks' branch
+    ([10, 256, 256, 256], 1750),     # windbreaks pi-gano-pp-full's branch
+    ([131, 256, 256], 125),          # windbreaks pi-gano-pp's global level
+    ([259, 512, 1024], 313),         # windbreaks pi-gano-pp-full's global level
+], ids=["abc-pipn", "abc-pp-global", "abc-unet-global", "wb-geometry", "wb-branch",
+        "wb-unet-branch", "wb-pp-global", "wb-unet-global"])
+def test_pointnet_at_3d_widths(cuda, layers, n):
+    gen = torch.Generator().manual_seed(layers[0] + n)
+    mlp = MLP(layers, activation="silu", generator=gen).to(cuda)
+    x = torch.randn((13, n, layers[0]), generator=gen).to(cuda).requires_grad_()
+    cot = torch.randn((13, 1, layers[-1]), generator=gen).to(cuda)
+    m, arg = pointnet_cuda.pointnet_global(mlp.linears, x, "silu")
+    got = torch.autograd.grad((m * cot).sum(), [x] + _params(mlp))
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        rm, _ = pointnet_cuda.pointnet_global_plain(mlp.linears, x, "silu")
+        g = analytic.mlp_value(mlp.linears, x, "silu")
+    assert_close(m.detach(), rm)
+    top2 = torch.topk(g, 2, dim=-2).values
+    decided = (top2[:, 0] - top2[:, 1]) > RTOL * rm.abs().max()
+    assert torch.equal(arg[:, 0][decided], torch.argmax(g, dim=-2)[decided])
+    ref_m = pointnet_cuda.pointnet_global_at(mlp.linears, x, "silu", arg)
+    ref = torch.autograd.grad((ref_m * cot).sum(), [x] + _params(mlp))
+    for a, r in zip(got, ref):
+        assert_close(a, r)
+
+
+@pytest.mark.parametrize("b,n,n_samples", [(13, 1000, 500), (13, 500, 125), (13, 2500, 1250),
+                                           (13, 1250, 313)])
+def test_fps_kernel_equals_plain_3d(cuda, b, n, n_samples):
+    """Real 3D duct clouds' sizes: PIPN++'s levels (design A) and the
+    U-Nets' all-points level (design B), indices equal."""
+    from porous_cfd_tpu_torch.ops import fps_cuda
+    gen = torch.Generator().manual_seed(n)
+    pos = (torch.rand((b, n, 3), generator=gen) * torch.tensor([1.0, 0.6, 0.6]) - 0.4).to(cuda)
+    got = fps_cuda.farthest_point_sampling(pos, n_samples)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_cuda.farthest_point_sampling_plain(pos, n_samples))

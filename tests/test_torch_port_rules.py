@@ -22,6 +22,9 @@ from porous_cfd_tpu_torch.models.pipn import (PipnModule, pipn_foam, pipn_foam_p
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "porous_cfd_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "porous_cfd_tpu")
+# the JAX package's example and tool scripts, which the port keeps its own
+# counterparts of
+FORBIDDEN_SCRIPTS = ("examples", "tools")
 SMALL = dict(fe_local_layers=[2, 8, 8], fe_global_layers=[13, 8, 16],
              seg_layers=[24, 8, 3])
 PI_GANO_SMALL = dict(out_features=3, branch_layers=[8, 16], geometry_layers=[7, 8],
@@ -109,14 +112,30 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
     # the entry points ask for the card before they read or write anything
     from porous_cfd_tpu_torch import bench
     from porous_cfd_tpu_torch.examples.duct_fixed_boundary import evaluate, inference, train
-    from porous_cfd_tpu_torch.tools import golden_spread, train_golden_duct
+    from porous_cfd_tpu_torch.examples import abc, duct_variable_boundary, windbreaks
+    from porous_cfd_tpu_torch.tools import golden_spread, train_golden_3d, train_golden_duct
     missing = ["--checkpoint", "no/model.ckpt", "--data-dir", "no/split"]
-    for entry, argv in ((train.run, ["--model", "pipn", "--train-dir", "no/split"]),
-                        (inference.run, missing), (evaluate.run, missing), (bench.run, []),
-                        (train_golden_duct.main, ["--root", "no/golden"]),
-                        (golden_spread.main, ["--root", "no/golden"])):
+    entries = [(train.run, ["--model", "pipn", "--train-dir", "no/split"]),
+               (inference.run, missing), (evaluate.run, missing), (bench.run, []),
+               (train_golden_duct.main, ["--root", "no/golden"]),
+               (golden_spread.main, ["--root", "no/golden"]),
+               (train_golden_3d.main, ["--root", "no/golden"])]
+    # the 3D experiments' CLIs and the variable duct's inference and evaluate
+    import importlib
+    for pkg, model in ((abc, "pipn"), (windbreaks, "pi-gano"), (duct_variable_boundary, None)):
+        for cli in ("train", "inference", "evaluate"):
+            mod = importlib.import_module(f"{pkg.__name__}.{cli}")
+            if cli == "train":
+                entries.append((mod.run, ["--model", model or "pi-gano", "--train-dir",
+                                          "no/split"]))
+            else:
+                entries.append((mod.run, missing))
+    for entry, argv in entries:
         with pytest.raises(RuntimeError, match="CUDA"):
             entry(argv)
+    from porous_cfd_tpu_torch.datagen.fvm3d_batch import solve_duct3_batch
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_duct3_batch([("sphere", (0.1, 0.0, 0.0), 0.14, 0.2)], nx=8, ny=6, nz=6)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -223,12 +242,21 @@ def test_no_jax_import_anywhere_in_the_port():
                 "examples/manufactured_solutions/generate_data.py",
                 "examples/manufactured_solutions/inference.py",
                 "examples/manufactured_solutions/evaluate.py",
-                "tools/convergence_report.py", "models/fp_analytic.py"):
+                "tools/convergence_report.py", "models/fp_analytic.py",
+                # the 3D experiments, their solvers and golden run, the
+                # variable duct's inference and evaluate
+                "datagen/fvm3d.py", "datagen/fvm3d_batch.py", "examples/abc/train.py",
+                "examples/abc/inference.py", "examples/abc/evaluate.py",
+                "examples/windbreaks/train.py", "examples/windbreaks/inference.py",
+                "examples/windbreaks/evaluate.py", "tools/train_golden_3d.py",
+                "examples/duct_variable_boundary/inference.py",
+                "examples/duct_variable_boundary/evaluate.py"):
         assert PORT / rel in files, rel
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
+            assert top not in FORBIDDEN + FORBIDDEN_SCRIPTS, \
+                f"{path.relative_to(ROOT)} imports {name}"
 
 
 def test_port_imports_with_jax_blocked():
@@ -242,6 +270,8 @@ def test_port_imports_with_jax_blocked():
         "import porous_cfd_tpu_torch.examples.duct_fixed_boundary.evaluate\n"
         "import porous_cfd_tpu_torch.datagen.fvm\n"
         "import porous_cfd_tpu_torch.tools.train_golden_duct\n"
+        "import porous_cfd_tpu_torch.tools.train_golden_3d\n"
+        "import porous_cfd_tpu_torch.datagen.fvm3d_batch\n"
         "import porous_cfd_tpu_torch.bench\n"
         "for info in pkgutil.walk_packages(porous_cfd_tpu_torch.__path__,"
         " 'porous_cfd_tpu_torch.'):\n"
