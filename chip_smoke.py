@@ -65,7 +65,9 @@ Phases, in order; any failure exits non-zero:
      256, 128, 4] and [1088, 384, 128, 4], windbreaks' trunk of four 512-wide
      operators on 256 local columns reduced to 4, and the 512 decoder and
      352 trunk of the 2D paths at D = 3, each timed beside its D = 2 row),
-     forward and backward, dropout on and off; sa_neighborhood on real 3D
+     forward and backward, dropout on and off, each backward split into its
+     rows sweep and its weight gradients at the D = 3 stash rows, beside
+     cuBLAS; sa_neighborhood on real 3D
      chains of abc's solved cases and windbreaks' synthetic split at 1500 /
      1000 / 700 points: abc pipn-pp's [10, 64, 128] and [131, 128, 256] at
      16 neighbours, windbreaks pi-gano-pp's [11, 64, 128] and [131, 128] at
@@ -191,10 +193,31 @@ Phases, in order; any failure exits non-zero:
      the loss without dropout falling; the inference CLI restores each
      checkpoint and predicts as its weights do within RTOL; the evaluate
      CLI prints finite numbers (the MAE by inlet speed; the house's surface
-     errors and the MAE by (d, inlet speed)).
+     errors and the MAE by (d, inlet speed));
+ 37. the batched 2D solver (``datagen/fvm_batch.py``): the JAX test's three
+     cases at 40 x 24 against the port's numpy solver at the JAX test's
+     agreement; then one march of GRID_CHUNK cases of the 621-case
+     transform grid at 120 x 72 (the grid tool's chunk, tolerance and step
+     limit): its wall, ms a step and the largest and median step counts;
+     the step replayed as a CUDA graph against its eager launches (fields,
+     steps, ms a step);
+ 38. the duct_fixed_boundary_hard and vertical_duct_fixed_boundary CLIs on
+     phase 18's golden cases and pipn checkpoint: the hard CLI trains pipn
+     with its loss weights (launch counts, the loss without dropout
+     falling by FIX_MIN_FALL), restores within RTOL and evaluates; the
+     vertical CLI fine-tunes phase 18's checkpoint VERT_EPOCHS epochs on a
+     written two-inlet (inlet-top) split, resuming at its epoch, the loss
+     falling from the checkpoint's, restores and evaluates;
+ 39. a small transform grid: GRID_SMALL cases of the fixed grid's split
+     written by ``tools/golden_transform_grid.py`` with the batched solver,
+     ``tools/train_golden_grid.py`` (pipn coupled, GRID_EPOCHS epochs,
+     scored on the three splits, the test split evaluated),
+     ``tools/analyze_grid_errors.py`` and ``tools/analyze_p_offset.py``:
+     launch counts of the coupled path, every number finite.
 Each of phases 4-14, 16-17, 20-21, 24-27 and 30-35 sets every launch count to 0 just
 before it and reads them just after (phases 18, 22 and 36 around each
-in-process training command, 23 and 28 around their steps); every
+in-process training command, 38 and 39 around each training command,
+23 and 28 around their steps); every
 training phase also counts the synchronizing calls of one step, which must
 be none. The second-to-last lines are the
 ``{"kernels": [...]}`` JSON and the card's name and power limit; the last
@@ -207,6 +230,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -377,6 +401,30 @@ SOLVER_CASES = [("band", (0.1, 0.0, 0.0), 0.10, 0.20),
 D3_CLI_EPOCHS = 20
 ABC_CLI_MODELS = ("pipn", "pipn-pp", "pipn-pp-full")
 WB_CLI_MODELS = ("pi-gano", "pi-gano-pp", "pi-gano-pp-full")
+# the batched 2D solver against the numpy one: the JAX test's grid, cases
+# (an anisotropic Darcy pair, a per-case f and an angled inlet among them),
+# tolerance and agreement (tests/test_fvm_tpu.py:11-50)
+SOLVER2_GRID, SOLVER2_TOL, SOLVER2_STEPS = (40, 24), 5e-4, 8000
+SOLVER2_CASES = [
+    dict(shape="circle", cx=0.10, cy=0.00, size=0.12, theta=0.0),
+    dict(shape="square", cx=0.08, cy=0.02, size=0.12, theta=math.radians(30), sx=0.875,
+         sy=0.75),
+    dict(shape="ellipse", cx=0.12, cy=-0.02, size=0.13, theta=math.radians(70),
+         d=(12000.0, 20000.0), f=30.80, u_inlet=0.15 * math.cos(math.radians(20)),
+         v_inlet=0.15 * math.sin(math.radians(20)))]
+# the reference-scale grids: one march of GRID_CHUNK cases (the grid tool's
+# chunk) at the golden grid GRID_2D, the tool's step limit
+GRID_2D, GRID_CHUNK, GRID_MAX_STEPS = (120, 72), 160, 30000
+# steps of the same chunk launched eagerly, for the graph's gain
+GRID_EAGER_STEPS = 1000
+# the vertical CLI: a written two-inlet split of FIX_TRAIN + FIX_VAL cases
+# of VERT_POINTS internal points and VERT_PATCH_POINTS a patch, fine-tuned
+# VERT_EPOCHS epochs from phase 18's pipn checkpoint
+VERT_PATCHES = ["inlet", "inlet-top", "interface", "outlet", "walls"]
+VERT_POINTS, VERT_PATCH_POINTS, VERT_EPOCHS = 2000, 100, 20
+# the small grid run: (train, val, test) cases of the fixed grid's split,
+# GRID_EPOCHS epochs of the north-star recipe
+GRID_SMALL, GRID_EPOCHS = (14, 5, 5), 20
 
 # a kNN near-tie: two expansion-form squared distances |q|^2 - 2 q.s + |s|^2
 # within a few f32 ulps of their largest term (up to 2 on the [-1, 1]
@@ -2188,7 +2236,7 @@ def check_mrg(model, batch, gen, pk):
     return out
 
 
-def fixed_cli_phase(name, smi, counters):
+def fixed_cli_phase(name, smi, counters, keep=None):
     """The port's duct_fixed_boundary experiment on the card, through the
     entry points a user calls: the port's FVM solver writes FIX_TRAIN +
     FIX_VAL golden-duct cases at FIX_GRID with their meta; for each of
@@ -2200,7 +2248,9 @@ def fixed_cli_phase(name, smi, counters):
     CLI's initial ones on the training split); the inference CLI
     (``load_model_and_params`` and ``predict``, f32) restores the checkpoint
     and predicts each held-out case as the trained model predicts the split,
-    within RTOL; the evaluate CLI prints finite errors and pressure drops."""
+    within RTOL; the evaluate CLI prints finite errors and pressure drops.
+    With ``keep`` (a directory) the data and the checkpoints stay there,
+    ``data/`` and ``logs/lightning_logs/<model>/``, for phase 38."""
     import contextlib
     import io
     import re
@@ -2217,7 +2267,7 @@ def fixed_cli_phase(name, smi, counters):
               "--n-observations", str(n_obs)]
     report = {"grid": list(FIX_GRID), "train_cases": FIX_TRAIN, "val_cases": FIX_VAL,
               "points": list(FIX_POINTS), "epochs": FIX_EPOCHS}
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(str(keep)) if keep else tempfile.TemporaryDirectory()) as tmp:
         root = Path(tmp) / "data"
         t0 = time.perf_counter()
         report["solve_s_per_split"] = generate(root, *FIX_GRID, TRAIN_CASES[:FIX_TRAIN],
@@ -3071,11 +3121,13 @@ def check_3d_kernels(models, data, gen, pk):
     def put(key, label, res, **shape):
         out[key][label] = {**shape, **shape_timing(res, pk), **res.get("extra", {})}
 
-    # the engine at D = 3
+    # the engine at D = 3, each backward split into its rows sweep and its
+    # weight gradients (beside cuBLAS) at the D = 3 stash rows
     for label, seg, drop in (("abc pipn", [1024 + 64, 512, 256, 128, 4], [0.03, 0.02, 0, 0]),
                              ("abc pipn-pp", [1024 + 64, 384, 128, 4], [0.03, 0, 0]),
                              ("pipn's widths at D = 3", SEG, SEG_DROPOUT)):
         pair = check_decoder(seg, drop, gen, f"{label} D=3", dims=3)
+        split_backward(torch, pair[1], grad_shapes(*[[FE_LOCAL[-1]] + seg[1:]] * 2, dims=3), pk)
         for i, key in enumerate(("decoder_prop", "decoder_prop_bwd")):
             put(key, label, pair[i], widths=seg, dropout=drop, dims=3)
         torch.cuda.empty_cache()
@@ -3083,6 +3135,9 @@ def check_3d_kernels(models, data, gen, pk):
                                           rates=[0, 0.15, 0.15, 0], n_red=4)),
                       ("pi-gano's widths at D = 3", {})):
         pair = check_trunk(gen, dims=3, tag=f"{label} D=3", **kw)
+        widths = ([kw.get("n_local", PG_LOCAL[-1])] + [kw.get("f", PG_BRANCH[-1])]
+                  * kw.get("n_ops", PG_OPERATORS) + [kw.get("n_red", 3)])
+        split_backward(torch, pair[1], grad_shapes(widths, widths, dims=3), pk)
         for i, key in enumerate(("neural_ops_prop", "neural_ops_prop_bwd")):
             put(key, label, pair[i], dims=3, **{k: v for k, v in kw.items() if k != "rates"})
         torch.cuda.empty_cache()
@@ -3323,6 +3378,326 @@ def cli_3d_phase(experiment, model_names, root, weights_of, counters, name, smi)
             del model, initial, trained
             torch.cuda.empty_cache()
     return reports
+
+
+def solver_2d_phase(name, smi):
+    """Phase 37, the batched 2D solver on the card (``datagen/fvm_batch.py``):
+    the JAX test's three cases at its grid against the port's numpy solver,
+    at the JAX test's agreement (tests/test_fvm_tpu.py:29-50: U, v and p
+    within 2e-3, the zones equal, the momentum residual at most 1.5 times
+    the numpy solver's); then one chunk of GRID_CHUNK cases of the
+    621-case transform grid at GRID_2D, the grid tool's tolerance and step
+    limit: its wall, ms a step and the cases' largest and median step
+    counts. Returns the report."""
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.datagen import fvm
+    from porous_cfd_tpu_torch.datagen.fvm_batch import solve_duct_batch
+    from porous_cfd_tpu_torch.tools import golden_transform_grid as grid
+    dev = torch.device("cuda", 0)
+    nx, ny = SOLVER2_GRID
+    march, eager_march = {}, {}
+    sols = solve_duct_batch(SOLVER2_CASES, nx=nx, ny=ny, tol=SOLVER2_TOL,
+                            max_steps=SOLVER2_STEPS, device=dev, stats=march)
+    eager = solve_duct_batch(SOLVER2_CASES, nx=nx, ny=ny, tol=SOLVER2_TOL,
+                             max_steps=SOLVER2_STEPS, device=dev, stats=eager_march,
+                             graph=False)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-12))
+
+    # the captured step (a CUDA graph) against the same step launched eagerly
+    graph_err = max(max(rel(g.u, e.u), rel(g.v, e.v) if np.linalg.norm(e.v) > 1e-9 else 0.0,
+                        rel(g.p, e.p)) for g, e in zip(sols, eager))
+    step_gap = max(abs(g.steps - e.steps) for g, e in zip(sols, eager))
+    ms_graph = march["seconds"] * 1e3 / march["steps"]
+    ms_eager = eager_march["seconds"] * 1e3 / eager_march["steps"]
+    log(f"solver 2D: the graph-replayed march against eager launches: fields within "
+        f"{graph_err:.3e}, steps within {step_gap}; ms a step {ms_graph:.4f} replayed, "
+        f"{ms_eager:.4f} eager ({len(SOLVER2_CASES)} cases at {nx}x{ny}, the capture "
+        f"included)")
+    if graph_err > 1e-5 or step_gap > 1:
+        fail(f"solver 2D: the graph-replayed march differs from the eager one ({graph_err}, "
+             f"{step_gap} steps)")
+
+    check = {}
+    for case, sol in zip(SOLVER2_CASES, sols):
+        ref = fvm.solve_duct(**case, tol=SOLVER2_TOL, max_steps=SOLVER2_STEPS, nx=nx, ny=ny)
+        uscale = float(np.linalg.norm(np.stack([ref.u, ref.v])))
+        errs = {"u": rel(sol.u, ref.u), "v": float(np.linalg.norm(sol.v - ref.v)) / uscale,
+                "p": rel(sol.p, ref.p)}
+        m_s = float(np.abs(sol.moment_err[1:-1, 1:-1]).mean())
+        m_r = float(np.abs(ref.moment_err[1:-1, 1:-1]).mean())
+        check[case["shape"]] = {"steps": sol.steps, "numpy_steps": ref.steps,
+                                "residual": sol.residual, "rel_err": errs,
+                                "momentum_residual_mean": [m_s, m_r]}
+        log(f"solver 2D: {case['shape']} at {nx}x{ny} on the card in {sol.steps} steps (numpy "
+            f"{ref.steps}), residual {sol.residual:.3e}; against numpy u {errs['u']:.3e}, v "
+            f"{errs['v']:.3e}, p {errs['p']:.3e} (at most 2e-3); momentum residual {m_s:.3e} "
+            f"against {m_r:.3e}")
+        if not (sol.residual < SOLVER2_TOL and max(errs.values()) < 2e-3
+                and np.array_equal(sol.zone, ref.zone) and m_s < m_r * 1.5 + 1e-8):
+            fail(f"solver 2D: the batched march misses the numpy solver on {case['shape']}: "
+                 f"{check[case['shape']]}")
+
+    splits = grid.split_cases(grid.enumerate_meshes(3, 2), np.random.default_rng(grid.SEED))
+    cases = splits["train"][:GRID_CHUNK]
+    chunk = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sols = solve_duct_batch([grid._solve_params(c) for c in cases], nx=GRID_2D[0],
+                            ny=GRID_2D[1], tol=grid.TOL["batch"], max_steps=GRID_MAX_STEPS,
+                            device=dev, stats=chunk)
+    wall = time.perf_counter() - t0
+    steps = [s.steps for s in sols]
+    residuals = [s.residual for s in sols]
+    if not all(np.isfinite(s.u).all() and np.isfinite(s.p).all() for s in sols):
+        fail("solver 2D: a grid case came back with non-finite fields")
+    summary = {"cases": len(cases), "grid": list(GRID_2D), "tol": grid.TOL["batch"],
+               "wall_s": wall, "march_s": chunk["seconds"], "steps_marched": chunk["steps"],
+               "ms_per_step": chunk["seconds"] * 1e3 / chunk["steps"],
+               "max_case_steps": max(steps), "median_case_steps": float(np.median(steps)),
+               "unconverged": sum(r >= grid.TOL["batch"] for r in residuals),
+               "max_residual": max(residuals)}
+    log(f"solver 2D: {len(cases)} grid cases at {GRID_2D[0]}x{GRID_2D[1]}, tol "
+        f"{grid.TOL['batch']}: {wall:.2f} s with set-up and post-processing, the march "
+        f"{chunk['seconds']:.2f} s for {chunk['steps']} steps, {summary['ms_per_step']:.4f} ms "
+        f"a step; case steps at most {max(steps)}, median {summary['median_case_steps']:.0f}; "
+        f"{summary['unconverged']} unconverged, residual <= {max(residuals):.3e} "
+        f"({name}; {smi})")
+    # the same chunk launched eagerly, GRID_EAGER_STEPS steps: the host's
+    # pace without the graph
+    eager_chunk = {}
+    solve_duct_batch([grid._solve_params(c) for c in cases], nx=GRID_2D[0], ny=GRID_2D[1],
+                     tol=grid.TOL["batch"], max_steps=GRID_EAGER_STEPS, device=dev,
+                     stats=eager_chunk, graph=False)
+    summary["eager_ms_per_step"] = eager_chunk["seconds"] * 1e3 / eager_chunk["steps"]
+    log(f"solver 2D: the chunk launched eagerly for {eager_chunk['steps']} steps: "
+        f"{summary['eager_ms_per_step']:.4f} ms a step against {summary['ms_per_step']:.4f} "
+        f"replayed")
+    return {"check": {"grid": list(SOLVER2_GRID), "ms_per_step": ms_graph,
+                      "eager_ms_per_step": ms_eager, "graph_vs_eager_rel": graph_err,
+                      "graph_vs_eager_steps": step_gap, "cases": check},
+            "grid_chunk": summary}
+
+
+def hard_vertical_cli_phase(keep, name, smi, counters):
+    """Phase 38, the duct_fixed_boundary_hard and vertical_duct_fixed_boundary
+    CLIs on the card, on phase 18's golden-duct cases and ``pipn``
+    checkpoint (under ``keep``). The hard CLI trains ``pipn`` FIX_EPOCHS
+    epochs with its loss weights (observations [30, 30, 100]): its launch
+    counts, its training loss without dropout falling by FIX_MIN_FALL of
+    itself; its inference CLI restores the checkpoint and predicts each
+    held-out case as the trained weights do within RTOL; its evaluate CLI
+    prints finite numbers. The vertical CLI fine-tunes phase 18's
+    checkpoint for VERT_EPOCHS more epochs on a written two-inlet
+    (``inlet-top``) split: it resumes at the checkpoint's epoch, its
+    training loss without dropout falls from the checkpoint's, its
+    inference restores and its evaluate prints finite numbers."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.datagen import meta, synthetic_case
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary import train as fixed_train
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary_hard import (
+        evaluate as hard_evaluate, inference as hard_inference, train as hard_train)
+    from porous_cfd_tpu_torch.examples.vertical_duct_fixed_boundary import (
+        evaluate as v_evaluate, inference as v_inference, train as v_train)
+    from porous_cfd_tpu_torch.examples.vertical_duct_fixed_boundary.vertical_duct_dataset \
+        import VerticalDuctDataset
+    from porous_cfd_tpu_torch.data.dataset import FoamDataset
+    from porous_cfd_tpu_torch.train.engine import (compute_losses, gather_cases,
+                                                   make_predict_functions)
+    from porous_cfd_tpu_torch.train.trainer import load_checkpoint
+    dev = torch.device("cuda", 0)
+    keep = Path(keep)
+    fixed_ckpt = keep / "logs" / "lightning_logs" / "pipn" / "model.ckpt"
+    n_int, n_bnd, n_obs = FIX_POINTS
+    points = ["--n-internal", str(n_int), "--n-boundary", str(n_bnd),
+              "--n-observations", str(n_obs)]
+    report = {}
+
+    def training_loss(model, root, dataset_cls, weights):
+        data = dataset_cls(str(root / "train"), n_int, n_bnd, n_obs,
+                           rng=np.random.default_rng(fixed_train.SEED))
+        batch = model.attach_neighbors(data.stacked().to(dev))
+        with torch.no_grad():
+            losses, _ = compute_losses(model, batch, deterministic=True)
+        return float((torch.tensor(weights, device=dev) * losses).sum())
+
+    def run_cli(label, train_mod, inference_mod, evaluate_mod, dataset_cls, root, argv,
+                initial):
+        for c in counters.values():
+            c.launches = 0
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            model = train_mod.run(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        for line in printed.getvalue().splitlines():
+            log(f"  | {line}")
+        if not {"pointnet_global", "decoder_prop", "pointnet_global_bwd",
+                "decoder_prop_bwd"} <= set(launches):
+            fail(f"{label} cli: launches {launches} lack a kernel of pipn's path")
+        args = train_mod.build_arg_parser().parse_args(argv)
+        weights = train_mod.get_loss_scaler(args).weights
+        totals = [training_loss(initial(args), root, dataset_cls, weights),
+                  training_loss(model, root, dataset_cls, weights)]
+        fall = (totals[0] - totals[1]) / totals[0]
+        inf_argv = ["--checkpoint", str(Path(args.logs_dir) / "lightning_logs" / args.name
+                                        / "model.ckpt"),
+                    "--data-dir", str(root / "val"), "--meta-dir", str(root / "train"), *points]
+        preds = inference_mod.run(inf_argv + ["--precision", "32-true"])
+        val = dataset_cls(str(root / "val"), n_int, n_bnd, n_obs,
+                          np.random.default_rng(fixed_train.SEED), str(root / "train"))
+        stacked = model.attach_neighbors(val.stacked().to(dev))
+        with torch.no_grad():
+            ref = make_predict_functions(model).predict_batch(
+                gather_cases(stacked, torch.arange(len(val), device=dev))).data.cpu()
+        err_inf = check_close(f"{label} cli inference against the trained model",
+                              [(f"case {i}", torch.as_tensor(p_.data), ref[i])
+                               for i, p_ in enumerate(preds)])
+        printed_eval = io.StringIO()
+        with contextlib.redirect_stdout(printed_eval):
+            summary = evaluate_mod.run(inf_argv)
+        log(f"  | {printed_eval.getvalue().strip()}")
+        if not finite_numbers(summary) or summary["cases"] != len(val):
+            fail(f"{label} cli: evaluate printed {summary}")
+        log(f"{label} cli: {wall_s:.1f} s for the training command; launches {launches}; "
+            f"training loss without dropout {totals[0]:.6f} -> {totals[1]:.6f}, a fall of "
+            f"{fall:.3e} of it; inference within {err_inf:.3e} of the trained model; evaluate "
+            f"{json.dumps(summary)} ({name}; {smi})")
+        del model
+        torch.cuda.empty_cache()
+        return {"command_s": wall_s, "launches": launches, "loss_initial_trained": totals,
+                "loss_fall": fall, "inference_max_abs_err": err_inf, "evaluate": summary,
+                "printed": printed.getvalue()}
+
+    # the hard CLI on phase 18's golden cases, from the seeded weights
+    root = keep / "data"
+    train_data = FoamDataset(str(root / "train"), n_int, n_bnd, n_obs,
+                             rng=np.random.default_rng(fixed_train.SEED))
+    argv = ["--model", "pipn", "--epochs", str(FIX_EPOCHS), "--log-every", "10",
+            "--batch-size", str(FIX_TRAIN), *points, "--train-dir", str(root / "train"),
+            "--val-dir", str(root / "val"), "--logs-dir", str(keep / "hard_logs"),
+            "--name", "pipn-hard"]
+    report["hard"] = run_cli("hard", hard_train, hard_inference, hard_evaluate, FoamDataset,
+                             root, argv,
+                             lambda a: fixed_train.get_model(a, train_data.normalizers, dev))
+    if not report["hard"]["loss_fall"] >= FIX_MIN_FALL:
+        fail(f"hard cli: the training loss fell by {report['hard']['loss_fall']:.3e} of itself")
+
+    # the vertical CLI: a written two-inlet split, fine-tuned from phase 18's
+    # pipn checkpoint
+    v_root = keep / "vertical"
+    rng = np.random.default_rng(SEED)
+    for split, n in (("train", FIX_TRAIN), ("val", FIX_VAL)):
+        synthetic_case.write_foam_split(v_root / split, n, rng, n_internal=VERT_POINTS,
+                                        n_per_patch=VERT_PATCH_POINTS,
+                                        patch_names=VERT_PATCHES)
+        synthetic_case.write_data_config(v_root / split, ["C", "U", "p", "cellToRegion"], {},
+                                         {"Scale": [], "Standardize": ["C", "U", "p"]},
+                                         ["x", "y"])
+        meta.generate_meta(v_root / split, "C", "U", "p", "cellToRegion", max_dim=2)
+    meta.generate_min_points(v_root)
+    v_train_data = VerticalDuctDataset(str(v_root / "train"), n_int, n_bnd, n_obs,
+                                       rng=np.random.default_rng(fixed_train.SEED))
+    start = torch.load(fixed_ckpt, weights_only=True, map_location="cpu")
+
+    def from_checkpoint(a):
+        model = fixed_train.get_model(a, v_train_data.normalizers, dev)
+        load_checkpoint(str(fixed_ckpt), model)
+        return model
+
+    argv = ["--model", "pipn", "--epochs", str(start["epoch"] + VERT_EPOCHS), "--log-every",
+            "10", "--batch-size", str(FIX_TRAIN), *points, "--checkpoint", str(fixed_ckpt),
+            "--train-dir", str(v_root / "train"), "--val-dir", str(v_root / "val"),
+            "--logs-dir", str(keep / "vertical_logs"), "--name", "pipn-vertical"]
+    report["vertical"] = run_cli("vertical", v_train, v_inference, v_evaluate,
+                                 VerticalDuctDataset, v_root, argv, from_checkpoint)
+    if f"resumed from {fixed_ckpt} at epoch {start['epoch']}" not in \
+            report["vertical"]["printed"]:
+        fail("vertical cli: the run did not resume from phase 18's checkpoint")
+    done = torch.load(keep / "vertical_logs" / "lightning_logs" / "pipn-vertical" / "model.ckpt",
+                      weights_only=True, map_location="cpu")
+    if done["epoch"] != start["epoch"] + VERT_EPOCHS:
+        fail(f"vertical cli: its checkpoint is at epoch {done['epoch']}")
+    if not report["vertical"]["loss_fall"] > 0:
+        fail(f"vertical cli: the fine-tuned loss did not fall from the checkpoint's "
+             f"({report['vertical']['loss_initial_trained']})")
+    report["vertical"]["resumed_at_epoch"] = start["epoch"]
+    for r in report.values():
+        r.pop("printed")
+    return report
+
+
+def grid_phase(name, smi, counters):
+    """Phase 39, a small transform grid through the grid tools on the card:
+    GRID_SMALL cases of the fixed grid's seed-8421 split written by
+    ``golden_transform_grid.generate`` with the batched solver at GRID_2D;
+    ``train_golden_grid`` trains ``pipn`` on its coupled path (the
+    north-star recipe's path) GRID_EPOCHS epochs at batch 13, resampling
+    every 10, at the golden points (FIX_POINTS), scores the three splits
+    and runs the evaluate CLI;
+    ``analyze_grid_errors`` and ``analyze_p_offset`` read its checkpoint.
+    Launch counts of the training, every number finite."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.tools import (analyze_grid_errors, analyze_p_offset,
+                                            golden_transform_grid as grid, train_golden_grid)
+    dev = torch.device("cuda", 0)
+    splits = grid.split_cases(grid.enumerate_meshes(2, 1), np.random.default_rng(grid.SEED))
+    sub = {k: splits[k][:n] for k, n in zip(("train", "val", "test"), GRID_SMALL)}
+    report = {"cases": {k: len(v) for k, v in sub.items()}, "epochs": GRID_EPOCHS}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "grid"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            report["solve"] = grid.generate(root, sub, *GRID_2D, 4000, False, solver="batch",
+                                            device=dev)
+        report["generate_s"] = time.perf_counter() - t0
+        metas = [json.loads(p.read_text()) for p in root.rglob("solver.json")]
+        if len(metas) != sum(GRID_SMALL) or {m["solver"] for m in metas} != {"batch_f32"}:
+            fail(f"grid: the generator wrote {len(metas)} solver.json files")
+        log(f"grid: {sum(GRID_SMALL)} cases solved by the batched march and written in "
+            f"{report['generate_s']:.1f} s: " + json.dumps(report["solve"]))
+        for c in counters.values():
+            c.launches = 0
+        printed = io.StringIO()
+        n_int, n_bnd, n_obs = FIX_POINTS
+        points = ["--n-internal", str(n_int), "--n-boundary", str(n_bnd), "--n-obs", str(n_obs)]
+        with contextlib.redirect_stdout(printed):
+            scores = train_golden_grid.main(["--root", str(root), "--epochs",
+                                             str(GRID_EPOCHS), "--paths", "analytic",
+                                             "--resample-every", "10", *points])
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        if not {"pointnet_global", "decoder_prop", "decoder_prop_j0_add",
+                "decoder_prop_j0_add_bwd"} <= set(launches):
+            fail(f"grid: the coupled path's launches {launches} lack a kernel")
+        if not finite_numbers(scores) or not (root / "logs" / "grid_scores.json").exists():
+            fail(f"grid: train_golden_grid returned {scores}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows = analyze_grid_errors.main(["--root", str(root), *points])
+            offsets = analyze_p_offset.main(["--root", str(root), *points])
+        if len(rows["rows"]) != sum(GRID_SMALL) or not finite_numbers(rows["summary"]) \
+                or not finite_numbers(offsets):
+            fail("grid: the analyses returned non-finite numbers or missed cases")
+        run = scores["analytic"]
+        log(f"grid: train_golden_grid {GRID_EPOCHS} epochs of pipn (coupled) in "
+            f"{run['wall_s']:.1f} s, {run['steps_per_s']:.1f} steps/s with the data's load; "
+            f"rel-L2 U / p train {run['train']['U']:.4f} / {run['train']['p']:.4f}, val "
+            f"{run['val']['U']:.4f} / {run['val']['p']:.4f}, test {run['test']['U']:.4f} / "
+            f"{run['test']['p']:.4f}; launches {launches}; p offsets "
+            f"{json.dumps(offsets)} ({name}; {smi})")
+        report.update(scores=scores, launches=launches, per_case=rows["summary"],
+                      p_offset=offsets)
+    return report
 
 
 def kernel_counters() -> dict:
@@ -3818,7 +4193,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 18. the duct_fixed_boundary CLIs on golden-duct data ----------------------
-    fixed_report = fixed_cli_phase(name, smi, counters)
+    fixed_keep = tempfile.TemporaryDirectory()
+    fixed_report = fixed_cli_phase(name, smi, counters, Path(fixed_keep.name))
     torch.cuda.empty_cache()
 
     # ---- 19. the port's bench ------------------------------------------------------
@@ -3940,6 +4316,19 @@ def main() -> int:
                                          WB_WEIGHTS, counters, name, smi)}
     d3_tmp.cleanup()
 
+    # ---- 37. the batched 2D solver: the JAX test's cases, one grid chunk ----------------
+    solver_2d_report = solver_2d_phase(name, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 38. the hard and vertical CLIs on phase 18's cases and checkpoint -------------
+    hard_vertical_report = hard_vertical_cli_phase(fixed_keep.name, name, smi, counters)
+    fixed_keep.cleanup()
+    torch.cuda.empty_cache()
+
+    # ---- 39. a small transform grid: generate, train, score, analyse --------------------
+    grid_report = grid_phase(name, smi, counters)
+    torch.cuda.empty_cache()
+
     # launches on each kernel's main path (per training step; FPS per
     # attach_neighbors, the only place it runs), and per path; the ctx_width
     # mode and the trunk's single modes are on no path (the coupled path
@@ -4013,6 +4402,9 @@ def main() -> int:
         log(json.dumps({f"{label}_slice": v["slice"]}))
         log(json.dumps({f"{label}_train": v["train"]}))
     log(json.dumps({"cli_3d": d3_cli}))
+    log(json.dumps({"solver_2d": solver_2d_report}))
+    log(json.dumps({"hard_vertical_cli": hard_vertical_report}))
+    log(json.dumps({"grid": grid_report}))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -47,12 +47,13 @@ def postprocess_fn(data, results):
     results["Pressure drop"] = np.asarray([abs(pred - tgt)])
 
 
-def run(argv=None, device=None) -> dict:
-    """Parse ``argv`` (the command line when None), evaluate the split on
-    ``device`` and print (and return) the summary line."""
+def run(argv=None, device=None, dataset_cls=FoamDataset) -> dict:
+    """Parse ``argv`` (the command line when None), load the split as a
+    ``dataset_cls``, evaluate it on ``device`` and print (and return) the
+    summary line."""
     args = build_arg_parser().parse_args(argv)
     device = resolve_device(device)
-    data = FoamDataset(args.data_dir, args.n_internal, args.n_boundary, args.n_observations,
+    data = dataset_cls(args.data_dir, args.n_internal, args.n_boundary, args.n_observations,
                        np.random.default_rng(SEED), args.meta_dir,
                        extra_fields=["momentError", "div(phi)"])
     model, _ = load_model_and_params(args, data, device=device)

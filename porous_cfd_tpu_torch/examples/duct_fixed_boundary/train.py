@@ -84,13 +84,14 @@ def get_model(args, normalizers, device=None, fast_derivatives: bool = True):
             raise NotImplementedError(args.model)
 
 
-def make_datasets(args):
-    """The training split and the validation split, normalised with the
-    training split's statistics, both sampled from one rng of seed 8421."""
+def make_datasets(args, dataset_cls=FoamDataset):
+    """The training split and the validation split as ``dataset_cls``es, the
+    latter normalised with the former's statistics, both sampled from one
+    rng of seed 8421."""
     rng = np.random.default_rng(SEED)
-    train_data = FoamDataset(args.train_dir, args.n_internal, args.n_boundary,
+    train_data = dataset_cls(args.train_dir, args.n_internal, args.n_boundary,
                              args.n_observations, rng=rng)
-    val_data = FoamDataset(args.val_dir, args.n_internal, args.n_boundary,
+    val_data = dataset_cls(args.val_dir, args.n_internal, args.n_boundary,
                            args.n_observations, rng=rng, meta_dir=args.train_dir)
     return train_data, val_data
 

@@ -1,0 +1,16 @@
+"""duct_fixed_boundary_hard inference: the duct_fixed_boundary pipeline
+(the port's counterpart of ``examples/duct_fixed_boundary_hard/inference.py``).
+
+    python -m porous_cfd_tpu_torch.examples.duct_fixed_boundary_hard.inference \\
+        --checkpoint lightning_logs/NAME/model.ckpt --data-dir data/val \\
+        --meta-dir data/train
+
+From the command line it runs on the CUDA card; ``run(argv, device="cpu")``
+on the CPU.
+"""
+from porous_cfd_tpu_torch.examples.duct_fixed_boundary.inference import run
+
+__all__ = ["run"]
+
+if __name__ == "__main__":
+    run()

@@ -92,14 +92,14 @@ def restore(args: Namespace, data: FoamDataset, get_model, device=None):
     return model, state
 
 
-def run(argv, get_model, seed: int, device=None) -> list[FoamData]:
+def run(argv, get_model, seed: int, device=None, dataset_cls=FoamDataset) -> list[FoamData]:
     """An experiment's inference CLI: parse ``argv`` (the command line when
-    None), load the split with the rng of ``seed``, restore the checkpoint
-    through ``get_model`` and predict each case on ``device``; returns the
-    predictions."""
+    None), load the split as a ``dataset_cls`` with the rng of ``seed``,
+    restore the checkpoint through ``get_model`` and predict each case on
+    ``device``; returns the predictions."""
     args = build_arg_parser().parse_args(argv)
     device = resolve_device(device)
-    data = FoamDataset(args.data_dir, args.n_internal, args.n_boundary, args.n_observations,
+    data = dataset_cls(args.data_dir, args.n_internal, args.n_boundary, args.n_observations,
                        np.random.default_rng(seed), args.meta_dir)
     model, _ = restore(args, data, get_model, device)
     return predict(args, model, data)

@@ -1652,3 +1652,29 @@ def test_fps_kernel_equals_plain_3d(cuda, b, n, n_samples):
     got = fps_cuda.farthest_point_sampling(pos, n_samples)
     torch.cuda.synchronize()
     assert torch.equal(got, fps_cuda.farthest_point_sampling_plain(pos, n_samples))
+
+
+def test_fvm_batch_graph_replay_matches_eager_launches(cuda):
+    """The batched 2D solver's step replayed as a CUDA graph gives the eager
+    march's steps and fields on the JAX test's three cases (cuBLAS may pick
+    other algorithms under capture: fields within 1e-5 of their norm, steps
+    within one), at two check cadences."""
+    import numpy as np
+    from porous_cfd_tpu_torch.datagen import fvm_batch
+    cases = [dict(shape="circle", cx=0.10, cy=0.00, size=0.12, theta=0.0),
+             dict(shape="square", cx=0.08, cy=0.02, size=0.12, theta=np.radians(30),
+                  sx=0.875, sy=0.75),
+             dict(shape="ellipse", cx=0.12, cy=-0.02, size=0.13, theta=np.radians(70),
+                  d=(12000.0, 20000.0), f=30.80, u_inlet=0.15 * np.cos(np.radians(20)),
+                  v_inlet=0.15 * np.sin(np.radians(20)))]
+    kw = dict(tol=5e-4, max_steps=8000, device=cuda, nx=40, ny=24)
+    eager = fvm_batch.solve_duct_batch(cases, graph=False, **kw)
+    for check_every in (1, 200):
+        graphed = fvm_batch.solve_duct_batch(cases, check_every=check_every, **kw)
+        for got, want in zip(graphed, eager):
+            assert abs(got.steps - want.steps) <= 1 and got.residual < 5e-4
+            scale = np.linalg.norm(np.stack([want.u, want.v]))
+            for name in ("u", "v"):
+                err = np.linalg.norm(getattr(got, name) - getattr(want, name))
+                assert err / scale < 1e-5
+            assert np.linalg.norm(got.p - want.p) / np.linalg.norm(want.p) < 1e-5

@@ -136,6 +136,27 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
     from porous_cfd_tpu_torch.datagen.fvm3d_batch import solve_duct3_batch
     with pytest.raises(RuntimeError, match="CUDA"):
         solve_duct3_batch([("sphere", (0.1, 0.0, 0.0), 0.14, 0.2)], nx=8, ny=6, nz=6)
+    # the 2D batched solver, the grid tools and the hard and vertical CLIs
+    from porous_cfd_tpu_torch.datagen.fvm_batch import solve_duct_batch
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_duct_batch([dict(shape="circle")], nx=8, ny=6)
+    from porous_cfd_tpu_torch.examples import duct_fixed_boundary_hard, vertical_duct_fixed_boundary
+    from porous_cfd_tpu_torch.tools import (analyze_grid_errors, analyze_p_offset,
+                                            golden_transform_grid, train_golden_grid,
+                                            train_golden_variable)
+    later = [(golden_transform_grid.main, ["fixed", "--root", "no/grid"]),
+             (train_golden_grid.main, ["--root", "no/grid"]),
+             (train_golden_variable.main, ["--root", "no/grid"]),
+             (analyze_grid_errors.main, ["--root", "no/grid"]),
+             (analyze_p_offset.main, ["--root", "no/grid"])]
+    for pkg in (duct_fixed_boundary_hard, vertical_duct_fixed_boundary):
+        for cli in ("train", "inference", "evaluate"):
+            mod = importlib.import_module(f"{pkg.__name__}.{cli}")
+            later.append((mod.run, ["--model", "pipn", "--train-dir", "no/split"]
+                          if cli == "train" else missing))
+    for entry, argv in later:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(argv)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -250,7 +271,19 @@ def test_no_jax_import_anywhere_in_the_port():
                 "examples/windbreaks/train.py", "examples/windbreaks/inference.py",
                 "examples/windbreaks/evaluate.py", "tools/train_golden_3d.py",
                 "examples/duct_variable_boundary/inference.py",
-                "examples/duct_variable_boundary/evaluate.py"):
+                "examples/duct_variable_boundary/evaluate.py",
+                # the 2D batched solver, the grid tools, the hard and
+                # vertical experiments
+                "datagen/fvm_batch.py", "tools/golden_transform_grid.py",
+                "tools/scoring_util.py", "tools/train_golden_grid.py",
+                "tools/train_golden_variable.py", "tools/analyze_grid_errors.py",
+                "tools/analyze_p_offset.py", "examples/duct_fixed_boundary_hard/train.py",
+                "examples/duct_fixed_boundary_hard/inference.py",
+                "examples/duct_fixed_boundary_hard/evaluate.py",
+                "examples/vertical_duct_fixed_boundary/vertical_duct_dataset.py",
+                "examples/vertical_duct_fixed_boundary/train.py",
+                "examples/vertical_duct_fixed_boundary/inference.py",
+                "examples/vertical_duct_fixed_boundary/evaluate.py"):
         assert PORT / rel in files, rel
     for path in files:
         for name in _imports(path):
@@ -272,6 +305,10 @@ def test_port_imports_with_jax_blocked():
         "import porous_cfd_tpu_torch.tools.train_golden_duct\n"
         "import porous_cfd_tpu_torch.tools.train_golden_3d\n"
         "import porous_cfd_tpu_torch.datagen.fvm3d_batch\n"
+        "import porous_cfd_tpu_torch.datagen.fvm_batch\n"
+        "import porous_cfd_tpu_torch.tools.golden_transform_grid\n"
+        "import porous_cfd_tpu_torch.tools.train_golden_grid\n"
+        "import porous_cfd_tpu_torch.examples.vertical_duct_fixed_boundary.train\n"
         "import porous_cfd_tpu_torch.bench\n"
         "for info in pkgutil.walk_packages(porous_cfd_tpu_torch.__path__,"
         " 'porous_cfd_tpu_torch.'):\n"
