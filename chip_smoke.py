@@ -213,11 +213,25 @@ Phases, in order; any failure exits non-zero:
      ``tools/train_golden_grid.py`` (pipn coupled, GRID_EPOCHS epochs,
      scored on the three splits, the test split evaluated),
      ``tools/analyze_grid_errors.py`` and ``tools/analyze_p_offset.py``:
-     launch counts of the coupled path, every number finite.
+     launch counts of the coupled path, every number finite;
+ 40. the evaluation's output layer: the duct_fixed_boundary compare CLI on
+     phase 18's held-out cases, ``pipn`` against ``pipn-pp-mrg``, through
+     ``python -m`` (``Test.csv``, ``Shapiro.csv``, p-values in [0, 1]) and
+     in process (pointnet_global, decoder_prop, sa_neighborhood and FPS
+     forward launches, no backward), its two error arrays within RTOL and
+     its rank tests' p-values, and its log-error tests' over the errors
+     above the card's noise floor (COMPARE_LOG_FLOOR), within
+     COMPARE_P_RTOL of the same compare on the CPU; the
+     duct_variable_boundary compare CLI on phase 15's split, ``pi-gano-full``
+     against ``pi-gano-pp-full`` (neural_ops_prop too); the fixed evaluate
+     CLI's error table, finite, with the CPU's row labels; ``--save-plots``
+     refused with the ImportError that names matplotlib and no launch when
+     the card's machine has none, else the JAX file names written. Phases 15
+     and 18 keep their splits and checkpoints for it.
 Each of phases 4-14, 16-17, 20-21, 24-27 and 30-35 sets every launch count to 0 just
 before it and reads them just after (phases 18, 22 and 36 around each
 in-process training command, 38 and 39 around each training command,
-23 and 28 around their steps); every
+23 and 28 around their steps, 40 around each in-process compare); every
 training phase also counts the synchronizing calls of one step, which must
 be none. The second-to-last lines are the
 ``{"kernels": [...]}`` JSON and the card's name and power limit; the last
@@ -305,6 +319,22 @@ FIX_POINTS = (1500, 350, 700)
 # (without dropout) over its FIX_EPOCHS steps from the seeded weights
 FIX_MIN_FALL = 1e-2
 FIX_MODELS = ("pipn", "pipn-pp-mrg", "pipn-pp-full")
+# phase 40: the compare CLI's p-values on the card against the CPU's, each
+# pair within COMPARE_P_RTOL of the larger, or within COMPARE_P_ATOL. The
+# errors differ between 3xTF32 and f32 in their last bits (about 1e-6 of
+# their largest). The rank tests (Kruskal-Wallis, Mann-Whitney U) see that
+# only through a few swapped ranks, and the compare's own p-values are held.
+# The tests over the errors' logs (ANOVA, Shapiro, Levene) see it amplified
+# where an error is itself near that noise: an error e that moves by d moves
+# its log by d / e. They are held over the errors above COMPARE_LOG_FLOOR
+# times the largest card-against-CPU difference of their field's errors,
+# whose logs the card moves by at most 1 / COMPARE_LOG_FLOOR; their gaps over
+# all errors, and over those above COMPARE_SMALL of the field's largest, are
+# printed beside them, with the number of errors each leaves out. A p-value
+# far below any test's level moves by more, relative to itself, for the same
+# change of its statistic, hence COMPARE_P_ATOL
+COMPARE_P_RTOL, COMPARE_P_ATOL = 1e-3, 1e-6
+COMPARE_LOG_FLOOR, COMPARE_SMALL = 1e3, 1e-5
 # the manufactured_solutions "pipn-pp" configuration at full width
 # (examples/manufactured_solutions/train.py): one-layer static and dynamic
 # radius levels over the boundary cloud's [boundaryId || C] rows, a
@@ -2082,7 +2112,7 @@ def manufactured_phase(counters, counts, name, smi):
     return report
 
 
-def cli_phase(name, smi):
+def cli_phase(name, smi, keep):
     """The port's duct_variable_boundary training CLI on the card, as a user
     runs it: the port's case writer makes a CLI_TRAIN / CLI_VAL variable
     split with the example's data config (cases large enough to sample
@@ -2094,7 +2124,9 @@ def cli_phase(name, smi):
     weights against the initial ones (the CLI's seed) on the training
     split, without dropout. Reports ms per epoch (the trainer's, validation
     included), over the whole fit and after its first chunk, which holds
-    the start-up. Returns {model: report}."""
+    the start-up. Returns {model: report}. The split and the checkpoints
+    stay in the directory ``keep``, ``data/`` and
+    ``logs/lightning_logs/<model>/``, for phase 40."""
     import re
     import numpy as np
     import torch
@@ -2106,97 +2138,97 @@ def cli_phase(name, smi):
     cfg = json.loads((ROOT / "examples" / "duct_variable_boundary" / "assets"
                       / "data_config.json").read_text())
     reports = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "data"
-        rng = np.random.default_rng(SEED)
+    keep = Path(keep)
+    root = keep / "data"
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
+        synthetic_case.write_foam_split(root / split, n, rng, n_internal=CLI_CASE_POINTS,
+                                        n_per_patch=CLI_PATCH_POINTS, variable=True)
+        synthetic_case.write_data_config(root / split, cfg["Fields"],
+                                         cfg["Variable boundaries"],
+                                         cfg["Normalize fields"], cfg["Dims"])
+        meta.generate_meta(root / split, *cfg["Fields"], max_dim=len(cfg["Dims"]))
+    meta.generate_min_points(root)
+    data_s = time.perf_counter() - t0
+    for model_type in CLI_MODELS:
+        argv = ["--model", model_type, "--epochs", str(CLI_EPOCHS), "--log-every", "10",
+                "--n-internal", str(N_INT), "--n-boundary", str(N_BND),
+                "--n-observations", str(N_OBS), "--train-dir", str(root / "train"),
+                "--val-dir", str(root / "val"), "--logs-dir", str(keep / "logs"),
+                "--name", model_type]
+        cmd = [sys.executable, "-m",
+               "porous_cfd_tpu_torch.examples.duct_variable_boundary.train", *argv]
+        log(f"cli: {CLI_TRAIN} + {CLI_VAL} cases written in {data_s:.1f} s; running "
+            + " ".join(cmd[1:]))
         t0 = time.perf_counter()
-        for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
-            synthetic_case.write_foam_split(root / split, n, rng, n_internal=CLI_CASE_POINTS,
-                                            n_per_patch=CLI_PATCH_POINTS, variable=True)
-            synthetic_case.write_data_config(root / split, cfg["Fields"],
-                                             cfg["Variable boundaries"],
-                                             cfg["Normalize fields"], cfg["Dims"])
-            meta.generate_meta(root / split, *cfg["Fields"], max_dim=len(cfg["Dims"]))
-        meta.generate_min_points(root)
-        data_s = time.perf_counter() - t0
-        for model_type in CLI_MODELS:
-            argv = ["--model", model_type, "--epochs", str(CLI_EPOCHS), "--log-every", "10",
-                    "--n-internal", str(N_INT), "--n-boundary", str(N_BND),
-                    "--n-observations", str(N_OBS), "--train-dir", str(root / "train"),
-                    "--val-dir", str(root / "val"), "--logs-dir", str(Path(tmp) / "logs"),
-                    "--name", model_type]
-            cmd = [sys.executable, "-m",
-                   "porous_cfd_tpu_torch.examples.duct_variable_boundary.train", *argv]
-            log(f"cli: {CLI_TRAIN} + {CLI_VAL} cases written in {data_s:.1f} s; running "
-                + " ".join(cmd[1:]))
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-            wall_s = time.perf_counter() - t0
-            for line in proc.stdout.splitlines():
-                log(f"  | {line}")
-            if proc.returncode != 0:
-                fail(f"the CLI ({model_type}) exited {proc.returncode}: {proc.stderr[-3000:]}")
-            log_dir = Path(tmp) / "logs" / "lightning_logs" / model_type
-            for fname in ("model.ckpt", "best.ckpt", "model_meta.json"):
-                if not (log_dir / fname).exists():
-                    fail(f"the CLI ({model_type}) did not write {fname}")
-            model_meta = json.loads((log_dir / "model_meta.json").read_text())
-            want_meta = {"Model type": model_type, "N internal": N_INT, "N boundary": N_BND,
-                         "N observations": N_OBS, "Precision": "bf16-mixed",
-                         "Batch size": CLI_TRAIN}
-            if model_meta != want_meta:
-                fail(f"the CLI's model_meta.json {model_meta} != {want_meta}")
-            found = re.search(r"fit: (\d+) epochs in ([0-9.]+) s, ([0-9.]+) ms per epoch; the "
-                              r"first (\d+) in ([0-9.]+) s, then ([0-9.]+) ms per epoch",
-                              proc.stdout)
-            if found is None or int(found.group(1)) != CLI_EPOCHS:
-                fail(f"the CLI ({model_type}) did not report its fit time")
-            ms_epoch, ms_steady = float(found.group(3)), float(found.group(6))
-            first_n, first_s = int(found.group(4)), float(found.group(5))
-            ckpt = torch.load(log_dir / "model.ckpt", map_location=dev, weights_only=True)
-            if ckpt["epoch"] != CLI_EPOCHS or ckpt["step"] != CLI_EPOCHS:
-                fail(f"model.ckpt at epoch {ckpt['epoch']}, step {ckpt['step']}")
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"  | {line}")
+        if proc.returncode != 0:
+            fail(f"the CLI ({model_type}) exited {proc.returncode}: {proc.stderr[-3000:]}")
+        log_dir = keep / "logs" / "lightning_logs" / model_type
+        for fname in ("model.ckpt", "best.ckpt", "model_meta.json"):
+            if not (log_dir / fname).exists():
+                fail(f"the CLI ({model_type}) did not write {fname}")
+        model_meta = json.loads((log_dir / "model_meta.json").read_text())
+        want_meta = {"Model type": model_type, "N internal": N_INT, "N boundary": N_BND,
+                     "N observations": N_OBS, "Precision": "bf16-mixed",
+                     "Batch size": CLI_TRAIN}
+        if model_meta != want_meta:
+            fail(f"the CLI's model_meta.json {model_meta} != {want_meta}")
+        found = re.search(r"fit: (\d+) epochs in ([0-9.]+) s, ([0-9.]+) ms per epoch; the "
+                          r"first (\d+) in ([0-9.]+) s, then ([0-9.]+) ms per epoch",
+                          proc.stdout)
+        if found is None or int(found.group(1)) != CLI_EPOCHS:
+            fail(f"the CLI ({model_type}) did not report its fit time")
+        ms_epoch, ms_steady = float(found.group(3)), float(found.group(6))
+        first_n, first_s = int(found.group(4)), float(found.group(5))
+        ckpt = torch.load(log_dir / "model.ckpt", map_location=dev, weights_only=True)
+        if ckpt["epoch"] != CLI_EPOCHS or ckpt["step"] != CLI_EPOCHS:
+            fail(f"model.ckpt at epoch {ckpt['epoch']}, step {ckpt['step']}")
 
-            # the training loss: initial weights against trained ones on
-            # the training split as the CLI sampled it (its rng draws the
-            # training cases first), weighted as the CLI weights it,
-            # without dropout
-            args = cli.build_arg_parser().parse_args(argv)
-            train_data = FoamDataset(str(root / "train"), N_INT, N_BND, N_OBS,
-                                     rng=np.random.default_rng(cli.SEED))
-            model = cli.get_model(args, train_data.normalizers, dev)
-            batch = model.attach_neighbors(train_data.stacked().to(dev))
-            weights = torch.tensor(cli.get_loss_scaler(args).weights, device=dev)
-            totals = []
-            for state in (None, ckpt["module"]):
-                if state is not None:
-                    model.module.load_state_dict(state)
-                with torch.no_grad():
-                    losses, _ = compute_losses(model, batch, deterministic=True)
-                totals.append(float((weights * losses).sum()))
-            fall = (totals[0] - totals[1]) / totals[0]
-            log(f"cli: {model_type}, {CLI_EPOCHS} epochs of {CLI_TRAIN} cases at "
-                f"{N_INT}/{N_BND}/{N_OBS} points, bf16-mixed validation: {ms_epoch:.3f} ms "
-                f"per epoch (the trainer's clock, validation every 10 epochs included); the "
-                f"first {first_n} epochs (start-up included) {first_s:.3f} s, then "
-                f"{ms_steady:.3f} ms per epoch; {wall_s:.1f} s for the whole command; "
-                f"training loss without dropout {totals[0]:.6f} -> {totals[1]:.6f}, a fall of "
-                f"{fall:.3e} of it (at least {CLI_MIN_FALL:.0e} wanted) ({name}; {smi})")
-            if not fall >= CLI_MIN_FALL:
-                fail(f"cli ({model_type}): the training loss fell by {fall:.3e} of itself, "
-                     f"less than {CLI_MIN_FALL:.0e}")
-            if model_type == CLI_MODELS[0]:
-                reports["inference_evaluate"] = variable_inference_evaluate(
-                    root, log_dir / "model.ckpt", model, name, smi)
-            reports[model_type] = {
-                "epochs": CLI_EPOCHS, "train_cases": CLI_TRAIN, "val_cases": CLI_VAL,
-                "points": [N_INT, N_BND, N_OBS], "ms_per_epoch": ms_epoch,
-                "first_epochs": first_n, "first_epochs_s": first_s,
-                "ms_per_epoch_after_first": ms_steady, "command_s": wall_s,
-                "data_write_s": data_s, "loss_initial_trained": totals, "loss_fall": fall,
-                "model_meta": model_meta}
-            del model, batch
-            torch.cuda.empty_cache()
+        # the training loss: initial weights against trained ones on
+        # the training split as the CLI sampled it (its rng draws the
+        # training cases first), weighted as the CLI weights it,
+        # without dropout
+        args = cli.build_arg_parser().parse_args(argv)
+        train_data = FoamDataset(str(root / "train"), N_INT, N_BND, N_OBS,
+                                 rng=np.random.default_rng(cli.SEED))
+        model = cli.get_model(args, train_data.normalizers, dev)
+        batch = model.attach_neighbors(train_data.stacked().to(dev))
+        weights = torch.tensor(cli.get_loss_scaler(args).weights, device=dev)
+        totals = []
+        for state in (None, ckpt["module"]):
+            if state is not None:
+                model.module.load_state_dict(state)
+            with torch.no_grad():
+                losses, _ = compute_losses(model, batch, deterministic=True)
+            totals.append(float((weights * losses).sum()))
+        fall = (totals[0] - totals[1]) / totals[0]
+        log(f"cli: {model_type}, {CLI_EPOCHS} epochs of {CLI_TRAIN} cases at "
+            f"{N_INT}/{N_BND}/{N_OBS} points, bf16-mixed validation: {ms_epoch:.3f} ms "
+            f"per epoch (the trainer's clock, validation every 10 epochs included); the "
+            f"first {first_n} epochs (start-up included) {first_s:.3f} s, then "
+            f"{ms_steady:.3f} ms per epoch; {wall_s:.1f} s for the whole command; "
+            f"training loss without dropout {totals[0]:.6f} -> {totals[1]:.6f}, a fall of "
+            f"{fall:.3e} of it (at least {CLI_MIN_FALL:.0e} wanted) ({name}; {smi})")
+        if not fall >= CLI_MIN_FALL:
+            fail(f"cli ({model_type}): the training loss fell by {fall:.3e} of itself, "
+                 f"less than {CLI_MIN_FALL:.0e}")
+        if model_type == CLI_MODELS[0]:
+            reports["inference_evaluate"] = variable_inference_evaluate(
+                root, log_dir / "model.ckpt", model, name, smi)
+        reports[model_type] = {
+            "epochs": CLI_EPOCHS, "train_cases": CLI_TRAIN, "val_cases": CLI_VAL,
+            "points": [N_INT, N_BND, N_OBS], "ms_per_epoch": ms_epoch,
+            "first_epochs": first_n, "first_epochs_s": first_s,
+            "ms_per_epoch_after_first": ms_steady, "command_s": wall_s,
+            "data_write_s": data_s, "loss_initial_trained": totals, "loss_fall": fall,
+            "model_meta": model_meta}
+        del model, batch
+        torch.cuda.empty_cache()
     return reports
 
 
@@ -2236,7 +2268,7 @@ def check_mrg(model, batch, gen, pk):
     return out
 
 
-def fixed_cli_phase(name, smi, counters, keep=None):
+def fixed_cli_phase(name, smi, counters, keep):
     """The port's duct_fixed_boundary experiment on the card, through the
     entry points a user calls: the port's FVM solver writes FIX_TRAIN +
     FIX_VAL golden-duct cases at FIX_GRID with their meta; for each of
@@ -2249,8 +2281,8 @@ def fixed_cli_phase(name, smi, counters, keep=None):
     (``load_model_and_params`` and ``predict``, f32) restores the checkpoint
     and predicts each held-out case as the trained model predicts the split,
     within RTOL; the evaluate CLI prints finite errors and pressure drops.
-    With ``keep`` (a directory) the data and the checkpoints stay there,
-    ``data/`` and ``logs/lightning_logs/<model>/``, for phase 38."""
+    The data and the checkpoints stay in the directory ``keep``, ``data/``
+    and ``logs/lightning_logs/<model>/``, for phases 38 and 40."""
     import contextlib
     import io
     import re
@@ -2267,105 +2299,105 @@ def fixed_cli_phase(name, smi, counters, keep=None):
               "--n-observations", str(n_obs)]
     report = {"grid": list(FIX_GRID), "train_cases": FIX_TRAIN, "val_cases": FIX_VAL,
               "points": list(FIX_POINTS), "epochs": FIX_EPOCHS}
-    with (contextlib.nullcontext(str(keep)) if keep else tempfile.TemporaryDirectory()) as tmp:
-        root = Path(tmp) / "data"
+    keep = Path(keep)
+    root = keep / "data"
+    t0 = time.perf_counter()
+    report["solve_s_per_split"] = generate(root, *FIX_GRID, TRAIN_CASES[:FIX_TRAIN],
+                                           VAL_CASES[:FIX_VAL])
+    report["solve_s"] = time.perf_counter() - t0
+    log(f"fixed cli: {FIX_TRAIN} + {FIX_VAL} golden-duct cases solved by the port's FVM "
+        f"solver and written at {FIX_GRID[0]}x{FIX_GRID[1]} in {report['solve_s']:.1f} s "
+        f"(cut from the golden run's 13 + 4 cases for this script's time; grid, points "
+        f"and model widths are the golden run's)")
+    split_args = ["--train-dir", str(root / "train"), "--val-dir", str(root / "val")]
+    held_out = ["--data-dir", str(root / "val"), "--meta-dir", str(root / "train")]
+    for model_type in FIX_MODELS:
+        argv = ["--model", model_type, "--epochs", str(FIX_EPOCHS), "--log-every", "10",
+                "--batch-size", str(FIX_TRAIN), *points, *split_args,
+                "--logs-dir", str(keep / "logs"), "--name", model_type]
+        for c in counters.values():
+            c.launches = 0
+        printed = io.StringIO()
         t0 = time.perf_counter()
-        report["solve_s_per_split"] = generate(root, *FIX_GRID, TRAIN_CASES[:FIX_TRAIN],
-                                               VAL_CASES[:FIX_VAL])
-        report["solve_s"] = time.perf_counter() - t0
-        log(f"fixed cli: {FIX_TRAIN} + {FIX_VAL} golden-duct cases solved by the port's FVM "
-            f"solver and written at {FIX_GRID[0]}x{FIX_GRID[1]} in {report['solve_s']:.1f} s "
-            f"(cut from the golden run's 13 + 4 cases for this script's time; grid, points "
-            f"and model widths are the golden run's)")
-        split_args = ["--train-dir", str(root / "train"), "--val-dir", str(root / "val")]
-        held_out = ["--data-dir", str(root / "val"), "--meta-dir", str(root / "train")]
-        for model_type in FIX_MODELS:
-            argv = ["--model", model_type, "--epochs", str(FIX_EPOCHS), "--log-every", "10",
-                    "--batch-size", str(FIX_TRAIN), *points, *split_args,
-                    "--logs-dir", str(Path(tmp) / "logs"), "--name", model_type]
-            for c in counters.values():
-                c.launches = 0
-            printed = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(printed):
-                model = train.run(argv)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-            launches = {k: c.launches for k, c in counters.items() if c.launches}
-            for line in printed.getvalue().splitlines():
-                log(f"  | {line}")
-            want = ({"pointnet_global", "decoder_prop"} if model_type == "pipn" else
-                    {"sa_neighborhood", "pointnet_global", "farthest_point_sampling"}
-                    | ({"decoder_prop"} if model_type != "pipn-pp-full" else set()))
-            backward = "sa_neighborhood_bwd" if model_type == "pipn-pp-full" else \
-                "decoder_prop_bwd"
-            if not want <= {k for k in launches if not k.endswith("_bwd")} or \
-                    backward not in launches:
-                fail(f"fixed cli {model_type}: launches {launches} lack a kernel of {want}")
-            log_dir = Path(tmp) / "logs" / "lightning_logs" / model_type
-            for fname in ("model.ckpt", "best.ckpt", "model_meta.json"):
-                if not (log_dir / fname).exists():
-                    fail(f"fixed cli {model_type}: the CLI did not write {fname}")
-            model_meta = json.loads((log_dir / "model_meta.json").read_text())
-            if model_meta["Model type"] != model_type or model_meta["N boundary"] != n_bnd:
-                fail(f"fixed cli {model_type}: model_meta.json {model_meta}")
-            found = re.search(r"fit: \d+ epochs in ([0-9.]+) s, ([0-9.]+) ms per epoch; the "
-                              r"first (\d+) in ([0-9.]+) s, then ([0-9.]+) ms per epoch",
-                              printed.getvalue())
-            if found is None:
-                fail(f"fixed cli {model_type}: the CLI did not report its fit time")
-            ms_epoch, ms_steady = float(found.group(2)), float(found.group(5))
+        with contextlib.redirect_stdout(printed):
+            model = train.run(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        for line in printed.getvalue().splitlines():
+            log(f"  | {line}")
+        want = ({"pointnet_global", "decoder_prop"} if model_type == "pipn" else
+                {"sa_neighborhood", "pointnet_global", "farthest_point_sampling"}
+                | ({"decoder_prop"} if model_type != "pipn-pp-full" else set()))
+        backward = "sa_neighborhood_bwd" if model_type == "pipn-pp-full" else \
+            "decoder_prop_bwd"
+        if not want <= {k for k in launches if not k.endswith("_bwd")} or \
+                backward not in launches:
+            fail(f"fixed cli {model_type}: launches {launches} lack a kernel of {want}")
+        log_dir = keep / "logs" / "lightning_logs" / model_type
+        for fname in ("model.ckpt", "best.ckpt", "model_meta.json"):
+            if not (log_dir / fname).exists():
+                fail(f"fixed cli {model_type}: the CLI did not write {fname}")
+        model_meta = json.loads((log_dir / "model_meta.json").read_text())
+        if model_meta["Model type"] != model_type or model_meta["N boundary"] != n_bnd:
+            fail(f"fixed cli {model_type}: model_meta.json {model_meta}")
+        found = re.search(r"fit: \d+ epochs in ([0-9.]+) s, ([0-9.]+) ms per epoch; the "
+                          r"first (\d+) in ([0-9.]+) s, then ([0-9.]+) ms per epoch",
+                          printed.getvalue())
+        if found is None:
+            fail(f"fixed cli {model_type}: the CLI did not report its fit time")
+        ms_epoch, ms_steady = float(found.group(2)), float(found.group(5))
 
-            # the training loss without dropout: the CLI's initial weights
-            # against the trained module, on the training split as the CLI
-            # sampled it (its rng draws the training cases first)
-            args = train.build_arg_parser().parse_args(argv)
-            train_data = FoamDataset(str(root / "train"), n_int, n_bnd, n_obs,
-                                     rng=np.random.default_rng(train.SEED))
-            weights = torch.tensor(train.get_loss_scaler(args).weights, device=dev)
-            totals = []
-            for mdl in (train.get_model(args, train_data.normalizers, dev), model):
-                batch = mdl.attach_neighbors(train_data.stacked().to(dev))
-                with torch.no_grad():
-                    losses, _ = compute_losses(mdl, batch, deterministic=True)
-                totals.append(float((weights * losses).sum()))
-            fall = (totals[0] - totals[1]) / totals[0]
-            if not fall >= FIX_MIN_FALL:
-                fail(f"fixed cli {model_type}: the training loss fell by {fall:.3e} of itself, "
-                     f"less than {FIX_MIN_FALL:.0e}")
+        # the training loss without dropout: the CLI's initial weights
+        # against the trained module, on the training split as the CLI
+        # sampled it (its rng draws the training cases first)
+        args = train.build_arg_parser().parse_args(argv)
+        train_data = FoamDataset(str(root / "train"), n_int, n_bnd, n_obs,
+                                 rng=np.random.default_rng(train.SEED))
+        weights = torch.tensor(train.get_loss_scaler(args).weights, device=dev)
+        totals = []
+        for mdl in (train.get_model(args, train_data.normalizers, dev), model):
+            batch = mdl.attach_neighbors(train_data.stacked().to(dev))
+            with torch.no_grad():
+                losses, _ = compute_losses(mdl, batch, deterministic=True)
+            totals.append(float((weights * losses).sum()))
+        fall = (totals[0] - totals[1]) / totals[0]
+        if not fall >= FIX_MIN_FALL:
+            fail(f"fixed cli {model_type}: the training loss fell by {fall:.3e} of itself, "
+                 f"less than {FIX_MIN_FALL:.0e}")
 
-            # inference: the checkpoint restored, each held-out case alone
-            # in f32, against the trained model on the whole split
-            inf_argv = ["--checkpoint", str(log_dir / "model.ckpt"), *held_out, *points]
-            preds = inference.run(inf_argv + ["--precision", "32-true"])
-            val_data = FoamDataset(str(root / "val"), n_int, n_bnd, n_obs,
-                                   np.random.default_rng(train.SEED), str(root / "train"))
-            stacked = model.attach_neighbors(val_data.stacked().to(dev))
-            ref = make_predict_functions(model).predict_batch(
-                gather_cases(stacked, torch.arange(len(val_data), device=dev))).data.cpu()
-            err_inf = check_close(f"fixed cli {model_type} inference against the trained model",
-                                  [(f"case {i}", torch.as_tensor(p_.data), ref[i])
-                                   for i, p_ in enumerate(preds)])
-            printed = io.StringIO()
-            with contextlib.redirect_stdout(printed):
-                summary = evaluate.run(inf_argv)
-            log(f"  | {printed.getvalue().strip()}")
-            if not all(np.isfinite(v) for v in summary.values()):
-                fail(f"fixed cli {model_type}: evaluate printed a non-finite number {summary}")
-            log(f"fixed cli {model_type}: {FIX_EPOCHS} epochs of {FIX_TRAIN} cases at "
-                f"{n_int}/{n_bnd}/{n_obs} points in {wall_s:.1f} s for the whole command, "
-                f"{ms_epoch:.3f} ms per epoch (the trainer's clock, bf16-mixed validation every "
-                f"10 epochs included), {ms_steady:.3f} after the first chunk; training loss "
-                f"without dropout {totals[0]:.6f} -> {totals[1]:.6f}, a fall of {fall:.3e} of "
-                f"it; inference within {err_inf:.3e} of the trained model; evaluate "
-                f"{json.dumps(summary)} ({name}; {smi})")
-            report[model_type] = {"command_s": wall_s, "ms_per_epoch": ms_epoch,
-                                  "ms_per_epoch_after_first": ms_steady,
-                                  "launches": launches, "loss_initial_trained": totals,
-                                  "loss_fall": fall, "inference_max_abs_err": err_inf,
-                                  "evaluate": summary, "model_meta": model_meta}
-            del model
-            torch.cuda.empty_cache()
+        # inference: the checkpoint restored, each held-out case alone
+        # in f32, against the trained model on the whole split
+        inf_argv = ["--checkpoint", str(log_dir / "model.ckpt"), *held_out, *points]
+        preds = inference.run(inf_argv + ["--precision", "32-true"])
+        val_data = FoamDataset(str(root / "val"), n_int, n_bnd, n_obs,
+                               np.random.default_rng(train.SEED), str(root / "train"))
+        stacked = model.attach_neighbors(val_data.stacked().to(dev))
+        ref = make_predict_functions(model).predict_batch(
+            gather_cases(stacked, torch.arange(len(val_data), device=dev))).data.cpu()
+        err_inf = check_close(f"fixed cli {model_type} inference against the trained model",
+                              [(f"case {i}", torch.as_tensor(p_.data), ref[i])
+                               for i, p_ in enumerate(preds)])
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            summary = evaluate.run(inf_argv)
+        log(f"  | {printed.getvalue().strip()}")
+        if not finite_numbers(summary):
+            fail(f"fixed cli {model_type}: evaluate printed a non-finite number {summary}")
+        log(f"fixed cli {model_type}: {FIX_EPOCHS} epochs of {FIX_TRAIN} cases at "
+            f"{n_int}/{n_bnd}/{n_obs} points in {wall_s:.1f} s for the whole command, "
+            f"{ms_epoch:.3f} ms per epoch (the trainer's clock, bf16-mixed validation every "
+            f"10 epochs included), {ms_steady:.3f} after the first chunk; training loss "
+            f"without dropout {totals[0]:.6f} -> {totals[1]:.6f}, a fall of {fall:.3e} of "
+            f"it; inference within {err_inf:.3e} of the trained model; evaluate "
+            f"{json.dumps(summary)} ({name}; {smi})")
+        report[model_type] = {"command_s": wall_s, "ms_per_epoch": ms_epoch,
+                              "ms_per_epoch_after_first": ms_steady,
+                              "launches": launches, "loss_initial_trained": totals,
+                              "loss_fall": fall, "inference_max_abs_err": err_inf,
+                              "evaluate": summary, "model_meta": model_meta}
+        del model
+        torch.cuda.empty_cache()
     return report
 
 
@@ -2631,7 +2663,7 @@ def manufactured_cli_phase(name, smi, counters):
             with contextlib.redirect_stdout(printed):
                 summary = evaluate.run(inf_argv)
             log(f"  | {printed.getvalue().strip()}")
-            if not all(np.isfinite(v) for v in summary.values()):
+            if not finite_numbers(summary):
                 fail(f"manufactured cli {model_type}: evaluate printed a non-finite number "
                      f"{summary}")
             log(f"manufactured cli {model_type}: {MS_CLI_EPOCHS} epochs in {wall_s:.1f} s for "
@@ -3700,6 +3732,247 @@ def grid_phase(name, smi, counters):
     return report
 
 
+def p_values(line) -> list:
+    """Every p-value of a compare summary line as (family, label, value):
+    ``rank`` for the rank tests, ``log`` for those over the errors' logs."""
+    return ([("log" if t == "ANOVA" else "rank", f"{t} {f}", v)
+             for f, tests in line["test"].items() for t, v in tests.items()]
+            + [("log", f"Shapiro {f} {m}", v)
+               for f, models in line["shapiro"].items() for m, v in models.items()]
+            + [("log", f"Levene {f}", v) for f, v in line["levene"].items()])
+
+
+def log_tests(errors, keep, fields, names) -> dict:
+    """The compare's tests over the errors' logs (ANOVA, Shapiro of each
+    model, Levene about the mean), field by field, over the errors that
+    ``keep`` keeps of each model's (points, fields) ``errors``: {label:
+    p-value}, labelled as ``p_values`` labels them."""
+    import numpy as np
+    from scipy.stats import f_oneway, levene, shapiro
+    out = {}
+    for i, f in enumerate(fields):
+        t = [np.log(e[k[:, i], i]) for e, k in zip(errors, keep)]
+        out[f"ANOVA {f}"] = float(f_oneway(*t)[-1])
+        for m, x in zip(names, t):
+            out[f"Shapiro {f} {m}"] = float(shapiro(x)[-1])
+        out[f"Levene {f}"] = float(levene(*t, center="mean")[-1])
+    return out
+
+
+def p_gap(card: dict, cpu: dict, gate: bool) -> float:
+    """The largest gap between two {label: p-value} dicts relative to the
+    larger of each pair, where they differ by more than COMPARE_P_ATOL; with
+    ``gate``, fails past COMPARE_P_RTOL."""
+    worst = 0.0
+    for label, a in card.items():
+        b = cpu[label]
+        if abs(a - b) <= COMPARE_P_ATOL:
+            continue
+        gap = abs(a - b) / max(abs(a), abs(b), 1e-300)
+        if gate and gap > COMPARE_P_RTOL:
+            fail(f"compare: {label} p-value {a!r} on the card, {b!r} on the CPU (allowed "
+                 f"{COMPARE_P_RTOL:.0e} relative or {COMPARE_P_ATOL:.0e})")
+        worst = max(worst, gap)
+    return worst
+
+
+def compare_phase(fixed_keep, variable_keep, counters, name, smi):
+    """Phase 40, the evaluation's output layer on the card: the fixed
+    duct's compare CLI on phase 18's held-out split and checkpoints,
+    ``pipn`` against ``pipn-pp-mrg``, once through ``python -m`` in a
+    subprocess (its summary line parses, ``Test.csv`` and ``Shapiro.csv``
+    are written, every p-value lies in [0, 1]) and once in process with every
+    launch count set to 0 just before and read just after (pointnet_global,
+    decoder_prop, sa_neighborhood and FPS forward, no backward); the two
+    error arrays and the p-values against the same compare with
+    ``device="cpu"`` (errors within RTOL of their largest; the rank tests'
+    p-values within COMPARE_P_RTOL of the larger of the two, or
+    COMPARE_P_ATOL, and so the log-error tests' over the errors above the
+    card's noise floor, COMPARE_LOG_FLOOR); the
+    variable duct's compare CLI on phase 15's split, ``pi-gano-full``
+    against ``pi-gano-pp-full``, in process (neural_ops_prop too); the
+    fixed evaluate CLI's error table on the card and on the CPU (finite, the
+    same row labels); then ``--save-plots``: without matplotlib the
+    evaluate, inference and compare CLIs raise the ImportError that names
+    it, with no launch; with it, each writes the JAX package's file names.
+    Returns the report."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary import compare as fixed_compare
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary import evaluate, inference
+    from porous_cfd_tpu_torch.examples.duct_variable_boundary import compare as var_compare
+    t_phase = time.perf_counter()
+    fixed, variable = Path(fixed_keep), Path(variable_keep)
+    n_int, n_bnd, n_obs = FIX_POINTS
+    fixed_logs = fixed / "logs" / "lightning_logs"
+    fixed_argv = ["--checkpoint", str(fixed_logs / "pipn" / "model.ckpt"),
+                  "--data-dir", str(fixed / "data" / "val"),
+                  "--meta-dir", str(fixed / "data" / "train"), "--n-internal", str(n_int),
+                  "--n-boundary", str(n_bnd), "--n-observations", str(n_obs)]
+    other = ["--checkpoint-other", str(fixed_logs / "pipn-pp-mrg" / "model.ckpt")]
+    report = {}
+
+    def quietly(fn, *args, **kwargs):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            out = fn(*args, **kwargs)
+        return out, printed.getvalue()
+
+    def counted(fn, *args, **kwargs):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out, printed = quietly(fn, *args, **kwargs)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        return out, printed, wall_s, {k: c.launches for k, c in counters.items() if c.launches}
+
+    # the fixed duct's compare CLI, as a user runs it
+    cmd = [sys.executable, "-m", "porous_cfd_tpu_torch.examples.duct_fixed_boundary.compare",
+           *fixed_argv, *other]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"compare: the fixed compare CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        log(f"  | {line}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    out_dir = Path(line["dir"])
+    if not ((out_dir / "Test.csv").exists() and (out_dir / "Shapiro.csv").exists()):
+        fail(f"compare: the CLI wrote no Test.csv and Shapiro.csv under {out_dir}")
+    if not all(0 <= v <= 1 for _, _, v in p_values(line)):
+        fail(f"compare: a p-value outside [0, 1]: {line}")
+
+    # in process on the card, counted, and on the CPU
+    comp, _, card_s, launches = counted(fixed_compare.run, fixed_argv + other)
+    want = {"pointnet_global", "decoder_prop", "sa_neighborhood", "farthest_point_sampling"}
+    if not want <= set(launches) or any(k.endswith("_bwd") for k in launches):
+        fail(f"compare: the fixed compare launched {launches}; want {sorted(want)} forward "
+             f"and no backward")
+    t0 = time.perf_counter()
+    cpu, _ = quietly(fixed_compare.run, fixed_argv + other, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = check_close("compare fixed card against CPU",
+                      [(f"{n} errors", torch.as_tensor(a), torch.as_tensor(b))
+                       for n, a, b in zip(comp.names, comp.errors, cpu.errors)])
+    # the rank tests as the compare printed them; the tests over the logs
+    # over all errors (read), over those above COMPARE_SMALL of their
+    # field's largest (read) and over those above the noise floor (held)
+    by_family = [{label: v for f, label, v in p_values(c.summary()) if f == family}
+                 for family in ("rank", "log") for c in (comp, cpu)]
+    gaps = {"rank": p_gap(*by_family[:2], gate=True),
+            "log_all": p_gap(*by_family[2:], gate=False)}
+    floors = {"small": [COMPARE_SMALL * b.max(axis=0) for b in cpu.errors],
+              "noise": [COMPARE_LOG_FLOOR * np.abs(a - b).max(axis=0)
+                        for a, b in zip(comp.errors, cpu.errors)]}
+    left_out = {}
+    for key, floor in floors.items():
+        keep = [(a > fl) & (b > fl) for a, b, fl in zip(comp.errors, cpu.errors, floor)]
+        left_out[key] = {m: dict(zip(comp.fields, (~k).sum(axis=0).tolist()))
+                         for m, k in zip(comp.names, keep)}
+        gaps[f"log_above_{key}"] = p_gap(log_tests(comp.errors, keep, comp.fields, comp.names),
+                                         log_tests(cpu.errors, keep, comp.fields, comp.names),
+                                         gate=key == "noise")
+    fixed_ms = comp.summary()["inference_ms_per_case"]
+    log(f"compare fixed ({comp.names[0]} vs {comp.names[1]}, {line['cases']} cases at "
+        f"{n_int}/{n_bnd}/{n_obs} points, {len(comp.errors[0])} errors a field): {sub_s:.1f} s "
+        f"as a subprocess, {card_s:.3f} s in process ({cpu_s:.1f} s on the CPU); launches "
+        f"{launches}; inference ms per case {fixed_ms[0]:.3f} / {fixed_ms[1]:.3f}; errors "
+        f"within {err:.3e} of the CPU's; p-values, relative to the larger where they differ "
+        f"by more than {COMPARE_P_ATOL:.0e}: rank tests within {gaps['rank']:.3e}, log-error "
+        f"tests within {gaps['log_all']:.3e} over all errors, {gaps['log_above_small']:.3e} "
+        f"over those above {COMPARE_SMALL:.0e} of their field's largest (left out "
+        f"{left_out['small']}), {gaps['log_above_noise']:.3e} over those above "
+        f"{COMPARE_LOG_FLOOR:.0e} times the card's largest difference (left out "
+        f"{left_out['noise']}; noise floors "
+        f"{[np.round(f, 9).tolist() for f in floors['noise']]}) ({name}; {smi})")
+    report["fixed"] = {"names": list(comp.names), "command_s": sub_s, "in_process_s": card_s,
+                       "cpu_s": cpu_s, "launches": launches, "inference_ms_per_case": fixed_ms,
+                       "errors_max_abs_err": err, "p_value_max_rel_gap": gaps,
+                       "log_tests_left_out": left_out,
+                       "noise_floors": [f.tolist() for f in floors["noise"]],
+                       "summary": comp.summary(), "cpu_summary": cpu.summary()}
+
+    # the variable duct's compare CLI on phase 15's split and checkpoints
+    var_logs = variable / "logs" / "lightning_logs"
+    var_argv = ["--checkpoint", str(var_logs / CLI_MODELS[0] / "model.ckpt"),
+                "--checkpoint-other", str(var_logs / CLI_MODELS[1] / "model.ckpt"),
+                "--data-dir", str(variable / "data" / "val"),
+                "--meta-dir", str(variable / "data" / "train"), "--n-internal", str(N_INT),
+                "--n-boundary", str(N_BND), "--n-observations", str(N_OBS)]
+    vcomp, _, var_s, var_launches = counted(var_compare.run, var_argv)
+    want = {"neural_ops_prop", "pointnet_global", "sa_neighborhood", "farthest_point_sampling"}
+    if not want <= set(var_launches) or any(k.endswith("_bwd") for k in var_launches):
+        fail(f"compare: the variable compare launched {var_launches}; want {sorted(want)} "
+             f"forward and no backward")
+    vline = vcomp.summary()
+    if not (finite_numbers(vline["inference_ms_per_case"]) and
+            all(0 <= v <= 1 for _, _, v in p_values(vline))):
+        fail(f"compare: the variable compare printed {vline}")
+    log(f"compare variable ({vcomp.names[0]} vs {vcomp.names[1]}, {vline['cases']} cases at "
+        f"{N_INT}/{N_BND}/{N_OBS} points): {var_s:.3f} s in process; launches {var_launches}; "
+        f"inference ms per case {vline['inference_ms_per_case'][0]:.3f} / "
+        f"{vline['inference_ms_per_case'][1]:.3f} ({name}; {smi})")
+    report["variable"] = {"names": list(vcomp.names), "in_process_s": var_s,
+                          "launches": var_launches,
+                          "inference_ms_per_case": vline["inference_ms_per_case"],
+                          "summary": vline}
+
+    # the fixed evaluate CLI's error table, card and CPU
+    card_line, _ = quietly(evaluate.run, fixed_argv)
+    cpu_line, _ = quietly(evaluate.run, fixed_argv, device="cpu")
+    if list(card_line["errors"]) != list(cpu_line["errors"]) or \
+            not finite_numbers(card_line["errors"]):
+        fail(f"compare: the evaluate CLI's error table {card_line['errors']} against the "
+             f"CPU's {cpu_line['errors']}")
+    log(f"compare: the fixed evaluate CLI's error table on the card, rows "
+        f"{list(card_line['errors'])}: {json.dumps(card_line['errors'])}")
+    report["evaluate_errors"] = {"card": card_line["errors"], "cpu": cpu_line["errors"]}
+
+    # --save-plots, with or without matplotlib on this machine
+    try:
+        import matplotlib
+        report["matplotlib"] = matplotlib.__version__
+    except ImportError:
+        report["matplotlib"] = None
+    clis = (("evaluate", evaluate.run, fixed_argv), ("inference", inference.run, fixed_argv),
+            ("compare", fixed_compare.run, fixed_argv + other))
+    if report["matplotlib"] is None:
+        for label, run, argv in clis:
+            for c in counters.values():
+                c.launches = 0
+            try:
+                quietly(run, argv + ["--save-plots"])
+            except ImportError as e:
+                if "matplotlib" not in str(e):
+                    fail(f"compare: {label} --save-plots raised {e!r}")
+            else:
+                fail(f"compare: {label} --save-plots ran without matplotlib")
+            launched = {k: c.launches for k, c in counters.items() if c.launches}
+            if launched:
+                fail(f"compare: {label} --save-plots launched {launched} before refusing")
+        log("compare: no matplotlib here; --save-plots raised the ImportError that names it "
+            "in the evaluate, inference and compare CLIs, with no launch")
+    else:
+        for label, run, argv in clis:
+            quietly(run, argv + ["--save-plots"])
+        plots = fixed_logs / "pipn" / "plots" / "val"
+        wanted = [plots / "stats" / "Errors.csv", plots / "stats" / "Pressure drop.png",
+                  plots / "case_0" / "Predicted.png", out_dir / "Max error difference.png",
+                  out_dir / "Test.csv", out_dir / "Shapiro.csv"]
+        missing = [str(p) for p in wanted if not p.exists()]
+        if missing:
+            fail(f"compare: --save-plots did not write {missing}")
+        log(f"compare: matplotlib {report['matplotlib']}; --save-plots wrote the JAX "
+            f"package's file names ({len(wanted)} checked)")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"compare: phase 40 took {report['phase_s']:.1f} s ({name}; {smi})")
+    return report
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper's launch count (and each engine mode's), by the
     key the kernels line uses."""
@@ -4175,7 +4448,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 15. the duct_variable_boundary CLI, pi-gano-full ---------------------------
-    cli_report = cli_phase(name, smi)
+    cli_keep = tempfile.TemporaryDirectory()
+    cli_report = cli_phase(name, smi, Path(cli_keep.name))
     torch.cuda.empty_cache()
 
     # ---- 16, 17. pipn_pp_mrg: the chain, verbose prediction, then training ----------
@@ -4322,11 +4596,16 @@ def main() -> int:
 
     # ---- 38. the hard and vertical CLIs on phase 18's cases and checkpoint -------------
     hard_vertical_report = hard_vertical_cli_phase(fixed_keep.name, name, smi, counters)
-    fixed_keep.cleanup()
     torch.cuda.empty_cache()
 
     # ---- 39. a small transform grid: generate, train, score, analyse --------------------
     grid_report = grid_phase(name, smi, counters)
+    torch.cuda.empty_cache()
+
+    # ---- 40. compare on phase 18's and phase 15's checkpoints, the error table ----------
+    compare_report = compare_phase(fixed_keep.name, cli_keep.name, counters, name, smi)
+    fixed_keep.cleanup()
+    cli_keep.cleanup()
     torch.cuda.empty_cache()
 
     # launches on each kernel's main path (per training step; FPS per
@@ -4405,6 +4684,7 @@ def main() -> int:
     log(json.dumps({"solver_2d": solver_2d_report}))
     log(json.dumps({"hard_vertical_cli": hard_vertical_report}))
     log(json.dumps({"grid": grid_report}))
+    log(json.dumps({"compare": compare_report}))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,10 +9,12 @@ statistics and the mean absolute error per inlet speed.
 It prints one JSON line: the mean absolute errors of U and p (denormalised),
 the MAE of each field (Ux, Uy, Uz, p) at each inlet speed (each case's
 speed snapped to 0.025, the per-case MAEs averaged over the cases of a
-speed: the numbers of the reference's "MAE by inlet speed" plot) and the
-inference time per case. From the command line it runs on the CUDA card;
-``run(argv, device="cpu")`` on the CPU. The plots and ``Errors.csv``
-(``--save-plots``) are not ported yet.
+speed: the numbers of the reference's "MAE by inlet speed" plot), the
+error table's rows (``errors``: label -> one value a field) and the
+inference time per case. With ``--save-plots`` the plots, the timing
+against the solver's and ``Errors.csv`` go under
+``<checkpoint parent>/plots/<split>/stats/`` (matplotlib). From the command
+line it runs on the CUDA card; ``run(argv, device="cpu")`` on the CPU.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from porous_cfd_tpu_torch.device import resolve_device
 from porous_cfd_tpu_torch.examples.abc.inference import load_model_and_params
 from porous_cfd_tpu_torch.examples.abc.train import SEED
 from porous_cfd_tpu_torch.pipelines.evaluation import (build_arg_parser, evaluate_split,
-                                                       extract_u_magnitude, mae_by)
+                                                       extract_u_magnitude, mae_by, per_case_mae)
+from porous_cfd_tpu_torch.viz.common import plot_errors_vs_var
 
 
 def sample_process(normalizers, predicted, target, extras):
@@ -34,9 +37,14 @@ def sample_process(normalizers, predicted, target, extras):
                                            0.025)}
 
 
-def postprocess_fn(data, results):
-    """The per-case MAE of each field by inlet speed (abc/evaluate.py:23-28)."""
+def postprocess_fn(data, results, plots_path=None):
+    """The per-case MAE of each field by inlet speed, and its plot under
+    ``--save-plots`` (abc/evaluate.py:23-28)."""
     results["MAE by inlet speed"] = mae_by(results, ["U inlet"])
+    if plots_path is not None:
+        u_inlet = np.asarray(results["U inlet"]).flatten()
+        plot_errors_vs_var("MAE by inlet speed", per_case_mae(results), u_inlet,
+                           ["U inlet", "MAE"], plots_path)
 
 
 def run(argv=None, device=None) -> dict:
@@ -48,12 +56,13 @@ def run(argv=None, device=None) -> dict:
                        np.random.default_rng(SEED), args.meta_dir,
                        extra_fields=["momentError", "div(phi)"])
     model, _ = load_model_and_params(args, data, device=device)
-    ev = evaluate_split(args, model, data, sample_process, postprocess_fn)
+    ev = evaluate_split(args, model, data, sample_process, postprocess_fn, enable_timing=True)
     res = ev.results
     summary = {"cases": len(data),
                "U_mae": float(np.mean(res["U error"])),
                "p_mae": float(np.mean(res["p error"])),
                "mae_by_inlet_speed": res["MAE by inlet speed"],
+               "errors": ev.errors,
                "inference_ms_per_case": ev.avg_inference_time * 1e3}
     print(json.dumps(summary), flush=True)
     return summary

@@ -13,9 +13,13 @@ It prints one JSON line: the mean absolute errors of U and p
 at each (d, inlet speed) (the per-case MAEs averaged over the cases that
 share them: the numbers of the reference's "MAE by inlet angle" curve and
 "MAE heatmap"); the predicted and target pressure drops and their absolute
-difference; and the inference time per case. From the command line it runs
-on the CUDA card; ``run(argv, device="cpu")`` on the CPU. The plots and
-``Errors.csv`` (``--save-plots``) are not ported yet.
+difference; the error table's rows (``errors``: label -> one value a field,
+null where empty, the pressure drop's row included); and the inference time
+per case. With ``--save-plots`` the plots (the MAE by inlet angle, the MAE
+heatmap, the pressure-drop bars among them), the timing against the
+solver's and ``Errors.csv`` go under ``<checkpoint parent>/plots/<split>/stats/``
+(matplotlib). From the command line it runs on the CUDA card;
+``run(argv, device="cpu")`` on the CPU.
 """
 from __future__ import annotations
 
@@ -25,12 +29,14 @@ import numpy as np
 
 from porous_cfd_tpu_torch.data.dataset import FoamDataset
 from porous_cfd_tpu_torch.device import resolve_device
+from porous_cfd_tpu_torch.examples.duct_fixed_boundary.evaluate import add_pressure_drop
 from porous_cfd_tpu_torch.examples.duct_variable_boundary.inference import load_model_and_params
 from porous_cfd_tpu_torch.examples.duct_variable_boundary.train import SEED
 from porous_cfd_tpu_torch.pipelines.evaluation import (build_arg_parser, evaluate_split,
                                                        extract_angle, extract_coef,
                                                        extract_u_magnitude, get_pressure_drop,
-                                                       inverse_transform, mae_by)
+                                                       inverse_transform, mae_by, per_case_mae)
+from porous_cfd_tpu_torch.viz.common import plot_errors_vs_multi_vars, plot_errors_vs_var
 
 
 def sample_process(normalizers, predicted, target, extras):
@@ -50,13 +56,22 @@ def sample_process(normalizers, predicted, target, extras):
             "Predicted drop": np.asarray([drop(pred)]), "Target drop": np.asarray([drop(tgt)])}
 
 
-def postprocess_fn(data, results):
+def postprocess_fn(data, results, plots_path=None):
     """The MAE by inlet angle and by (d, inlet speed), and the pressure drop
-    error (duct_variable_boundary/evaluate.py:57-74)."""
+    error, with their plots under ``--save-plots``
+    (duct_variable_boundary/evaluate.py:57-74)."""
     results["MAE by inlet angle"] = mae_by(results, ["Angle"])
     results["MAE by d and inlet speed"] = mae_by(results, ["d", "U inlet"])
-    pred, tgt = np.mean(results["Predicted drop"]), np.mean(results["Target drop"])
-    results["Pressure drop"] = np.asarray([abs(pred - tgt)])
+    if plots_path is not None:
+        by_angle = results["MAE by inlet angle"]
+        plot_errors_vs_var("MAE by inlet angle", np.array([e["mae"] for e in by_angle]),
+                           np.array([e["Angle"] for e in by_angle]), ["Angle", "MAE"],
+                           plots_path)
+        d = np.asarray(results["d"]).flatten()
+        u_inlet = np.asarray(results["U inlet"]).flatten()
+        plot_errors_vs_multi_vars("MAE heatmap", per_case_mae(results), d.astype(np.int64),
+                                  u_inlet, ["D", "U"], plots_path)
+    add_pressure_drop(results, plots_path)
 
 
 def run(argv=None, device=None) -> dict:
@@ -68,7 +83,7 @@ def run(argv=None, device=None) -> dict:
                        np.random.default_rng(SEED), args.meta_dir,
                        extra_fields=["momentError", "div(phi)"])
     model, _ = load_model_and_params(args, data, device=device)
-    ev = evaluate_split(args, model, data, sample_process, postprocess_fn)
+    ev = evaluate_split(args, model, data, sample_process, postprocess_fn, enable_timing=True)
     res = ev.results
     summary = {"cases": len(data),
                "U_mae": float(np.mean(res["U error"])),
@@ -78,6 +93,7 @@ def run(argv=None, device=None) -> dict:
                "pressure_drop_predicted": float(np.mean(res["Predicted drop"])),
                "pressure_drop_target": float(np.mean(res["Target drop"])),
                "pressure_drop_error": float(res["Pressure drop"][0]),
+               "errors": ev.errors,
                "inference_ms_per_case": ev.avg_inference_time * 1e3}
     print(json.dumps(summary), flush=True)
     return summary

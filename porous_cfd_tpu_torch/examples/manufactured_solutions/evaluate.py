@@ -9,10 +9,12 @@ timing to compare (the JAX CLI passes ``enable_timing=False``).
 
 It prints one JSON line: the mean absolute errors of U and p, their
 relative L2 errors over the split, the mean absolute momentum and
-continuity residuals, and the inference time per case (the verbose
-prediction of every batch, ending in a device sync). From the command line
-it runs on the CUDA card; ``run(argv, device="cpu")`` on the CPU. The plots
-and ``Errors.csv`` (``--save-plots``) are not ported yet.
+continuity residuals, the error table's rows (``errors``: label -> one
+value a field) and the inference time per case (the verbose prediction of
+every batch, ending in a device sync). With ``--save-plots`` the plots and
+``Errors.csv`` go under ``<checkpoint parent>/plots/<split>/stats/``
+(matplotlib). From the command line it runs on the CUDA card;
+``run(argv, device="cpu")`` on the CPU.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ def run(argv=None, device=None) -> dict:
                "U_rel_l2": rel_l2("U"), "p_rel_l2": rel_l2("p"),
                "momentum_mae": float(np.mean(np.abs(res["Predicted momentum"]))),
                "divergence_mae": float(np.mean(np.abs(res["Predicted divergence"]))),
+               "errors": ev.errors,
                "inference_ms_per_case": ev.avg_inference_time * 1e3}
     print(json.dumps(summary), flush=True)
     return summary

@@ -1,6 +1,9 @@
 """manufactured_solutions inference (the port's counterpart of
 ``examples/manufactured_solutions/inference.py``): restore a checkpoint the
-training CLI wrote and predict every case of a split, one at a time.
+training CLI wrote and predict every case of a split, one at a time; with
+``--save-plots`` each case's predicted, ground-truth and absolute-error
+fields are drawn under ``<checkpoint parent>/plots/<split>/<case>/``
+(matplotlib).
 
     python -m porous_cfd_tpu_torch.examples.manufactured_solutions.inference \\
         --checkpoint lightning_logs/NAME/model.ckpt --data-dir data/val \\
@@ -8,7 +11,7 @@ training CLI wrote and predict every case of a split, one at a time.
 
 The model type comes from the ``model_meta.json`` beside the checkpoint.
 From the command line it runs on the CUDA card; ``run(argv, device="cpu")``
-on the CPU. The field plots (``--save-plots``) are not ported yet.
+on the CPU.
 """
 from __future__ import annotations
 
@@ -19,9 +22,18 @@ import numpy as np
 from porous_cfd_tpu_torch.data.manufactured import ManufacturedDataset
 from porous_cfd_tpu_torch.data.parser import parse_model_type
 from porous_cfd_tpu_torch.device import resolve_device
+from porous_cfd_tpu_torch.examples.duct_fixed_boundary.inference import plot_case_fields
 from porous_cfd_tpu_torch.examples.manufactured_solutions.train import D, F, SEED, get_model
 from porous_cfd_tpu_torch.pipelines.inference import build_arg_parser, predict
 from porous_cfd_tpu_torch.train.trainer import load_checkpoint
+
+
+def sample_process_fn(data, target, predicted, case_path, plot_path):
+    """Predicted / ground truth / absolute error field plots, in the
+    dataset's own units (manufactured_solutions/inference.py:18-28);
+    nothing without a plot directory."""
+    if plot_path is not None:
+        plot_case_fields(data, target, predicted, plot_path, denormalise=False)
 
 
 def load_split(args: Namespace) -> ManufacturedDataset:
@@ -46,7 +58,7 @@ def run(argv=None, device=None):
     device = resolve_device(device)
     data = load_split(args)
     model, _ = load_model(args, device)
-    return predict(args, model, data)
+    return predict(args, model, data, sample_process_fn)
 
 
 if __name__ == "__main__":

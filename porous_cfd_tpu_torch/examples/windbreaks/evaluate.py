@@ -12,9 +12,12 @@ It prints one JSON line: the mean absolute errors of U and p
 the house's surface points of every case (the reference's "Solid Average
 relative error"); the MAE of each field at each (d, inlet speed), the
 per-case MAEs averaged over the cases of a pair (the numbers of the
-reference's "MAE heatmap"); and the inference time per case. From the
-command line it runs on the CUDA card; ``run(argv, device="cpu")`` on the
-CPU. The plots and ``Errors.csv`` (``--save-plots``) are not ported yet.
+reference's "MAE heatmap"); the error table's rows (``errors``: label ->
+one value a field); and the inference time per case. With ``--save-plots``
+the plots (the house's error distribution and bars, the MAE heatmap among
+them), the timing against the solver's and ``Errors.csv`` go under
+``<checkpoint parent>/plots/<split>/stats/`` (matplotlib). From the command
+line it runs on the CUDA card; ``run(argv, device="cpu")`` on the CPU.
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ from porous_cfd_tpu_torch.examples.windbreaks.inference import load_model_and_pa
 from porous_cfd_tpu_torch.examples.windbreaks.train import SEED
 from porous_cfd_tpu_torch.pipelines.evaluation import (build_arg_parser, evaluate_split,
                                                        extract_coef, extract_u_magnitude,
-                                                       inverse_transform, mae_by)
+                                                       inverse_transform, mae_by, per_case_mae)
+from porous_cfd_tpu_torch.viz.common import (plot_data_dist, plot_errors,
+                                             plot_errors_vs_multi_vars)
 
 
 def sample_process(normalizers, predicted, target, extras):
@@ -47,12 +52,23 @@ def sample_process(normalizers, predicted, target, extras):
             "d": d, "f": f, "U inlet": u_mag}
 
 
-def postprocess_fn(data, results):
-    """The house's surface mean errors and the MAE by (d, inlet speed)
-    (windbreaks/evaluate.py:38-53)."""
+def postprocess_fn(data, results, plots_path=None):
+    """The house's surface mean errors and the MAE by (d, inlet speed), and
+    their plots under ``--save-plots`` (windbreaks/evaluate.py:38-53)."""
     solid = np.concatenate([results["U error solid"], results["p error solid"]], -1)
     results["Solid mean error"] = np.mean(solid.reshape(-1, solid.shape[-1]), axis=0)
     results["MAE by d and inlet speed"] = mae_by(results, ["d", "U inlet"])
+    if plots_path is not None:
+        u_solid = np.concatenate(results["U error solid"])
+        p_solid = np.concatenate(results["p error solid"])
+        plot_data_dist("Solid Absolute error distribution", u_solid, p_solid,
+                       save_path=plots_path)
+        plot_errors("Solid Average relative error", results["Solid mean error"].tolist(),
+                    save_path=plots_path)
+        d = np.asarray(results["d"]).flatten()
+        u_inlet = np.asarray(results["U inlet"]).flatten()
+        plot_errors_vs_multi_vars("MAE heatmap", per_case_mae(results), d.astype(np.int64),
+                                  u_inlet, ["D", "U"], plots_path)
 
 
 def run(argv=None, device=None) -> dict:
@@ -64,13 +80,14 @@ def run(argv=None, device=None) -> dict:
                        np.random.default_rng(SEED), args.meta_dir,
                        extra_fields=["momentError", "div(phi)"])
     model, _ = load_model_and_params(args, data, device=device)
-    ev = evaluate_split(args, model, data, sample_process, postprocess_fn)
+    ev = evaluate_split(args, model, data, sample_process, postprocess_fn, enable_timing=True)
     res = ev.results
     summary = {"cases": len(data),
                "U_mae": float(np.mean(res["U error"])),
                "p_mae": float(np.mean(res["p error"])),
                "solid_mae": [float(x) for x in res["Solid mean error"]],
                "mae_by_d_and_inlet_speed": res["MAE by d and inlet speed"],
+               "errors": ev.errors,
                "inference_ms_per_case": ev.avg_inference_time * 1e3}
     print(json.dumps(summary), flush=True)
     return summary

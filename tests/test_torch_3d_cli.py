@@ -10,6 +10,7 @@ and ``mae_by``'s grouping."""
 import json
 
 import numpy as np
+import pandas
 import pytest
 import torch
 
@@ -21,6 +22,7 @@ from porous_cfd_tpu_torch.datagen import meta, synthetic_case
 from porous_cfd_tpu_torch.examples.abc import evaluate as abc_evaluate
 from porous_cfd_tpu_torch.examples.abc import inference as abc_inference
 from porous_cfd_tpu_torch.examples.abc import train as abc_train
+from porous_cfd_tpu_torch.examples.duct_fixed_boundary import inference as fixed_inference
 from porous_cfd_tpu_torch.examples.duct_variable_boundary import evaluate as var_evaluate
 from porous_cfd_tpu_torch.examples.duct_variable_boundary import inference as var_inference
 from porous_cfd_tpu_torch.examples.duct_variable_boundary import train as var_train
@@ -30,10 +32,12 @@ from porous_cfd_tpu_torch.examples.windbreaks import train as wb_train
 from porous_cfd_tpu_torch.pipelines import evaluation
 from porous_cfd_tpu_torch.tools import train_golden_3d
 from porous_cfd_tpu_torch.train.engine import gather_cases, make_predict_functions
+from porous_cfd_tpu_torch.viz import viz3d
 
 FIELDS = ["C", "U", "p", "cellToRegion", "d", "f"]
 POINTS = ["--n-internal", "48", "--n-boundary", "50", "--n-observations", "12"]
 V_TOL = dict(rtol=1e-5, atol=1e-6)
+STATS = "lightning_logs/run/plots/val/stats"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,7 +67,7 @@ def write_split(root, dims, patch_names, variable_boundaries):
     return root
 
 
-def train_restore_evaluate(cli, root, tmp_path, model_name, capsys):
+def train_restore_evaluate(cli, root, tmp_path, model_name, capsys, monkeypatch):
     """Train 2 epochs through ``cli``'s training CLI, restore the checkpoint
     through its inference CLI (each held-out case as the trained model
     predicts it, in f32) and evaluate it; returns the evaluate line."""
@@ -95,37 +99,59 @@ def train_restore_evaluate(cli, root, tmp_path, model_name, capsys):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary
     assert summary["cases"] == 2
     assert np.isfinite(summary["U_mae"]) and np.isfinite(summary["p_mae"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate.run(argv + ["--save-plots"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inference.run(argv + ["--save-plots"], device="cpu")
+    # --save-plots: the evaluation's plots and Errors.csv, drawn, under
+    # <checkpoint parent>/plots/<split>/stats; each case's field plots under
+    # .../<split>/<case>, recorded here (tests/test_torch_evaluation_plots.py
+    # holds them to the JAX package's)
+    evaluate.run(argv + ["--save-plots", "--batch-size", "1"], device="cpu")
+    stats = run_dir / "plots" / "val" / "stats"
+    assert {"Errors.csv", "Average relative error.png", "Top 20% mean errors.png",
+            "Total simulation time [s].png", "Absolute average residuals.png"} <= \
+        {p.name for p in stats.iterdir()}
+    assert list(pandas.read_csv(stats / "Errors.csv", index_col=0).index) == \
+        list(summary["errors"])
+    drawn = []
+    for mod in (inference, fixed_inference, viz3d):
+        for name in ("plot_fields", "plot_fields_3d", "plot_surface_errors"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, lambda title, *a, save_path=None, **k:
+                                    drawn.append((title, save_path.name)))
+    inference.run(argv + ["--save-plots"], device="cpu")
+    assert {case for _, case in drawn} == {"case_0", "case_1"}
+    assert drawn[1][0] == "Ground truth"
     return summary
 
 
-def test_abc_clis(tmp_path, capsys):
+def test_abc_clis(tmp_path, capsys, monkeypatch):
     root = write_split(tmp_path / "data", 3, None, {"Ux": "inlet"})
     summary = train_restore_evaluate((abc_train, abc_inference, abc_evaluate), root,
-                                     tmp_path, "pipn", capsys)
+                                     tmp_path, "pipn", capsys, monkeypatch)
+    assert (tmp_path / STATS / "MAE by inlet speed.png").exists()
     by_speed = summary["mae_by_inlet_speed"]
     assert sum(e["cases"] for e in by_speed) == 2
     assert all(len(e["mae"]) == 4 and np.all(np.isfinite(e["mae"])) for e in by_speed)
 
 
-def test_windbreaks_clis(tmp_path, capsys):
+def test_windbreaks_clis(tmp_path, capsys, monkeypatch):
     root = write_split(tmp_path / "data", 3, ["inlet", "interface", "outlet", "solid", "walls"],
                        {"Ux": "inlet"})
     summary = train_restore_evaluate((wb_train, wb_inference, wb_evaluate), root, tmp_path,
-                                     "pi-gano-pp", capsys)
+                                     "pi-gano-pp", capsys, monkeypatch)
+    for name in ("Solid Absolute error distribution", "Solid Average relative error",
+                 "MAE heatmap"):
+        assert (tmp_path / STATS / f"{name}.png").exists(), name
     assert len(summary["solid_mae"]) == 4 and np.all(np.isfinite(summary["solid_mae"]))
     cells = summary["mae_by_d_and_inlet_speed"]
     assert sum(e["cases"] for e in cells) == 2 and all(set(e) == {"d", "U inlet", "cases", "mae"}
                                                        for e in cells)
 
 
-def test_variable_duct_inference_and_evaluate(tmp_path, capsys):
+def test_variable_duct_inference_and_evaluate(tmp_path, capsys, monkeypatch):
     root = write_split(tmp_path / "data", 2, None, {"U": "inlet"})
     summary = train_restore_evaluate((var_train, var_inference, var_evaluate), root, tmp_path,
-                                     "pi-gano", capsys)
+                                     "pi-gano", capsys, monkeypatch)
+    for name in ("MAE by inlet angle", "MAE heatmap", "Pressure drop"):
+        assert (tmp_path / STATS / f"{name}.png").exists(), name
     assert sum(e["cases"] for e in summary["mae_by_inlet_angle"]) == 2
     assert sum(e["cases"] for e in summary["mae_by_d_and_inlet_speed"]) == 2
     assert np.isfinite(summary["pressure_drop_error"])

@@ -127,7 +127,7 @@ def test_parsers_have_the_jax_flags_and_defaults():
     assert flags(evaluation.build_arg_parser()) == flags(jax_evaluation.build_arg_parser())
 
 
-def test_load_model_and_params_restores_a_prediction(split, trained):
+def test_load_model_and_params_restores_a_prediction(split, trained, monkeypatch):
     argv = ["--checkpoint", str(trained), "--data-dir", str(split / "val"),
             "--meta-dir", str(split / "train"), *POINTS]
     args = port_inference.build_arg_parser().parse_args(argv)
@@ -156,8 +156,17 @@ def test_load_model_and_params_restores_a_prediction(split, trained):
         Namespace(model="pipn"), data.normalizers, "cpu"))
     untrained = fresh.predict_batch(gather_cases(stacked, torch.tensor([0]))).data[0].numpy()
     assert np.abs(untrained - f32[0].data).max() > 1e-3
-    with pytest.raises(NotImplementedError, match="not ported"):
-        inference.run(argv + ["--save-plots"], device="cpu")
+    # --save-plots: each case's three field plots under
+    # <checkpoint parent>/plots/<split>/<case> (the drawing is
+    # tests/test_torch_evaluation_plots.py's; here it is recorded)
+    drawn = []
+    monkeypatch.setattr(inference, "plot_fields",
+                        lambda title, *a, save_path=None, **k: drawn.append((title, save_path)))
+    inference.run(argv + ["--save-plots"], device="cpu")
+    plots = trained.parent / "plots" / "val"
+    assert drawn == [(t, plots / case) for case in ("case_0", "case_1")
+                     for t in ("Predicted", "Ground truth", "Absolute error")]
+    assert sorted(p.name for p in plots.iterdir()) == ["case_0", "case_1"]
 
 
 def test_get_pressure_drop_is_the_jax_packages():
@@ -176,7 +185,14 @@ def test_evaluate_cli_line_agrees_with_the_jax_package(split, trained, capsys):
     summary = evaluate.run(argv, device="cpu")
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed == summary and summary["cases"] == 2
-    assert all(np.isfinite(v) for v in summary.values())
+    assert all(np.isfinite(v) for k, v in summary.items() if k != "errors")
+    # the error table's rows: the JAX evaluation's, then the pressure drop's
+    assert list(summary["errors"]) == ["Average max errors", "Top 20",
+                                       "Top errors distance from interface", "MAE",
+                                       "Fluid MAE", "Porous MAE", "Residuals", "Pressure drop"]
+    assert summary["errors"]["Pressure drop"] == [None, None, summary["pressure_drop_error"]]
+    assert all(np.isfinite(x) for row in summary["errors"].values() for x in row
+               if x is not None)
 
     args = evaluation.build_arg_parser().parse_args(argv)
     model, _ = inference.load_model_and_params(

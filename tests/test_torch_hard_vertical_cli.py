@@ -211,7 +211,9 @@ def test_hard_clis_train_restore_and_evaluate(fixed_split, tmp_path):
                                  "--meta-dir", str(fixed_split / "train"), *POINTS],
                                 device="cpu")
     assert summary["cases"] == 2
-    assert all(np.isfinite(v) for v in summary.values())
+    assert all(np.isfinite(v) for k, v in summary.items() if k != "errors")
+    assert all(np.isfinite(x) for row in summary["errors"].values() for x in row
+               if x is not None) and summary["errors"]["Pressure drop"][-1] > 0
 
 
 def test_vertical_clis_fine_tune_from_a_fixed_checkpoint(vertical_split, fixed_ckpt, tmp_path,
@@ -240,4 +242,6 @@ def test_vertical_clis_fine_tune_from_a_fixed_checkpoint(vertical_split, fixed_c
                               "--meta-dir", str(vertical_split / "train"), *POINTS],
                              device="cpu")
     assert summary["cases"] == 2
-    assert all(np.isfinite(v) for v in summary.values())
+    assert all(np.isfinite(v) for k, v in summary.items() if k != "errors")
+    assert all(np.isfinite(x) for row in summary["errors"].values() for x in row
+               if x is not None) and summary["errors"]["Pressure drop"][-1] > 0

@@ -278,10 +278,17 @@ def test_evaluate_prints_one_line(trained, capsys):
     assert summary["cases"] == SMALL_SPLITS["val"]
     for key in ("U_mae", "p_mae", "U_rel_l2", "p_rel_l2", "momentum_mae", "divergence_mae"):
         assert np.isfinite(summary[key]) and summary[key] > 0, key
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate.run(["--checkpoint", str(ckpt), "--data-dir", str(root / "val"),
-                      "--meta-dir", str(root / "train"), "--save-plots", *POINTS],
-                     device="cpu")
+    assert list(summary["errors"]) == ["Average max errors", "Top 20",
+                                       "Top errors distance from interface", "MAE",
+                                       "Fluid MAE", "Porous MAE", "Residuals"]
+    # --save-plots: the plots and Errors.csv under <checkpoint parent>/plots/val/stats
+    evaluate.run(["--checkpoint", str(ckpt), "--data-dir", str(root / "val"),
+                  "--meta-dir", str(root / "train"), "--save-plots", *POINTS],
+                 device="cpu")
+    stats = ckpt.parent / "plots" / "val" / "stats"
+    assert {"Errors.csv", "Average relative error.png", "Absolute residuals.png"} <= \
+        {p.name for p in stats.iterdir()}
+    assert "Total simulation time [s].png" not in {p.name for p in stats.iterdir()}
 
 
 def test_sizes_the_data_cannot_hold_are_refused(data_root):

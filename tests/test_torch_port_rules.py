@@ -25,6 +25,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "porous_cfd_tpu")
 # the JAX package's example and tool scripts, which the port keeps its own
 # counterparts of
 FORBIDDEN_SCRIPTS = ("examples", "tools")
+# the drawing and table libraries the card's machine lacks
+PLOTTING = ("matplotlib", "pandas")
+EXPERIMENTS = ("duct_fixed_boundary", "duct_fixed_boundary_hard",
+               "vertical_duct_fixed_boundary", "duct_variable_boundary",
+               "manufactured_solutions", "abc", "windbreaks")
 SMALL = dict(fe_local_layers=[2, 8, 8], fe_global_layers=[13, 8, 16],
              seg_layers=[24, 8, 3])
 PI_GANO_SMALL = dict(out_features=3, branch_layers=[8, 16], geometry_layers=[7, 8],
@@ -154,6 +159,10 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
             mod = importlib.import_module(f"{pkg.__name__}.{cli}")
             later.append((mod.run, ["--model", "pipn", "--train-dir", "no/split"]
                           if cli == "train" else missing))
+    # the seven compare CLIs
+    for experiment in EXPERIMENTS:
+        mod = importlib.import_module(f"porous_cfd_tpu_torch.examples.{experiment}.compare")
+        later.append((mod.run, missing + ["--checkpoint-other", "no/other.ckpt"]))
     for entry, argv in later:
         with pytest.raises(RuntimeError, match="CUDA"):
             entry(argv)
@@ -283,7 +292,10 @@ def test_no_jax_import_anywhere_in_the_port():
                 "examples/vertical_duct_fixed_boundary/vertical_duct_dataset.py",
                 "examples/vertical_duct_fixed_boundary/train.py",
                 "examples/vertical_duct_fixed_boundary/inference.py",
-                "examples/vertical_duct_fixed_boundary/evaluate.py"):
+                "examples/vertical_duct_fixed_boundary/evaluate.py",
+                # the viz modules, the comparison pipeline and its CLIs
+                "viz/common.py", "viz/viz2d.py", "viz/viz3d.py", "pipelines/compare.py",
+                *(f"examples/{e}/compare.py" for e in EXPERIMENTS)):
         assert PORT / rel in files, rel
     for path in files:
         for name in _imports(path):
@@ -432,3 +444,96 @@ def test_sync_sites_count_calls_and_not_the_modes_notice(monkeypatch):
     sites = profile_predict.sync_sites(run)
     assert modes == ["warn", "default"]
     assert len(sites) == 1 and "test_torch_port_rules.py" in sites[0]
+
+
+def test_no_pandas_and_no_module_level_matplotlib_in_the_port():
+    """The port imports pandas nowhere, and matplotlib only inside the
+    functions that draw: every module imports on the card's machine."""
+    for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        assert "pandas" not in {n.split(".")[0] for n in _imports(path)}, path
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = [n for stmt in tree.body for n in ast.walk(stmt)
+               if not isinstance(stmt, (ast.FunctionDef, ast.ClassDef))]
+        for node in top:
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            assert not any(n.split(".")[0] == "matplotlib" or n == "mpl_toolkits"
+                           for n in names), f"{path.relative_to(ROOT)} imports {names}"
+
+
+def test_port_imports_with_matplotlib_and_pandas_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        f"for m in {PLOTTING!r}: sys.modules[m] = None\n"
+        "import porous_cfd_tpu_torch\n"
+        "names = [info.name for info in pkgutil.walk_packages(porous_cfd_tpu_torch.__path__,"
+        " 'porous_cfd_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'porous_cfd_tpu_torch.viz.viz3d' in names\n"
+        "assert 'porous_cfd_tpu_torch.examples.windbreaks.compare' in names\n"
+        "print(len(names))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PATH": "", "PYTHONPATH": str(ROOT),
+                              "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) > 80
+
+
+@pytest.fixture(scope="module")
+def fixed_checkpoints(tmp_path_factory):
+    """2 + 2 golden-duct cases at 24 x 16 and two ``pipn`` checkpoints the
+    fixed training CLI wrote, one epoch each."""
+    from porous_cfd_tpu_torch.datagen import fvm, meta, synthetic_case
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary import train
+    root = tmp_path_factory.mktemp("no_matplotlib")
+    data = root / "data"
+    for name, cases in (("train", fvm.GOLDEN_CASES[:2]), ("val", fvm.GOLDEN_CASES[3:5])):
+        fvm.write_golden_split(data / name, cases, nx=24, ny=16)
+        synthetic_case.write_data_config(data / name, ["C", "U", "p", "cellToRegion"], {},
+                                         {"Scale": [], "Standardize": ["C", "U", "p"]},
+                                         ["x", "y"])
+        meta.generate_meta(data / name, "C", "U", "p", "cellToRegion", max_dim=2)
+    meta.generate_min_points(data)
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    for name in ("pipn-a", "pipn-b"):
+        train.run(["--model", "pipn", "--name", name, "--epochs", "1", "--batch-size", "2",
+                   "--train-dir", str(data / "train"), "--val-dir", str(data / "val"),
+                   "--logs-dir", str(root), "--n-internal", "48", "--n-boundary", "40",
+                   "--n-observations", "16"], device="cpu")
+    torch.set_num_threads(n)
+    return data, root / "lightning_logs"
+
+
+def test_clis_run_without_matplotlib_and_save_plots_refuses_first(fixed_checkpoints,
+                                                                   monkeypatch, capsys):
+    """With matplotlib and pandas blocked, as on the card's machine, the
+    evaluate and compare CLIs run without ``--save-plots``; with it, every
+    CLI raises the ImportError that names matplotlib before it predicts."""
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary import compare, evaluate, inference
+    from porous_cfd_tpu_torch.pipelines import evaluation
+    from porous_cfd_tpu_torch.pipelines import inference as inference_pipeline
+    data, logs = fixed_checkpoints
+    for name in PLOTTING:
+        monkeypatch.setitem(sys.modules, name, None)
+    argv = ["--checkpoint", str(logs / "pipn-a" / "model.ckpt"), "--data-dir",
+            str(data / "val"), "--meta-dir", str(data / "train"), "--n-internal", "48",
+            "--n-boundary", "40", "--n-observations", "16"]
+    other = ["--checkpoint-other", str(logs / "pipn-b" / "model.ckpt")]
+    summary = evaluate.run(argv, device="cpu")
+    assert summary["cases"] == 2 and "Pressure drop" in summary["errors"]
+    got = compare.run(argv + other, device="cpu")
+    assert sorted(p.name for p in got.path.iterdir()) == ["Shapiro.csv", "Test.csv"]
+    assert not (logs / "pipn-a" / "plots").exists()
+
+    def predicted(*args, **kwargs):
+        raise AssertionError("predicted before matplotlib was checked")
+
+    monkeypatch.setattr(evaluation, "evaluate", predicted)
+    monkeypatch.setattr(inference_pipeline, "make_predict_functions", predicted)
+    for cli, extra in ((evaluate, []), (inference, []), (compare, other)):
+        with pytest.raises(ImportError, match="--save-plots needs matplotlib"):
+            cli.run(argv + extra + ["--save-plots"], device="cpu")
+    assert not (logs / "pipn-a" / "plots").exists()
