@@ -83,7 +83,7 @@ Phases, in order; any failure exits non-zero:
      fixed loss weights, batch 13 (4 steps an epoch): launch counts per step,
      finite non-zero gradients, the loss falling, one step on 2 cases
      against the CPU with dropout on, a Trainer.fit with checkpoints, and
-     steps/s over whole epochs (the median of 5 runs of 10 epochs);
+     steps/s over whole epochs (the median of TRAIN_RUNS runs of 10 epochs);
   6. pi-gano prediction: phase 4 for the full-width duct_variable_boundary
      ``pi-gano`` model on the same cases (its geometry and branch inputs
      attached once per dataset);
@@ -113,7 +113,7 @@ Phases, in order; any failure exits non-zero:
      ``fast_derivatives=False`` (the exact autodiff operator, no kernel:
      every launch count stays 0), against the CPU on 2 cases, after its J
      is held to the coupled path's off the winner rows;
- 13. pipn_exact training: phase 5 for it, over 3 runs of 3 epochs;
+ 13. pipn_exact training: phase 5 for it, over EXACT_RUNS runs of 3 epochs;
  14. manufactured: the verification recipe, ``pipn_manufactured`` with
      ``fast_derivatives=True`` (the coupled path, tanh) on
      ``make_manufactured_batch(rng(8421), 16, 400, 120)``, 101 epochs of 4
@@ -121,13 +121,13 @@ Phases, in order; any failure exits non-zero:
      its default exact path;
  15. the CLI: the port's case writer makes a 13 / 4 case variable split,
      and ``python -m porous_cfd_tpu_torch.examples.duct_variable_boundary
-     .train --model pi-gano-full`` (then ``pi-gano-pp-full``) trains it for
-     30 epochs in a subprocess at its default bf16-mixed precision: checkpoints, model_meta.json, the
+     .train --model pi-gano-full`` (in a subprocess; then ``pi-gano-pp-full``
+     in process) trains it for 30 epochs at its default bf16-mixed precision: checkpoints, model_meta.json, the
      training loss falling by CLI_MIN_FALL of itself at least, ms per epoch
      over the whole fit and after its first chunk of 10 epochs; the
      variable duct's inference CLI restores the first checkpoint and
-     predicts as its weights do within RTOL, and its evaluate CLI (``python
-     -m``, a subprocess) prints finite numbers;
+     predicts as its weights do within RTOL, and its evaluate CLI prints
+     finite numbers;
  16, 17. pipn_pp_mrg prediction and training: phases 8 and 9 for the
      full-width duct_fixed_boundary ``pipn-pp-mrg`` model (three radius
      levels and two global ones on one boundary chain: 3 sa_neighborhood, 2
@@ -188,8 +188,8 @@ Phases, in order; any failure exits non-zero:
      examples' 12 loss weights;
  36. the 3D CLIs: abc's ``pipn``, ``pipn-pp`` and ``pipn-pp-full`` and
      windbreaks' ``pi-gano``, ``pi-gano-pp`` and ``pi-gano-pp-full`` train
-     D3_CLI_EPOCHS epochs (the first of each experiment through ``python
-     -m`` in a subprocess, the others in process with their launch counts),
+     D3_CLI_EPOCHS epochs (abc's first through ``python -m`` in a
+     subprocess, the others in process with their launch counts),
      the loss without dropout falling; the inference CLI restores each
      checkpoint and predicts as its weights do within RTOL; the evaluate
      CLI prints finite numbers (the MAE by inlet speed; the house's surface
@@ -228,12 +228,25 @@ Phases, in order; any failure exits non-zero:
      refused with the ImportError that names matplotlib and no launch when
      the card's machine has none, else the JAX file names written. Phases 15
      and 18 keep their splits and checkpoints for it.
+ 41. multi-device training on the one card: two ranks on cuda:0 (gloo, the
+     backend that takes two ranks a device) step the full-width ``pipn``
+     (decoupled, dropout on) on MR_CASES cases, once split over the data
+     axis (2 x 1: shares 7 / 6) and once over the points axis (1 x 2), each
+     rank's step counted and held to one process's step on the card
+     (metrics, gradients and updated parameters within RTOL); then the
+     duct_fixed_boundary training CLI at ``--mesh-data 1`` (a process group
+     of one under NCCL) on a written synthetic split; the mesh's
+     collectives on CUDA tensors through gloo (all_reduce sum / max / min,
+     all_gather) on the two ranks; and ``min_distance`` on the card, alone
+     and split over the two ranks, against the CPU's float64.
 Each of phases 4-14, 16-17, 20-21, 24-27 and 30-35 sets every launch count to 0 just
 before it and reads them just after (phases 18, 22 and 36 around each
 in-process training command, 38 and 39 around each training command,
-23 and 28 around their steps, 40 around each in-process compare); every
+23 and 28 around their steps, 40 around each in-process compare, 41 in
+each rank around its step and around the CLI); every
 training phase also counts the synchronizing calls of one step, which must
-be none. The second-to-last lines are the
+be none. Each phase logs the second it starts at (``[clock]`` lines). The
+second-to-last lines are the
 ``{"kernels": [...]}`` JSON and the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Each kernel's ``bound_ms`` is the
 least time of its work at f32 accuracy: the larger of its operations in
@@ -288,8 +301,12 @@ SLICE_RUNS = 7
 # both examples' fixed loss weights: continuity, momentum x/y, boundary u x/y
 # and p, observations u x/y and p
 LOSS_WEIGHTS = (1, 1, 1, 1, 1, 1, 100, 100, 100)
-TRAIN_RUNS, TRAIN_EPOCHS = 5, 10
-EXACT_RUNS, EXACT_EPOCHS = 3, 3
+# timed runs of each training phase: 2 (and 1 on the exact path); these,
+# D3_CLI_EPOCHS, EXACT_STEPS, UNET_K_CHUNKS and the CLIs run in process (a
+# subprocess costs about 20 s of start-up on the card's machine) keep the
+# script inside its 1200 s on a host 1.3 times slower than the fastest seen
+TRAIN_RUNS, TRAIN_EPOCHS = 2, 10
+EXACT_RUNS, EXACT_EPOCHS = 1, 3
 # the manufactured-solutions recipe: 16 cases of 400/120 points, batch 4
 MS_CASES, MS_INT, MS_BND, MS_BATCH, MS_EPOCHS = 16, 400, 120, 4, 101
 MS_FE_GLOBAL = [64 + 2 + 1, 64, 128, 1024]
@@ -362,7 +379,7 @@ MS_CLI_POINTS = (200, 80)
 # the exact-path phase: EXACT_STEPS training steps with dropout on over
 # EXACT_CASES cases for each family (pipn-pp-mrg's loss first rises, for
 # about 15 steps from the seeded weights, before it falls)
-EXACT_STEPS, EXACT_CASES = 40, 4
+EXACT_STEPS, EXACT_CASES = 30, 4
 # the duct examples' U-Nets at full width are built by the CLIs' own
 # get_model ("pipn-pp-full", "pi-gano-pp-full"): a SetAbstraction encoder
 # over all points, dynamic from level 0 on (its rows [sdf || boundaryId ||
@@ -383,7 +400,7 @@ UNET_POOLED_RTOL = 2e-3
 # the U-Nets' exact-path phase: UNET_EXACT_STEPS training steps over
 # EXACT_CASES cases, micro-batches of 2 (3-5 s a step on an H100), and the
 # chunk count of the JAX modules' k_chunks running max it compares with
-UNET_EXACT_STEPS, UNET_K_CHUNKS = 3, 8
+UNET_EXACT_STEPS, UNET_K_CHUNKS = 3, 4
 # the parameters of the max-pooled encoders (SetAbstraction and global
 # levels, PI-GANO's geometry encoder and branch): a channel whose top two
 # rows lie within rounding of each other may pool a different winner on
@@ -426,9 +443,13 @@ SOLVER_GRID, SOLVER_TOL, SOLVER_STEPS = (20, 12, 12), 5e-4, 6000
 SOLVER_CASES = [("band", (0.1, 0.0, 0.0), 0.10, 0.20),
                 ("sphere", (0.12, 0.02, -0.02), 0.12, 0.16)]
 # the 3D CLIs: D3_CLI_EPOCHS epochs of each model over the 3D splits at the
-# envelope's points; the first model of each experiment trains through
-# ``python -m`` in a subprocess, the others in process (launch counts)
-D3_CLI_EPOCHS = 20
+# envelope's points (more than the CLIs' first chunk of --log-every 10 epochs: the phase reads
+# the fit's time after it)
+D3_CLI_EPOCHS = 12
+# the 3D experiment whose first CLI runs through ``python -m`` in a
+# subprocess (about 20 s of start-up on the card's machine); every other
+# 3D CLI runs in process
+D3_CLI_SUBPROCESS = "abc"
 ABC_CLI_MODELS = ("pipn", "pipn-pp", "pipn-pp-full")
 WB_CLI_MODELS = ("pi-gano", "pi-gano-pp", "pi-gano-pp-full")
 # the batched 2D solver against the numpy one: the JAX test's grid, cases
@@ -2116,10 +2137,12 @@ def cli_phase(name, smi, keep):
     """The port's duct_variable_boundary training CLI on the card, as a user
     runs it: the port's case writer makes a CLI_TRAIN / CLI_VAL variable
     split with the example's data config (cases large enough to sample
-    N_INT / N_BND / N_OBS points), then for each of CLI_MODELS ``python -m
-    porous_cfd_tpu_torch.examples.duct_variable_boundary.train --model
-    ...`` trains CLI_EPOCHS epochs at its default bf16-mixed precision in a
-    subprocess. Checks model.ckpt, best.ckpt and model_meta.json, and that
+    N_INT / N_BND / N_OBS points), then for each of CLI_MODELS the training
+    CLI trains CLI_EPOCHS epochs at its default bf16-mixed precision: the
+    first as ``python -m porous_cfd_tpu_torch.examples.duct_variable_boundary
+    .train --model ...`` in a subprocess, the other in process (``run``; a
+    subprocess costs about 20 s of start-up on the card's machine). Checks
+    model.ckpt, best.ckpt and model_meta.json, and that
     the training loss fell by CLI_MIN_FALL of itself at least: the trained
     weights against the initial ones (the CLI's seed) on the training
     split, without dropout. Reports ms per epoch (the trainer's, validation
@@ -2127,6 +2150,8 @@ def cli_phase(name, smi, keep):
     the start-up. Returns {model: report}. The split and the checkpoints
     stay in the directory ``keep``, ``data/`` and
     ``logs/lightning_logs/<model>/``, for phase 40."""
+    import contextlib
+    import io
     import re
     import numpy as np
     import torch
@@ -2157,17 +2182,26 @@ def cli_phase(name, smi, keep):
                 "--n-observations", str(N_OBS), "--train-dir", str(root / "train"),
                 "--val-dir", str(root / "val"), "--logs-dir", str(keep / "logs"),
                 "--name", model_type]
+        sub = model_type == CLI_MODELS[0]
         cmd = [sys.executable, "-m",
                "porous_cfd_tpu_torch.examples.duct_variable_boundary.train", *argv]
         log(f"cli: {CLI_TRAIN} + {CLI_VAL} cases written in {data_s:.1f} s; running "
-            + " ".join(cmd[1:]))
+            + " ".join(cmd[1:]) + ("" if sub else " (in process)"))
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if sub:
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"the CLI ({model_type}) exited {proc.returncode}: {proc.stderr[-3000:]}")
+            printed = proc.stdout
+        else:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.run(argv)
+            torch.cuda.synchronize()
+            printed = buf.getvalue()
         wall_s = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
+        for line in printed.splitlines():
             log(f"  | {line}")
-        if proc.returncode != 0:
-            fail(f"the CLI ({model_type}) exited {proc.returncode}: {proc.stderr[-3000:]}")
         log_dir = keep / "logs" / "lightning_logs" / model_type
         for fname in ("model.ckpt", "best.ckpt", "model_meta.json"):
             if not (log_dir / fname).exists():
@@ -2180,7 +2214,7 @@ def cli_phase(name, smi, keep):
             fail(f"the CLI's model_meta.json {model_meta} != {want_meta}")
         found = re.search(r"fit: (\d+) epochs in ([0-9.]+) s, ([0-9.]+) ms per epoch; the "
                           r"first (\d+) in ([0-9.]+) s, then ([0-9.]+) ms per epoch",
-                          proc.stdout)
+                          printed)
         if found is None or int(found.group(1)) != CLI_EPOCHS:
             fail(f"the CLI ({model_type}) did not report its fit time")
         ms_epoch, ms_steady = float(found.group(3)), float(found.group(6))
@@ -2211,7 +2245,8 @@ def cli_phase(name, smi, keep):
             f"{N_INT}/{N_BND}/{N_OBS} points, bf16-mixed validation: {ms_epoch:.3f} ms "
             f"per epoch (the trainer's clock, validation every 10 epochs included); the "
             f"first {first_n} epochs (start-up included) {first_s:.3f} s, then "
-            f"{ms_steady:.3f} ms per epoch; {wall_s:.1f} s for the whole command; "
+            f"{ms_steady:.3f} ms per epoch; {wall_s:.1f} s for the whole command"
+            f"{' (a subprocess)' if sub else ''}; "
             f"training loss without dropout {totals[0]:.6f} -> {totals[1]:.6f}, a fall of "
             f"{fall:.3e} of it (at least {CLI_MIN_FALL:.0e} wanted) ({name}; {smi})")
         if not fall >= CLI_MIN_FALL:
@@ -2224,7 +2259,7 @@ def cli_phase(name, smi, keep):
             "epochs": CLI_EPOCHS, "train_cases": CLI_TRAIN, "val_cases": CLI_VAL,
             "points": [N_INT, N_BND, N_OBS], "ms_per_epoch": ms_epoch,
             "first_epochs": first_n, "first_epochs_s": first_s,
-            "ms_per_epoch_after_first": ms_steady, "command_s": wall_s,
+            "ms_per_epoch_after_first": ms_steady, "command_s": wall_s, "subprocess": sub,
             "data_write_s": data_s, "loss_initial_trained": totals, "loss_fall": fall,
             "model_meta": model_meta}
         del model, batch
@@ -2405,12 +2440,14 @@ def variable_inference_evaluate(root, ckpt, model, name, smi):
     """Phase 15's checkpoint through the duct_variable_boundary inference
     CLI (in process: each held-out case alone in f32 against ``model``, the
     checkpoint's weights, on the whole split, within RTOL) and its evaluate
-    CLI (``python -m`` in a subprocess: the printed line parses and its
-    numbers are finite)."""
+    CLI (in process too: the printed line parses and its numbers are
+    finite)."""
+    import contextlib
+    import io
     import numpy as np
     import torch
     from porous_cfd_tpu_torch.data.dataset import FoamDataset
-    from porous_cfd_tpu_torch.examples.duct_variable_boundary import inference, train
+    from porous_cfd_tpu_torch.examples.duct_variable_boundary import evaluate, inference, train
     from porous_cfd_tpu_torch.train.engine import gather_cases, make_predict_functions
     dev = torch.device("cuda", 0)
     argv = ["--checkpoint", str(ckpt), "--data-dir", str(root / "val"), "--meta-dir",
@@ -2425,18 +2462,16 @@ def variable_inference_evaluate(root, ckpt, model, name, smi):
     err_inf = check_close("variable inference against the checkpoint's weights",
                           [(f"case {i}", torch.as_tensor(p_.data), ref[i])
                            for i, p_ in enumerate(preds)])
-    cmd = [sys.executable, "-m", "porous_cfd_tpu_torch.examples.duct_variable_boundary.evaluate",
-           *argv]
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    with contextlib.redirect_stdout(buf):
+        evaluate.run(argv)
     wall_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"the variable evaluate CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
     if not finite_numbers(summary) or summary["cases"] != len(val_data):
         fail(f"the variable evaluate CLI printed {summary}")
     log(f"cli: the variable inference CLI within {err_inf:.3e} of the checkpoint's weights; "
-        f"evaluate ({wall_s:.1f} s, a subprocess) {json.dumps(summary)} ({name}; {smi})")
+        f"evaluate ({wall_s:.1f} s) {json.dumps(summary)} ({name}; {smi})")
     return {"inference_max_abs_err": err_inf, "evaluate": summary, "evaluate_command_s": wall_s}
 
 
@@ -3266,8 +3301,8 @@ def cli_3d_phase(experiment, model_names, root, weights_of, counters, name, smi)
     "windbreaks", over the split under ``root``): for each of
     ``model_names`` the training CLI trains D3_CLI_EPOCHS epochs at the
     envelope's points and batch BATCH, bf16-mixed validation (the first
-    model through ``python -m`` in a subprocess, the others in process with
-    their launch counts), writing model.ckpt, best.ckpt and model_meta.json;
+    model of D3_CLI_SUBPROCESS through ``python -m`` in a subprocess, the
+    others in process with their launch counts), writing model.ckpt, best.ckpt and model_meta.json;
     the training loss without dropout falls (the CLI's initial weights
     against the trained ones on the training split as the CLI sampled it);
     the inference CLI restores the checkpoint and predicts each held-out
@@ -3309,7 +3344,8 @@ def cli_3d_phase(experiment, model_names, root, weights_of, counters, name, smi)
             for c in counters.values():
                 c.launches = 0
             t0 = time.perf_counter()
-            if j == 0:
+            sub = j == 0 and experiment == D3_CLI_SUBPROCESS
+            if sub:
                 cmd = [sys.executable, "-m", f"{pkg}.train", *argv]
                 log(f"{experiment} cli: running " + " ".join(cmd[1:]))
                 proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
@@ -3395,13 +3431,13 @@ def cli_3d_phase(experiment, model_names, root, weights_of, counters, name, smi)
                      f"{summary}")
             log(f"{experiment} cli {model_type}: {D3_CLI_EPOCHS} epochs of {D3_TRAIN} cases "
                 f"at {N_INT}/{N_BND}/{N_OBS} points in {wall_s:.1f} s for the whole command"
-                f"{' (a subprocess)' if j == 0 else ''}, {ms_epoch:.3f} ms per epoch (the "
+                f"{' (a subprocess)' if sub else ''}, {ms_epoch:.3f} ms per epoch (the "
                 f"trainer's clock, bf16-mixed validation every 10 epochs included), "
                 f"{ms_steady:.3f} after the first chunk; training loss without dropout "
                 f"{totals[0]:.6f} -> {totals[1]:.6f}, a fall of {fall:.3e} of it; inference "
                 f"within {err_inf:.3e} of the trained weights; evaluate {json.dumps(summary)} "
                 f"({name}; {smi})")
-            reports[model_type] = {"command_s": wall_s, "subprocess": j == 0,
+            reports[model_type] = {"command_s": wall_s, "subprocess": sub,
                                    "ms_per_epoch": ms_epoch,
                                    "ms_per_epoch_after_first": ms_steady,
                                    "launches": launches, "loss_initial_trained": totals,
@@ -3779,11 +3815,12 @@ def p_gap(card: dict, cpu: dict, gate: bool) -> float:
 def compare_phase(fixed_keep, variable_keep, counters, name, smi):
     """Phase 40, the evaluation's output layer on the card: the fixed
     duct's compare CLI on phase 18's held-out split and checkpoints,
-    ``pipn`` against ``pipn-pp-mrg``, once through ``python -m`` in a
-    subprocess (its summary line parses, ``Test.csv`` and ``Shapiro.csv``
-    are written, every p-value lies in [0, 1]) and once in process with every
-    launch count set to 0 just before and read just after (pointnet_global,
-    decoder_prop, sa_neighborhood and FPS forward, no backward); the two
+    ``pipn`` against ``pipn-pp-mrg``, in process with every launch count set
+    to 0 just before and read just after (pointnet_global, decoder_prop,
+    sa_neighborhood and FPS forward, no backward; its summary line parses,
+    ``Test.csv`` and ``Shapiro.csv`` are written, every p-value lies in [0,
+    1]; in process, since a subprocess costs about 20 s of start-up on the
+    card's machine); the two
     error arrays and the p-values against the same compare with
     ``device="cpu"`` (errors within RTOL of their largest; the rank tests'
     p-values within COMPARE_P_RTOL of the larger of the two, or
@@ -3829,25 +3866,17 @@ def compare_phase(fixed_keep, variable_keep, counters, name, smi):
         wall_s = time.perf_counter() - t0
         return out, printed, wall_s, {k: c.launches for k, c in counters.items() if c.launches}
 
-    # the fixed duct's compare CLI, as a user runs it
-    cmd = [sys.executable, "-m", "porous_cfd_tpu_torch.examples.duct_fixed_boundary.compare",
-           *fixed_argv, *other]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    sub_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"compare: the fixed compare CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
-    for line in proc.stdout.splitlines():
+    # the fixed duct's compare CLI, as a user runs it: on the card, counted,
+    # and on the CPU
+    comp, printed, card_s, launches = counted(fixed_compare.run, fixed_argv + other)
+    for line in printed.splitlines():
         log(f"  | {line}")
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    line = json.loads(printed.strip().splitlines()[-1])
     out_dir = Path(line["dir"])
     if not ((out_dir / "Test.csv").exists() and (out_dir / "Shapiro.csv").exists()):
         fail(f"compare: the CLI wrote no Test.csv and Shapiro.csv under {out_dir}")
     if not all(0 <= v <= 1 for _, _, v in p_values(line)):
         fail(f"compare: a p-value outside [0, 1]: {line}")
-
-    # in process on the card, counted, and on the CPU
-    comp, _, card_s, launches = counted(fixed_compare.run, fixed_argv + other)
     want = {"pointnet_global", "decoder_prop", "sa_neighborhood", "farthest_point_sampling"}
     if not want <= set(launches) or any(k.endswith("_bwd") for k in launches):
         fail(f"compare: the fixed compare launched {launches}; want {sorted(want)} forward "
@@ -3878,8 +3907,8 @@ def compare_phase(fixed_keep, variable_keep, counters, name, smi):
                                          gate=key == "noise")
     fixed_ms = comp.summary()["inference_ms_per_case"]
     log(f"compare fixed ({comp.names[0]} vs {comp.names[1]}, {line['cases']} cases at "
-        f"{n_int}/{n_bnd}/{n_obs} points, {len(comp.errors[0])} errors a field): {sub_s:.1f} s "
-        f"as a subprocess, {card_s:.3f} s in process ({cpu_s:.1f} s on the CPU); launches "
+        f"{n_int}/{n_bnd}/{n_obs} points, {len(comp.errors[0])} errors a field): "
+        f"{card_s:.3f} s in process ({cpu_s:.1f} s on the CPU); launches "
         f"{launches}; inference ms per case {fixed_ms[0]:.3f} / {fixed_ms[1]:.3f}; errors "
         f"within {err:.3e} of the CPU's; p-values, relative to the larger where they differ "
         f"by more than {COMPARE_P_ATOL:.0e}: rank tests within {gaps['rank']:.3e}, log-error "
@@ -3889,7 +3918,7 @@ def compare_phase(fixed_keep, variable_keep, counters, name, smi):
         f"{COMPARE_LOG_FLOOR:.0e} times the card's largest difference (left out "
         f"{left_out['noise']}; noise floors "
         f"{[np.round(f, 9).tolist() for f in floors['noise']]}) ({name}; {smi})")
-    report["fixed"] = {"names": list(comp.names), "command_s": sub_s, "in_process_s": card_s,
+    report["fixed"] = {"names": list(comp.names), "in_process_s": card_s,
                        "cpu_s": cpu_s, "launches": launches, "inference_ms_per_case": fixed_ms,
                        "errors_max_abs_err": err, "p_value_max_rel_gap": gaps,
                        "log_tests_left_out": left_out,
@@ -3973,6 +4002,230 @@ def compare_phase(fixed_keep, variable_keep, counters, name, smi):
     return report
 
 
+# phase 41: the batch of the two-rank steps (13 cases: data shares 7 / 6),
+# the steps timed after the compared one, and the CLI's synthetic split
+MR_CASES, MR_TIMED = BATCH, 3
+MR_SPLIT = (8, 4, 400, 60)          # train cases, val cases, internal points, per patch
+MR_POINTS = (240, 120, 60)
+MR_DIST = (N_INT + N_BND, N_BND)    # min_distance: all of a case's rows to its boundary
+
+
+def _mr_model(device):
+    from porous_cfd_tpu_torch.data.synthetic import make_scalers
+    from porous_cfd_tpu_torch.models.pipn import pipn_foam
+    import torch
+    return pipn_foam(NU, D, F, FE_LOCAL, FE_GLOBAL, SEG, make_scalers(), seg_dropout=SEG_DROPOUT,
+                     generator=torch.Generator().manual_seed(SEED), device=device)
+
+
+def _mr_step(mesh, shard_points, counters):
+    """One counted training step of the full-width pipn on the phase's
+    batch (this rank's share of it with a mesh), then MR_TIMED timed ones:
+    (metrics, gradients and parameters after the first step, its launches,
+    ms a step)."""
+    import torch
+    from porous_cfd_tpu_torch.data.synthetic import make_foam_batch
+    from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
+    from porous_cfd_tpu_torch.train.engine import make_optimizer, make_train_functions
+    dev = torch.device("cuda", 0)
+    model = _mr_model(dev)
+    batch = make_foam_batch(MR_CASES, N_INT, N_BND, N_OBS, seed=SEED + 41).to(dev)
+    fns = make_train_functions(model, make_optimizer(model, 1), FixedLossScaler(LOSS_WEIGHTS),
+                               mesh=mesh, shard_points=shard_points)
+    state = fns.init_state(seed=SEED)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    state, metrics = fns.train_step(state, batch)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    params = list(model.module.parameters())
+    first = (metrics.cpu(), [p.grad.cpu() for p in params], [p.detach().cpu() for p in params])
+    t0 = time.perf_counter()
+    for _ in range(MR_TIMED):
+        state, _ = fns.train_step(state, batch)
+    torch.cuda.synchronize()
+    return first, launches, (time.perf_counter() - t0) * 1e3 / MR_TIMED
+
+
+def _mr_clouds(device):
+    """The min_distance check's query and target clouds (MR_DIST) on
+    ``device``."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED)
+    q, tgt = torch.rand((MR_DIST[0], 2), generator=gen), torch.rand((MR_DIST[1], 2),
+                                                                       generator=gen)
+    return q.to(device), tgt.to(device)
+
+
+def _mr_worker(rank, world, init_method, out):
+    """A rank of phase 41: both meshes on cuda:0, one step each."""
+    import os
+    import torch
+    sys.path.insert(0, str(ROOT))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from porous_cfd_tpu_torch.parallel.mesh import make_mesh
+    from porous_cfd_tpu_torch.ops import distance
+    counters = kernel_counters()
+    res = {}
+    try:
+        for label, shape in (("data", (2, 1)), ("points", (1, 2))):
+            mesh = make_mesh(*shape, devices=["cuda:0"] * world, init_method=init_method)
+            res[label] = _mr_step(mesh, shape[1] > 1, counters)
+            res["backend"] = mesh.backend
+        # every collective the port calls, on CUDA tensors through the
+        # points mesh's backend, and the points-split min_distance
+        dev = torch.device("cuda", 0)
+        t = torch.tensor([rank + 1.0, 5.0 - rank], device=dev)
+        res["collectives"] = {
+            **{op: mesh.all_reduce(t.clone(), op, "points").tolist()
+               for op in ("sum", "max", "min")},
+            "min_int64": mesh.all_reduce(torch.tensor([rank + 3], device=dev), "min",
+                                         "points").tolist(),
+            "all_gather": [x.tolist() for x in mesh.all_gather(t, "points")]}
+        res["min_distance_sharded"] = distance.min_distance_sharded(*_mr_clouds(dev),
+                                                                    mesh).cpu()
+        torch.save(res, f"{out}.{rank}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def multi_rank_phase(name, smi, counters):
+    """Phase 41 (module docstring): the two-rank steps against one process,
+    the CLI at --mesh-data 1 under NCCL, min_distance against float64."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.datagen import synthetic_case
+    from porous_cfd_tpu_torch.datagen.meta import generate_meta, generate_min_points
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary import train
+    from porous_cfd_tpu_torch.ops import distance
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    report = {"cases": MR_CASES, "points": [N_INT, N_BND, N_OBS], "ranks": 2}
+    want = {k: 0 for k in counters} | dict(pointnet_global=1, pointnet_global_bwd=1,
+                                           decoder_prop=2, decoder_prop_bwd=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/rank"
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(_mr_worker, args=(2, f"file://{tmp}/store", out), nprocs=2,
+                                    join=True)
+        report["ranks_wall_s"] = time.perf_counter() - t0
+        ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
+    (ref_m, ref_g, ref_p), ref_launches, ref_ms = _mr_step(None, False, counters)
+    if ref_launches != want:
+        fail(f"multi-rank: one process's step launched {ref_launches}, not {want}")
+    model = _mr_model("cpu")
+    lr, eps = model.learning_rate, model.adam_eps
+    pnames = [n for n, _ in model.module.named_parameters()]
+    report["backend"], report["one_process_ms_per_step"] = ranks[0]["backend"], ref_ms
+    want_coll = {"sum": [3.0, 9.0], "max": [2.0, 5.0], "min": [1.0, 4.0], "min_int64": [3],
+                 "all_gather": [[1.0, 5.0], [2.0, 4.0]]}
+    for rank, res in enumerate(ranks):
+        if res["collectives"] != want_coll:
+            fail(f"multi-rank: rank {rank}'s collectives on CUDA tensors gave "
+                 f"{res['collectives']}, not {want_coll}")
+    log(f"  multi-rank: {report['backend']} on CUDA tensors, both ranks: all_reduce sum, max, "
+        "min (f32, int64) and all_gather give the expected values")
+    log(f"multi-rank: 2 ranks on cuda:0, backend {report['backend']}, {MR_CASES} cases of "
+        f"{N_INT}/{N_BND}/{N_OBS} points, full-width pipn with dropout; one process "
+        f"{ref_ms:.3f} ms a step")
+    for label in ("data", "points"):
+        for rank, res in enumerate(ranks):
+            (m, g, prm), launches, ms = res[label]
+            tag = f"multi-rank {label} rank {rank}"
+            log(f"  {tag}: launches {({k: v for k, v in launches.items() if v})}, "
+                f"{ms:.3f} ms a step (two ranks sharing the card)")
+            if launches != want:
+                fail(f"{tag}: launches {launches} != {want}")
+            if rank and not torch.equal(m, ranks[0][label][0][0]):
+                fail(f"{tag}: metrics differ from rank 0's")
+            # each metric against its own magnitude: the weighted total
+            # dwarfs the errors
+            check_close(f"{tag} vs one process metrics",
+                        [(f"metric {i}", m[i:i + 1], ref_m[i:i + 1]) for i in range(len(ref_m))],
+                        quiet=True)
+            check_close(f"{tag} vs one process gradients",
+                        [(f"grad {n}", a, r) for n, a, r in zip(pnames, g, ref_g)], quiet=True)
+            for n, a, r, gr in zip(pnames, prm, ref_p, ref_g):
+                spread = adam_first_step_spread(gr, RTOL * float(gr.abs().max()), lr, eps)
+                if bool(((a.double() - r.double()).abs()
+                         > RTOL * float(r.abs().max()) + spread).any()):
+                    fail(f"{tag}: parameter {n} differs from one process's")
+            report[f"{label}_rank{rank}"] = {"launches": {k: v for k, v in launches.items() if v},
+                                             "ms_per_step": ms,
+                                             "metrics_max_err": float((m - ref_m).abs().max())}
+        log(f"  multi-rank {label}: both ranks' metrics, gradients and updated parameters "
+            "agree with one process's")
+
+    # the CLI at --mesh-data 1: a process group of one, NCCL on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        rng = np.random.default_rng(SEED)
+        fields = ["C", "U", "p", "cellToRegion"]
+        n_train, n_val, n_int, per_patch = MR_SPLIT
+        for split, n in (("train", n_train), ("val", n_val)):
+            synthetic_case.write_foam_split(root / split, n, rng, n_internal=n_int,
+                                            n_per_patch=per_patch)
+            synthetic_case.write_data_config(root / split, fields, {},
+                                             {"Scale": [], "Standardize": ["C", "U", "p"]},
+                                             ["x", "y"])
+            generate_meta(root / split, *fields, max_dim=2)
+        generate_min_points(root)
+        argv = ["--model", "pipn", "--name", "mesh1", "--epochs", "2", "--batch-size", "4",
+                "--n-internal", str(MR_POINTS[0]), "--n-boundary", str(MR_POINTS[1]),
+                "--n-observations", str(MR_POINTS[2]), "--train-dir", str(root / "train"),
+                "--val-dir", str(root / "val"), "--logs-dir", str(Path(tmp) / "logs"),
+                "--mesh-data", "1"]
+        for c in counters.values():
+            c.launches = 0
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            train.run(argv)
+        torch.cuda.synchronize()
+        report["cli_wall_s"] = time.perf_counter() - t0
+        for line in printed.getvalue().splitlines():
+            log(f"  | {line}")
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        log(f"  multi-rank cli --mesh-data 1: {report['cli_wall_s']:.1f} s, launches {launches}")
+        if "backend nccl" not in printed.getvalue():
+            fail("multi-rank cli: --mesh-data 1 did not train under NCCL")
+        if not all(launches.get(k) for k in ("pointnet_global", "decoder_prop",
+                                              "pointnet_global_bwd", "decoder_prop_bwd")):
+            fail(f"multi-rank cli: launches {launches}")
+        ckpt = torch.load(Path(tmp) / "logs" / "lightning_logs" / "mesh1" / "model.ckpt",
+                          weights_only=True)
+        if ckpt["epoch"] != 2 or not all(bool(v.isfinite().all())
+                                         for v in ckpt["module"].values()):
+            fail("multi-rank cli: the checkpoint is not a finite epoch-2 state")
+        if torch.distributed.is_initialized():
+            fail("multi-rank cli: the process group outlived the run")
+        report["cli_launches"] = launches
+
+    # min_distance on the card against the CPU's float64
+    q_dev, tgt_dev = _mr_clouds(dev)
+    on_card = distance.min_distance(q_dev, tgt_dev)
+    ms = time_ms(torch, lambda: distance.min_distance(q_dev, tgt_dev), n=5)
+    ref = distance.min_distance(q_dev.cpu(), tgt_dev.cpu())
+    err = float((on_card.cpu() - ref).abs().max())
+    err_split = max(float((r["min_distance_sharded"] - ref).abs().max()) for r in ranks)
+    log(f"  min_distance {MR_DIST[0]} x {MR_DIST[1]} on the card: max|err| {err:.3e} against "
+        f"the CPU's float64, {ms:.3f} ms; split over the two ranks' points axis, max|err| "
+        f"{err_split:.3e} ({name}; {smi})")
+    if on_card.device != dev or on_card.dtype != torch.float64 or max(err, err_split) > 1e-12:
+        fail(f"min_distance on the card: {on_card.device} {on_card.dtype}, max|err| {err}, "
+             f"split {err_split}")
+    report["min_distance"] = {"shape": list(MR_DIST), "max_abs_err": err,
+                              "split_max_abs_err": err_split, "ms": ms}
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"multi-rank phase: {report['phase_s']:.1f} s ({name}; {smi})")
+    return report
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper's launch count (and each engine mode's), by the
     key the kernels line uses."""
@@ -4023,11 +4276,17 @@ def main() -> int:
     from porous_cfd_tpu_torch.train.engine import gather_cases
 
     counters = kernel_counters()
+    t_main = time.perf_counter()
+
+    def clock(phase):
+        """Log the seconds since the start of main as ``phase`` begins."""
+        log(f"[clock] phase {phase} starts at {time.perf_counter() - t_main:.1f} s")
 
     def counts(**nonzero):
         return {k: nonzero.get(k, 0) for k in counters}
 
     # ---- 1. device ---------------------------------------------------------
+    clock("1")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -4042,6 +4301,7 @@ def main() -> int:
         f"{pk[1] / 1e12:.2f} TB/s")
 
     # ---- 2. build ----------------------------------------------------------
+    clock("2")
     t0 = time.perf_counter()
     seconds = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s wall; per source "
@@ -4116,6 +4376,7 @@ def main() -> int:
                              res["nbytes"], pk, **res.get("extra", {}), **extra)
 
     # ---- 3a, 3b. pointnet_global forward and backward, all three shapes -----
+    clock("3a, 3b")
     n_pts = N_INT + N_BND
     pn_fwd, pn_bwd = check_pointnet(FE_GLOBAL, n_pts, True, gen, "pipn")
     pg_shapes = {"geometry_encoder": (PG_GEOMETRY, n_pts), "branch": (PG_BRANCH, PG_N_BRANCH)}
@@ -4132,6 +4393,7 @@ def main() -> int:
                              at_pi_gano_shapes=at_pg, **extra)
 
     # ---- 3c, 3d. decoder_prop forward and backward, dropout on and off ---------
+    clock("3c, 3d")
     if decoder_cuda.philox(torch.tensor(
             [[0, 0, 0, 0, 0, 0], [0xFFFFFFFF] * 6,
              [0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344, 0xA4093822, 0x299F31D0]],
@@ -4154,6 +4416,7 @@ def main() -> int:
     add_entry("decoder_prop_bwd", dec_bwd)
 
     # ---- 3e. neural_ops_prop forward and backward, dropout on and off ---------
+    clock("3e")
     def trunk_widths(reduction=True):
         return [PG_LOCAL[-1]] + [PG_BRANCH[-1]] * PG_OPERATORS + [3] * reduction
 
@@ -4164,6 +4427,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3j. neural_ops_prop's other modes at pi-gano-full's shapes ------------
+    clock("3j")
     for key, mode in (("full", (False, False)), ("linear_last", (False, True)),
                       ("no_reduction", (True, False))):
         fwd, bwd = check_trunk(gen, *mode)
@@ -4231,6 +4495,7 @@ def main() -> int:
                                         fast)
 
     # ---- 3f. sa_neighborhood at PIPN++'s level shapes, on a real chain --------
+    clock("3f")
     pp_card = pipn_pp_model(dev)
     chain = pp_card.neighbor_precompute(gather_cases(data, torch.arange(BATCH)).to(dev))
     sa_fwd, sa_bwd = check_sa(pp_card.module.feature_extract.global_feature, chain, gen, pk)
@@ -4251,11 +4516,13 @@ def main() -> int:
     del pgp_card, chain
 
     # ---- 3g. FPS at PIPN++'s two levels, every case ---------------------------
+    clock("3g")
     n_cent = [fps_count(N_BND, PP_FRACTION[0])]
     n_cent.append(fps_count(n_cent[0], PP_FRACTION[1]))
     add_entry("farthest_point_sampling", check_fps(data, n_cent), exact="indices equal")
 
     # ---- 3h. pointnet_global and decoder_prop at PIPN++'s shapes, and --------
+    clock("3h")
     # pointnet_global at PI-GANO++'s global level (its input needs dx too)
     pp_pn = check_pointnet(PP_GLOBAL[-1], n_cent[1], True, gen, "pipn_pp global")
     pp_dec = check_decoder(PP_SEG, PP_DROPOUT, gen, "pipn_pp")
@@ -4274,6 +4541,7 @@ def main() -> int:
             kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], pair[i]["err"])
 
     # ---- 3k. PIPN++ MRG's five kernel shapes, on a real chain ---------------------
+    clock("3k")
     mrg_card = pipn_pp_mrg_model(dev)
     mrg_batch = mrg_card.attach_neighbors(gather_cases(data, torch.arange(BATCH)).to(dev))
     for key, levels in check_mrg(mrg_card, mrg_batch, gen, pk).items():
@@ -4284,6 +4552,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3i. decoder_prop's coupled modes at the pipn shape, real winners --------
+    clock("3i")
     coupled = check_decoder_coupled(pipn_coupled_model(dev),
                                     gather_cases(data, torch.arange(BATCH)).to(dev), pk)
     for mode, key in (("j0_add", "decoder_prop_j0_add"), ("ctx_width", "decoder_prop_ctx")):
@@ -4296,6 +4565,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3m. the manufactured PIPN++'s shapes at tanh, on a real chain --------------
+    clock("3m")
     import numpy as np
     data_ms = make_manufactured_batch(np.random.default_rng(SEED), N_CASES, MSP_INT, MSP_BND)
     for key, numbers in check_manufactured_pp(pipn_pp_ms_model(dev), data_ms, gen, pk).items():
@@ -4304,6 +4574,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3n. the U-Nets' shapes: FPS over all points, SA, global levels, branch --------
+    clock("3n")
     unet_models = {"pipn-pp-full": pipn_pp_full_model(dev),
                    "pi-gano-pp-full": pi_gano_pp_full_model(dev)}
     for key, numbers in check_unet(unet_models, data, gen, pk).items():
@@ -4314,6 +4585,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 29. the batched 3D solver; the 3D experiments' data --------------------------
+    clock("29")
     from porous_cfd_tpu_torch.data.dataset import FoamDataset
     from porous_cfd_tpu_torch.examples.abc import train as abc_train
     from porous_cfd_tpu_torch.examples.windbreaks import train as wb_train
@@ -4335,6 +4607,7 @@ def main() -> int:
         return build
 
     # ---- 3o. the 3D experiments' kernel shapes ----------------------------------------
+    clock("3o")
     d3_models = {f"{exp} {m}": zoo_model(exp, m)(dev)
                  for exp, names in (("abc", ABC_CLI_MODELS), ("windbreaks", WB_CLI_MODELS))
                  for m in names}
@@ -4348,6 +4621,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4, 5. pipn: verbose prediction, then training -------------------------
+    clock("4, 5")
     pipn_pred = prediction_phase("pipn", pipn_model(dev), pipn_model("cpu"), data, scalers,
                                  counters, counts(pointnet_global=1, decoder_prop=2),
                                  name, smi)
@@ -4358,6 +4632,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6, 7. pi-gano: verbose prediction, then training -----------------------
+    clock("6, 7")
     pg_pred = prediction_phase("pi-gano", pi_gano_model(dev), pi_gano_model("cpu"), data,
                                scalers, counters, counts(pointnet_global=2, neural_ops_prop=2),
                                name, smi)
@@ -4368,6 +4643,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6b, 7b. pi-gano-full: verbose prediction, then training ------------------
+    clock("6b, 7b")
     pgf_pred = prediction_phase("pi-gano-full", pi_gano_full_model(dev),
                                 pi_gano_full_model("cpu"), data, scalers, counters,
                                 counts(pointnet_global=2, neural_ops_prop=6,
@@ -4380,6 +4656,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6c, 7c. pi-gano-pp: the chain, verbose prediction, then training ---------
+    clock("6c, 7c")
     log("pi-gano-pp boundary chain, card against CPU:")
     pgp_chain = check_chain(pi_gano_pp_model(dev), pi_gano_pp_model("cpu"), data,
                             len(PGP_RADIUS), PGP_NEIGHBORS)
@@ -4397,6 +4674,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 8, 9. pipn_pp: the chain, verbose prediction, then training ------------
+    clock("8, 9")
     log("pipn_pp boundary chain, card against CPU:")
     pp_chain = check_chain(pipn_pp_model(dev), pipn_pp_model("cpu"), data)
     pp_pred = prediction_phase("pipn_pp", pipn_pp_model(dev), pipn_pp_model("cpu"), data,
@@ -4414,6 +4692,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 10, 11. pipn_coupled: the paths off the winners, prediction, training ---
+    clock("10, 11")
     log("pipn_coupled: coupled against decoupled on the card, a batch of "
         f"{BATCH}:")
     paths_coupled = check_paths_off_winners(
@@ -4432,6 +4711,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 12, 13. pipn_exact: no kernel ------------------------------------------
+    clock("12, 13")
     log("pipn_exact: exact, coupled and decoupled on the card, 2 cases:")
     paths_exact = check_paths_off_winners(
         {"coupled": pipn_coupled_model(dev), "decoupled": pipn_model(dev),
@@ -4444,15 +4724,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 14. manufactured solutions -----------------------------------------------
+    clock("14")
     ms_report = manufactured_phase(counters, counts, name, smi)
     torch.cuda.empty_cache()
 
     # ---- 15. the duct_variable_boundary CLI, pi-gano-full ---------------------------
+    clock("15")
     cli_keep = tempfile.TemporaryDirectory()
     cli_report = cli_phase(name, smi, Path(cli_keep.name))
     torch.cuda.empty_cache()
 
     # ---- 16, 17. pipn_pp_mrg: the chain, verbose prediction, then training ----------
+    clock("16, 17")
     log("pipn_pp_mrg boundary chain, card against CPU:")
     mrg_chain = check_chain(pipn_pp_mrg_model(dev), pipn_pp_mrg_model("cpu"), data)
     want_mrg = dict(sa_neighborhood=3, pointnet_global=2, decoder_prop=2)
@@ -4467,15 +4750,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 18. the duct_fixed_boundary CLIs on golden-duct data ----------------------
+    clock("18")
     fixed_keep = tempfile.TemporaryDirectory()
     fixed_report = fixed_cli_phase(name, smi, counters, Path(fixed_keep.name))
     torch.cuda.empty_cache()
 
     # ---- 19. the port's bench ------------------------------------------------------
+    clock("19")
     bench_report = bench_phase(name, smi)
     torch.cuda.empty_cache()
 
     # ---- 20, 21. pipn_pp_manufactured: the chain, verbose prediction, training -------
+    clock("20, 21")
     log("pipn_pp_manufactured boundary chain, card against CPU:")
     msp_chain = check_chain(pipn_pp_ms_model(dev), pipn_pp_ms_model("cpu"), data_ms,
                             len(MSP_RADIUS), MSP_NEIGHBORS)
@@ -4495,10 +4781,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 22. the manufactured_solutions CLIs ------------------------------------------
+    clock("22")
     ms_cli_report = manufactured_cli_phase(name, smi, counters)
     torch.cuda.empty_cache()
 
     # ---- 23. the exact paths of PIPN++, PIPN++ MRG, PI-GANO and PI-GANO++ --------------
+    clock("23")
     exact_report = exact_paths_phase({"pipn-pp": pipn_pp_model,
                                       "pipn-pp-mrg": pipn_pp_mrg_model,
                                       "pi-gano": pi_gano_model,
@@ -4507,6 +4795,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 24, 25. pipn_pp_full: the all-points chain, verbose prediction, training -------
+    clock("24, 25")
     log("pipn_pp_full all-points chain and FP kNN indices, card against CPU:")
     upf = pipn_pp_full_model(dev)
     upf_chain = check_chain(upf, pipn_pp_full_model("cpu"), data, len(upf.module.encoder.radius),
@@ -4526,6 +4815,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 26, 27. pi_gano_pp_full: the all-points chain, verbose prediction, training ----
+    clock("26, 27")
     log("pi_gano_pp_full all-points chain and FP kNN indices, card against CPU:")
     ugf = pi_gano_pp_full_model(dev)
     ugf_chain = check_chain(ugf, pi_gano_pp_full_model("cpu"), data,
@@ -4545,6 +4835,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 28. the U-Nets' exact paths: micro-batches, peak memory ------------------------
+    clock("28")
     unet_exact_report = unet_exact_phase({"pipn-pp-full": pipn_pp_full_model,
                                           "pi-gano-pp-full": pi_gano_pp_full_model},
                                          data, counters, name, smi)
@@ -4552,6 +4843,7 @@ def main() -> int:
 
     # ---- 30-35. the 3D experiments: abc pipn and pipn-pp on the solver's cases,
     # windbreaks pi-gano and pi-gano-pp on the synthetic split ----------------------------
+    clock("30-35")
     d3 = {}
     for label, exp, model_type, want, per_attach, weights in (
             ("abc_pipn", "abc", "pipn", dict(pointnet_global=1, decoder_prop=2), {},
@@ -4584,6 +4876,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- 36. the 3D experiments' CLIs ------------------------------------------------------
+    clock("36")
     d3_cli = {"abc": cli_3d_phase("abc", ABC_CLI_MODELS, d3_root["abc"], ABC_WEIGHTS,
                                   counters, name, smi),
               "windbreaks": cli_3d_phase("windbreaks", WB_CLI_MODELS, d3_root["windbreaks"],
@@ -4591,21 +4884,30 @@ def main() -> int:
     d3_tmp.cleanup()
 
     # ---- 37. the batched 2D solver: the JAX test's cases, one grid chunk ----------------
+    clock("37")
     solver_2d_report = solver_2d_phase(name, smi)
     torch.cuda.empty_cache()
 
     # ---- 38. the hard and vertical CLIs on phase 18's cases and checkpoint -------------
+    clock("38")
     hard_vertical_report = hard_vertical_cli_phase(fixed_keep.name, name, smi, counters)
     torch.cuda.empty_cache()
 
     # ---- 39. a small transform grid: generate, train, score, analyse --------------------
+    clock("39")
     grid_report = grid_phase(name, smi, counters)
     torch.cuda.empty_cache()
 
     # ---- 40. compare on phase 18's and phase 15's checkpoints, the error table ----------
+    clock("40")
     compare_report = compare_phase(fixed_keep.name, cli_keep.name, counters, name, smi)
     fixed_keep.cleanup()
     cli_keep.cleanup()
+    torch.cuda.empty_cache()
+
+    # ---- 41. two ranks on the card (data and points axes), the CLI at --mesh-data 1 --
+    clock("41")
+    multi_rank_report = multi_rank_phase(name, smi, counters)
     torch.cuda.empty_cache()
 
     # launches on each kernel's main path (per training step; FPS per
@@ -4685,6 +4987,8 @@ def main() -> int:
     log(json.dumps({"hard_vertical_cli": hard_vertical_report}))
     log(json.dumps({"grid": grid_report}))
     log(json.dumps({"compare": compare_report}))
+    log(json.dumps({"multi_rank": multi_rank_report}))
+    clock("end")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -36,35 +36,9 @@ import torch
 from porous_cfd_tpu_torch.data import parser
 from porous_cfd_tpu_torch.data.foam_data import FoamData
 from porous_cfd_tpu_torch.data.scalers import scalers_from_meta
+from porous_cfd_tpu_torch.ops.distance import sdf_feature
 
 Table = dict[str, np.ndarray]  # field -> (N, w) float array, insertion-ordered
-
-
-def min_distance(query: np.ndarray, target: np.ndarray, chunk: int = 2048) -> np.ndarray:
-    """Min distance from each query point (N, D) to the target cloud (M, D),
-    query chunks at a time so that no more than (chunk, M) distances exist
-    at once. Float64 differences, as the small clouds' numpy route takes
-    them: the JAX package's float32 |q|^2 - 2 q t + |t|^2 form
-    (``ops/distance.py``) loses digits to cancellation near the boundary."""
-    q = torch.as_tensor(query, dtype=torch.float64)
-    t = torch.as_tensor(target, dtype=torch.float64)
-    return torch.cat([torch.cdist(q_blk, t, compute_mode="donot_use_mm_for_euclid_dist")
-                      .min(dim=-1).values for q_blk in torch.split(q, chunk)]).numpy()
-
-
-def sdf_feature(internal_points: np.ndarray, boundary_points: np.ndarray,
-                zone: np.ndarray) -> np.ndarray:
-    """The SDF feature of a large cloud (the JAX package's
-    ``ops/distance.py:sdf_feature`` semantics, in float64): min distance of
-    every point to the boundary cloud, max-normalized; internal porous side
-    negative, boundary rows positive."""
-    all_points = np.concatenate([internal_points, boundary_points])
-    d = min_distance(all_points, boundary_points)
-    d = d / d.max()
-    n_int = len(internal_points)
-    sign = np.ones(len(all_points))
-    sign[:n_int] = (0.5 - np.asarray(zone).flatten()) * 2
-    return d * sign
 
 
 class FoamDataset:

@@ -23,7 +23,7 @@ from porous_cfd_tpu_torch.device import resolve_device
 from porous_cfd_tpu_torch.models.pipn import (pipn_foam, pipn_foam_pp, pipn_foam_pp_full,
                                               pipn_foam_pp_mrg)
 from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler, RelobraloScaler
-from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, train
+from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, spawn_workers, train
 
 NU, D, F = 1489.4e-6, 14000.0, 17.11
 N_DIM = 2
@@ -99,8 +99,11 @@ def make_datasets(args, dataset_cls=FoamDataset):
 def run(argv=None, device=None):
     """Parse ``argv`` (the command line when None), load the splits and
     train on ``device`` (the CUDA card unless ``"cpu"`` is asked for).
-    Returns the model, its module trained in place."""
+    Returns the model, its module trained in place (None where
+    ``--mesh-data`` / ``--mesh-points`` spawned the ranks: ``spawn_workers``)."""
     args = build_arg_parser().parse_args(argv)
+    if spawn_workers(run, argv, args, device):
+        return None
     device = resolve_device(device)
     train_data, val_data = make_datasets(args)
     model = get_model(args, train_data.normalizers, device)

@@ -14,7 +14,7 @@ from __future__ import annotations
 from porous_cfd_tpu_torch.device import resolve_device
 from porous_cfd_tpu_torch.examples.duct_fixed_boundary.train import get_model, make_datasets
 from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler, RelobraloScaler
-from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, train
+from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, spawn_workers, train
 
 
 def get_loss_scaler(args):
@@ -30,8 +30,11 @@ def get_loss_scaler(args):
 def run(argv=None, device=None):
     """Parse ``argv`` (the command line when None), load the splits and
     train on ``device`` (the CUDA card unless ``"cpu"`` is asked for).
-    Returns the model, its module trained in place."""
+    Returns the model, its module trained in place (None where
+    ``--mesh-data`` / ``--mesh-points`` spawned the ranks: ``spawn_workers``)."""
     args = build_arg_parser().parse_args(argv)
+    if spawn_workers(run, argv, args, device):
+        return None
     device = resolve_device(device)
     train_data, val_data = make_datasets(args)
     model = get_model(args, train_data.normalizers, device)

@@ -19,7 +19,7 @@ from porous_cfd_tpu_torch.data.dataset import FoamDataset
 from porous_cfd_tpu_torch.device import resolve_device
 from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp, pi_gano_pp_full
 from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler, RelobraloScaler
-from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, train
+from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, spawn_workers, train
 
 NU = 1489.4e-6
 VARIABLE_BOUNDARIES = {"Subdomains": ["inlet", "internal"],
@@ -81,8 +81,11 @@ def get_model(args, normalizers, device=None, fast_derivatives: bool = True):
 def run(argv=None, device=None):
     """Parse ``argv`` (the command line when None), load the splits and
     train on ``device`` (the CUDA card unless ``"cpu"`` is asked for).
-    Returns the model, its module trained in place."""
+    Returns the model, its module trained in place (None where
+    ``--mesh-data`` / ``--mesh-points`` spawned the ranks: ``spawn_workers``)."""
     args = build_arg_parser().parse_args(argv)
+    if spawn_workers(run, argv, args, device):
+        return None
     device = resolve_device(device)
     rng = np.random.default_rng(SEED)
     train_data = FoamDataset(args.train_dir, args.n_internal, args.n_boundary,

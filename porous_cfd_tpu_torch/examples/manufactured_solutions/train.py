@@ -22,7 +22,7 @@ import torch
 from porous_cfd_tpu_torch.data.manufactured import ManufacturedDataset
 from porous_cfd_tpu_torch.device import resolve_device
 from porous_cfd_tpu_torch.models.pipn import pipn_manufactured, pipn_manufactured_pp
-from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, train
+from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, spawn_workers, train
 
 NU, D, F = 0.01, 50.0, 1.0
 N_DIM = 2
@@ -66,8 +66,11 @@ def make_datasets(args):
 def run(argv=None, device=None):
     """Parse ``argv`` (the command line when None), load the splits and
     train on ``device`` (the CUDA card unless ``"cpu"`` is asked for).
-    Returns the model, its module trained in place."""
+    Returns the model, its module trained in place (None where
+    ``--mesh-data`` / ``--mesh-points`` spawned the ranks: ``spawn_workers``)."""
     args = build_arg_parser().parse_args(argv)
+    if spawn_workers(run, argv, args, device):
+        return None
     device = resolve_device(device)
     train_data, val_data = make_datasets(args)
     model = get_model(args.model, D, F, device)

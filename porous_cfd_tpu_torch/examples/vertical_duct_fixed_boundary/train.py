@@ -20,14 +20,17 @@ from porous_cfd_tpu_torch.examples.duct_fixed_boundary.train import (get_loss_sc
                                                                      make_datasets)
 from porous_cfd_tpu_torch.examples.vertical_duct_fixed_boundary.vertical_duct_dataset import \
     VerticalDuctDataset
-from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, train
+from porous_cfd_tpu_torch.pipelines.training import build_arg_parser, spawn_workers, train
 
 
 def run(argv=None, device=None):
     """Parse ``argv`` (the command line when None), load the splits and
     train on ``device`` (the CUDA card unless ``"cpu"`` is asked for) from
-    ``--checkpoint``. Returns the model, its module trained in place."""
+    ``--checkpoint``. Returns the model, its module trained in place (None where
+    ``--mesh-data`` / ``--mesh-points`` spawned the ranks: ``spawn_workers``)."""
     args = build_arg_parser().parse_args(argv)
+    if spawn_workers(run, argv, args, device):
+        return None
     device = resolve_device(device)
     train_data, val_data = make_datasets(args, VerticalDuctDataset)
     model = get_model(args, train_data.normalizers, device)

@@ -62,11 +62,14 @@ class PinnModel:
     :param learning_rate/lr_gamma/adam_eps: Adam with a per-epoch
         exponential learning-rate decay (every reference model's recipe).
     :param derivative_apply: analytic fast path
-        ``(batch, deterministic, seed) -> (out_full, jac, lap)`` with jac/lap
-        shaped (..., Ni, O, D). A model without one predicts verbosely and
-        trains through the exact autodiff operator
+        ``(batch, deterministic, seed, placement) -> (out_full, jac, lap)``
+        with jac/lap shaped (..., Ni, O, D); ``placement``
+        (``ops/dropout.Placement``) is where ``batch`` sits in the whole
+        batch, for the dropout masks. A model without one predicts verbosely
+        and trains through the exact autodiff operator
         (``physics/operators.pinn_derivatives``) on its module, whose
-        forward then also takes ``seed=`` for its dropout.
+        forward then also takes ``seed=`` and ``placement=`` for its
+        dropout.
     :param neighbor_precompute: ``FoamData -> dict`` of per-case aux built
         once per dataset (``attach_neighbors``), or None.
     :param microbatch: the U-Net variants' memory knob on their exact path:

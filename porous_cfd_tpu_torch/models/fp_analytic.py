@@ -35,6 +35,7 @@ from porous_cfd_tpu_torch.models.neighbors import (extract_fp_idx, extract_sa_ne
                                                    gather_points)
 from porous_cfd_tpu_torch.models.set_abstraction import fp_level_seed, level_dropout
 from porous_cfd_tpu_torch.ops import sa_cuda
+from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement
 from porous_cfd_tpu_torch.physics import analytic
 
 _CLAMP = 1e-12  # knn_interpolate_with_idx's floor
@@ -136,7 +137,7 @@ def hierarchy(module, batch: FoamData, precompute, par_embedding=None):
     return x, pos, fp_idx[-1], x_in, pts, n_int
 
 
-def _last_level(module, x, pos, idx, x_in, pts, n_int, deterministic, seed):
+def _last_level(module, x, pos, idx, x_in, pts, n_int, deterministic, seed, placement):
     """The last FP level's (v, J, H), untransposed: (B, N, O), (B, Ni, D,
     O) twice."""
     iv, ij, ih = knn_interp_prop(x, pos, pts, idx, n_int)
@@ -147,21 +148,24 @@ def _last_level(module, x, pos, idx, x_in, pts, n_int, deterministic, seed):
         decoder.levels[-1].mlp.linears, torch.cat([iv, sv], dim=-1),
         torch.cat([ij, sj], dim=-1), torch.cat([ih, sh], dim=-1), n_int, module.activation,
         level_dropout(decoder.dropout, n_fp - 1, decoder.fp_layers[-1]),
-        last_activation=False, deterministic=deterministic, seed=fp_level_seed(seed, n_fp - 1))
+        last_activation=False, deterministic=deterministic, seed=fp_level_seed(seed, n_fp - 1),
+        placement=placement)
 
 
 def pipn_pp_full_apply_with_derivatives(module, precompute):
     """The analytic path of a PipnPpFullModule: ``fn(batch,
-    deterministic=True, seed=None) -> (out_full, jac, lap)`` with jac/lap
-    (..., Ni, O, D); None where a middle level has dropout. The last level's
-    dropout runs unless ``deterministic``, with the exact path's masks for
-    the same seed."""
+    deterministic=True, seed=None, placement=WHOLE) -> (out_full, jac,
+    lap)`` with jac/lap (..., Ni, O, D); None where a middle level has
+    dropout. The last level's dropout runs unless ``deterministic``, with
+    the exact path's masks for the same seed and placement."""
     if not mid_levels_deterministic(module.decoder.dropout, len(module.decoder.fp_layers)):
         return None
 
-    def fn(batch: FoamData, deterministic: bool = True, seed: Optional[int] = None):
+    def fn(batch: FoamData, deterministic: bool = True, seed: Optional[int] = None,
+           placement: Placement = WHOLE):
         x, pos, idx, x_in, pts, n_int = hierarchy(module, batch, precompute)
-        out, j, h = _last_level(module, x, pos, idx, x_in, pts, n_int, deterministic, seed)
+        out, j, h = _last_level(module, x, pos, idx, x_in, pts, n_int, deterministic, seed,
+                                placement)
         return out, j.transpose(-1, -2), h.transpose(-1, -2)
 
     return fn
@@ -179,12 +183,14 @@ def pi_gano_pp_full_apply_with_derivatives(module, precompute):
     if not mid_levels_deterministic(module.decoder.dropout, len(module.decoder.fp_layers)):
         return None
 
-    def fn(batch: FoamData, deterministic: bool = True, seed: Optional[int] = None):
+    def fn(batch: FoamData, deterministic: bool = True, seed: Optional[int] = None,
+           placement: Placement = WHOLE):
         par = _pointnet_global_dispatch(module.branch.linear,
                                         gather_parameters(batch, module.variable_boundaries),
                                         module.activation)
         x, pos, idx, x_in, pts, n_int = hierarchy(module, batch, precompute, par)
-        out, j, h = _last_level(module, x, pos, idx, x_in, pts, n_int, deterministic, seed)
+        out, j, h = _last_level(module, x, pos, idx, x_in, pts, n_int, deterministic, seed,
+                                placement)
         scale = module.decoder.levels[-1].modulation(par)              # (B, 1, O)
         out, j, h = out * scale, j * scale[:, None], h * scale[:, None]
         return out, j.transpose(-1, -2), h.transpose(-1, -2)

@@ -16,6 +16,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement
 from porous_cfd_tpu_torch.ops.neural_op_cuda import trunk_seed
 from porous_cfd_tpu_torch.physics.analytic import ACTIVATIONS, merged_mask
 
@@ -42,9 +43,9 @@ class MLP(nn.Module):
     ``dropout`` has one entry per layer, applied after its activation when
     not ``deterministic``; ``last_activation=False`` leaves the final layer
     plain. The dropout masks are ``analytic.merged_mask`` of ``seed`` and the
-    layer over the input's rows, so a decoder applied to the merged
-    [internal || boundary] rows drops what the analytic decoder path drops
-    for the same seed."""
+    layer over the input's rows (at their ``placement`` in the batch), so a
+    decoder applied to the merged [internal || boundary] rows drops what the
+    analytic decoder path drops for the same seed."""
 
     def __init__(self, layers: Sequence[int],
                  dropout: Optional[Sequence[float]] = None,
@@ -70,7 +71,8 @@ class MLP(nn.Module):
     def linears(self) -> list[nn.Linear]:
         return [getattr(self, f"linear_{i}") for i in range(len(self.layers) - 1)]
 
-    def forward(self, x, deterministic: bool = True, seed: Optional[int] = None):
+    def forward(self, x, deterministic: bool = True, seed: Optional[int] = None,
+                placement: Placement = WHOLE):
         drop = (not deterministic and self.dropout is not None
                 and any(r > 0 for r in self.dropout))
         if drop and seed is None:
@@ -82,7 +84,7 @@ class MLP(nn.Module):
             if i < len(linears) - 1 or self.last_activation:
                 x = act(x)
             if drop and self.dropout[i] > 0:
-                x = x * merged_mask(seed, i, self.dropout[i], x)
+                x = x * merged_mask(seed, i, self.dropout[i], x, placement=placement)
         return x
 
 
@@ -150,14 +152,14 @@ class NeuralOperator(nn.Module):
         self.Dense_0 = dense(in_channels, out_channels, generator)
 
     def forward(self, x, par_embedding, deterministic: bool = True,
-                seed: Optional[int] = None, layer: int = 0):
+                seed: Optional[int] = None, layer: int = 0, placement: Placement = WHOLE):
         y = self.Dense_0(x)
         if self.activation is not None:
             y = ACTIVATIONS[self.activation](y)
         if not deterministic and self.dropout > 0:
             if seed is None:
                 raise ValueError("NeuralOperator: dropout needs a seed")
-            y = y * merged_mask(trunk_seed(seed), layer, self.dropout, y)
+            y = y * merged_mask(trunk_seed(seed), layer, self.dropout, y, placement=placement)
         return y * par_embedding
 
 
@@ -193,7 +195,7 @@ class NeuralOperatorSequential(nn.Module):
         return [op.Dense_0 for op in self.operators]
 
     def forward(self, x, par_embedding, deterministic: bool = True,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None, placement: Placement = WHOLE):
         for i, op in enumerate(self.operators):
-            x = op(x, par_embedding, deterministic, seed, i)
+            x = op(x, par_embedding, deterministic, seed, i, placement)
         return x

@@ -45,6 +45,7 @@ from porous_cfd_tpu_torch.models.pipn import (_boundary_sa_precompute, _geometry
 from porous_cfd_tpu_torch.models.set_abstraction import (FeaturePropagationSeq,
                                                           GeometryEncoderPp, SetAbstractionSeq)
 from porous_cfd_tpu_torch.ops import neural_op_cuda, sa_cuda
+from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement
 from porous_cfd_tpu_torch.physics import analytic
 from porous_cfd_tpu_torch.physics.losses import (ContinuityLossStandardized,
                                                  MomentumLossVariable)
@@ -103,11 +104,12 @@ class PiGanoModule(nn.Module):
         return [getattr(self, f"neural_ops_{k}") for k in range(self.out_features)]
 
     def forward(self, points, batch: FoamData, deterministic: bool = True,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None, placement: Placement = WHOLE):
         """``points`` (..., N, D) are the [internal || boundary] rows; the
         trunk's dropout (unless ``deterministic``) draws its masks from
-        ``seed`` over those rows, as the analytic path does: every one of
-        PiGanoFull's trunks takes the one seed."""
+        ``seed`` over those rows at their ``placement`` in the batch, as the
+        analytic path does: every one of PiGanoFull's trunks takes the one
+        seed."""
         geom_in = torch.cat([batch["boundaryId"], batch["sdf"]], dim=-1)
         param_features = gather_parameters(batch, self.variable_boundaries)
         # the geometry encoder sees the coordinates without a gradient
@@ -117,9 +119,9 @@ class PiGanoModule(nn.Module):
         par = self.branch(param_features, deterministic)
         operator_in = torch.cat([local, geom], dim=-1)
         if self.full:
-            return torch.cat([trunk(operator_in, par, deterministic, seed).sum(-1, keepdim=True)
-                              for trunk in self.trunks], dim=-1)
-        return self.reduction(self.neural_ops(operator_in, par, deterministic, seed))
+            return torch.cat([trunk(operator_in, par, deterministic, seed, placement)
+                              .sum(-1, keepdim=True) for trunk in self.trunks], dim=-1)
+        return self.reduction(self.neural_ops(operator_in, par, deterministic, seed, placement))
 
 
 class PiGanoPpModule(nn.Module):
@@ -154,7 +156,7 @@ class PiGanoPpModule(nn.Module):
         self.reduction = dense(n_feat, out_features, generator)
 
     def forward(self, points, batch: FoamData, deterministic: bool = True,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None, placement: Placement = WHOLE):
         """As ``PiGanoModule.forward``."""
         param_features = gather_parameters(batch, self.variable_boundaries)
         boundary = batch["boundary"]
@@ -165,7 +167,8 @@ class PiGanoPpModule(nn.Module):
         local = self.points_encoder(points, deterministic)
         geom = geom.expand(*local.shape[:-1], geom.shape[-1])
         par = self.branch(param_features, deterministic)
-        y = self.neural_ops(torch.cat([local, geom], dim=-1), par, deterministic, seed)
+        y = self.neural_ops(torch.cat([local, geom], dim=-1), par, deterministic, seed,
+                            placement)
         return self.reduction(y)
 
 
@@ -184,9 +187,11 @@ def pi_gano_apply_with_derivatives(module: PiGanoModule):
     points encoder and the trunk propagate (v, J, H). Their inputs come from
     the dataset's aux (``_gano_inputs_precompute``) when it is attached, else
     from the batch. With ``deterministic=False`` the trunk applies its
-    dropout, with masks that are a pure function of ``seed``."""
+    dropout, with masks that are a pure function of ``seed`` and of the
+    rows' ``placement`` in the whole batch."""
 
-    def fn(batch: FoamData, deterministic: bool = True, seed=None):
+    def fn(batch: FoamData, deterministic: bool = True, seed=None,
+           placement: Placement = WHOLE):
         internal_view, boundary_view = split_contiguous(batch)
         x_int = internal_view["C"]
         x_bnd = boundary_view["C"]
@@ -200,18 +205,19 @@ def pi_gano_apply_with_derivatives(module: PiGanoModule):
             par_features = gather_parameters(batch, module.variable_boundaries)
         par = _pointnet_global_dispatch(module.branch.linear, par_features, act)
 
-        return _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed, module.full)
+        return _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed, placement,
+                           module.full)
 
     return fn
 
 
-def _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed, full=False):
+def _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed, placement, full=False):
     """The points encoder's (v, J, H) and the trunk through
     ``neural_ops_prop``: (out_full, jac, lap) with jac/lap (..., Ni, O, D).
     PiGanoFull (``full``) runs each output's trunk without a reduction and with its
     last operator linear, and sums its features; every trunk takes the
     step's one seed (the JAX path hands each the same key), so all three
-    draw the same masks."""
+    draw the same masks, at the rows' ``placement`` in the batch."""
     act = module.activation
     linears = module.points_encoder.linears
     j0, h0 = analytic.identity_jacobian_t(x_int)
@@ -222,8 +228,9 @@ def _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed, full=False
             module.operator_dropout, deterministic, seed)
     if not full:
         return neural_op_cuda.neural_ops_prop(module.neural_ops.linears, module.reduction,
-                                              *args)
-    outs = [neural_op_cuda.neural_ops_prop(trunk.linears, None, *args, last_activation=False)
+                                              *args, placement=placement)
+    outs = [neural_op_cuda.neural_ops_prop(trunk.linears, None, *args, last_activation=False,
+                                           placement=placement)
             for trunk in module.trunks]
     return (torch.cat([v.sum(-1, keepdim=True) for v, _, _ in outs], dim=-1),
             torch.cat([j.sum(-2, keepdim=True) for _, j, _ in outs], dim=-2),
@@ -242,7 +249,8 @@ def pi_gano_pp_apply_with_derivatives(module: PiGanoPpModule):
                                          module.max_neighbors)
     n_levels = len(module.geometry_radius)
 
-    def fn(batch: FoamData, deterministic: bool = True, seed=None):
+    def fn(batch: FoamData, deterministic: bool = True, seed=None,
+           placement: Placement = WHOLE):
         internal_view, boundary_view = split_contiguous(batch)
         x_int = internal_view["C"]
         x_bnd = boundary_view["C"]
@@ -257,7 +265,7 @@ def pi_gano_pp_apply_with_derivatives(module: PiGanoPpModule):
                                     _geometry_features(boundary_view), nbrs)
         par_features = gather_parameters(batch, module.variable_boundaries)
         par = _pointnet_global_dispatch(module.branch.linear, par_features, act)
-        return _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed)
+        return _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed, placement)
 
     return fn
 
@@ -356,11 +364,11 @@ class PiGanoPpFullModule(nn.Module):
                                              generator, par_width=branch_layers[-1])
 
     def forward(self, points, batch: FoamData, deterministic: bool = True,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None, placement: Placement = WHOLE):
         """As ``PiGanoModule.forward``; FP level i drops with
         ``fp_level_seed(seed, i)``."""
         par = self.branch(gather_parameters(batch, self.variable_boundaries), deterministic)
-        return _unet_forward(self, points, batch, deterministic, seed, par)
+        return _unet_forward(self, points, batch, deterministic, seed, par, placement)
 
 
 def pi_gano_pp_full(nu: float, out_features: int, branch_layers, enc_layers, enc_radius,

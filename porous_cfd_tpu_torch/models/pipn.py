@@ -43,6 +43,8 @@ from porous_cfd_tpu_torch.models.set_abstraction import (FeaturePropagationSeq,
                                                           SetAbstractionMrgSeq,
                                                           SetAbstractionSeq)
 from porous_cfd_tpu_torch.ops import decoder_cuda, pointnet_cuda, sa_cuda
+from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement
+from porous_cfd_tpu_torch.parallel.mesh import points_max
 from porous_cfd_tpu_torch.physics import analytic
 from porous_cfd_tpu_torch.physics.losses import (ContinuityLoss, ContinuityLossStandardized,
                                                  MomentumLossFixed, MomentumLossManufactured)
@@ -69,15 +71,16 @@ class PipnModule(nn.Module):
                            last_activation=False, generator=generator)
 
     def forward(self, points, batch: FoamData, deterministic: bool = True,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None, placement: Placement = WHOLE):
         """``points`` (..., N, 2) are the [internal || boundary] rows; the
         decoder's dropout (unless ``deterministic``) draws its masks from
-        ``seed`` over those rows, as the analytic path does."""
+        ``seed`` over those rows at their ``placement`` in the batch, as the
+        analytic path does."""
         global_in = torch.cat([batch["boundaryId"], batch["sdf"]], dim=-1)
         local, g = self.feature_extract(global_in, points, deterministic)
         exp_g = g.expand(*local.shape[:-1], g.shape[-1])
         seg_in = torch.cat([local, exp_g], dim=-1)
-        return self.decoder(seg_in, deterministic, seed)
+        return self.decoder(seg_in, deterministic, seed, placement)
 
 
 def _geometry_features(boundary: FoamData, order: str = "C_first") -> torch.Tensor:
@@ -120,14 +123,14 @@ class PipnPpModule(nn.Module):
                            generator=generator)
 
     def forward(self, points, batch: FoamData, deterministic: bool = True,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None, placement: Placement = WHOLE):
         """``points`` and the decoder's dropout as in ``PipnModule.forward``."""
         boundary = batch["boundary"]
         geom = _geometry_features(boundary, self.geom_features_order)
         nbrs = extract_sa_neighbors(batch.domain, len(self.fe_radius))
         local, g = self.feature_extract(geom, boundary["C"], points, deterministic, nbrs)
         exp_g = g.expand(*local.shape[:-1], g.shape[-1])
-        return self.decoder(torch.cat([local, exp_g], dim=-1), deterministic, seed)
+        return self.decoder(torch.cat([local, exp_g], dim=-1), deterministic, seed, placement)
 
 
 class PipnPpMrgModule(nn.Module):
@@ -155,7 +158,7 @@ class PipnPpMrgModule(nn.Module):
                            generator=generator)
 
     def forward(self, points, batch: FoamData, deterministic: bool = True,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None, placement: Placement = WHOLE):
         """``points`` and the decoder's dropout as in ``PipnModule.forward``."""
         local = self.local_fe(points, deterministic)
         boundary = batch["boundary"]
@@ -163,22 +166,22 @@ class PipnPpMrgModule(nn.Module):
         g = self.global_fe(_geometry_features(boundary, "id_first"), boundary["C"],
                            deterministic, nbrs)
         exp_g = g.expand(*local.shape[:-1], g.shape[-1])
-        return self.decoder(torch.cat([local, exp_g], dim=-1), deterministic, seed)
+        return self.decoder(torch.cat([local, exp_g], dim=-1), deterministic, seed, placement)
 
 
 def _decoder_prop_dispatch(decoder: MLP, n_local, v, jt, ht, v_b, g,
                            activation, dropout, deterministic, seed, j0_add=None,
-                           h0_add=None):
+                           h0_add=None, placement: Placement = WHOLE):
     """Decoder-stack propagation: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (``decoder_cuda.decoder_prop`` goes by the
     tensors' device). Dropout runs unless ``deterministic``, with masks fixed
-    by ``seed``; ``j0_add``/``h0_add`` (..., D, Ni, F1) carry the max-pool
+    by ``seed`` at the rows' ``placement``; ``j0_add``/``h0_add`` (..., D, Ni, F1) carry the max-pool
     coupling. Returns (out_merged, jac, lap) with jac/lap (..., Ni, O, D)."""
     return decoder_cuda.decoder_prop(
         decoder.linears, n_local, v.contiguous(), jt.contiguous(),
         ht.contiguous(), None if v_b is None else v_b.contiguous(),
         g.contiguous(), activation, dropout, deterministic, seed,
-        j0_add=j0_add, h0_add=h0_add)
+        j0_add=j0_add, h0_add=h0_add, placement=placement)
 
 
 def _pointnet_global_dispatch(global_feature: MLP, x, activation):
@@ -190,11 +193,14 @@ def _pointnet_global_dispatch(global_feature: MLP, x, activation):
 
 def pipn_apply_with_derivatives(module: PipnModule, coupled: bool = True):
     """The analytic derivative path of a PipnModule:
-    ``fn(batch, deterministic=True, seed=None) -> (out_full, jac, lap)`` with
-    jac/lap shaped (..., Ni, O, D). With ``deterministic=False`` the decoder
-    applies its dropout, with masks that are a pure function of ``seed``
-    (a 64-bit integer; the training step derives it from the run's seed and
-    the step).
+    ``fn(batch, deterministic=True, seed=None, placement=WHOLE) -> (out_full,
+    jac, lap)`` with jac/lap shaped (..., Ni, O, D). With ``deterministic=False``
+    the decoder applies its dropout, with masks that are a pure function of
+    ``seed`` (a 64-bit integer; the training step derives it from the run's
+    seed and the step) and of the rows' ``placement`` in the whole batch.
+    Decoupled, ``batch`` may be a rank's share of the rows (a points-split
+    ``placement``): the pool is then the whole cloud's, through
+    ``parallel.mesh.points_max``.
 
     Max-pool coupling (``coupled=True``): the pooled global feature g
     depends on the differentiated internal coordinates through each
@@ -205,7 +211,8 @@ def pipn_apply_with_derivatives(module: PipnModule, coupled: bool = True):
     rules produce every cross term. ``coupled=False`` holds g constant per
     case. The two agree everywhere but at the winner rows."""
 
-    def fn(batch: FoamData, deterministic: bool = True, seed=None):
+    def fn(batch: FoamData, deterministic: bool = True, seed=None,
+           placement: Placement = WHOLE):
         internal_view, boundary_view = split_contiguous(batch)
         x_int = internal_view["C"]
         x_bnd = boundary_view["C"]
@@ -222,11 +229,14 @@ def pipn_apply_with_derivatives(module: PipnModule, coupled: bool = True):
 
         if not coupled:
             local_all = torch.cat([lv_i, lv_b], dim=-2)
-            g = _pointnet_global_dispatch(
-                fe.global_feature, torch.cat([local_all, feats], dim=-1), act)
+            g, amax = pointnet_cuda.pointnet_global(
+                fe.global_feature.linears, torch.cat([local_all, feats], dim=-1).contiguous(),
+                act)
+            # the whole cloud's pool where the rows are split over ranks
+            g = points_max(g, amax, n_int, placement)
             return _decoder_prop_dispatch(
                 module.decoder, n_local, lv_i, lj, lh, lv_b, g, act,
-                module.seg_dropout, deterministic, seed)
+                module.seg_dropout, deterministic, seed, placement=placement)
 
         # the context block of the decoder's first weight: the ctx vector
         # and the coupling terms both take their gradient from it
@@ -235,8 +245,12 @@ def pipn_apply_with_derivatives(module: PipnModule, coupled: bool = True):
                                          feats[..., n_int:, :], w0g, act)
         return _decoder_prop_dispatch(
             module.decoder, n_local, lv_i, lj, lh, lv_b, g, act,
-            module.seg_dropout, deterministic, seed, zj0, zh0)
+            module.seg_dropout, deterministic, seed, zj0, zh0, placement)
 
+    # the decoupled path runs on a points-split share of the rows (the
+    # engine's shard_points); the coupled one needs every winner row
+    fn.path = "coupled" if coupled else "decoupled"
+    fn.points_sharded = not coupled
     return fn
 
 
@@ -424,7 +438,8 @@ def pipn_pp_apply_with_derivatives(module):
         local_linears = module.feature_extract.local_feature.linears
     precompute = _boundary_sa_precompute(fractions, radii, module.max_neighbors, order)
 
-    def fn(batch: FoamData, deterministic: bool = True, seed=None):
+    def fn(batch: FoamData, deterministic: bool = True, seed=None,
+           placement: Placement = WHOLE):
         internal_view, boundary_view = split_contiguous(batch)
         x_int = internal_view["C"]
         x_bnd = boundary_view["C"]
@@ -446,7 +461,7 @@ def pipn_pp_apply_with_derivatives(module):
         lv_b = analytic.mlp_value(local_linears, x_bnd, act)
         return _decoder_prop_dispatch(
             module.decoder, lv_i.shape[-1], lv_i, lj, lh, lv_b, g, act,
-            module.seg_dropout, deterministic, seed)
+            module.seg_dropout, deterministic, seed, placement=placement)
 
     return fn
 
@@ -539,12 +554,13 @@ class PipnPpFullModule(nn.Module):
         self.seg_layers = tuple(dec_layers[-1])  # the output MLP's widths, as PIPN's decoder
 
     def forward(self, points, batch: FoamData, deterministic: bool = True,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None, placement: Placement = WHOLE):
         """``points`` (..., N, 2) are the [internal || boundary] rows."""
-        return _unet_forward(self, points, batch, deterministic, seed)
+        return _unet_forward(self, points, batch, deterministic, seed, placement=placement)
 
 
-def _unet_forward(module, points, batch, deterministic, seed, par_embedding=None):
+def _unet_forward(module, points, batch, deterministic, seed, par_embedding=None,
+                  placement: Placement = WHOLE):
     """The U-Net forward of a PipnPpFullModule or a PiGanoPpFullModule: the
     encoder on ``[sdf || boundaryId || points]`` with its skips, then the
     decoder, on the batch's precomputed neighbours where it holds them."""
@@ -552,7 +568,8 @@ def _unet_forward(module, points, batch, deterministic, seed, par_embedding=None
     fp_idx = extract_fp_idx(batch.domain, len(module.decoder.fp_layers))
     x_in = torch.cat([batch["sdf"], batch["boundaryId"], points], dim=-1)
     (x, pos), skips = module.encoder(x_in, points, deterministic, nbrs, return_skip=True)
-    return module.decoder(x, pos, skips, deterministic, fp_idx, seed, par_embedding)[0]
+    return module.decoder(x, pos, skips, deterministic, fp_idx, seed, par_embedding,
+                          placement=placement)[0]
 
 
 def all_points_unet_precompute(fractions, radii, max_neighbors: int, dec_k,

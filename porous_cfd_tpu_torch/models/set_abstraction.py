@@ -31,6 +31,7 @@ from porous_cfd_tpu_torch.models.neighbors import (farthest_point_sampling, fps_
                                                    gather_points, knn, knn_interpolate_with_idx,
                                                    masked_max, radius_neighbors)
 from porous_cfd_tpu_torch.ops import dropout as dropout_ops
+from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement
 from porous_cfd_tpu_torch.physics.analytic import ACTIVATIONS
 
 
@@ -230,9 +231,9 @@ class FeaturePropagation(nn.Module):
         return x_up if x_skip is None else torch.cat([x_up, x_skip], dim=-1)
 
     def forward(self, x, pos, x_skip, pos_skip, deterministic: bool = True, knn_idx=None,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None, placement: Placement = WHOLE):
         return self.mlp(self.upsample(x, pos, x_skip, pos_skip, knn_idx), deterministic,
-                        seed), pos_skip
+                        seed, placement), pos_skip
 
 
 class FeaturePropagationNeuralOperator(FeaturePropagation):
@@ -252,8 +253,9 @@ class FeaturePropagationNeuralOperator(FeaturePropagation):
         return ACTIVATIONS[self.activation](self.par_reduce(par_embedding))
 
     def forward(self, par_embedding, x, pos, x_skip, pos_skip, deterministic: bool = True,
-                knn_idx=None, seed: Optional[int] = None):
-        y, pos_skip = super().forward(x, pos, x_skip, pos_skip, deterministic, knn_idx, seed)
+                knn_idx=None, seed: Optional[int] = None, placement: Placement = WHOLE):
+        y, pos_skip = super().forward(x, pos, x_skip, pos_skip, deterministic, knn_idx, seed,
+                                      placement)
         return y * self.modulation(par_embedding), pos_skip
 
 
@@ -286,11 +288,11 @@ class FeaturePropagationSeq(nn.Module):
 
     def forward(self, x, pos, skips, deterministic: bool = True, knn_idx=None,
                 seed: Optional[int] = None, par_embedding=None,
-                n_levels: Optional[int] = None):
+                n_levels: Optional[int] = None, placement: Placement = WHOLE):
         """Levels [:n_levels] (all when None) from the coarsest (x, pos)."""
         for i, level in enumerate(self.levels[:n_levels]):
             x_skip, pos_skip = skips[-(i + 1)]
             args = (x, pos, x_skip, pos_skip, deterministic,
-                    None if knn_idx is None else knn_idx[i], fp_level_seed(seed, i))
+                    None if knn_idx is None else knn_idx[i], fp_level_seed(seed, i), placement)
             x, pos = level(*args) if par_embedding is None else level(par_embedding, *args)
         return x, pos

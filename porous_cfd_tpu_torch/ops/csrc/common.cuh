@@ -193,19 +193,24 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1
 // keep bit of (layer, case, merged row, column) is output column % 4 of
 // philox(counter (column / 4, row, case, layer), key (k0, k1)), compared with
 // the threshold as an UNSIGNED integer (a signed compare turns rate 0.05
-// into about 55% dropped).
+// into about 55% dropped). case and row are the batch's global ones: a
+// launch on a share of the cases or rows adds case0 to its case index and
+// row0 to its merged row (both 0 for a whole batch).
 struct Dropout {
   unsigned k0, k1;
+  int case0, row0;
   unsigned thresh[kMaxLayers];
   float scale[kMaxLayers];
   int on[kMaxLayers];
 };
 
 inline Dropout make_dropout(unsigned k0, unsigned k1, int n_layers, const unsigned* thresh,
-                            const float* scale, const int* on) {
+                            const float* scale, const int* on, int case0, int row0) {
   Dropout d{};
   d.k0 = k0;
   d.k1 = k1;
+  d.case0 = case0;
+  d.row0 = row0;
   for (int i = 0; i < n_layers && i < kMaxLayers; ++i) {
     d.thresh[i] = thresh ? thresh[i] : 0u;
     d.scale[i] = scale ? scale[i] : 1.f;
@@ -219,25 +224,27 @@ inline Dropout make_dropout(unsigned k0, unsigned k1, int n_layers, const unsign
 struct LayerDrop {
   unsigned k0, k1, thresh;
   float scale;
-  int layer;
+  int layer, case0, row0;
   bool on;
 };
 
 __device__ __forceinline__ LayerDrop layer_drop(const Dropout& dr, int layer) {
-  return {dr.k0, dr.k1, dr.thresh[layer], dr.scale[layer], layer, dr.on[layer] != 0};
+  return {dr.k0,   dr.k1,    dr.thresh[layer], dr.scale[layer],
+          layer,   dr.case0, dr.row0,          dr.on[layer] != 0};
 }
 
 // the factors (0 or 1 / keep) of columns c and c + 1 (c even) of one merged
 // row, all 1 where the layer has no dropout: the half of Philox output
-// (c / 4, row, case, layer) that holds them, selected without indexing
+// (c / 4, row0 + row, case0 + case, layer) that holds them, selected
+// without indexing
 __device__ __forceinline__ void keep2(const LayerDrop& d, int case_, int row, int c,
                                       float (&f)[2]) {
   if (!d.on) {
     f[0] = f[1] = 1.f;
     return;
   }
-  const uint4 r = philox4x32_10(make_uint4((unsigned)(c >> 2), (unsigned)row, (unsigned)case_,
-                                           (unsigned)d.layer),
+  const uint4 r = philox4x32_10(make_uint4((unsigned)(c >> 2), (unsigned)(d.row0 + row),
+                                           (unsigned)(d.case0 + case_), (unsigned)d.layer),
                                 d.k0, d.k1);
   const bool hi = (c & 2) != 0;
   f[0] = (hi ? r.z : r.x) < d.thresh ? d.scale : 0.f;

@@ -68,7 +68,9 @@ __global__ void philox_kernel(const unsigned* in, unsigned* out, int n) {
 // rows [ov_row0, ov_row0 + n_pts) of ov (n_cases, ov_rows, O); J/H to oj/oh
 // (n_cases, n_pts, O, D). Dropout: key (k0, k1) and, per layer, the unsigned
 // keep threshold, the scale 1 / keep and whether it is on (all may be null:
-// no dropout). stash_a / stash_z (null: no stash) receive the training
+// no dropout); case0 and row0 are added to the masks' case index and merged
+// row (a launch on a share of a batch's cases or rows; 0 for the whole).
+// stash_a / stash_z (null: no stash) receive the training
 // stash, rows ((b * n_pts + pt) * C + comp) with C = 1 + 2D (1 value-only):
 // stash_a holds every layer's input rows, stash_z every hidden layer's
 // pre-activations, layer after layer. v_width: the width of the v rows;
@@ -86,13 +88,14 @@ extern "C" int decoder_prop_forward(int d_dims, int act, int with_derivatives,
                                     const int* widths, float* ov, int ov_rows,
                                     int ov_row0, float* oj, float* oh, unsigned k0,
                                     unsigned k1, const unsigned* thresh, const float* scale,
-                                    const int* on, float* stash_a, float* stash_z,
-                                    int v_width, const float* j0_add, const float* h0_add,
+                                    const int* on, int case0, int row0, float* stash_a,
+                                    float* stash_z, int v_width, const float* j0_add,
+                                    const float* h0_add,
                                     float* wsplit, long long wsplit_floats, void* stream) {
   return prop_forward<false>(d_dims, act, with_derivatives != 0, v, jt, ht, n_cases, n_pts,
                              ctx, nullptr, n_layers, w, b, widths, ov, ov_rows, ov_row0, oj,
-                             oh, make_dropout(k0, k1, n_layers, thresh, scale, on), stash_a,
-                             stash_z, v_width, j0_add, h0_add, wsplit, wsplit_floats,
+                             oh, make_dropout(k0, k1, n_layers, thresh, scale, on, case0, row0),
+                             stash_a, stash_z, v_width, j0_add, h0_add, wsplit, wsplit_floats,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -125,15 +128,15 @@ extern "C" int decoder_prop_backward(
     int d_dims, int act, int with_derivatives, const float* gv, int ov_rows, int ov_row0,
     const float* gj, const float* gh, int n_cases, int n_pts, int n_layers,
     const float* const* w_orig, const int* ldw, const int* widths, unsigned k0, unsigned k1,
-    const unsigned* thresh, const float* scale, const int* on, const float* stash_a,
-    const float* stash_z, float* gz_stash, float* dv, float* djt, float* dht,
-    float* const* dw, float* const* db, float* dctx, float* scratch, long long scratch_floats,
-    int v_width, float* dja, float* dha, void* stream) {
+    const unsigned* thresh, const float* scale, const int* on, int case0, int row0,
+    const float* stash_a, const float* stash_z, float* gz_stash, float* dv, float* djt,
+    float* dht, float* const* dw, float* const* db, float* dctx, float* scratch,
+    long long scratch_floats, int v_width, float* dja, float* dha, void* stream) {
   return prop_backward<false>(d_dims, act, with_derivatives != 0, gv, ov_rows, ov_row0, gj, gh,
                               n_cases, n_pts, n_layers, w_orig, ldw, widths,
-                              make_dropout(k0, k1, n_layers, thresh, scale, on), nullptr,
-                              stash_a, stash_z, gz_stash, nullptr, dv, djt, dht, dw, db, dctx,
-                              nullptr, scratch, scratch_floats, v_width, dja, dha,
+                              make_dropout(k0, k1, n_layers, thresh, scale, on, case0, row0),
+                              nullptr, stash_a, stash_z, gz_stash, nullptr, dv, djt, dht, dw,
+                              db, dctx, nullptr, scratch, scratch_floats, v_width, dja, dha,
                               static_cast<cudaStream_t>(stream));
 }
 

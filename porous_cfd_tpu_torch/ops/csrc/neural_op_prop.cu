@@ -77,15 +77,16 @@ extern "C" int neural_ops_prop_forward(int d_dims, int act, int with_derivatives
                                        const int* widths, float* ov, int ov_rows,
                                        int ov_row0, float* oj, float* oh, unsigned k0,
                                        unsigned k1, const unsigned* thresh, const float* scale,
-                                       const int* on, float* stash_a, float* stash_z,
-                                       const float* par, int last_activation, int reduction,
+                                       const int* on, int case0, int row0, float* stash_a,
+                                       float* stash_z, const float* par,
+                                       int last_activation, int reduction,
                                        float* wsplit, long long wsplit_floats, void* stream) {
   if (par == nullptr || !trunk_widths_ok(n_layers, reduction != 0, widths))
     return (int)cudaErrorInvalidValue;
   return prop_forward<true>(d_dims, act, with_derivatives != 0, v, jt, ht, n_cases, n_pts,
                             ctx, par, n_layers, w, b, widths, ov, ov_rows, ov_row0, oj, oh,
-                            make_dropout(k0, k1, n_layers, thresh, scale, on), stash_a,
-                            stash_z, widths[0], nullptr, nullptr, wsplit, wsplit_floats,
+                            make_dropout(k0, k1, n_layers, thresh, scale, on, case0, row0),
+                            stash_a, stash_z, widths[0], nullptr, nullptr, wsplit, wsplit_floats,
                             static_cast<cudaStream_t>(stream), reduction != 0,
                             last_activation == 0);
 }
@@ -113,19 +114,20 @@ extern "C" int neural_ops_prop_backward(
     int d_dims, int act, int with_derivatives, const float* gv, int ov_rows, int ov_row0,
     const float* gj, const float* gh, int n_cases, int n_pts, int n_layers,
     const float* const* w_orig, const int* ldw, const int* widths, unsigned k0, unsigned k1,
-    const unsigned* thresh, const float* scale, const int* on, const float* stash_a,
-    const float* stash_z, float* gz_stash, float* dv, float* djt, float* dht,
-    float* const* dw, float* const* db, float* dctx, float* scratch, long long scratch_floats,
-    const float* par, float* dpar_rows, float* dpar, int last_activation, int reduction,
+    const unsigned* thresh, const float* scale, const int* on, int case0, int row0,
+    const float* stash_a, const float* stash_z, float* gz_stash, float* dv, float* djt,
+    float* dht, float* const* dw, float* const* db, float* dctx, float* scratch,
+    long long scratch_floats, const float* par, float* dpar_rows, float* dpar,
+    int last_activation, int reduction,
     void* stream) {
   if (par == nullptr || dpar == nullptr || dpar_rows == nullptr ||
       !trunk_widths_ok(n_layers, reduction != 0, widths))
     return (int)cudaErrorInvalidValue;
   return prop_backward<true>(d_dims, act, with_derivatives != 0, gv, ov_rows, ov_row0, gj, gh,
                              n_cases, n_pts, n_layers, w_orig, ldw, widths,
-                             make_dropout(k0, k1, n_layers, thresh, scale, on), par, stash_a,
-                             stash_z, gz_stash, dpar_rows, dv, djt, dht, dw, db, dctx, dpar,
-                             scratch, scratch_floats, widths[0], nullptr, nullptr,
+                             make_dropout(k0, k1, n_layers, thresh, scale, on, case0, row0),
+                             par, stash_a, stash_z, gz_stash, dpar_rows, dv, djt, dht, dw, db,
+                             dctx, dpar, scratch, scratch_floats, widths[0], nullptr, nullptr,
                              static_cast<cudaStream_t>(stream), reduction != 0,
                              last_activation == 0);
 }

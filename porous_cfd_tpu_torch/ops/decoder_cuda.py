@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from porous_cfd_tpu_torch.ops import build, dropout as dropout_mod, mlp_prop_cuda
+from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement
 from porous_cfd_tpu_torch.ops.mlp_prop_cuda import (ACT_CODES, MAX_DIMS, Meta,
                                                     check_tensor, dropout_rates)
 from porous_cfd_tpu_torch.physics import analytic
@@ -43,11 +44,11 @@ def _t(x):
 def decoder_prop_plain(linears: Sequence, n_local: int, v, jt, ht, v_b, g,
                        activation: str, dropout=None, deterministic: bool = True,
                        seed: Optional[int] = None, jctx_t=None, hctx_t=None, j0_add=None,
-                       h0_add=None):
+                       h0_add=None, placement: Placement = WHOLE):
     """``analytic.decoder_prop`` in the transposed layout."""
     out, j, h = analytic.decoder_prop(linears, n_local, v, _t(jt), _t(ht), v_b, g, activation,
                                       dropout, deterministic, seed, _t(jctx_t), _t(hctx_t),
-                                      _t(j0_add), _t(h0_add))
+                                      _t(j0_add), _t(h0_add), placement)
     return out, j.transpose(-1, -2), h.transpose(-1, -2)
 
 
@@ -63,7 +64,8 @@ def decoder_prop_backward(meta: Meta, weights, stashes, gv, gj, gh):
 def decoder_prop(linears: Sequence, n_local: int, v, jt, ht, v_b, g,
                  activation: str, dropout: Optional[Sequence[float]] = None,
                  deterministic: bool = True, seed: Optional[int] = None,
-                 jctx_t=None, hctx_t=None, j0_add=None, h0_add=None):
+                 jctx_t=None, hctx_t=None, j0_add=None, h0_add=None,
+                 placement: Placement = WHOLE):
     """Decoder propagation of internal (v, J, H) rows and boundary value rows.
 
     :param linears: the decoder's ``nn.Linear`` layers; layer 0 takes
@@ -73,7 +75,8 @@ def decoder_prop(linears: Sequence, n_local: int, v, jt, ht, v_b, g,
     :param g: (B, 1, G) pooled context.
     :param dropout: one rate per layer, applied after the activation of
         each layer unless ``deterministic``; ``seed`` (a 64-bit integer)
-        fixes the masks.
+        fixes the masks, drawn at the rows' ``placement`` in their batch
+        (the whole batch by default).
     :param jctx_t/hctx_t: (B, D, Ni, G) input derivatives of the context
         block (the ``ctx_width`` mode), or None.
     :param j0_add/h0_add: (B, D, Ni, F1) terms added to layer 0's J/H
@@ -90,7 +93,8 @@ def decoder_prop(linears: Sequence, n_local: int, v, jt, ht, v_b, g,
                          "each other")
     if v.device.type == "cpu":
         return decoder_prop_plain(linears, n_local, v, jt, ht, v_b, g, activation,
-                                  rates, False, seed, jctx_t, hctx_t, j0_add, h0_add)
+                                  rates, False, seed, jctx_t, hctx_t, j0_add, h0_add,
+                                  placement)
     if v.device.type != "cuda":
         raise ValueError(f"decoder_prop: no kernel for device {v.device}")
     if activation not in ACT_CODES:
@@ -133,7 +137,8 @@ def decoder_prop(linears: Sequence, n_local: int, v, jt, ht, v_b, g,
         check("h0_add", h0_add, (b_cases, d_dims, n_int, widths[1]))
 
     meta = Meta(n_local, activation, rates, seed, d_dims, b_cases, n_int, n_bnd,
-                tuple(widths), ctx_width if jctx_t is not None else 0, j0_add is not None)
+                tuple(widths), ctx_width if jctx_t is not None else 0, j0_add is not None,
+                placement=placement)
     # first-layer split: the per-case context term is one small matmul,
     # differentiated by autograd
     ctx = F.linear(g[:, 0, :], w0[:, n_local:], linears[0].bias).contiguous()

@@ -13,8 +13,10 @@ spans [internal || boundary] rows, and the value, J and H rows of a point
 share it. A column is kept when its 32 bits, read as an **unsigned** integer,
 are below ``keep_threshold(rate)``; kept values are scaled by ``1 / keep``.
 
-``csrc/common.cuh`` (``philox4x32_10``) computes the same function on the
-card, so both versions draw identical masks on any device. Here it runs in
+The case and merged row are the whole batch's: a share of it (a sharded
+training step) draws its part of the single process's mask at its
+``Placement``. ``csrc/common.cuh`` (``philox4x32_10``) computes the same
+function on the card, so both versions draw identical masks on any device. Here it runs in
 int64 torch arithmetic: every 32 x 32-bit product is split into 16-bit
 halves so that no intermediate leaves int64, and results are masked to 32
 bits.
@@ -23,6 +25,9 @@ The masks differ from ``jax.random``'s stream by design: parity with the JAX
 package is tested with dropout off, and the masks by their statistics.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 
@@ -60,20 +65,62 @@ def philox4x32_10(counter, key):
     return c0, c1, c2, c3
 
 
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a share of a batch sits in the whole batch. ``case0``: the
+    global index of local case 0. With the rows split (``bnd_row0`` set),
+    local internal row r is global merged row ``int_row0 + r`` and local
+    boundary row r is ``bnd_row0 + r`` (the global internal rows come
+    first); ``mesh`` then holds the 'points' group that shares the rows.
+    The default is the whole batch."""
+    case0: int = 0
+    int_row0: int = 0
+    bnd_row0: Optional[int] = None
+    mesh: Optional[object] = None
+
+    @property
+    def rows_split(self) -> bool:
+        return self.bnd_row0 is not None
+
+    def global_rows(self, rows: torch.Tensor, n_int: Optional[int]) -> torch.Tensor:
+        """The global merged rows of local merged rows ``rows``, where the
+        first ``n_int`` local rows are internal (needed when the rows are
+        split)."""
+        if not self.rows_split:
+            return rows
+        if n_int is None:
+            raise ValueError("a points-split placement needs the local internal row count")
+        return torch.where(rows < n_int, rows + self.int_row0, rows - n_int + self.bnd_row0)
+
+    def launch_row0(self, n_int: int, boundary: bool) -> int:
+        """The row offset a kernel launch adds to its merged row (internal
+        launch: rows from 0; boundary launch: rows from ``n_int``)."""
+        if not self.rows_split:
+            return 0
+        return self.bnd_row0 - n_int if boundary else self.int_row0
+
+
+WHOLE = Placement()
+
+
 def keep_threshold(rate: float) -> int:
     """The unsigned 32-bit threshold below which a column is kept."""
     return min(MASK32, int((1.0 - rate) * 2 ** 32))
 
 
 def keep_mask(seed: int, layer: int, n_cases: int, n_rows: int, width: int,
-              rate: float, device=None) -> torch.Tensor:
+              rate: float, device=None, case0: int = 0,
+              rows: torch.Tensor | None = None) -> torch.Tensor:
     """Inverted-dropout mask (n_cases, n_rows, width) float32 over merged
-    rows: ``1 / keep`` where kept, else 0."""
+    rows: ``1 / keep`` where kept, else 0. A share of a batch draws the
+    whole batch's mask at its place: its cases from global case ``case0``
+    on, its rows at the global merged rows ``rows`` (n_rows,) (0 .. n_rows
+    - 1 when None)."""
     keep = 1.0 - rate
     # one Philox call per 4 columns; its four outputs are columns 4c .. 4c+3
     quads = torch.arange((width + 3) // 4, device=device)
-    rows = torch.arange(n_rows, device=device)[:, None]
-    cases = torch.arange(n_cases, device=device)[:, None, None]
+    rows = (torch.arange(n_rows, device=device) if rows is None else rows.to(device))[:, None]
+    cases = (torch.arange(n_cases, device=device) + case0)[:, None, None]
     outs = philox4x32_10((quads, rows, cases, layer),
                          (seed & MASK32, (seed >> 32) & MASK32))
     bits = torch.stack(torch.broadcast_tensors(*outs), dim=-1)

@@ -154,8 +154,8 @@ class Kernels:
         if fwd.argtypes is None:
             p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
             fwd.argtypes = ([i, i, i, p, p, p, i, i, p, i, p, p, p, p, i, i, p, p, u, u, p, p,
-                             p, p, p] + [p, i, i] * self.modulated + [i, p, p] * self.coupled
-                            + [p, ll, p])
+                             p, i, i, p, p] + [p, i, i] * self.modulated
+                            + [i, p, p] * self.coupled + [p, ll, p])
             fwd.restype = i
             fws = getattr(lib, f"{self.prefix}_forward_workspace")
             fws.argtypes = [i, p, i]
@@ -164,8 +164,8 @@ class Kernels:
             ws.argtypes = [i, ll, i, p]
             ws.restype = ll
             bwd = getattr(lib, f"{self.prefix}_backward")
-            bwd.argtypes = ([i, i, i, p, i, i, p, p, i, i, i, p, p, p, u, u, p, p, p, p, p, p,
-                             p, p, p, p, p, p, p, ll] + [p, p, p, i, i] * self.modulated
+            bwd.argtypes = ([i, i, i, p, i, i, p, p, i, i, i, p, p, p, u, u, p, p, p, i, i, p,
+                             p, p, p, p, p, p, p, p, p, ll] + [p, p, p, i, i] * self.modulated
                             + [i, p, p] * self.coupled + [p])
             bwd.restype = i
         return lib
@@ -196,13 +196,16 @@ class Meta:
     are that much wider (``int_widths``); ``j0_add`` marks the additive
     layer-0 mode. Without ``reduction`` every layer is an activated (or,
     the last one without ``last_activation``, linear) operator and O is the
-    last operator's width."""
+    last operator's width. ``placement`` puts the launches' cases and rows
+    at their places in the whole batch, for the dropout masks."""
 
     def __init__(self, n_local, activation, rates, seed, d_dims, b_cases, n_int, n_bnd,
                  widths, ctx_width: int = 0, j0_add: bool = False, reduction: bool = True,
-                 last_activation: bool = True):
+                 last_activation: bool = True,
+                 placement: dropout_mod.Placement = dropout_mod.WHOLE):
         if ctx_width and j0_add:
             raise ValueError("the ctx_width and j0_add modes exclude each other")
+        self.placement = placement
         self.reduction = reduction
         self.last_activation = last_activation
         self.ctx_width = ctx_width
@@ -245,16 +248,19 @@ class Meta:
                                        ("no_reduction", not self.reduction)) if on]
         return "_".join(trunk) or None
 
-    def dropout_args(self):
-        """(k0, k1, thresholds, scales, on) for the C interface."""
+    def dropout_args(self, boundary: bool = False):
+        """(k0, k1, thresholds, scales, on, case0, row0) of the internal or
+        the ``boundary`` launch for the C interface."""
         nl = self.n_layers
         on = [int(r > 0) for r in self.rates]
         thresh = (ctypes.c_uint * nl)(*[dropout_mod.keep_threshold(r) if r > 0 else 0
                                         for r in self.rates])
         scale = (ctypes.c_float * nl)(*[1.0 / (1.0 - r) if r > 0 else 1.0
                                         for r in self.rates])
+        pl = self.placement
         return (self.seed & dropout_mod.MASK32, (self.seed >> 32) & dropout_mod.MASK32,
-                thresh, scale, build.int_array(on))
+                thresh, scale, build.int_array(on), pl.case0,
+                pl.launch_row0(self.n_int, boundary))
 
     def stash_floats(self, rows, w):
         """Floats of a launch's stash: every layer's input rows, and the
@@ -322,7 +328,8 @@ def forward(kern: Kernels, meta: Meta, v, jt, ht, v_b, ctx, weights, biases, sta
             sa, sz = stash_for(b_cases * n_bnd, meta.widths)
             code = fn(d_dims, act, 0, v_b.data_ptr(), None, None, b_cases, n_bnd,
                       ctx.data_ptr(), len(ws), w_ptrs, b_ptrs, build.int_array(meta.widths),
-                      ov.data_ptr(), n_int + n_bnd, n_int, None, None, *drop, sa, sz, *mod,
+                      ov.data_ptr(), n_int + n_bnd, n_int, None, None,
+                      *meta.dropout_args(boundary=True), sa, sz, *mod,
                       *kern.mode_args(meta), *kern.coupled_args(meta), wsplit.data_ptr(),
                       n_split, stream)
             build.check_launch(f"{kern.prefix} (boundary)", code)
@@ -395,7 +402,8 @@ def backward(kern: Kernels, meta: Meta, weights, stashes, gv, gj, gh, par=None):
         if n_bnd:
             dv_b = torch.empty((b_cases, n_bnd, widths[0]), dtype=torch.float32, device=dev)
             code = fn(d_dims, act, 0, gv.data_ptr(), n_int + n_bnd, n_int, None, None, b_cases,
-                      n_bnd, nl, w_ptrs, ldw, w_bnd, *drop, stashes[2].data_ptr(),
+                      n_bnd, nl, w_ptrs, ldw, w_bnd, *meta.dropout_args(boundary=True),
+                      stashes[2].data_ptr(),
                       stashes[3].data_ptr() if stashes[3].numel() else None, gz.data_ptr(),
                       dv_b.data_ptr(), None, None, dw_ptrs, db_ptrs, dctx.data_ptr(),
                       scratch.data_ptr(), n_scratch, *mod, *kern.coupled_args(meta), stream)

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from porous_cfd_tpu_torch.ops import dropout as dropout_mod, mlp_prop_cuda
+from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement
 from porous_cfd_tpu_torch.ops.mlp_prop_cuda import (ACT_CODES, MAX_DIMS, Meta,
                                                     check_tensor, dropout_rates)
 from porous_cfd_tpu_torch.physics import analytic
@@ -51,7 +52,7 @@ def trunk_seed(seed: Optional[int]) -> Optional[int]:
 def neural_ops_prop_plain(operators: Sequence, reduction, n_local: int, v, jt, ht, v_b,
                           geom, par, activation: str, dropout=None,
                           deterministic: bool = True, seed: Optional[int] = None,
-                          last_activation: bool = True):
+                          last_activation: bool = True, placement: Placement = WHOLE):
     """The JAX package's ``_neural_ops_prop_ctx`` followed by ``dense_prop``
     through the reduction (none when ``reduction`` is None), in the
     transposed layout, with the port's dropout masks."""
@@ -71,7 +72,8 @@ def neural_ops_prop_plain(operators: Sequence, reduction, n_local: int, v, jt, h
         if last_activation or i < len(operators) - 1:
             v, j, h = analytic.activation_prop_merged(activation, v, j, h, n_int)
         if rates[i] > 0:
-            v, j, h = analytic.dropout_prop_merged(seed, i, rates[i], v, j, h, n_int)
+            v, j, h = analytic.dropout_prop_merged(seed, i, rates[i], v, j, h, n_int,
+                                                   placement)
         v, j, h = v * par, j * par_j, h * par_j
     if reduction is not None:
         v, j, h = analytic.dense_prop(reduction, v, j, h)
@@ -90,7 +92,7 @@ def neural_ops_prop_backward(meta: Meta, weights, par, stashes, gv, gj, gh):
 def neural_ops_prop(operators: Sequence, reduction, n_local: int, v, jt, ht, v_b, geom,
                     par, activation: str, dropout: Optional[Sequence[float]] = None,
                     deterministic: bool = True, seed: Optional[int] = None,
-                    last_activation: bool = True):
+                    last_activation: bool = True, placement: Placement = WHOLE):
     """Trunk + reduction propagation of internal (v, J, H) rows and boundary
     value rows.
 
@@ -104,14 +106,17 @@ def neural_ops_prop(operators: Sequence, reduction, n_local: int, v, jt, ht, v_b
     :param geom: (B, 1, G) pooled geometry embedding; ``par`` (B, 1, F) the
         pooled branch embedding.
     :param dropout: one rate per operator, applied after its activation
-        unless ``deterministic``; ``seed`` (a 64-bit integer) fixes the masks.
+        unless ``deterministic``; ``seed`` (a 64-bit integer) fixes the masks,
+        drawn at the rows' ``placement`` in their batch (the whole batch by
+        default).
     """
     rates = dropout_rates(dropout, len(operators), deterministic, "neural_ops_prop")
     if any(rates) and seed is None:
         raise ValueError("neural_ops_prop: dropout needs a seed")
     if v.device.type == "cpu":
         return neural_ops_prop_plain(operators, reduction, n_local, v, jt, ht, v_b, geom, par,
-                                     activation, rates, False, seed, last_activation)
+                                     activation, rates, False, seed, last_activation,
+                                     placement)
     if v.device.type != "cuda":
         raise ValueError(f"neural_ops_prop: no kernel for device {v.device}")
     if activation not in ACT_CODES:
@@ -151,7 +156,8 @@ def neural_ops_prop(operators: Sequence, reduction, n_local: int, v, jt, ht, v_b
     widths = (n_local,) + tuple(lin.weight.shape[0] for lin in linears)
     meta = Meta(n_local, activation, rates + (0.0,) * (reduction is not None),
                 trunk_seed(seed), d_dims, b_cases, n_int, n_bnd, widths,
-                reduction=reduction is not None, last_activation=last_activation)
+                reduction=reduction is not None, last_activation=last_activation,
+                placement=placement)
     # first-layer split: the per-case context term is one small matmul,
     # differentiated by autograd
     ctx = F.linear(geom[:, 0, :], w0[:, n_local:], operators[0].bias).contiguous()

@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from porous_cfd_tpu_torch.ops.dropout import keep_mask
+from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement, keep_mask
 
 
 def tanh_rules(v):
@@ -132,35 +132,43 @@ def activation_prop_merged(activation: str, v, j, h, n_int: int):
     return val, j, h
 
 
-def merged_mask(seed: int, layer: int, rate: float, v) -> torch.Tensor:
+def merged_mask(seed: int, layer: int, rate: float, v, n_int: Optional[int] = None,
+                placement: Placement = WHOLE) -> torch.Tensor:
     """The inverted-dropout mask of ``v`` (..., N, F), whose rows are the
     merged [internal || boundary] rows: ``ops/dropout.py``'s counter function
     of (seed, layer, case, merged row, column), the one the decoder kernel
-    draws."""
+    draws, at the global cases and rows of ``v``'s ``placement`` in its
+    batch (a points-split one needs the ``n_int`` internal rows of ``v``)."""
     n_cases = v[..., 0, 0].numel()
+    # a case of the batch axis spans n_cases // B mask cases
+    case0 = placement.case0 * (n_cases // v.shape[0]) if v.dim() > 2 else placement.case0
+    rows = (placement.global_rows(torch.arange(v.shape[-2], device=v.device), n_int)
+            if placement.rows_split else None)
     return keep_mask(seed, layer, n_cases, v.shape[-2], v.shape[-1], rate,
-                     v.device).reshape(v.shape).to(v.dtype)
+                     v.device, case0, rows).reshape(v.shape).to(v.dtype)
 
 
-def dropout_prop_merged(seed: int, layer: int, rate: float, v, j, h, n_int: int):
+def dropout_prop_merged(seed: int, layer: int, rate: float, v, j, h, n_int: int,
+                        placement: Placement = WHOLE):
     """Inverted dropout with one mask over the merged [internal || boundary]
     rows of ``v`` (..., N, F) (``merged_mask``); J/H (..., Ni, D, F) share
     the mask of their internal rows (the derivative of mask * x / keep is
     mask * dx / keep)."""
-    mask = merged_mask(seed, layer, rate, v)
+    mask = merged_mask(seed, layer, rate, v, n_int, placement)
     mask_i = mask[..., :n_int, None, :]
     return v * mask, j * mask_i, h * mask_i
 
 
 def mlp_prop_merged(linears: Sequence, v, j, h, n_int: int, activation: str,
                     dropout: Optional[Sequence[float]] = None, last_activation: bool = True,
-                    deterministic: bool = True, seed: Optional[int] = None):
+                    deterministic: bool = True, seed: Optional[int] = None,
+                    placement: Placement = WHOLE):
     """(v, J, H) through an MLP whose value rows ``v`` (..., N, F) are the
     merged [internal || boundary] rows while J/H (..., Ni, D, F) cover the
     first ``n_int``: one product a layer feeds all rows, and layer i's
     dropout (after its activation, unless ``deterministic``) is
-    ``merged_mask(seed, i)`` over the merged rows, the mask ``MLP`` draws
-    on the same rows."""
+    ``merged_mask(seed, i)`` over the merged rows at their ``placement``,
+    the mask ``MLP`` draws on the same rows."""
     n_out = len(linears)
     for i, lin in enumerate(linears):
         v, j, h = dense_prop(lin, v, j, h)
@@ -169,14 +177,16 @@ def mlp_prop_merged(linears: Sequence, v, j, h, n_int: int, activation: str,
         if dropout is not None and dropout[i] > 0 and not deterministic:
             if seed is None:
                 raise ValueError("mlp_prop_merged: dropout needs a seed")
-            v, j, h = dropout_prop_merged(seed, i, float(dropout[i]), v, j, h, n_int)
+            v, j, h = dropout_prop_merged(seed, i, float(dropout[i]), v, j, h, n_int,
+                                          placement)
     return v, j, h
 
 
 def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
                  activation: str, dropout: Optional[Sequence[float]] = None,
                  deterministic: bool = True, seed: Optional[int] = None,
-                 j_ctx=None, h_ctx=None, j0_add=None, h0_add=None):
+                 j_ctx=None, h_ctx=None, j0_add=None, h0_add=None,
+                 placement: Placement = WHOLE):
     """Decoder-stack propagation over ``[local || context]`` inputs with the
     internal and boundary value rows merged into one matmul per layer; the
     last layer is linear.
@@ -185,7 +195,8 @@ def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
         (..., Ni, D, L)); ``v_b``: boundary local features (..., Nb, L) or
         None; ``g``: pooled context (..., 1, G).
     :param dropout: one rate per layer, applied after each layer's
-        activation unless ``deterministic``, with masks fixed by ``seed``.
+        activation unless ``deterministic``, with masks fixed by ``seed``
+        at the rows' ``placement`` in their batch (``merged_mask``).
     :param j_ctx/h_ctx/j0_add/h0_add: the max-pool coupling of the context
         (``context_dense_prop``), or None.
     :return: (values over [internal || boundary] rows, J, H).
@@ -204,5 +215,6 @@ def decoder_prop(linears: Sequence, n_local: int, v, j, h, v_b, g,
         if dropout is not None and dropout[i] > 0 and not deterministic:
             if seed is None:
                 raise ValueError("decoder_prop: dropout needs a seed")
-            v, j, h = dropout_prop_merged(seed, i, float(dropout[i]), v, j, h, n_int)
+            v, j, h = dropout_prop_merged(seed, i, float(dropout[i]), v, j, h, n_int,
+                                          placement)
     return v, j, h

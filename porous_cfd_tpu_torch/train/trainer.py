@@ -19,6 +19,12 @@ The observable contract is the JAX trainer's:
   * ``log_every`` > 1 runs that many epochs per ``train_epochs`` call and
     reads their metrics with one sync; ``val_every`` sets the validation
     cadence; ``resample_every`` swaps in ``resample_fn(round)``'s point cloud.
+
+With a ``mesh`` every rank runs this loop on the same global batches (the
+seeded permutation is the same on every rank; the engine gives each rank
+its share), validation goes through the sharded ``eval_batch``, a resume
+loads the checkpoint on every rank, and rank 0 alone writes: checkpoints,
+``model_meta.json``, TensorBoard and the printed progress.
 """
 from __future__ import annotations
 
@@ -33,7 +39,6 @@ import numpy as np
 import torch
 
 from porous_cfd_tpu_torch.data.foam_data import FoamData
-from porous_cfd_tpu_torch.device import not_ported
 from porous_cfd_tpu_torch.models.base import PinnModel, error_labels
 from porous_cfd_tpu_torch.physics.scaling import LossScaler, RelobraloScaler, RelobraloState
 from porous_cfd_tpu_torch.train.engine import (TrainState, gather_cases, make_optimizer,
@@ -79,6 +84,16 @@ def _read(path, device) -> dict:
     return torch.load(Path(path), map_location=device, weights_only=True)
 
 
+class _NoWriter:
+    """The TensorBoard writer of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    add_scalars = add_scalar
+    flush = add_scalar
+
+
 class Trainer:
     def __init__(self, model: PinnModel,
                  train_data: FoamData,
@@ -95,9 +110,11 @@ class Trainer:
             stacked point subsample of the same shapes, called when training
             crosses a ``config.resample_every`` epoch boundary (round_idx =
             epoch // resample_every, so a resume replays the same samples).
+        :param mesh/shard_points: train on a mesh of ranks
+            (``parallel/mesh.py``), each rank on its share of every batch.
         """
-        if mesh is not None or shard_points:
-            raise not_ported("multi-device training (mesh / shard_points)")
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
         self.model = model
         self.train_data = train_data
         self.resample_fn = resample_fn
@@ -117,12 +134,13 @@ class Trainer:
                                               update_period=self.steps_per_epoch)
         self.loss_scaler = loss_scaler
         self.tx = make_optimizer(model, self.steps_per_epoch)
-        self.fns = make_train_functions(model, self.tx, loss_scaler)
+        self.fns = make_train_functions(model, self.tx, loss_scaler, mesh, shard_points)
 
         name = config.name or time.strftime("version_%Y%m%d-%H%M%S")
         self.log_dir = Path(config.logs_dir) / "lightning_logs" / name
-        self.log_dir.mkdir(parents=True, exist_ok=True)
-        self._writer = None
+        if self.writes:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
+        self._writer = None if self.writes else _NoWriter()
 
     # -- logging ------------------------------------------------------------
     @property
@@ -134,6 +152,8 @@ class Trainer:
 
     def write_model_meta(self, n_internal=None, n_boundary=None, n_obs=None,
                          precision="32"):
+        if not self.writes:
+            return
         meta = {"Model type": self.model_type,
                 "N internal": n_internal,
                 "N boundary": n_boundary,
@@ -146,7 +166,12 @@ class Trainer:
     # -- checkpointing -------------------------------------------------------
     def save_checkpoint(self, state: TrainState, epoch: int, name: str,
                         payload: Optional[dict] = None):
-        torch.save(payload or _state_payload(state, epoch), self.log_dir / name)
+        if self.writes:
+            torch.save(payload or _state_payload(state, epoch), self.log_dir / name)
+
+    def _print(self, *args):
+        if self.writes:
+            print(*args)
 
     def restore_checkpoint(self, path, state: TrainState):
         """Restore (state, epoch) into ``state``."""
@@ -189,7 +214,7 @@ class Trainer:
         start_epoch = 0
         if resume_from:
             state, start_epoch = self.restore_checkpoint(resume_from, state)
-            print(f"resumed from {resume_from} at epoch {start_epoch}")
+            self._print(f"resumed from {resume_from} at epoch {start_epoch}")
 
         host_rng = np.random.default_rng(cfg.seed)
         for _ in range(start_epoch):  # replay shuffles so resume == uninterrupted
@@ -258,15 +283,16 @@ class Trainer:
                     # the FULL state at this epoch, so best.ckpt resumes like
                     # a checkpoint written then
                     best_val = val_mean
-                    best = copy.deepcopy(_state_payload(state, last))
+                    if self.writes:
+                        best = copy.deepcopy(_state_payload(state, last))
 
             if last % cfg.checkpoint_every == 0:
                 self.save_checkpoint(state, last, f"checkpoint-epoch={last}.ckpt")
             if last % cfg.print_every < k or epoch == start_epoch:
                 rate = ((last - start_epoch) * self.steps_per_epoch
                         / max(time.time() - t0, 1e-9))
-                print(f"epoch {last}/{cfg.epochs} "
-                      f"total={metrics[0]:.5f} ({rate:.1f} steps/s)")
+                self._print(f"epoch {last}/{cfg.epochs} "
+                            f"total={metrics[0]:.5f} ({rate:.1f} steps/s)")
             if epoch == start_epoch:  # the first chunk holds the start-up
                 first_epochs, t_first = last - start_epoch, time.time()
             epoch = last
@@ -275,10 +301,11 @@ class Trainer:
             end = time.time()
             seconds = end - t0
             rest = cfg.epochs - start_epoch - first_epochs
-            print(f"fit: {cfg.epochs - start_epoch} epochs in {seconds:.3f} s, "
-                  f"{seconds * 1e3 / (cfg.epochs - start_epoch):.3f} ms per epoch"
-                  + (f"; the first {first_epochs} in {t_first - t0:.3f} s, then "
-                     f"{(end - t_first) * 1e3 / rest:.3f} ms per epoch" if rest else ""))
+            self._print(f"fit: {cfg.epochs - start_epoch} epochs in {seconds:.3f} s, "
+                        f"{seconds * 1e3 / (cfg.epochs - start_epoch):.3f} ms per epoch"
+                        + (f"; the first {first_epochs} in {t_first - t0:.3f} s, then "
+                           f"{(end - t_first) * 1e3 / rest:.3f} ms per epoch"
+                           if rest else ""))
         self.save_checkpoint(state, cfg.epochs, "model.ckpt")
         if best is not None:
             self.save_checkpoint(state, best["epoch"], "best.ckpt", payload=best)

@@ -1678,3 +1678,45 @@ def test_fvm_batch_graph_replay_matches_eager_launches(cuda):
                 err = np.linalg.norm(getattr(got, name) - getattr(want, name))
                 assert err / scale < 1e-5
             assert np.linalg.norm(got.p - want.p) / np.linalg.norm(want.p) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# A share of a batch (a sharded training step): the kernels draw the plain
+# version's masks at the share's place
+
+
+@pytest.mark.parametrize("at", [dict(case0=5), dict(case0=3, int_row0=40, bnd_row0=130)],
+                         ids=["cases", "cases_and_rows"])
+def test_kernels_with_a_placement_match_plain(cuda, at):
+    """decoder_prop and neural_ops_prop under a share's placement, dropout
+    on, forward and backward, against their plain versions under it (and
+    not their masks at the whole batch's origin)."""
+    from porous_cfd_tpu_torch.ops import dropout
+    gen = torch.Generator().manual_seed(17)
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda)  # noqa: E731
+    n_local = 16
+    dec = MLP([32, 64, 32, 3], activation="silu", last_activation=False, generator=gen).to(cuda)
+    ops = NeuralOperatorSequential(2, 32, (0.0, 0.0), "silu", generator=gen).to(cuda)
+    red = dense(32, 3, gen).to(cuda)
+    v, jt, ht, v_b = rnd(3, 50, n_local), rnd(3, 2, 50, n_local), rnd(3, 2, 50, n_local), \
+        rnd(3, 30, n_local)
+    g, par = rnd(3, 1, 16), torch.rand((3, 1, 32), generator=gen).to(cuda) + 0.5
+    calls = {"decoder": (decoder_cuda.decoder_prop, decoder_cuda.decoder_prop_plain,
+                         (dec.linears, n_local, v, jt, ht, v_b, g, "silu", [0.5, 0.5, 0.0],
+                          False, dropout.fold_in(1, 2)), list(dec.parameters())),
+             "trunk": (neural_op_cuda.neural_ops_prop, neural_op_cuda.neural_ops_prop_plain,
+                       (ops.linears, red, n_local, v, jt, ht, v_b, g, par, "silu", [0.5, 0.5],
+                        False, dropout.fold_in(1, 3)), list(ops.parameters()))}
+    pl = dropout.Placement(**at)
+    for name, (kernel, plain, args, params) in calls.items():
+        outs = []
+        for fn in (kernel, plain):
+            res = fn(*args, placement=pl)
+            loss = sum((o * o).sum() for o in res)
+            grads = torch.autograd.grad(loss, params)
+            outs.append((res, grads))
+        for a, r in zip(outs[0][0] + outs[0][1], outs[1][0] + outs[1][1]):
+            assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item(), name
+        with torch.no_grad():
+            origin = plain(*args)[0]
+        assert not torch.allclose(outs[0][0][0], origin), name

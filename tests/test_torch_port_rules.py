@@ -18,6 +18,7 @@ from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp, pi_gano_pp_
 from porous_cfd_tpu_torch.models.pipn import (PipnModule, pipn_foam, pipn_foam_pp,
                                               pipn_foam_pp_full, pipn_foam_pp_mrg,
                                               pipn_manufactured, pipn_manufactured_pp)
+from porous_cfd_tpu_torch.parallel.mesh import make_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "porous_cfd_tpu_torch"
@@ -170,8 +171,10 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """Named when more of the port raised: now multi-device training alone
-    does, and every path it once refused builds and steps."""
+    """Named when more of the port raised: now the points axis of every
+    path but PIPN's decoupled one alone does (multi-device training on the
+    data axis is ported), and every path it once refused builds and
+    steps."""
     import dataclasses
 
     from porous_cfd_tpu_torch.train.engine import make_optimizer, make_train_functions
@@ -187,8 +190,13 @@ def test_unported_paths_raise():
         fns = make_train_functions(knobbed, make_optimizer(knobbed, 1))
         state, m = fns.train_step(fns.init_state(seed=1), foam)
         assert state.step == 1 and bool(torch.isfinite(m).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh is a parallel.mesh.Mesh; points sharding of PIPN++ is not ported
+    with pytest.raises(TypeError):
         make_train_functions(model, make_optimizer(model, 1), mesh=object())
+    pp = pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_train_functions(pp, make_optimizer(pp, 1), mesh=make_mesh(1, 1, devices=["cpu"]),
+                             shard_points=True)
     # PIPN's exact and coupled paths, PiGanoFull, PI-GANO++, PIPN++ MRG and
     # bf16-mixed are ported; so are the exact paths of PI-GANO (its default,
     # with full too), PI-GANO++, PIPN++ and PIPN++ MRG, and the manufactured
@@ -241,8 +249,9 @@ def test_unported_paths_raise():
                            make_scalers(), "cpu").derivative_apply is not None
     assert fixed.get_model(build_arg_parser().parse_args(["--model", "pipn-pp-full"]),
                            make_scalers(), "cpu", fast_derivatives=False).microbatch == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(build_arg_parser().parse_args(["--mesh-data", "2"]), model, None, None)
+    # the training CLI's mesh flags no longer say "not ported"
+    assert "not ported" not in build_arg_parser().format_help()
+    assert callable(train)
 
 
 def _imports(path: Path):
@@ -295,7 +304,12 @@ def test_no_jax_import_anywhere_in_the_port():
                 "examples/vertical_duct_fixed_boundary/evaluate.py",
                 # the viz modules, the comparison pipeline and its CLIs
                 "viz/common.py", "viz/viz2d.py", "viz/viz3d.py", "pipelines/compare.py",
-                *(f"examples/{e}/compare.py" for e in EXPERIMENTS)):
+                *(f"examples/{e}/compare.py" for e in EXPERIMENTS),
+                # multi-device training, the distance ops, the dry run and
+                # the numpy datagen helpers
+                "parallel/mesh.py", "ops/distance.py", "dryrun.py",
+                "datagen/momentum_error.py", "datagen/mesh_filter.py",
+                "datagen/mesh_ops.py"):
         assert PORT / rel in files, rel
     for path in files:
         for name in _imports(path):
@@ -322,6 +336,11 @@ def test_port_imports_with_jax_blocked():
         "import porous_cfd_tpu_torch.tools.train_golden_grid\n"
         "import porous_cfd_tpu_torch.examples.vertical_duct_fixed_boundary.train\n"
         "import porous_cfd_tpu_torch.bench\n"
+        "import porous_cfd_tpu_torch.parallel.mesh\n"
+        "import porous_cfd_tpu_torch.dryrun\n"
+        "import porous_cfd_tpu_torch.ops.distance\n"
+        "import porous_cfd_tpu_torch.datagen.mesh_ops\n"
+        "import porous_cfd_tpu_torch.datagen.momentum_error\n"
         "for info in pkgutil.walk_packages(porous_cfd_tpu_torch.__path__,"
         " 'porous_cfd_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
