@@ -238,7 +238,16 @@ Phases, in order; any failure exits non-zero:
      of one under NCCL) on a written synthetic split; the mesh's
      collectives on CUDA tensors through gloo (all_reduce sum / max / min,
      all_gather) on the two ranks; and ``min_distance`` on the card, alone
-     and split over the two ranks, against the CPU's float64.
+     and split over the two ranks, against the CPU's float64. Then every
+     other family and derivative path (MR_PATHS: ``pipn`` coupled and
+     exact, PIPN++ on both paths, MRG, both U-Nets and the exact U-Net in
+     micro-batches, ``pi-gano`` exact and analytic, -full, -pp, the
+     manufactured PIPN exact and coupled and PIPN++, abc ``pipn-pp`` and
+     windbreaks ``pi-gano`` at D = 3), each at its own phase's full width
+     and batch, one counted step with its rows split over the two ranks
+     (1 x 2), held to one process's step on the card: each rank's launches,
+     the rows of its (v, J, H) calls (the share's), its metrics, gradients
+     and updated parameters, its ms a step and peak memory.
 Each of phases 4-14, 16-17, 20-21, 24-27 and 30-35 sets every launch count to 0 just
 before it and reads them just after (phases 18, 22 and 36 around each
 in-process training command, 38 and 39 around each training command,
@@ -4048,6 +4057,197 @@ def _mr_step(mesh, shard_points, counters):
     return first, launches, (time.perf_counter() - t0) * 1e3 / MR_TIMED
 
 
+# phase 41's points-split paths, each at its own phase's full width and
+# batch: label -> (cases, (internal, boundary, observation) points, batch
+# kind, loss weights, one step's launches). The exact U-Net takes
+# MR_UNET_EXACT_CASES cases, in micro-batches of 1 (3 is odd): its own
+# phase's 4 cases step in groups of 2, 41 GB a process, and two ranks with
+# the encoder whole on each would not fit 80 GB
+MR_UNET_EXACT_CASES = 3
+_MR_FOAM = (N_INT, N_BND, N_OBS)
+_MR_PIPN = dict(pointnet_global=1, pointnet_global_bwd=1, decoder_prop=2, decoder_prop_bwd=2)
+_MR_COUPLED = dict(_MR_PIPN, decoder_prop_j0_add=1, decoder_prop_j0_add_bwd=1)
+_MR_PP = dict(_MR_PIPN, sa_neighborhood=2, sa_neighborhood_bwd=2)
+_MR_GANO = dict(pointnet_global=2, pointnet_global_bwd=2, neural_ops_prop=2,
+                neural_ops_prop_bwd=2)
+MR_PATHS = {
+    "pipn_coupled": (BATCH, _MR_FOAM, "foam", LOSS_WEIGHTS, _MR_COUPLED),
+    "pipn_exact": (BATCH, _MR_FOAM, "foam", LOSS_WEIGHTS, {}),
+    "pipn_pp": (BATCH, _MR_FOAM, "foam", LOSS_WEIGHTS, _MR_PP),
+    "pipn_pp_exact": (EXACT_CASES, _MR_FOAM, "foam", LOSS_WEIGHTS, {}),
+    "pipn_pp_mrg": (BATCH, _MR_FOAM, "foam", LOSS_WEIGHTS,
+                    dict(_MR_PIPN, sa_neighborhood=3, sa_neighborhood_bwd=3, pointnet_global=2,
+                         pointnet_global_bwd=2)),
+    "pipn_pp_full": (BATCH, _MR_FOAM, "foam", LOSS_WEIGHTS,
+                     dict(sa_neighborhood=2, sa_neighborhood_bwd=2, pointnet_global=1,
+                          pointnet_global_bwd=1)),
+    "pipn_pp_full_exact": (MR_UNET_EXACT_CASES, _MR_FOAM, "foam", LOSS_WEIGHTS, {}),
+    "pi_gano": (EXACT_CASES, _MR_FOAM, "foam", LOSS_WEIGHTS, {}),
+    "pi_gano_fast": (BATCH, _MR_FOAM, "foam", LOSS_WEIGHTS, _MR_GANO),
+    "pi_gano_full": (BATCH, _MR_FOAM, "foam", LOSS_WEIGHTS,
+                     dict(_MR_GANO, neural_ops_prop=6, neural_ops_prop_bwd=6,
+                          neural_ops_prop_full=6, neural_ops_prop_full_bwd=6)),
+    "pi_gano_pp": (BATCH, _MR_FOAM, "foam", LOSS_WEIGHTS,
+                   dict(_MR_GANO, sa_neighborhood=2, sa_neighborhood_bwd=2)),
+    "pi_gano_pp_full": (BATCH, _MR_FOAM, "foam", LOSS_WEIGHTS,
+                        dict(sa_neighborhood=2, sa_neighborhood_bwd=2, pointnet_global=2,
+                             pointnet_global_bwd=2)),
+    "manufactured": (MS_BATCH, (MS_INT, MS_BND, 0), "manufactured", (1,) * 6, {}),
+    "manufactured_coupled": (MS_BATCH, (MS_INT, MS_BND, 0), "manufactured", (1,) * 6,
+                             _MR_COUPLED),
+    "manufactured_pp": (BATCH, (MSP_INT, MSP_BND, 0), "manufactured", MSP_WEIGHTS, _MR_PP),
+    "abc_pipn_pp": (BATCH, _MR_FOAM, "abc", ABC_WEIGHTS, _MR_PP),
+    "windbreaks_pi_gano": (BATCH, _MR_FOAM, "windbreaks", WB_WEIGHTS, _MR_GANO),
+}
+# timed steps of each path after its counted one
+MR_PATH_TIMED = 2
+# the U-Nets' gradients, two ranks against one process on the card: the
+# card's own tolerance of their max-pooled encoders (UNET_POOLED_RTOL)
+MR_UNETS = ("pipn_pp_full", "pipn_pp_full_exact", "pi_gano_pp_full")
+
+
+def _mr_build(path, device):
+    """The full-width model of a phase-41 path on ``device``, as its own
+    phase builds it (the U-Nets and the 3D models through the CLIs'
+    get_model)."""
+    import torch
+    from porous_cfd_tpu_torch.data.synthetic import (VARIABLE_BOUNDARIES, make_scalers,
+                                                     make_scalers_3d)
+    from porous_cfd_tpu_torch.examples.abc import train as abc_train
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary import train as fixed_train
+    from porous_cfd_tpu_torch.examples.duct_variable_boundary import train as variable_train
+    from porous_cfd_tpu_torch.examples.windbreaks import train as wb_train
+    from porous_cfd_tpu_torch.models.pi_gano import pi_gano, pi_gano_pp
+    from porous_cfd_tpu_torch.models.pipn import (pipn_foam, pipn_foam_pp, pipn_foam_pp_mrg,
+                                                  pipn_manufactured, pipn_manufactured_pp)
+    sc = make_scalers()
+    kw = dict(generator=torch.Generator().manual_seed(SEED), device=device)
+
+    def gano(fast, full=False):
+        return pi_gano(NU, 3, PG_BRANCH, PG_GEOMETRY, PG_LOCAL, PG_OPERATORS, PG_DROPOUT, sc,
+                       VARIABLE_BOUNDARIES, full=full, fast_derivatives=fast, **kw)
+
+    def pp(fast):
+        return pipn_foam_pp(NU, D, F, PP_LOCAL, PP_GLOBAL, PP_RADIUS, PP_FRACTION, PP_SEG, sc,
+                            seg_dropout=PP_DROPOUT, max_neighbors=PP_NEIGHBORS,
+                            fast_derivatives=fast, **kw)
+
+    factories = {
+        "pipn_coupled": lambda: pipn_foam(NU, D, F, FE_LOCAL, FE_GLOBAL, SEG, sc,
+                                          seg_dropout=SEG_DROPOUT, coupled_context=True, **kw),
+        "pipn_exact": lambda: pipn_foam(NU, D, F, FE_LOCAL, FE_GLOBAL, SEG, sc,
+                                        seg_dropout=SEG_DROPOUT, fast_derivatives=False, **kw),
+        "pipn_pp": lambda: pp(True),
+        "pipn_pp_exact": lambda: pp(False),
+        "pipn_pp_mrg": lambda: pipn_foam_pp_mrg(2, MRG_IN, NU, D, F, MRG_LOCAL, MRG_SEG, sc,
+                                                seg_dropout=MRG_DROPOUT,
+                                                max_neighbors=PP_NEIGHBORS, **kw),
+        "pipn_pp_full": lambda: fixed_train.get_model(Namespace(model="pipn-pp-full"), sc,
+                                                      device, True),
+        "pipn_pp_full_exact": lambda: fixed_train.get_model(Namespace(model="pipn-pp-full"),
+                                                            sc, device, False),
+        "pi_gano": lambda: gano(False),
+        "pi_gano_fast": lambda: gano(True),
+        "pi_gano_full": lambda: gano(True, full=True),
+        "pi_gano_pp": lambda: pi_gano_pp(NU, 3, PG_BRANCH, PGP_GEOMETRY, PGP_RADIUS,
+                                         PGP_FRACTION, PG_LOCAL, PG_OPERATORS, PG_DROPOUT, sc,
+                                         VARIABLE_BOUNDARIES, max_neighbors=PGP_NEIGHBORS, **kw),
+        "pi_gano_pp_full": lambda: variable_train.get_model(
+            Namespace(model="pi-gano-pp-full"), sc, device, True),
+        "manufactured": lambda: pipn_manufactured(0.01, 50.0, 1.0, FE_LOCAL, MS_FE_GLOBAL, SEG,
+                                                  **kw),
+        "manufactured_coupled": lambda: pipn_manufactured(0.01, 50.0, 1.0, FE_LOCAL,
+                                                          MS_FE_GLOBAL, SEG,
+                                                          fast_derivatives=True, **kw),
+        "manufactured_pp": lambda: pipn_manufactured_pp(0.01, 50.0, 1.0, MSP_LOCAL, MSP_GLOBAL,
+                                                        MSP_RADIUS, MSP_FRACTION, MSP_SEG,
+                                                        max_neighbors=MSP_NEIGHBORS, **kw),
+        "abc_pipn_pp": lambda: abc_train.get_model(Namespace(model="pipn-pp"),
+                                                   make_scalers_3d(), device),
+        "windbreaks_pi_gano": lambda: wb_train.get_model(Namespace(model="pi-gano"),
+                                                         make_scalers_3d(), device),
+    }
+    return factories[path]()
+
+
+def _mr_batch(kind, cases, points):
+    """A phase-41 path's batch (CPU tensors) of ``kind``, from seed
+    SEED + 41."""
+    import numpy as np
+    from porous_cfd_tpu_torch.data.manufactured import make_manufactured_batch
+    from porous_cfd_tpu_torch.data.synthetic import (PATCHES_3D, make_foam_batch,
+                                                     make_foam_batch_3d)
+    if kind == "manufactured":
+        return make_manufactured_batch(np.random.default_rng(SEED + 41), cases, *points[:2])
+    if kind in PATCHES_3D:
+        return make_foam_batch_3d(cases, *points, PATCHES_3D[kind], seed=SEED + 41)
+    return make_foam_batch(cases, *points, seed=SEED + 41)
+
+
+def _record_rows(rows):
+    """Wrap the entry points of the (v, J, H) kernels and of the U-Nets'
+    last FP level so that each call appends (its name, its internal rows,
+    its boundary rows) to ``rows``; the wrapped functions count their
+    launches as before."""
+    from porous_cfd_tpu_torch.ops import decoder_cuda, neural_op_cuda
+    from porous_cfd_tpu_torch.physics import analytic
+
+    def wrap(module, name, rows_of):
+        fn = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            rows.append((name, *rows_of(*args)))
+            return fn(*args, **kwargs)
+        setattr(module, name, wrapped)
+
+    # decoder_prop(linears, n_local, v, jt, ht, v_b, ...) and
+    # neural_ops_prop(operators, reduction, n_local, v, jt, ht, v_b, ...)
+    wrap(decoder_cuda, "decoder_prop", lambda *a: (a[2].shape[-2], a[5].shape[-2]))
+    wrap(neural_op_cuda, "neural_ops_prop", lambda *a: (a[3].shape[-2], a[6].shape[-2]))
+    wrap(analytic, "mlp_prop_merged", lambda _linears, v, _j, _h, n_int, *a:
+         (n_int, v.shape[-2] - n_int))
+
+
+def _mr_path_step(path, mesh, counters, rows, device="cuda:0"):
+    """One counted training step of a phase-41 path on its batch (this
+    rank's points share with a mesh), then MR_PATH_TIMED timed ones: the
+    metrics, gradients and parameters after the first step (with the
+    parameters' names and Adam's lr and eps), its launches, its (v, J, H)
+    calls' rows, ms a step and the peak bytes allocated."""
+    import torch
+    from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
+    from porous_cfd_tpu_torch.train.engine import make_optimizer, make_train_functions
+    dev = torch.device(device)
+    cases, points, kind, weights, _ = MR_PATHS[path]
+    model = _mr_build(path, dev)
+    batch = model.attach_neighbors(_mr_batch(kind, cases, points).to(dev))
+    fns = make_train_functions(model, make_optimizer(model, 1), FixedLossScaler(weights),
+                               mesh=mesh, shard_points=mesh is not None)
+    state = fns.init_state(seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    rows.clear()
+    state, metrics = fns.train_step(state, batch)
+    torch.cuda.synchronize()
+    named = list(model.module.named_parameters())
+    out = {"launches": {k: c.launches for k, c in counters.items()}, "rows": list(rows),
+           "metrics": metrics.cpu(), "names": [n for n, _ in named],
+           "grads": [p.grad.cpu() for _, p in named],
+           "params": [p.detach().cpu() for _, p in named],
+           "adam": (model.learning_rate, model.adam_eps)}
+    t0 = time.perf_counter()
+    for _ in range(MR_PATH_TIMED):
+        state, _ = fns.train_step(state, batch)
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) * 1e3 / MR_PATH_TIMED
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del model, batch, fns, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mr_clouds(device):
     """The min_distance check's query and target clouds (MR_DIST) on
     ``device``."""
@@ -4059,7 +4259,8 @@ def _mr_clouds(device):
 
 
 def _mr_worker(rank, world, init_method, out):
-    """A rank of phase 41: both meshes on cuda:0, one step each."""
+    """A rank of phase 41: both meshes on cuda:0, one step each, then each
+    path of MR_PATHS on the points mesh."""
     import os
     import torch
     sys.path.insert(0, str(ROOT))
@@ -4075,6 +4276,10 @@ def _mr_worker(rank, world, init_method, out):
             mesh = make_mesh(*shape, devices=["cuda:0"] * world, init_method=init_method)
             res[label] = _mr_step(mesh, shape[1] > 1, counters)
             res["backend"] = mesh.backend
+        # every other family and path with its rows split over the points mesh
+        rows = []
+        _record_rows(rows)
+        res["paths"] = {path: _mr_path_step(path, mesh, counters, rows) for path in MR_PATHS}
         # every collective the port calls, on CUDA tensors through the
         # points mesh's backend, and the points-split min_distance
         dev = torch.device("cuda", 0)
@@ -4103,6 +4308,7 @@ def multi_rank_phase(name, smi, counters):
     from porous_cfd_tpu_torch.datagen.meta import generate_meta, generate_min_points
     from porous_cfd_tpu_torch.examples.duct_fixed_boundary import train
     from porous_cfd_tpu_torch.ops import distance
+    from porous_cfd_tpu_torch.parallel.mesh import share
     dev = torch.device("cuda", 0)
     t_phase = time.perf_counter()
     report = {"cases": MR_CASES, "points": [N_INT, N_BND, N_OBS], "ranks": 2}
@@ -4160,6 +4366,59 @@ def multi_rank_phase(name, smi, counters):
                                              "metrics_max_err": float((m - ref_m).abs().max())}
         log(f"  multi-rank {label}: both ranks' metrics, gradients and updated parameters "
             "agree with one process's")
+
+    # every other family and path with its rows split over the two ranks:
+    # each rank's step against one process's on the card, its launches, and
+    # the rows of its (v, J, H) calls (the share's, never the whole cloud's)
+    report["paths"] = {}
+    for path, (cases, points, kind, weights, want_path) in MR_PATHS.items():
+        want_p = {k: 0 for k in counters} | want_path
+        ref = _mr_path_step(path, None, counters, [])
+        if ref["launches"] != want_p:
+            fail(f"multi-rank {path}: one process's step launched {ref['launches']}, not "
+                 f"{want_p}")
+        lr, eps = ref["adam"]
+        rtol_g = UNET_POOLED_RTOL if path in MR_UNETS else RTOL
+        entry = {"cases": cases, "points": list(points), "kind": kind,
+                 "one_process": {"ms_per_step": ref["ms"], "peak_bytes": ref["peak"]}}
+        for rank, res in enumerate(ranks):
+            got = res["paths"][path]
+            tag = f"multi-rank points {path} rank {rank}"
+            if got["launches"] != want_p:
+                fail(f"{tag}: launches {got['launches']} != {want_p}")
+            share_rows = tuple(b - a for a, b in (share(points[0], 2, rank),
+                                                  share(points[1], 2, rank)))
+            if (bool(want_path) != bool(got["rows"])
+                    or any(tuple(r[1:]) != share_rows for r in got["rows"])):
+                fail(f"{tag}: (v, J, H) calls on rows {got['rows']}, not the share's "
+                     f"{share_rows}")
+            if rank and not torch.equal(got["metrics"], ranks[0]["paths"][path]["metrics"]):
+                fail(f"{tag}: metrics differ from rank 0's")
+            m, ref_m = got["metrics"], ref["metrics"]
+            check_close(f"{tag} vs one process metrics",
+                        [(f"metric {i}", m[i:i + 1], ref_m[i:i + 1]) for i in range(len(ref_m))],
+                        quiet=True)
+            pairs = list(zip(ref["names"], got["grads"], ref["grads"]))
+            check_close(f"{tag} vs one process gradients",
+                        [(f"grad {n}", a, r) for n, a, r in pairs], quiet=True,
+                        rtol={f"grad {n}": rtol_g for n, _, _ in pairs})
+            for n, a, r, gr in zip(ref["names"], got["params"], ref["params"], ref["grads"]):
+                spread = adam_first_step_spread(gr, rtol_g * float(gr.abs().max()), lr, eps)
+                if bool(((a.double() - r.double()).abs()
+                         > RTOL * float(r.abs().max()) + spread).any()):
+                    fail(f"{tag}: parameter {n} differs from one process's")
+            entry[f"rank{rank}"] = {"launches": {k: v for k, v in got["launches"].items() if v},
+                                    "rows": sorted(set(r[1:] for r in got["rows"])),
+                                    "ms_per_step": got["ms"], "peak_bytes": got["peak"],
+                                    "metrics_max_err": float((m - ref_m).abs().max())}
+            log(f"  {tag}: launches {entry[f'rank{rank}']['launches']}, (v, J, H) rows "
+                f"{entry[f'rank{rank}']['rows']}, {got['ms']:.3f} ms a step, peak "
+                f"{got['peak'] / 2**30:.2f} GiB (two ranks sharing the card)")
+        log(f"  multi-rank points {path}: {cases} cases of {points}; one process "
+            f"{ref['ms']:.3f} ms a step, peak {ref['peak'] / 2**30:.2f} GiB; both ranks' "
+            f"metrics, gradients and updated parameters agree with it ({name}; {smi})")
+        report["paths"][path] = entry
+        torch.cuda.empty_cache()
 
     # the CLI at --mesh-data 1: a process group of one, NCCL on the card
     with tempfile.TemporaryDirectory() as tmp:

@@ -3,8 +3,6 @@ from __future__ import annotations
 
 import torch
 
-ROADMAP = "see ROADMAP.md, 'Open items'"
-
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on.
@@ -20,6 +18,3 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
 
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({ROADMAP})")

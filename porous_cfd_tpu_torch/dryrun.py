@@ -8,10 +8,11 @@ runs ``entry()``'s forward (on the CUDA card unless ``--device cpu``) and
 then ``dryrun_multichip(8)``, which is a CPU check by design: gloo
 processes on one host, no card and no network.
 
-The flagship is the main path's model: the duct_fixed_boundary ``pipn`` at
-full width on its decoupled analytic path, with its decoder dropout, on a
-small ``make_foam_batch``. (The JAX dry run shards the manufactured PIPN on
-its exact path, which the port does not split over points.)
+The flagship is the JAX dry run's own model and path: the manufactured PIPN
+(``pipn_manufactured``, the duct's widths: ``fe_global_layers`` [64 + 3, 96,
+128, 1024], ``seg_layers`` [1024 + 64, 512, 256, 128, 3]) on its exact
+autodiff path, the manufactured CLI's default, on a small
+``make_manufactured_batch``; the mesh splits its cases and its points.
 """
 from __future__ import annotations
 
@@ -20,35 +21,34 @@ import os
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from porous_cfd_tpu_torch.data.synthetic import make_foam_batch, make_scalers
+from porous_cfd_tpu_torch.data.manufactured import make_manufactured_batch
 from porous_cfd_tpu_torch.device import resolve_device
-from porous_cfd_tpu_torch.models.pipn import pipn_foam
+from porous_cfd_tpu_torch.models.pipn import pipn_manufactured
 from porous_cfd_tpu_torch.parallel.mesh import make_mesh
-from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler
 from porous_cfd_tpu_torch.train.engine import make_optimizer, make_train_functions
 
 SEED = 8421
-NU, D, F = 1489.4e-6, 14000.0, 17.11
-WEIGHTS = (1, 1, 1, 1, 1, 1, 100, 100, 100)
 
 
-def _flagship(n_internal=64, n_boundary=32, n_obs=16, batch=4, device="cpu"):
-    """The duct ``pipn`` (decoupled, seg_dropout 0.05, 0.05) at full width,
-    weights from seed 8421, and a synthetic batch of its schema."""
-    model = pipn_foam(NU, D, F, fe_local_layers=[2, 64, 64],
-                      fe_global_layers=[64 + 1 + 4, 96, 128, 1024],
-                      seg_layers=[1024 + 64, 512, 256, 128, 3],
-                      seg_dropout=[0.05, 0.05, 0, 0], scalers=make_scalers(),
-                      generator=torch.Generator().manual_seed(SEED), device=device)
-    return model, make_foam_batch(batch, n_internal, n_boundary, n_obs, seed=SEED)
+def _flagship(n_internal=64, n_boundary=32, batch=4, device="cpu"):
+    """The JAX dry run's manufactured PIPN at the duct's widths on its exact
+    path, weights from seed 8421, and its batch (``make_manufactured_batch``
+    from ``default_rng(8421)``)."""
+    model = pipn_manufactured(0.01, 50.0, 1.0, fe_local_layers=[2, 64, 64],
+                              fe_global_layers=[64 + 3, 96, 128, 1024],
+                              seg_layers=[1024 + 64, 512, 256, 128, 3],
+                              generator=torch.Generator().manual_seed(SEED), device=device)
+    return model, make_manufactured_batch(np.random.default_rng(SEED), batch, n_internal,
+                                          n_boundary)
 
 
 def entry(device=None):
     """(fn, example_args): the flagship forward ``fn(module, batch)`` ->
     (B, N, 3) predicted [Ux, Uy, p], on ``device`` (the CUDA card unless
-    ``"cpu"`` is asked for)."""
+    ``"cpu"`` is asked for), as the JAX entry's."""
     model, batch = _flagship(device=resolve_device(device))
 
     def fn(module, batch):
@@ -59,8 +59,8 @@ def entry(device=None):
 
 def _step(model, batch, mesh=None):
     """One training step's metric vector (on the CPU)."""
-    fns = make_train_functions(model, make_optimizer(model, 1), FixedLossScaler(WEIGHTS),
-                               mesh=mesh, shard_points=mesh is not None)
+    fns = make_train_functions(model, make_optimizer(model, 1), mesh=mesh,
+                               shard_points=mesh is not None)
     _, metrics = fns.train_step(fns.init_state(seed=SEED), batch)
     return metrics.cpu()
 
@@ -80,15 +80,16 @@ def _worker(rank: int, world: int, init_method: str, shape: tuple, sizes: tuple,
 
 def dryrun_multichip(n_devices: int) -> dict:
     """One training step of the flagship over an ``n_devices`` mesh of gloo
-    processes on the CPU, the data x points grid of the JAX dry run
-    (``n_data = max(1, n // 2)``, ``n_pts = n // n_data``), with its points
-    split (``shard_points``); raises on a non-finite loss or one that
-    differs from the same step in one process. Returns the mesh and both
-    metric vectors."""
+    processes on the CPU, the data x points grid and the batch of the JAX
+    dry run (``n_data = max(1, n // 2)``, ``n_pts = n // n_data``; n_data
+    cases of 8 * n_pts internal and 4 * n_pts boundary points), with its
+    points split (``shard_points``); raises on a non-finite loss or one
+    that differs from the same step in one process. Returns the mesh and
+    both metric vectors."""
     n_data = max(1, n_devices // 2)
     n_pts = n_devices // n_data
     world = n_data * n_pts
-    sizes = (8 * n_pts, 4 * n_pts, 4 * n_pts, n_data)
+    sizes = (8 * n_pts, 4 * n_pts, n_data)
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "metrics.pt")
         torch.multiprocessing.spawn(

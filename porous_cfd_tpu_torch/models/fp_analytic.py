@@ -106,35 +106,49 @@ def mid_levels_deterministic(dropout, n_levels: int) -> bool:
     return True
 
 
-def hierarchy(module, batch: FoamData, precompute, par_embedding=None):
+def hierarchy(module, batch: FoamData, precompute, par_embedding=None,
+              placement: Placement = WHOLE):
     """The value stream of a U-Net module: the encoder through
     ``sa_cuda.sa_seq_fused`` and every FP level but the last. Returns
     (x_coarse, pos_coarse, idx_last, x_in, pts, n_int): the last level's
     coarse features and positions, its kNN indices into them, its skip rows
     ``[sdf || boundaryId || C]``, the points [internal || boundary] and the
-    internal count. ``par_embedding`` modulates the middle levels
-    (PI-GANO++). A CPU batch with no precomputed chain builds one with
-    ``precompute``; a batch on the card raises, so that a loop which forgot
-    ``attach_neighbors`` does not search neighbours in every step."""
-    internal_view, boundary_view = split_contiguous(batch)
-    n_int = internal_view["C"].shape[-2]
-    pts = torch.cat([internal_view["C"], boundary_view["C"]], dim=-2)
+    internal count, the last four of ``batch``'s own rows. On a points share
+    (``placement``) the stream runs whole on each rank, over the share's
+    cases' whole cloud, and the last four are the share's rows.
+    ``par_embedding`` modulates the middle levels (PI-GANO++). A CPU batch
+    with no precomputed chain builds one with ``precompute``; a batch on the
+    card raises, so that a loop which forgot ``attach_neighbors`` does not
+    search neighbours in every step."""
+    cloud = placement.cloud(batch)
+    x_in, pts, n_int = _skip_rows(cloud)
     encoder, decoder = module.encoder, module.decoder
     n_enc, n_fp = len(encoder.radius), len(decoder.fp_layers)
-    domain = batch.domain
+    domain = cloud.domain
     if extract_sa_neighbors(domain, n_enc) is None or extract_fp_idx(domain, n_fp) is None:
         if pts.device.type != "cpu":
             raise ValueError("U-Net: the batch holds no neighbour chain; attach it once per "
                              "dataset with model.attach_neighbors(dataset)")
-        domain = precompute(batch)
+        domain = precompute(cloud)
     fp_idx = extract_fp_idx(domain, n_fp)
-    x_in = torch.cat([batch["sdf"], batch["boundaryId"], pts], dim=-1)
     (x, pos), skips = sa_cuda.sa_seq_fused(encoder, module.activation, x_in,
                                            extract_sa_neighbors(domain, n_enc), pts,
                                            return_skip=True)
     x, pos = decoder(x, pos, skips, True, fp_idx, par_embedding=par_embedding,
                      n_levels=n_fp - 1)
-    return x, pos, fp_idx[-1], x_in, pts, n_int
+    if not placement.rows_split:
+        return x, pos, fp_idx[-1], x_in, pts, n_int
+    rows = placement.global_rows(torch.arange(batch.data.shape[-2], device=pts.device))
+    return (x, pos, fp_idx[-1][:, rows], *_skip_rows(batch))
+
+
+def _skip_rows(batch: FoamData):
+    """(``[sdf || boundaryId || C]``, C, internal count) of ``batch``'s
+    [internal || boundary] rows."""
+    internal_view, boundary_view = split_contiguous(batch)
+    pts = torch.cat([internal_view["C"], boundary_view["C"]], dim=-2)
+    return (torch.cat([batch["sdf"], batch["boundaryId"], pts], dim=-1), pts,
+            internal_view["C"].shape[-2])
 
 
 def _last_level(module, x, pos, idx, x_in, pts, n_int, deterministic, seed, placement):
@@ -157,13 +171,16 @@ def pipn_pp_full_apply_with_derivatives(module, precompute):
     deterministic=True, seed=None, placement=WHOLE) -> (out_full, jac,
     lap)`` with jac/lap (..., Ni, O, D); None where a middle level has
     dropout. The last level's dropout runs unless ``deterministic``, with
-    the exact path's masks for the same seed and placement."""
+    the exact path's masks for the same seed and placement. On a points
+    share the value stream runs whole on each rank and the last level on
+    the share's rows (``hierarchy``)."""
     if not mid_levels_deterministic(module.decoder.dropout, len(module.decoder.fp_layers)):
         return None
 
     def fn(batch: FoamData, deterministic: bool = True, seed: Optional[int] = None,
            placement: Placement = WHOLE):
-        x, pos, idx, x_in, pts, n_int = hierarchy(module, batch, precompute)
+        x, pos, idx, x_in, pts, n_int = hierarchy(module, batch, precompute,
+                                                  placement=placement)
         out, j, h = _last_level(module, x, pos, idx, x_in, pts, n_int, deterministic, seed,
                                 placement)
         return out, j.transpose(-1, -2), h.transpose(-1, -2)
@@ -174,9 +191,9 @@ def pipn_pp_full_apply_with_derivatives(module, precompute):
 def pi_gano_pp_full_apply_with_derivatives(module, precompute):
     """The analytic path of a PiGanoPpFullModule, as
     ``pipn_pp_full_apply_with_derivatives``'s, with the branch embedding
-    (``pointnet_global`` on the card) modulating every FP level: in the
-    value stream at the middle levels, and as a per-case scale of (v, J, H)
-    at the last."""
+    (``pointnet_global`` on the card, whole on each rank of a points share)
+    modulating every FP level: in the value stream at the middle levels, and
+    as a per-case scale of (v, J, H) at the last."""
     from porous_cfd_tpu_torch.models.pi_gano import gather_parameters
     from porous_cfd_tpu_torch.models.pipn import _pointnet_global_dispatch
 
@@ -185,10 +202,11 @@ def pi_gano_pp_full_apply_with_derivatives(module, precompute):
 
     def fn(batch: FoamData, deterministic: bool = True, seed: Optional[int] = None,
            placement: Placement = WHOLE):
-        par = _pointnet_global_dispatch(module.branch.linear,
-                                        gather_parameters(batch, module.variable_boundaries),
-                                        module.activation)
-        x, pos, idx, x_in, pts, n_int = hierarchy(module, batch, precompute, par)
+        par = _pointnet_global_dispatch(
+            module.branch.linear,
+            gather_parameters(placement.cloud(batch), module.variable_boundaries),
+            module.activation)
+        x, pos, idx, x_in, pts, n_int = hierarchy(module, batch, precompute, par, placement)
         out, j, h = _last_level(module, x, pos, idx, x_in, pts, n_int, deterministic, seed,
                                 placement)
         scale = module.decoder.levels[-1].modulation(par)              # (B, 1, O)

@@ -18,6 +18,7 @@ from torch import nn
 
 from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement
 from porous_cfd_tpu_torch.ops.neural_op_cuda import trunk_seed
+from porous_cfd_tpu_torch.parallel.mesh import points_max
 from porous_cfd_tpu_torch.physics.analytic import ACTIVATIONS, merged_mask
 
 # std of a unit normal truncated to [-2, 2]; flax divides by it so that the
@@ -88,9 +89,18 @@ class MLP(nn.Module):
         return x
 
 
+def pool_rows(y, placement: Placement = WHOLE):
+    """Max-pool of ``y`` (B, N, F) over its rows, the first maximal row
+    taking the gradient; where the rows are a points share (``placement``),
+    the whole cloud's pool (``parallel.mesh.points_max``)."""
+    g, rows = torch.max(y, dim=-2, keepdim=True)
+    return points_max(g, rows, None, placement)
+
+
 class PointNetFeatureExtract(nn.Module):
     """PIPN encoder: local shared MLP on coordinates, global MLP on
-    [local || features] followed by a max-pool over the point axis."""
+    [local || features] followed by a max-pool over the point axis (over the
+    whole cloud where the rows are a points share at ``placement``)."""
 
     def __init__(self, local_layers: Sequence[int],
                  global_layers: Sequence[int], activation: str = "tanh",
@@ -101,11 +111,10 @@ class PointNetFeatureExtract(nn.Module):
         self.global_feature = MLP(global_layers, activation=activation,
                                   generator=generator)
 
-    def forward(self, x, pos, deterministic: bool = True):
+    def forward(self, x, pos, deterministic: bool = True, placement: Placement = WHOLE):
         local = self.local_feature(pos)
         g = self.global_feature(torch.cat([local, x], dim=-1))
-        g = torch.max(g, dim=-2, keepdim=True).values
-        return local, g
+        return local, pool_rows(g, placement)
 
 
 class Branch(nn.Module):
@@ -123,16 +132,16 @@ class Branch(nn.Module):
 
 class GeometryEncoder(nn.Module):
     """PI-GANO geometry encoder: MLP on [features || pos], max-pooled over
-    the point axis -> (B, 1, K)."""
+    the point axis (the whole cloud's, at a points share's ``placement``)
+    -> (B, 1, K)."""
 
     def __init__(self, hidden_channels: Sequence[int], activation: str = "silu",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.linear = MLP(hidden_channels, activation=activation, generator=generator)
 
-    def forward(self, x, pos, deterministic: bool = True):
-        y = self.linear(torch.cat([x, pos], dim=-1))
-        return torch.max(y, dim=-2, keepdim=True).values
+    def forward(self, x, pos, deterministic: bool = True, placement: Placement = WHOLE):
+        return pool_rows(self.linear(torch.cat([x, pos], dim=-1)), placement)
 
 
 class NeuralOperator(nn.Module):

@@ -44,8 +44,9 @@ from porous_cfd_tpu_torch.models.pipn import (_boundary_sa_precompute, _geometry
                                               all_points_unet_precompute)
 from porous_cfd_tpu_torch.models.set_abstraction import (FeaturePropagationSeq,
                                                           GeometryEncoderPp, SetAbstractionSeq)
-from porous_cfd_tpu_torch.ops import neural_op_cuda, sa_cuda
+from porous_cfd_tpu_torch.ops import neural_op_cuda, pointnet_cuda, sa_cuda
 from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement
+from porous_cfd_tpu_torch.parallel.mesh import points_max
 from porous_cfd_tpu_torch.physics import analytic
 from porous_cfd_tpu_torch.physics.losses import (ContinuityLossStandardized,
                                                  MomentumLossVariable)
@@ -109,11 +110,12 @@ class PiGanoModule(nn.Module):
         trunk's dropout (unless ``deterministic``) draws its masks from
         ``seed`` over those rows at their ``placement`` in the batch, as the
         analytic path does: every one of PiGanoFull's trunks takes the one
-        seed."""
+        seed. On a points share the geometry encoder pools over the whole
+        cloud (``points_max``) and the branch runs whole on each rank."""
         geom_in = torch.cat([batch["boundaryId"], batch["sdf"]], dim=-1)
-        param_features = gather_parameters(batch, self.variable_boundaries)
+        param_features = gather_parameters(placement.cloud(batch), self.variable_boundaries)
         # the geometry encoder sees the coordinates without a gradient
-        geom = self.geometry_encoder(geom_in, points.detach(), deterministic)
+        geom = self.geometry_encoder(geom_in, points.detach(), deterministic, placement)
         local = self.points_encoder(points, deterministic)
         geom = geom.expand(*local.shape[:-1], geom.shape[-1])
         par = self.branch(param_features, deterministic)
@@ -157,9 +159,11 @@ class PiGanoPpModule(nn.Module):
 
     def forward(self, points, batch: FoamData, deterministic: bool = True,
                 seed: Optional[int] = None, placement: Placement = WHOLE):
-        """As ``PiGanoModule.forward``."""
-        param_features = gather_parameters(batch, self.variable_boundaries)
-        boundary = batch["boundary"]
+        """As ``PiGanoModule.forward``; the geometry encoder runs whole on
+        each rank of a points share, as the branch does."""
+        cloud = placement.cloud(batch)
+        param_features = gather_parameters(cloud, self.variable_boundaries)
+        boundary = cloud["boundary"]
         b_pos = boundary["C"].detach()
         nbrs = extract_sa_neighbors(batch.domain, len(self.geometry_radius))
         geom = self.geometry_encoder(_geometry_features(boundary).detach(), b_pos,
@@ -188,7 +192,9 @@ def pi_gano_apply_with_derivatives(module: PiGanoModule):
     the dataset's aux (``_gano_inputs_precompute``) when it is attached, else
     from the batch. With ``deterministic=False`` the trunk applies its
     dropout, with masks that are a pure function of ``seed`` and of the
-    rows' ``placement`` in the whole batch."""
+    rows' ``placement`` in the whole batch. On a points share the geometry
+    pool takes the share's rows and ``points_max``, the branch runs whole
+    on each rank, and the trunk runs on the share's rows."""
 
     def fn(batch: FoamData, deterministic: bool = True, seed=None,
            placement: Placement = WHOLE):
@@ -199,10 +205,12 @@ def pi_gano_apply_with_derivatives(module: PiGanoModule):
         geom_in = batch.domain.get("_gano_geom_in")
         if geom_in is None:
             geom_in = _geometry_input(batch)
-        geom = _pointnet_global_dispatch(module.geometry_encoder.linear, geom_in, act)
+        geom, rows = pointnet_cuda.pointnet_global(module.geometry_encoder.linear.linears,
+                                                   geom_in.contiguous(), act)
+        geom = points_max(geom, rows, x_int.shape[-2], placement)
         par_features = batch.domain.get("_gano_par")
         if par_features is None:
-            par_features = gather_parameters(batch, module.variable_boundaries)
+            par_features = gather_parameters(placement.cloud(batch), module.variable_boundaries)
         par = _pointnet_global_dispatch(module.branch.linear, par_features, act)
 
         return _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed, placement,
@@ -244,7 +252,9 @@ def pi_gano_pp_apply_with_derivatives(module: PiGanoPpModule):
     per-case context exactly: the SetAbstraction chain runs value-only
     (``sa_cuda.sa_seq_fused``) on the dataset's precomputed chain
     (``attach_neighbors``). Without an attached chain a CPU batch builds one
-    here; a batch on the card raises, as PIPN++'s path does."""
+    here; a batch on the card raises, as PIPN++'s path does. On a points
+    share the chain and the branch run whole on each rank, over the share's
+    cases, and the trunk on the share's rows."""
     precompute = _boundary_sa_precompute(module.geometry_fraction, module.geometry_radius,
                                          module.max_neighbors)
     n_levels = len(module.geometry_radius)
@@ -255,15 +265,16 @@ def pi_gano_pp_apply_with_derivatives(module: PiGanoPpModule):
         x_int = internal_view["C"]
         x_bnd = boundary_view["C"]
         act = module.activation
-        nbrs = extract_sa_neighbors(batch.domain, n_levels)
+        cloud = placement.cloud(batch)
+        nbrs = extract_sa_neighbors(cloud.domain, n_levels)
         if nbrs is None:
             if x_bnd.device.type != "cpu":
                 raise ValueError("pi_gano_pp: the batch holds no SetAbstraction chain; attach "
                                  "it once per dataset with model.attach_neighbors(dataset)")
-            nbrs = extract_sa_neighbors(precompute(batch), n_levels)
+            nbrs = extract_sa_neighbors(precompute(cloud), n_levels)
         geom = sa_cuda.sa_seq_fused(module.geometry_encoder.set_abstraction, act,
-                                    _geometry_features(boundary_view), nbrs)
-        par_features = gather_parameters(batch, module.variable_boundaries)
+                                    _geometry_features(split_contiguous(cloud)[1]), nbrs)
+        par_features = gather_parameters(cloud, module.variable_boundaries)
         par = _pointnet_global_dispatch(module.branch.linear, par_features, act)
         return _trunk_prop(module, x_int, x_bnd, geom, par, deterministic, seed, placement)
 
@@ -367,7 +378,8 @@ class PiGanoPpFullModule(nn.Module):
                 seed: Optional[int] = None, placement: Placement = WHOLE):
         """As ``PiGanoModule.forward``; FP level i drops with
         ``fp_level_seed(seed, i)``."""
-        par = self.branch(gather_parameters(batch, self.variable_boundaries), deterministic)
+        par = self.branch(gather_parameters(placement.cloud(batch), self.variable_boundaries),
+                          deterministic)
         return _unet_forward(self, points, batch, deterministic, seed, par, placement)
 
 

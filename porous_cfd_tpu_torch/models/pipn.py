@@ -44,7 +44,7 @@ from porous_cfd_tpu_torch.models.set_abstraction import (FeaturePropagationSeq,
                                                           SetAbstractionSeq)
 from porous_cfd_tpu_torch.ops import decoder_cuda, pointnet_cuda, sa_cuda
 from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement
-from porous_cfd_tpu_torch.parallel.mesh import points_max
+from porous_cfd_tpu_torch.parallel.mesh import points_gather, points_max
 from porous_cfd_tpu_torch.physics import analytic
 from porous_cfd_tpu_torch.physics.losses import (ContinuityLoss, ContinuityLossStandardized,
                                                  MomentumLossFixed, MomentumLossManufactured)
@@ -77,7 +77,7 @@ class PipnModule(nn.Module):
         ``seed`` over those rows at their ``placement`` in the batch, as the
         analytic path does."""
         global_in = torch.cat([batch["boundaryId"], batch["sdf"]], dim=-1)
-        local, g = self.feature_extract(global_in, points, deterministic)
+        local, g = self.feature_extract(global_in, points, deterministic, placement)
         exp_g = g.expand(*local.shape[:-1], g.shape[-1])
         seg_in = torch.cat([local, exp_g], dim=-1)
         return self.decoder(seg_in, deterministic, seed, placement)
@@ -124,8 +124,10 @@ class PipnPpModule(nn.Module):
 
     def forward(self, points, batch: FoamData, deterministic: bool = True,
                 seed: Optional[int] = None, placement: Placement = WHOLE):
-        """``points`` and the decoder's dropout as in ``PipnModule.forward``."""
-        boundary = batch["boundary"]
+        """``points`` and the decoder's dropout as in ``PipnModule.forward``;
+        the geometry branch pools the whole boundary cloud (on each rank of
+        a points share)."""
+        boundary = placement.cloud(batch)["boundary"]
         geom = _geometry_features(boundary, self.geom_features_order)
         nbrs = extract_sa_neighbors(batch.domain, len(self.fe_radius))
         local, g = self.feature_extract(geom, boundary["C"], points, deterministic, nbrs)
@@ -159,9 +161,9 @@ class PipnPpMrgModule(nn.Module):
 
     def forward(self, points, batch: FoamData, deterministic: bool = True,
                 seed: Optional[int] = None, placement: Placement = WHOLE):
-        """``points`` and the decoder's dropout as in ``PipnModule.forward``."""
+        """As ``PipnPpModule.forward``."""
         local = self.local_fe(points, deterministic)
-        boundary = batch["boundary"]
+        boundary = placement.cloud(batch)["boundary"]
         nbrs = extract_sa_neighbors(batch.domain, len(SetAbstractionMrgSeq.radii))
         g = self.global_fe(_geometry_features(boundary, "id_first"), boundary["C"],
                            deterministic, nbrs)
@@ -198,9 +200,9 @@ def pipn_apply_with_derivatives(module: PipnModule, coupled: bool = True):
     the decoder applies its dropout, with masks that are a pure function of
     ``seed`` (a 64-bit integer; the training step derives it from the run's
     seed and the step) and of the rows' ``placement`` in the whole batch.
-    Decoupled, ``batch`` may be a rank's share of the rows (a points-split
+    ``batch`` may be a rank's share of the rows (a points-split
     ``placement``): the pool is then the whole cloud's, through
-    ``parallel.mesh.points_max``.
+    ``parallel.mesh.points_max``, and every kernel runs on the share's rows.
 
     Max-pool coupling (``coupled=True``): the pooled global feature g
     depends on the differentiated internal coordinates through each
@@ -208,8 +210,12 @@ def pipn_apply_with_derivatives(module: PipnModule, coupled: bool = True):
     includes the chain through g. ``_winner_gather_ctx`` propagates (v, J,
     H) through the global-feature chain at the winner rows only and hands
     the decoder the layer-0 terms it adds to J/H, from which the activation
-    rules produce every cross term. ``coupled=False`` holds g constant per
-    case. The two agree everywhere but at the winner rows."""
+    rules produce every cross term. A winner's terms enter its own row
+    alone, so on a points share each rank propagates the chain of the
+    channels it owns (``points_max``'s owner: the first maximal global row)
+    at its local row, and adds nothing for the others. ``coupled=False``
+    holds g constant per case. The two agree everywhere but at the winner
+    rows."""
 
     def fn(batch: FoamData, deterministic: bool = True, seed=None,
            placement: Placement = WHOLE):
@@ -242,15 +248,11 @@ def pipn_apply_with_derivatives(module: PipnModule, coupled: bool = True):
         # and the coupling terms both take their gradient from it
         w0g = module.decoder.linear_0.weight[:, n_local:]
         g, zj0, zh0 = _winner_gather_ctx(fe, lv_i, lj, lh, lv_b, feats[..., :n_int, :],
-                                         feats[..., n_int:, :], w0g, act)
+                                         feats[..., n_int:, :], w0g, act, placement)
         return _decoder_prop_dispatch(
             module.decoder, n_local, lv_i, lj, lh, lv_b, g, act,
             module.seg_dropout, deterministic, seed, zj0, zh0, placement)
 
-    # the decoupled path runs on a points-split share of the rows (the
-    # engine's shard_points); the coupled one needs every winner row
-    fn.path = "coupled" if coupled else "decoupled"
-    fn.points_sharded = not coupled
     return fn
 
 
@@ -265,17 +267,19 @@ def _gather_rows(x, rows, axis):
     return torch.gather(x, axis, idx)
 
 
-def _winner_gather_ctx(fe, lv_i, lj, lh, lv_b, feats_i, feats_b, w0g, act):
+def _winner_gather_ctx(fe, lv_i, lj, lh, lv_b, feats_i, feats_b, w0g, act,
+                       placement: Placement = WHOLE):
     """Max-pool-coupled context terms by winner gathering (counterpart of the
     JAX package's ``_winner_gather_ctx``): ``winner_terms``, then
     ``winner_add_terms`` with the decoder's context block ``w0g`` (F1, G).
     Returns (g (B, 1, F), zj0, zh0) with the terms shaped (B, D, Ni, F1)."""
-    g, rows, jw, hw = winner_terms(fe, lv_i, lj, lh, lv_b, feats_i, feats_b, act)
+    g, rows, jw, hw = winner_terms(fe, lv_i, lj, lh, lv_b, feats_i, feats_b, act, placement)
     zj0, zh0 = winner_add_terms(rows, jw, hw, w0g, lv_i.shape[-2])
     return g, zj0, zh0
 
 
-def winner_terms(fe, lv_i, lj, lh, lv_b, feats_i, feats_b, act):
+def winner_terms(fe, lv_i, lj, lh, lv_b, feats_i, feats_b, act,
+                 placement: Placement = WHOLE):
     """The pooled feature and the coupling at its winner rows.
 
     ``pointnet_global`` gives the pooled g and each channel's first maximal
@@ -284,14 +288,17 @@ def winner_terms(fe, lv_i, lj, lh, lv_b, feats_i, feats_b, act):
     contracted to each winner's own channel (a dot per channel, not the full
     (K, F) product). Returns (g (B, 1, F), rows (B, F): each channel's
     winner, clamped to the internal rows, jw, hw (B, D, F): the channel's J
-    and H at its winner, zero where a boundary row wins)."""
+    and H at its winner, zero where a boundary row wins). On a points share
+    (``placement``) g is the whole cloud's pool and the rows are local:
+    jw, hw are zero in the channels another rank owns."""
     linears = fe.global_feature.linears
     g_in = torch.cat([torch.cat([lv_i, feats_i], dim=-1),
                       torch.cat([lv_b, feats_b], dim=-1)], dim=-2)
     g, amax = pointnet_cuda.pointnet_global(linears, g_in.contiguous(), act)
     winner = amax[:, 0, :].long()                               # (B, F)
     n_int = lv_i.shape[-2]
-    internal = (winner < n_int).to(lv_i.dtype)[:, None]         # (B, 1, F)
+    g, own = points_max(g, amax, n_int, placement, with_owner=True)
+    internal = (winner < n_int).to(lv_i.dtype)[:, None] * own   # (B, 1, F)
     rows = winner.clamp(max=n_int - 1)
 
     sel_v = torch.cat([_gather_rows(lv_i, rows, 1), _gather_rows(feats_i, rows, 1)], dim=-1)
@@ -423,11 +430,14 @@ def pipn_pp_apply_with_derivatives(module):
     value-only (``sa_cuda.sa_seq_fused``; MRG's encoder through
     ``sa_cuda.sa_mrg_fused``) on the dataset's precomputed chain
     (``attach_neighbors``); the local MLP and the decoder propagate (v, J, H).
-    Dropout as in ``pipn_apply_with_derivatives``. Without an attached chain
-    a CPU batch builds one here, as the reference module builds its
-    neighbours on the fly; a batch on the card raises, so that a loop which
-    forgot ``attach_neighbors`` does not run FPS and the radius search on
-    every call."""
+    On a points share (``placement``) the encoder runs whole on each rank,
+    over the share's cases' whole boundary cloud, and the local MLP and the
+    decoder on the share's rows. Dropout as in
+    ``pipn_apply_with_derivatives``. Without an attached chain a CPU batch
+    builds one here, as the reference module builds its neighbours on the
+    fly; a batch on the card raises, so that a loop which forgot
+    ``attach_neighbors`` does not run FPS and the radius search on every
+    call."""
     is_mrg = isinstance(module, PipnPpMrgModule)
     if is_mrg:
         fractions, radii = SetAbstractionMrgSeq.fractions, SetAbstractionMrgSeq.radii
@@ -444,15 +454,17 @@ def pipn_pp_apply_with_derivatives(module):
         x_int = internal_view["C"]
         x_bnd = boundary_view["C"]
         act = module.activation
-        nbrs = extract_sa_neighbors(batch.domain, len(radii))
+        cloud = placement.cloud(batch)
+        nbrs = extract_sa_neighbors(cloud.domain, len(radii))
         if nbrs is None:
             if x_bnd.device.type != "cpu":
                 raise ValueError("pipn_pp: the batch holds no SetAbstraction chain; attach "
                                  "it once per dataset with model.attach_neighbors(dataset)")
-            nbrs = extract_sa_neighbors(precompute(batch), len(radii))
-        geom = _geometry_features(boundary_view, order)
+            nbrs = extract_sa_neighbors(precompute(cloud), len(radii))
+        cloud_bnd = split_contiguous(cloud)[1]
+        geom = _geometry_features(cloud_bnd, order)
         if is_mrg:
-            g = sa_cuda.sa_mrg_fused(module.global_fe, act, geom, x_bnd, nbrs)
+            g = sa_cuda.sa_mrg_fused(module.global_fe, act, geom, cloud_bnd["C"], nbrs)
         else:
             g = sa_cuda.sa_seq_fused(module.feature_extract.global_feature, act, geom, nbrs)
 
@@ -563,11 +575,25 @@ def _unet_forward(module, points, batch, deterministic, seed, par_embedding=None
                   placement: Placement = WHOLE):
     """The U-Net forward of a PipnPpFullModule or a PiGanoPpFullModule: the
     encoder on ``[sdf || boundaryId || points]`` with its skips, then the
-    decoder, on the batch's precomputed neighbours where it holds them."""
+    decoder, on the batch's precomputed neighbours where it holds them. On a
+    points share (``placement``) the encoder reads every point's
+    coordinates: the internal ones are gathered over the points group
+    (``points_gather``, differentiable to any order) beside the share's
+    cases' whole boundary, the encoder and every FP level but the last run
+    whole on each rank, and the last level on the share's rows."""
     nbrs = extract_sa_neighbors(batch.domain, len(module.encoder.radius))
     fp_idx = extract_fp_idx(batch.domain, len(module.decoder.fp_layers))
     x_in = torch.cat([batch["sdf"], batch["boundaryId"], points], dim=-1)
-    (x, pos), skips = module.encoder(x_in, points, deterministic, nbrs, return_skip=True)
+    if not placement.rows_split:
+        (x, pos), skips = module.encoder(x_in, points, deterministic, nbrs, return_skip=True)
+    else:
+        cloud = placement.cloud(batch)
+        _, cloud_bnd = split_contiguous(cloud)
+        pts = torch.cat([points_gather(points[..., :placement.n_int, :], placement),
+                         cloud_bnd["C"]], dim=-2)
+        cloud_in = torch.cat([cloud["sdf"], cloud["boundaryId"], pts], dim=-1)
+        (x, pos), skips = module.encoder(cloud_in, pts, deterministic, nbrs, return_skip=True)
+        skips[0] = (x_in, points)
     return module.decoder(x, pos, skips, deterministic, fp_idx, seed, par_embedding,
                           placement=placement)[0]
 

@@ -289,10 +289,15 @@ class FeaturePropagationSeq(nn.Module):
     def forward(self, x, pos, skips, deterministic: bool = True, knn_idx=None,
                 seed: Optional[int] = None, par_embedding=None,
                 n_levels: Optional[int] = None, placement: Placement = WHOLE):
-        """Levels [:n_levels] (all when None) from the coarsest (x, pos)."""
+        """Levels [:n_levels] (all when None) from the coarsest (x, pos).
+        The last level's rows are the batch's, at their ``placement``; a
+        middle level's are coarse points, which every rank of a points
+        share holds whole (their masks at the placement's cases alone)."""
+        last = len(self.levels) - 1
         for i, level in enumerate(self.levels[:n_levels]):
             x_skip, pos_skip = skips[-(i + 1)]
+            pl = placement if i == last else placement.cases_only()
             args = (x, pos, x_skip, pos_skip, deterministic,
-                    None if knn_idx is None else knn_idx[i], fp_level_seed(seed, i), placement)
+                    None if knn_idx is None else knn_idx[i], fp_level_seed(seed, i), pl)
             x, pos = level(*args) if par_embedding is None else level(par_embedding, *args)
         return x, pos

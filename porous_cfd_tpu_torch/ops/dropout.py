@@ -71,23 +71,39 @@ class Placement:
     global index of local case 0. With the rows split (``bnd_row0`` set),
     local internal row r is global merged row ``int_row0 + r`` and local
     boundary row r is ``bnd_row0 + r`` (the global internal rows come
-    first); ``mesh`` then holds the 'points' group that shares the rows.
-    The default is the whole batch."""
+    first); ``mesh`` then holds the 'points' group that shares the rows,
+    ``n_int`` the share's internal row count and ``whole`` the share's
+    cases with all their rows and subdomains (a ``FoamData``), which the
+    parts of a model that run whole on each rank read. The default is the
+    whole batch."""
     case0: int = 0
     int_row0: int = 0
     bnd_row0: Optional[int] = None
     mesh: Optional[object] = None
+    n_int: Optional[int] = None
+    whole: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def rows_split(self) -> bool:
         return self.bnd_row0 is not None
 
-    def global_rows(self, rows: torch.Tensor, n_int: Optional[int]) -> torch.Tensor:
+    def cases_only(self) -> "Placement":
+        """The placement of rows that every rank of the points group holds
+        whole (a coarse level of an encoder run whole per rank)."""
+        return Placement(case0=self.case0)
+
+    def cloud(self, batch):
+        """The share's cases with all their rows: ``whole`` where the rows
+        are split, else ``batch`` itself."""
+        return self.whole if self.rows_split else batch
+
+    def global_rows(self, rows: torch.Tensor, n_int: Optional[int] = None) -> torch.Tensor:
         """The global merged rows of local merged rows ``rows``, where the
         first ``n_int`` local rows are internal (needed when the rows are
-        split)."""
+        split; the placement's own ``n_int`` by default)."""
         if not self.rows_split:
             return rows
+        n_int = self.n_int if n_int is None else n_int
         if n_int is None:
             raise ValueError("a points-split placement needs the local internal row count")
         return torch.where(rows < n_int, rows + self.int_row0, rows - n_int + self.bnd_row0)

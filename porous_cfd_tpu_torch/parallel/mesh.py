@@ -10,8 +10,10 @@ collectives itself:
     the gradients, raw losses and metrics are summed as case-weighted
     means);
   * the 'points' axis splits every case's internal and boundary rows over
-    ranks (``pipn``'s decoupled path: the global max-pool becomes a MAX
-    all-reduce over the points group, ``points_max``).
+    ranks: a global max-pool over the rows becomes a MAX all-reduce over
+    the points group (``points_max``), and an encoder that reads every
+    point's differentiated coordinates gathers them (``points_gather``);
+    both are differentiable to the order the exact paths need.
 
 Rank ``r`` sits at mesh coordinates ``(r // points, r % points)``, as the
 JAX mesh reshapes its device list to (data, points). Each rank has one
@@ -236,42 +238,128 @@ def shard_dataset_for_ranks(dataset, mesh: Mesh):
                     {k: v[start:stop] for k, v in dataset.domain.items()})
 
 
-class _PointsMax(torch.autograd.Function):
-    """The global max-pool over a points-split cloud. Forward: the MAX
-    all-reduce of each rank's local pool over the points group; a channel's
-    owner is the rank whose local winner is the first maximal GLOBAL row
-    (the lowest index among the ranks that hold the maximum, as the JAX
-    kernel breaks ties). Backward: the pooled cotangent is summed over the
-    points group (every rank's loss reads the pooled feature), then goes to
-    the local pool only on the owner, whose own backward routes it to its
-    winner row."""
+class _SumOwned(torch.autograd.Function):
+    """y = own * (the SUM of x over the points group): the pooled cotangent,
+    every rank's part summed, kept by the ranks that own its channel.
+    Linear in x, so its backward is its adjoint, ``_OwnedSum``; each is the
+    other's backward, so the pool's derivatives cross ranks to any order."""
 
     @staticmethod
-    def forward(ctx, g_local, winner_rows, mesh):
-        g = mesh.all_reduce(g_local.detach().clone(), "max", "points")
-        big = torch.iinfo(torch.int64).max
-        cand = torch.where(g_local.detach() == g, winner_rows, torch.full_like(winner_rows, big))
-        first = mesh.all_reduce(cand.clone(), "min", "points")
-        ctx.own = (cand == first).to(g.dtype)
-        ctx.mesh = mesh
-        return g
+    def forward(ctx, x, own, mesh):
+        ctx.own, ctx.mesh = own, mesh
+        return mesh.all_reduce(x.contiguous().clone(), "sum", "points") * own
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _OwnedSum.apply(dy, ctx.own, ctx.mesh), None, None
+
+
+class _OwnedSum(torch.autograd.Function):
+    """y = the SUM of own * x over the points group: ``_SumOwned``'s
+    adjoint."""
+
+    @staticmethod
+    def forward(ctx, x, own, mesh):
+        ctx.own, ctx.mesh = own, mesh
+        return mesh.all_reduce((x * own).contiguous(), "sum", "points")
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _SumOwned.apply(dy, ctx.own, ctx.mesh), None, None
+
+
+def owners(g_local: torch.Tensor, winner_rows: torch.Tensor, mesh):
+    """(g, own): the MAX all-reduce ``g`` of each rank's local pool over the
+    points group and, per channel, 1 on the rank whose local winner is the
+    first maximal GLOBAL row (``winner_rows``: the lowest index among the
+    ranks that hold the maximum, as the kernels and ``torch.max`` break
+    ties), else 0."""
+    g_local = g_local.detach()
+    g = mesh.all_reduce(g_local.clone(), "max", "points")
+    big = torch.iinfo(torch.int64).max
+    cand = torch.where(g_local == g, winner_rows, torch.full_like(winner_rows, big))
+    first = mesh.all_reduce(cand.clone(), "min", "points")
+    return g, (cand == first).to(g.dtype)
+
+
+class _PointsMax(torch.autograd.Function):
+    """The global max-pool over a points-split cloud. Forward: ``owners``'
+    pool. Backward: the pooled cotangent is summed over the points group
+    (every rank's loss reads the pooled feature), then goes to the local
+    pool only on the owner, whose own backward routes it to its winner row
+    (``_SumOwned``, differentiable: the exact paths differentiate this
+    backward again)."""
+
+    @staticmethod
+    def forward(ctx, g_local, g, own, mesh):
+        ctx.own, ctx.mesh = own, mesh
+        return g.clone()
 
     @staticmethod
     def backward(ctx, dg):
-        dg = ctx.mesh.all_reduce(dg.contiguous().clone(), "sum", "points")
-        return dg * ctx.own, None, None
+        return _SumOwned.apply(dg, ctx.own, ctx.mesh), None, None, None
 
 
-def points_max(g_local: torch.Tensor, argmax: torch.Tensor, n_int: int,
-               placement) -> torch.Tensor:
-    """The pooled feature (B, 1, F) of the whole cloud from this rank's
-    ``pointnet_global`` result over its [internal || boundary] rows: the max
-    ``g_local`` and its first maximal local rows ``argmax`` (B, 1, F), of
-    which the first ``n_int`` are internal, at the rows' ``placement``
-    (``ops/dropout.Placement``) in the batch, over its mesh's 'points'
-    group. The identity when the rows are not split."""
+def points_max(g_local: torch.Tensor, argmax: torch.Tensor, n_int: Optional[int],
+               placement, with_owner: bool = False):
+    """The pooled feature (B, 1, F) of the whole cloud from this rank's max
+    ``g_local`` over its [internal || boundary] rows and their first maximal
+    local rows ``argmax`` (B, 1, F), of which the first ``n_int`` are
+    internal (the placement's own count when None), at the rows'
+    ``placement`` (``ops/dropout.Placement``) in the batch, over its mesh's
+    'points' group. The identity when the rows are not split. With
+    ``with_owner`` also the ``owners`` mask (B, 1, F) (all ones unsplit)."""
     if not placement.rows_split:
-        return g_local
-    return _PointsMax.apply(g_local, placement.global_rows(argmax.long(), n_int),
-                            placement.mesh)
+        return (g_local, torch.ones_like(g_local)) if with_owner else g_local
+    g, own = owners(g_local, placement.global_rows(argmax.long(), n_int), placement.mesh)
+    g = _PointsMax.apply(g_local, g, own, placement.mesh)
+    return (g, own) if with_owner else g
 
+
+class _GatherRows(torch.autograd.Function):
+    """Every points rank's rows (B, n_k, C) concatenated along the rows in
+    group order (each padded to the largest share for the collective).
+    Backward: the reduce-scatter, ``_ScatterRows``; its backward is this
+    gather again."""
+
+    @staticmethod
+    def forward(ctx, x, counts, mesh):
+        ctx.counts, ctx.mesh = counts, mesh
+        width = max(counts)
+        pad = x.new_zeros((*x.shape[:-2], width - x.shape[-2], x.shape[-1]))
+        parts = mesh.all_gather(torch.cat([x, pad], dim=-2), "points")
+        return torch.cat([p[..., :n, :] for p, n in zip(parts, counts)], dim=-2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _ScatterRows.apply(dy, ctx.counts, ctx.mesh), None, None
+
+
+class _ScatterRows(torch.autograd.Function):
+    """The SUM over the points group of a whole-cloud tensor (B, sum n_k,
+    C), this rank's rows kept: ``_GatherRows``' adjoint."""
+
+    @staticmethod
+    def forward(ctx, y, counts, mesh):
+        ctx.counts, ctx.mesh = counts, mesh
+        k = mesh.index("points")
+        start = sum(counts[:k])
+        total = mesh.all_reduce(y.contiguous().clone(), "sum", "points")
+        return total[..., start:start + counts[k], :].clone()
+
+    @staticmethod
+    def backward(ctx, dx):
+        return _GatherRows.apply(dx, ctx.counts, ctx.mesh), None, None
+
+
+def points_gather(x: torch.Tensor, placement) -> torch.Tensor:
+    """The whole cloud's rows (B, N, C) from this rank's share ``x`` (B, n,
+    C) of one contiguous row range (the internal rows, say), gathered over
+    the placement's 'points' group in order: differentiable to any order
+    (backward a reduce-scatter, whose backward is this gather). The
+    identity when the rows are not split."""
+    if not placement.rows_split:
+        return x
+    n = torch.tensor([x.shape[-2]], device=x.device)
+    counts = [int(c) for c in placement.mesh.all_gather(n, "points")]
+    return _GatherRows.apply(x, counts, placement.mesh)

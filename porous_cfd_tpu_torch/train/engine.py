@@ -16,7 +16,10 @@ resumed run repeats an uninterrupted one.
 With a ``mesh`` (``parallel/mesh.py``) every rank gets the global batch and
 runs its share of it (``shard_batch``): its cases on the 'data' axis and,
 with ``shard_points``, its slice of every case's rows on the 'points' axis
-(``pipn`` on its decoupled path). Each loss and error is a mean over cases
+(every family and derivative path: the models pool over the points group
+through ``parallel.mesh.points_max``, run the encoders that read the whole
+cloud whole on each rank of it, and their (v, J, H) kernels on the share's
+rows alone). Each loss and error is a mean over cases
 and rows, so a rank weighs its share's means by the share's fraction of
 the batch and the weighted terms are summed over the ranks: uneven shares
 (13 cases over 2 ranks: 7 / 6) give the single process's means. The
@@ -39,7 +42,6 @@ import torch
 from torch import nn
 
 from porous_cfd_tpu_torch.data.foam_data import FoamData, split_contiguous
-from porous_cfd_tpu_torch.device import not_ported
 from porous_cfd_tpu_torch.models.base import PinnModel, error_labels, loss_labels
 from porous_cfd_tpu_torch.ops import dropout
 from porous_cfd_tpu_torch.ops.dropout import WHOLE, Placement
@@ -103,41 +105,69 @@ class Share:
     rows: float = 1.0
 
 
+def _row_aux(domain: dict) -> set:
+    """The per-case aux keys of a domain (``attach_neighbors``) that hold one
+    entry a row of the batch, [internal || boundary]: PI-GANO's geometry
+    input and the U-Nets' last FeaturePropagation level's kNN indices (its
+    queries are every row). Every other aux key is whole-cloud (a neighbour
+    chain, the branch input)."""
+    fp = sorted(int(k[len("_fp_idx_"):]) for k in domain if k.startswith("_fp_idx_"))
+    last = {f"_fp_idx_{fp[-1]}"} if fp else set()
+    return {k for k in domain if k == "_gano_geom_in"} | last
+
+
 def batch_share(batch: FoamData, mesh: Optional[Mesh], shard_points: bool = False,
                 unit: int = 1) -> tuple[FoamData, Share]:
     """This rank's part of ``batch`` and its ``Share``: the cases of its
     'data' coordinate (``parallel.mesh.share``, whole groups of ``unit``
     cases) and, with ``shard_points``, the slice of its 'points' coordinate
     of every case's internal rows and of its boundary rows. A points share
-    keeps the subdomains ``internal``, ``boundary`` and ``obs`` (global
-    internal rows, which ``compute_losses`` selects through the placement).
-    Without a mesh, the batch and the whole ``Share()``."""
+    keeps the subdomains ``internal`` and ``boundary`` (its own rows) and
+    ``obs`` (global internal rows, which ``compute_losses`` selects through
+    the placement), every per-row aux entry sliced to its rows (``_row_aux``)
+    and every whole-cloud one whole; its placement's ``whole`` is its cases
+    with all their rows and subdomains, for the encoders that run whole on
+    each rank. Without a mesh, the batch and the whole ``Share()``."""
     if mesh is None:
         return batch, Share()
     n_cases = batch.data.shape[0]
     c0, c1 = share(n_cases, mesh.shape["data"], mesh.index("data"), unit)
+    cases = gather_cases(batch, slice(c0, c1))
     if not shard_points or mesh.shape["points"] == 1:
-        return (gather_cases(batch, slice(c0, c1)),
-                Share(Placement(case0=c0), (c1 - c0) / n_cases))
+        return cases, Share(Placement(case0=c0), (c1 - c0) / n_cases)
+    part, sh = rows_share(cases, mesh, c0)
+    return part, dataclasses.replace(sh, cases=(c1 - c0) / n_cases)
+
+
+def rows_share(cases: FoamData, mesh: Mesh, case0: int = 0) -> tuple[FoamData, Share]:
+    """The rows of this rank's 'points' coordinate of every case of
+    ``cases`` (``batch_share``'s points share; local case 0 is global case
+    ``case0``), and its ``Share`` of them (``cases`` 1)."""
     n_parts, k = mesh.shape["points"], mesh.index("points")
-    n_int = batch.domain["internal"].shape[-1]
-    n_bnd = batch.data.shape[-2] - n_int
+    n_int = cases.domain["internal"].shape[-1]
+    n_bnd = cases.data.shape[-2] - n_int
     if min(n_int, n_bnd) < n_parts:
         raise ValueError(f"shard_batch: {n_int} internal and {n_bnd} boundary rows do not "
                          f"split over {n_parts} points ranks")
     i0, i1 = share(n_int, n_parts, k)
     b0, b1 = share(n_bnd, n_parts, k)
-    data = batch.data[c0:c1]
-    data = torch.cat([data[:, i0:i1], data[:, n_int + b0:n_int + b1]], dim=1)
-    dev = data.device
+
+    def rows(x):
+        return torch.cat([x[:, i0:i1], x[:, n_int + b0:n_int + b1]], dim=1)
+
+    data = rows(cases.data)
+    dev, b = data.device, data.shape[0]
     ni, nb = i1 - i0, b1 - b0
-    dom = {"internal": torch.arange(ni, device=dev).expand(c1 - c0, ni),
-           "boundary": torch.arange(ni, ni + nb, device=dev).expand(c1 - c0, nb)}
-    if "obs" in batch.domain:
-        dom["obs"] = batch.domain["obs"][c0:c1]
-    return (FoamData(data, batch.labels, dom),
-            Share(Placement(c0, i0, n_int + b0, mesh), (c1 - c0) / n_cases,
-                  ni / n_int, nb / n_bnd, (ni + nb) / (n_int + n_bnd)))
+    dom = {"internal": torch.arange(ni, device=dev).expand(b, ni),
+           "boundary": torch.arange(ni, ni + nb, device=dev).expand(b, nb)}
+    if "obs" in cases.domain:
+        dom["obs"] = cases.domain["obs"]
+    per_row = _row_aux(cases.domain)
+    dom.update({key: rows(v) if key in per_row else v
+                for key, v in cases.domain.items() if key.startswith("_")})
+    return (FoamData(data, cases.labels, dom),
+            Share(Placement(case0, i0, n_int + b0, mesh, ni, cases), 1.0, ni / n_int,
+                  nb / n_bnd, (ni + nb) / (n_int + n_bnd)))
 
 
 def shard_batch(batch: FoamData, mesh: Optional[Mesh] = None,
@@ -166,16 +196,6 @@ def reduce_grads(module: nn.Module, mesh: Optional[Mesh], groups: int = 1) -> No
     for p in params:
         p.grad = flat[offset:offset + p.numel()].view_as(p)
         offset += p.numel()
-
-
-def check_points_path(model: PinnModel) -> None:
-    """Raise ``not_ported`` unless the model's training path runs on a
-    points-split share of the rows (``pipn``'s decoupled analytic path)."""
-    fn = model.derivative_apply
-    if fn is not None and getattr(fn, "points_sharded", False) and not model.microbatch:
-        return
-    path = "exact" if fn is None else getattr(fn, "path", "analytic")
-    raise not_ported(f"points sharding of {type(model.module).__name__} on its {path} path")
 
 
 def _index_tensor(idx, device) -> torch.Tensor:
@@ -380,22 +400,21 @@ def make_train_functions(model: PinnModel, tx: AdamExpLR,
                         f"{type(mesh).__name__}")
     if shard_points and mesh is None:
         raise ValueError("make_train_functions: shard_points needs a mesh")
-    if shard_points:
-        check_points_path(model)
     loss_scaler = loss_scaler or LossScaler()
     predict = make_predict_functions(model, mesh)
 
     n_metrics = 1 + model.num_losses + 1 + model.dims
 
     def grads_of(state: TrainState, batch: FoamData, seed: int, scaler_seed: int,
-                 share: Share = Share(), over: Optional[Mesh] = None):
+                 share: Share = Share(), over: Optional[Mesh] = None,
+                 axis: Optional[str] = None):
         """Back-propagate the weighted loss of ``batch``, the ``share`` of
         the step's batch that it is, into the parameters' ``.grad`` (adding
         to what is there). Returns (metrics, raw losses, the scaler's next
         state) of the step's batch. Over a mesh ``over`` the share's loss
         terms and errors (its parts of the batch's, ``compute_losses``) are
-        summed over the ranks before the scaler weighs them, and each rank
-        back-propagates its own part."""
+        summed over the ranks (of its ``axis`` group, all when None) before
+        the scaler weighs them, and each rank back-propagates its own part."""
         if batch.data.shape[0]:
             losses, predicted = compute_losses(model, batch, False, seed, share)
             with torch.no_grad():
@@ -406,7 +425,7 @@ def make_train_functions(model: PinnModel, tx: AdamExpLR,
         else:                           # a rank with no case of this batch
             losses, parts = None, batch.data.new_zeros((n_metrics - 1,))
         if over is not None:
-            over.all_reduce(parts, "sum")
+            over.all_reduce(parts, "sum", axis)
         raw, errors = parts[:model.num_losses], parts[model.num_losses:]
         weights, scaler_state = loss_scaler(state.scaler_state, raw, state.step, scaler_seed)
         if losses is not None:
@@ -422,21 +441,31 @@ def make_train_functions(model: PinnModel, tx: AdamExpLR,
         its losses from the step's starting scaler state with the one scaler
         seed, and drops with its own seed; the gradients and metrics are the
         groups' means, and the scaler advances once, on the mean raw
-        losses. On a mesh whole groups go to a rank, each stepped as one
-        process steps it (its seed from its index in the batch, its cases
-        from 0), and the groups' sums are summed over the ranks."""
+        losses. On a mesh whole groups go to a 'data' rank, each stepped as
+        one process steps it (its seed from its index in the batch, its cases
+        from 0), with ``shard_points`` its rows split over the 'points'
+        group (each group's terms summed over it before the scaler weighs
+        them, as one step's are); the groups' sums are summed over the
+        'data' ranks."""
         b = batch.data.shape[0]
         m = next(m for m in range(min(model.microbatch, b), 0, -1) if b % m == 0)
         groups = b // m
         part, sh = batch_share(batch, mesh, unit=m)
         first = sh.placement.case0 // m
+        split = shard_points and mesh.shape["points"] > 1
         sums = batch.data.new_zeros((n_metrics + model.num_losses,))
         for i in range(part.data.shape[0] // m):
             mb = gather_cases(part, slice(i * m, (i + 1) * m))
-            mets, raw, _ = grads_of(state, mb, dropout.fold_in(seed, first + i), scaler_seed)
+            seed_i = dropout.fold_in(seed, first + i)
+            if split:
+                mb, mb_share = rows_share(mb, mesh)
+                mets, raw, _ = grads_of(state, mb, seed_i, scaler_seed, mb_share, mesh,
+                                        "points")
+            else:
+                mets, raw, _ = grads_of(state, mb, seed_i, scaler_seed)
             sums = sums + torch.cat([mets, raw])
         if mesh is not None:
-            mesh.all_reduce(sums, "sum")
+            mesh.all_reduce(sums, "sum", "data" if split else None)
         sums = sums / groups
         reduce_grads(state.module, mesh, groups)
         _, scaler_state = loss_scaler(state.scaler_state, sums[n_metrics:], state.step,

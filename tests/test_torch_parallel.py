@@ -3,11 +3,13 @@ engine's ``mesh``/``shard_points``): gloo ranks spawned over a ``file://``
 store step a batch and are held to one process of the port, and the JAX
 package's sharded step on its 8-device CPU mesh (``tests/test_engine.py``'s
 own tolerance), on the data axis for every family, with uneven shares of 13
-cases, with dropout and ReLoBRaLo, and on the points axis for ``pipn``'s
-decoupled path; the refusals, the mesh's cases
-(``tests/test_parallel.py``, ``tests/test_cli_multidevice.py``), the CLI's
-``--mesh-data 2`` and the dry run. The two worlds (2 and 4 ranks) run once a
-module, each over two meshes (``torch_parallel_workers.py``)."""
+cases, with dropout and ReLoBRaLo, and on the points axis for every family
+and derivative path (uneven shares of the rows, ties across ranks, the
+collectives' second and third derivatives, the exact path's winner rows);
+the refusals, the mesh's cases (``tests/test_parallel.py``,
+``tests/test_cli_multidevice.py``), the CLI's ``--mesh-data 2`` and the dry
+run. The two worlds (2 and 4 ranks) run once a module, each over two meshes
+(``torch_parallel_workers.py``)."""
 from argparse import Namespace
 
 import jax
@@ -19,25 +21,41 @@ from jax.sharding import Mesh as JaxMesh
 import torch_parallel_workers as w
 from porous_cfd_tpu.data import synthetic as jax_synthetic
 from porous_cfd_tpu.data.manufactured import make_manufactured_batch as jax_manufactured_batch
+from porous_cfd_tpu.models.pi_gano import pi_gano as jax_pi_gano
 from porous_cfd_tpu.models.pipn import pipn_foam as jax_pipn_foam
 from porous_cfd_tpu.models.pipn import pipn_manufactured as jax_pipn_manufactured
 from porous_cfd_tpu.physics import scaling as jax_scaling
 from porous_cfd_tpu.train import engine as jax_engine
-from porous_cfd_tpu_torch.parallel.mesh import (choose_backend, initialize_distributed,
+from porous_cfd_tpu_torch.ops.dropout import WHOLE
+from porous_cfd_tpu_torch.parallel.mesh import (Mesh, choose_backend, initialize_distributed,
                                                 make_mesh, mesh_shape, share)
 from porous_cfd_tpu_torch.pipelines.training import mesh_dims
-from porous_cfd_tpu_torch.train.engine import make_optimizer, make_train_functions
+from porous_cfd_tpu_torch.train.engine import batch_share, make_optimizer, make_train_functions
 
-FAMILIES = [f for f in w.FAMILIES if f != "pipn_decoupled_plain"]
+FAMILIES = [f for f in w.FAMILIES if not f.endswith("_plain")]
 UNEVEN = dict(family="pipn_decoupled", sizes=(13, 24, 16, 6), scaler="relobralo", steps=2,
               masks=True)
 POINTS = dict(family="pipn_decoupled", scaler="relobralo", steps=2, masks=True,
               shard_points=True)
 TIE = dict(family="pipn_decoupled", tie=True, shard_points=True)
 EVAL = dict(family="pipn_decoupled", sizes=(5, 24, 16, 6), eval=True)
+# every other family and path on the points axis, ReLoBRaLo, dropout where
+# the family has it, the rows split unevenly (internal 13 / 12, and the
+# manufactured boundary 9 / 8)
+SIZES = {"foam": (8, 25, 16, 6), "manufactured": (8, 27, 17, 0), "abc": (4, 25, 24, 6),
+         "windbreaks": (4, 25, 25, 6)}
+POINT_SPECS = {f: dict(family=f, sizes=SIZES[w.FAMILIES[f][1]], scaler="relobralo",
+                       shard_points=True)
+               for f in FAMILIES if f != "pipn_decoupled"}
+# a channel maximal on both ranks on the coupled and exact pools
+TIES = {f: dict(family=f, tie=True, shard_points=True) for f in ("pipn_coupled", "pipn_exact")}
 # the JAX package's weights for the JAX comparisons (filled by jax_refs)
 JAX_SPECS = {"manufactured": dict(family="manufactured", sizes=(8, 48, 16, 0)),
-             "decoupled": dict(family="pipn_decoupled_plain")}
+             "decoupled": dict(family="pipn_decoupled_plain"),
+             "pi_gano": dict(family="pi_gano_plain")}
+# the JAX comparisons of the points axis: the decoupled PIPN and both exact
+# paths (the manufactured PIPN, pi-gano's default)
+JAX_POINTS = ("decoupled", "manufactured", "pi_gano")
 
 
 def weights_of(model) -> tuple:
@@ -46,16 +64,20 @@ def weights_of(model) -> tuple:
 
 
 def jax_models() -> dict:
-    """The JAX package's tiny manufactured PIPN (``tests/test_engine.py``)
-    and decoupled ``pipn_foam`` with their batches; their initial weights
-    go into the port's specs."""
+    """The JAX package's tiny manufactured PIPN (``tests/test_engine.py``),
+    decoupled ``pipn_foam`` and exact ``pi_gano`` with their batches; their
+    initial weights go into the port's specs."""
     models = {"manufactured": (jax_pipn_manufactured(**w.MANUFACTURED),
                                jax_manufactured_batch(np.random.default_rng(0), 8, 48, 16,
                                                       0.01, 50.0, 1.0)),
               "decoupled": (jax_pipn_foam(**w.FOAM | {"scalers": jax_synthetic.make_scalers()},
                                           **w.PIPN),
                             jax_synthetic.make_foam_batch(8, 24, 16, 6,
-                                                          rng=np.random.default_rng(0)))}
+                                                          rng=np.random.default_rng(0))),
+              "pi_gano": (jax_pi_gano(1e-3, **w.GANO | {"operator_dropout": [0.0, 0.0]},
+                                      scalers=jax_synthetic.make_scalers()),
+                          jax_synthetic.make_foam_batch(8, 24, 16, 6,
+                                                        rng=np.random.default_rng(0)))}
     for name, (model, batch) in models.items():
         state = jax_engine.init_train_state(model, jax_engine.make_optimizer(model, 1), batch)
         JAX_SPECS[name]["params"] = jax.tree_util.tree_map(np.asarray, state.params)
@@ -64,14 +86,14 @@ def jax_models() -> dict:
 
 def jax_sharded_steps(models: dict) -> dict:
     """The JAX sharded steps' metrics on the 8-device CPU mesh: data (8 x 1)
-    and, for the decoupled PIPN, points (4 x 2)."""
+    for the PIPNs and points (4 x 2) for ``JAX_POINTS``."""
     devs = np.array(jax.devices()[:8])
     out = {}
     for name, (model, batch) in models.items():
         tx = jax_engine.make_optimizer(model, 1)
         scaler = jax_scaling.FixedLossScaler(weights_of(model))
         for shape, sp in ([(8, 1), False], [(4, 2), True]):
-            if sp and name != "decoupled":
+            if name not in (JAX_POINTS if sp else ("manufactured", "decoupled")):
                 continue
             mesh = JaxMesh(devs.reshape(shape), ("data", "points"))
             fns = jax_engine.make_train_functions(model, tx, scaler, mesh=mesh, shard_points=sp)
@@ -85,27 +107,32 @@ def worlds():
     """Two worlds of ranks, started together, while the JAX package's
     sharded steps run here. World of 2: the data axis (2 x 1) for every
     family, the JAX specs, 13 cases (7 / 6) and the sharded eval; the
-    points axis (1 x 2) with dropout and ReLoBRaLo, the tie batch, the JAX
-    spec and ``points_max``'s hand-made ties. World of 4: the data axis
-    (4 x 1) for the JAX specs, 13 cases (4 / 3 / 3 / 3) and the eval; the
-    points axis (2 x 2); the mesh's cases."""
+    points axis (1 x 2) with dropout and ReLoBRaLo for every family and
+    path, the tie batches, the JAX specs, ``points_max``'s hand-made ties,
+    the collectives' derivatives and the exact path's winners. World of 4:
+    the data axis (4 x 1) for the JAX specs, 13 cases (4 / 3 / 3 / 3) and
+    the eval; the points axis (2 x 2) for every family and path and the
+    JAX specs; the mesh's cases."""
     models = jax_models()
-    jax_points = JAX_SPECS["decoupled"] | {"shard_points": True}
+    jax_points = [JAX_SPECS[n] | {"shard_points": True} for n in JAX_POINTS]
+    every_path = list(POINT_SPECS.values())
     specs = {2: {"data": [dict(family=f) for f in FAMILIES]
                  + [JAX_SPECS["manufactured"], JAX_SPECS["decoupled"], UNEVEN, EVAL],
-                 "points": [POINTS, TIE, jax_points]},
+                 "points": [POINTS, TIE, *TIES.values(), *jax_points, *every_path]},
              4: {"data": [JAX_SPECS["manufactured"], JAX_SPECS["decoupled"], UNEVEN, EVAL],
-                 "points": [POINTS, jax_points]}}
+                 "points": [POINTS, *jax_points, *every_path]}}
     started = {2: w.start_ranks(2, [((2, 1), specs[2]["data"]), ((1, 2), specs[2]["points"])],
-                                extra=w.points_max_ties),
+                                extra=(w.points_max_ties, w.collective_cases,
+                                       w.exact_derivatives)),
                4: w.start_ranks(4, [((4, 1), specs[4]["data"]), ((2, 2), specs[4]["points"])],
-                                extra=w.mesh_cases)}
+                                extra=(w.mesh_cases,))}
     refs = jax_sharded_steps(models)
     out = {"jax": refs}
     for n, ranks in started.items():
         res = ranks.results()
         out[n] = {"data": [r[0] for r in res], "points": [r[1] for r in res],
-                  "extra": [r[2] for r in res], "specs": specs[n]}
+                  "extra": [r[2] for r in res], "cases": [r[3:] for r in res],
+                  "specs": specs[n]}
     return out
 
 
@@ -158,6 +185,30 @@ def assert_same_step(got: dict, ref: dict, label: str):
         assert_close(g, r, f"{label} grad {i}")
     for i, (p, r) in enumerate(zip(got["params"], ref["params"])):
         assert_close(p, r, f"{label} param {i}")
+
+
+def assert_same_first_step(got: dict, ref: dict, label: str):
+    """``assert_same_step``'s metrics and gradients, and the parameters
+    after Adam's first step within the tolerance plus the most that step
+    can move them while each gradient stays within its own tolerance:
+    lr g / (|g| + eps) turns a gradient near eps (a bias that a few rows
+    reach) into a step of any size up to lr (``chip_smoke.py`` holds phase
+    41's parameters so)."""
+    assert_close(got["metrics"], ref["metrics"], f"{label} metrics", per_entry=True)
+    lr, eps = ref["adam"]
+    for i, (g, r, p, rp) in enumerate(zip(got["grads"], ref["grads"], got["params"],
+                                          ref["params"])):
+        assert_close(g, r, f"{label} grad {i}")
+        r = r.double()
+        tau = 1e-4 * (r.abs() + r.abs().max())
+
+        def step(x):
+            return lr * x / (x.abs() + eps)
+
+        spread = (step(r + tau) - step(r)).abs().maximum((step(r - tau) - step(r)).abs())
+        rp = rp.double()
+        excess = (p.double() - rp).abs() - 1e-4 * (rp.abs() + rp.abs().max()) - spread
+        assert bool((excess <= 0).all()), f"{label} param {i}: {p} != {rp}"
 
 
 def spec_result(world: dict, axis: str, spec: dict, rank: int = 0) -> dict:
@@ -314,26 +365,107 @@ def test_points_axis_ties_across_ranks(two_ranks):
                          f"tie rank {rank}")
 
 
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("family", list(POINT_SPECS))
+def test_points_axis_every_path_equals_one_process(two_ranks, four_ranks, world, family):
+    """Each family and derivative path with its rows split over 2 points
+    ranks ((1 x 2) and (2 x 2)), the internal rows 13 / 12, dropout where
+    the family has it, ReLoBRaLo: every rank's step is one process's."""
+    ranks = two_ranks if world == 2 else four_ranks
+    spec = POINT_SPECS[family]
+    ref = single(spec)
+    for rank in range(world):
+        assert_same_first_step(spec_result(ranks, "points", spec, rank), ref,
+                               f"{family} points rank {rank}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", ["manufactured", "pi_gano"])
+def test_points_axis_exact_paths_match_the_jax_sharded_step(jax_refs, two_ranks, four_ranks,
+                                                           world, name):
+    """The manufactured PIPN and ``pi-gano``, both on their exact paths
+    (the JAX dry run's model and the variable CLI's default), points split:
+    one process of the port, and the JAX package's step on its (4 x 2)
+    mesh."""
+    ranks = two_ranks if world == 2 else four_ranks
+    spec = JAX_SPECS[name] | {"shard_points": True}
+    for rank in range(world):
+        got = spec_result(ranks, "points", spec, rank)
+        assert_same_step(got, single(spec), f"{name} points over {world} rank {rank}")
+        np.testing.assert_allclose(got["metrics"].numpy(), jax_refs[(name, True)], rtol=5e-3,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("path", list(TIES))
+def test_points_axis_ties_on_the_coupled_and_exact_pools(two_ranks, path):
+    """The tie batch (a channel maximal in the first share's first row and
+    the last share's last row) on the coupled and exact pools: the lower
+    global row owns the channel, and each rank steps as one process."""
+    for rank in range(2):
+        assert_same_step(spec_result(two_ranks, "points", TIES[path], rank),
+                         single(TIES[path]), f"{path} tie rank {rank}")
+
+
+@pytest.mark.parametrize("kind", ["max", "gather"])
+def test_points_collectives_second_and_third_derivatives(two_ranks, kind):
+    """``points_max`` and ``points_gather`` on 7 / 5 rows of a (1 x 2)
+    mesh: a scalar summed over the rows, its first derivative and its second
+    and third (as products with fixed weights) at each rank's rows equal one
+    process's at the same rows (float64)."""
+    ref = w.collective_derivatives(w._deriv_x(), WHOLE)[kind]
+    for rank in range(2):
+        i0 = sum(w.DERIV_ROWS[:rank])
+        rows = slice(i0, i0 + w.DERIV_ROWS[rank])
+        got = two_ranks["cases"][rank][0][kind]
+        for order, (a, r) in enumerate(zip(got, ref), 1):
+            assert a.abs().max() > 0
+            torch.testing.assert_close(a, r[:, rows], rtol=1e-10, atol=1e-12,
+                                       msg=f"{kind} order {order} rank {rank}")
+
+
+def test_exact_path_winner_rows_cross_ranks(two_ranks):
+    """The manufactured PIPN's exact path on a (1 x 2) mesh: the pooled
+    channels' winners lie on both ranks' internal rows, and every row
+    (whichever rank reads the pool) has one process's J and H; the gradient
+    of a loss of J and H alone in every parameter, the encoder's among them,
+    is one process's after the all-reduce."""
+    ref = w.exact_derivatives()
+    model, batch = w.build(w.EXACT_WINNERS)
+    fe = model.module.feature_extract
+    with torch.no_grad():
+        local = fe.local_feature(batch["C"])
+        y = fe.global_feature(torch.cat([local, batch["boundaryId"], batch["sdf"]], dim=-1))
+    winners = torch.max(y, dim=-2).indices
+    n_int = 24
+    assert bool((winners < n_int // 2).any()) and bool(((winners >= n_int // 2)
+                                                        & (winners < n_int)).any())
+    for rank in range(2):
+        got = two_ranks["cases"][rank][1]
+        rows = torch.cat([torch.arange(12 * rank, 12 * rank + 12),
+                          torch.arange(24 + 8 * rank, 24 + 8 * rank + 8)])
+        assert_close(got["out"], ref["out"][:, rows], f"out rank {rank}")
+        for key in ("jac", "lap"):
+            assert_close(got[key], ref[key][:, 12 * rank:12 * rank + 12], f"{key} rank {rank}")
+        for name, g in got["grads"].items():
+            assert_close(g, ref["grads"][name], f"{name} rank {rank}")
+        assert ref["grads"]["feature_extract.global_feature.linear_0.weight"].abs().max() > 0
+
+
 def test_points_sharding_of_other_paths_is_refused():
-    """The families and paths that stay unsharded on points raise
-    ``not_ported`` naming the module and path; a mesh of another type is a
-    ``TypeError``."""
-    mesh = make_mesh(1, 1, devices=["cpu"])
-    names = {"pipn_coupled": "PipnModule on its coupled", "pipn_exact": "PipnModule on its exact",
-             "pipn_pp": "PipnPpModule", "pipn_pp_mrg": "PipnPpMrgModule",
-             "pipn_pp_full": "PipnPpFullModule", "pi_gano": "PiGanoModule on its exact",
-             "pi_gano_fast": "PiGanoModule on its analytic",
-             "pi_gano_pp_full": "PiGanoPpFullModule", "manufactured_coupled": "coupled"}
-    for family, match in names.items():
-        model, _ = w.build(dict(family=family))
-        with pytest.raises(NotImplementedError, match=f"points sharding of .*{match}"):
-            make_train_functions(model, make_optimizer(model, 1), mesh=mesh,
-                                 shard_points=True)
-    model, _ = w.build(dict(family="pipn_decoupled"))
+    """Every family and path splits its rows now (``POINT_SPECS``); what is
+    refused: a mesh of another type (``TypeError``), ``shard_points``
+    without a mesh, and a batch with fewer internal or boundary rows than
+    points ranks (``ValueError``)."""
+    model, batch = w.build(dict(family="manufactured", sizes=(2, 24, 1, 0)))
     with pytest.raises(TypeError):
         make_train_functions(model, make_optimizer(model, 1), mesh=object())
     with pytest.raises(ValueError):
         make_train_functions(model, make_optimizer(model, 1), shard_points=True)
+    # a (1 x 2) mesh's view from rank 0 (no collective is reached)
+    mesh = Mesh({"data": 1, "points": 2}, 0, (0, 0), torch.device("cpu"), None,
+                {"world": None})
+    with pytest.raises(ValueError, match="24 internal and 1 boundary rows do not split"):
+        batch_share(batch, mesh, shard_points=True)
 
 
 def test_mesh_of_one_process_steps_as_no_mesh():

@@ -171,10 +171,9 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """Named when more of the port raised: now the points axis of every
-    path but PIPN's decoupled one alone does (multi-device training on the
-    data axis is ported), and every path it once refused builds and
-    steps."""
+    """Named when more of the port raised: now nothing does (multi-device
+    training on both axes is ported), and every path it once refused builds
+    and steps."""
     import dataclasses
 
     from porous_cfd_tpu_torch.train.engine import make_optimizer, make_train_functions
@@ -190,13 +189,15 @@ def test_unported_paths_raise():
         fns = make_train_functions(knobbed, make_optimizer(knobbed, 1))
         state, m = fns.train_step(fns.init_state(seed=1), foam)
         assert state.step == 1 and bool(torch.isfinite(m).all())
-    # a mesh is a parallel.mesh.Mesh; points sharding of PIPN++ is not ported
+    # a mesh is a parallel.mesh.Mesh; points sharding of PIPN++ is ported
+    # (tests/test_torch_parallel.py holds every path to one process)
     with pytest.raises(TypeError):
         make_train_functions(model, make_optimizer(model, 1), mesh=object())
     pp = pipn_foam_pp(1e-3, 1.0, 1.0, **PP_SMALL, scalers=make_scalers(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_functions(pp, make_optimizer(pp, 1), mesh=make_mesh(1, 1, devices=["cpu"]),
-                             shard_points=True)
+    fns = make_train_functions(pp, make_optimizer(pp, 1), mesh=make_mesh(1, 1, devices=["cpu"]),
+                               shard_points=True)
+    state, m = fns.train_step(fns.init_state(seed=1), pp.attach_neighbors(foam))
+    assert state.step == 1 and bool(torch.isfinite(m).all())
     # PIPN's exact and coupled paths, PiGanoFull, PI-GANO++, PIPN++ MRG and
     # bf16-mixed are ported; so are the exact paths of PI-GANO (its default,
     # with full too), PI-GANO++, PIPN++ and PIPN++ MRG, and the manufactured

@@ -1,8 +1,10 @@
 """The port's training steps on a mesh of gloo processes, for the CPU tests
 of ``porous_cfd_tpu_torch.parallel``: every family of the port at narrow
-widths, built from a seed (or from given flax weights) on every rank, and a
-one-process run of the same spec. The ranks import the port alone (no JAX),
-and reach each other through a ``file://`` store, no network."""
+widths (two of them at D = 3), built from a seed (or from given flax weights) on
+every rank, and a one-process run of the same spec; the points axis's
+collectives and the exact path's derivatives on a share, beside the same
+functions in one process. The ranks import the port alone (no JAX), and
+reach each other through a ``file://`` store, no network."""
 from __future__ import annotations
 
 import os
@@ -14,15 +16,18 @@ import torch
 
 from porous_cfd_tpu_torch.convert import params_from_flax
 from porous_cfd_tpu_torch.data.manufactured import make_manufactured_batch
-from porous_cfd_tpu_torch.data.synthetic import (VARIABLE_BOUNDARIES, make_foam_batch,
-                                                 make_scalers)
+from porous_cfd_tpu_torch.data.synthetic import (PATCHES_3D, VARIABLE_BOUNDARIES,
+                                                 VARIABLE_BOUNDARIES_3D, make_foam_batch,
+                                                 make_foam_batch_3d, make_scalers,
+                                                 make_scalers_3d)
 from porous_cfd_tpu_torch.models import pi_gano as gano
 from porous_cfd_tpu_torch.models import pipn
 from porous_cfd_tpu_torch.ops import dropout
-from porous_cfd_tpu_torch.parallel.mesh import make_mesh, points_max
+from porous_cfd_tpu_torch.parallel.mesh import make_mesh, points_gather, points_max
 from porous_cfd_tpu_torch.physics import analytic
 from porous_cfd_tpu_torch.physics.scaling import FixedLossScaler, RelobraloScaler
-from porous_cfd_tpu_torch.train.engine import batch_share, make_optimizer, make_train_functions
+from porous_cfd_tpu_torch.train.engine import (batch_share, make_optimizer, make_train_functions,
+                                               model_derivatives, reduce_grads)
 
 SEED = 8421
 FOAM = dict(nu=1e-3, d=1.0, f=1.0, scalers=None)
@@ -40,11 +45,25 @@ UNET_ENC = dict(enc_layers=[[9, 8, 8], [10, 8, 8], [10, 16]], enc_radius=[0.5, 1
                 enc_fraction=[0.5, 0.25], dec_layers=[[24, 8], [16, 8], [15, 8, 3]],
                 dec_k=[3, 3, 3], max_neighbors=8)
 UNET = dict(UNET_ENC, nu=1e-3, d=1.0, f=1.0, dec_dropout=[0, 0, [0.2, 0]])
+# dropout on a middle FP level: the exact path, that level's masks over the
+# coarse points every points rank holds whole
+UNET_MID = dict(UNET, dec_dropout=[0, 0.2, [0.2, 0]])
 UNET_GANO = dict(UNET_ENC, nu=1e-3, out_features=3, branch_layers=[8, 16],
                  fp_dropout=[0, 0, [0.2, 0]], variable_boundaries=VARIABLE_BOUNDARIES)
 # the JAX package's tiny manufactured PIPN (tests/test_engine.py)
 MANUFACTURED = dict(nu=0.01, d=50.0, f=1.0, fe_local_layers=[2, 16, 16],
                     fe_global_layers=[16 + 3, 16, 32], seg_layers=[32 + 16, 32, 3])
+# abc's pipn-pp at narrow widths (tests/test_torch_3d_zoo.py's ABC_PP): D = 3,
+# 4 boundary ids, 16 neighbours
+ABC_PP = dict(fe_local_layers=[3, 16, 16], seg_layers=[32 + 16, 24, 16, 4],
+              fe_radius=[0.5, 1], fe_fraction=[0.5, 0.25],
+              fe_global_layers=[[3 + 4 + 3, 16, 24], [24 + 3, 24, 24], [24 + 3, 24, 32]],
+              max_neighbors=16, seg_dropout=[0.2, 0.0, 0.0])
+# windbreaks' pi-gano at narrow widths (tests/test_torch_3d_zoo.py's WB_GANO)
+# on its CLI's analytic path: 5 boundary ids, the inlet's Ux in the branch
+WB_GANO = dict(out_features=4, branch_layers=[10, 16, 40], local_layers=[3, 16, 16, 16],
+               geometry_layers=[5 + 3 + 1, 16, 24, 24], n_operators=4,
+               operator_dropout=[0.0, 0.2, 0.2, 0.0], variable_boundaries=VARIABLE_BOUNDARIES_3D)
 
 
 def _foam(factory, **kwargs):
@@ -79,7 +98,11 @@ FAMILIES = {
     "pipn_pp_full_exact": (lambda gen: pipn.pipn_foam_pp_full(
         **UNET, scalers=make_scalers(), fast_derivatives=False, generator=gen,
         device="cpu"), "foam"),
+    "pipn_pp_full_mid_dropout": (lambda gen: pipn.pipn_foam_pp_full(
+        **UNET_MID, scalers=make_scalers(), generator=gen, device="cpu"), "foam"),
     "pi_gano": (_gano(gano.pi_gano, GANO), "foam"),
+    # without dropout, for the JAX package's sharded step
+    "pi_gano_plain": (_gano(gano.pi_gano, dict(GANO, operator_dropout=[0.0, 0.0])), "foam"),
     "pi_gano_fast": (_gano(gano.pi_gano, GANO, fast_derivatives=True), "foam"),
     "pi_gano_full": (_gano(gano.pi_gano, GANO, full=True, fast_derivatives=True), "foam"),
     "pi_gano_pp": (_gano(gano.pi_gano_pp, GANO_PP), "foam"),
@@ -92,17 +115,29 @@ FAMILIES = {
     "manufactured_pp": (lambda gen: pipn.pipn_manufactured_pp(
         0.01, 50.0, 1.0, [2, 8, 8], [[6, 8], [10, 8], [10, 16]], [0.6, 1.2], [0.5, 0.25],
         [24, 8, 3], max_neighbors=8, generator=gen, device="cpu"), "manufactured"),
+    "abc_pipn_pp": (lambda gen: pipn.pipn_foam_pp(
+        **FOAM | {"scalers": make_scalers_3d()}, **ABC_PP, generator=gen, device="cpu"),
+        "abc"),
+    "windbreaks_pi_gano": (lambda gen: gano.pi_gano(
+        1e-3, **WB_GANO, scalers=make_scalers_3d(), fast_derivatives=True, generator=gen,
+        device="cpu"), "windbreaks"),
 }
 
 
 def make_batch(spec: dict):
-    """The spec's batch: ``make_foam_batch`` or the JAX test's manufactured
-    batch, from the spec's seed; ``tie`` repeats an extreme internal row of
-    the first points share in the second (a channel maximal in both)."""
-    cases, n_int, n_bnd, n_obs = spec.get("sizes", (8, 24, 16, 6))
+    """The spec's batch: ``make_foam_batch`` (``make_foam_batch_3d`` at
+    D = 3) or the JAX test's manufactured batch, from the spec's seed;
+    ``tie`` repeats an extreme internal row of the first points share in the
+    second (a channel maximal in both)."""
+    kind = FAMILIES[spec["family"]][1]
+    # windbreaks' boundary splits over its 5 patches
+    cases, n_int, n_bnd, n_obs = spec.get("sizes", (8, 24, 20 if kind == "windbreaks" else 16,
+                                                    6))
     rng = np.random.default_rng(spec.get("data_seed", 0))
-    if FAMILIES[spec["family"]][1] == "manufactured":
+    if kind == "manufactured":
         return make_manufactured_batch(rng, cases, n_int, n_bnd, 0.01, 50.0, 1.0)
+    if kind in PATCHES_3D:
+        return make_foam_batch_3d(cases, n_int, n_bnd, n_obs, PATCHES_3D[kind], rng=rng)
     batch = make_foam_batch(cases, n_int, n_bnd, n_obs, rng=rng)
     if spec.get("tie"):
         data = batch.data.clone()
@@ -132,9 +167,10 @@ def _scaler(spec, model):
 
 def run_steps(spec: dict, mesh=None) -> dict:
     """``spec["steps"]`` training steps (1 by default); the last step's
-    metrics, every parameter's gradient and value after it, and the scaler
-    state, on the CPU. With ``masks``, also the mask of the decoder's layer 0
-    at this rank's share (width 16) and the share's bounds."""
+    metrics, every parameter's gradient and value after it, the scaler
+    state and Adam's (lr, eps), on the CPU. With ``masks``, also the mask of
+    the decoder's layer 0 at this rank's share (width 16) and the share's
+    bounds."""
     model, batch = build(spec)
     shard_points = bool(spec.get("shard_points")) and mesh is not None
     fns = make_train_functions(model, make_optimizer(model, 1), _scaler(spec, model),
@@ -146,7 +182,8 @@ def run_steps(spec: dict, mesh=None) -> dict:
            "grads": [p.grad.detach().clone() for p in model.module.parameters()],
            "params": [p.detach().clone() for p in model.module.parameters()],
            "scaler": None if state.scaler_state is None else
-           [t.clone() for t in vars(state.scaler_state).values()]}
+           [t.clone() for t in vars(state.scaler_state).values()],
+           "adam": (model.learning_rate, model.adam_eps)}
     if spec.get("masks"):
         local, share = batch_share(batch, mesh, shard_points)
         pl = share.placement
@@ -169,8 +206,8 @@ def _worker(rank: int, world: int, init_method: str, jobs: list, out: str, extra
         for shape, specs in jobs:
             mesh = make_mesh(*shape, devices=["cpu"] * world, init_method=init_method)
             results.append([run_steps(spec, mesh) for spec in specs])
-        if extra is not None:
-            results.append(extra(mesh))
+        for fn in extra:
+            results.append(fn(mesh))
         torch.save(results, f"{out}.{rank}")
     finally:
         torch.distributed.destroy_process_group()
@@ -178,8 +215,8 @@ def _worker(rank: int, world: int, init_method: str, jobs: list, out: str, extra
 
 class Ranks:
     """A world of ranks started by ``start_ranks``; ``results()`` waits for
-    them: per rank, one list of ``run_steps`` results a job, then
-    ``extra``'s result."""
+    them: per rank, one list of ``run_steps`` results a job, then each
+    ``extra`` function's result."""
 
     def __init__(self, world: int, jobs: list, extra):
         self.world = world
@@ -199,11 +236,12 @@ class Ranks:
             self.tmp.cleanup()
 
 
-def start_ranks(world: int, jobs: list, extra=None) -> Ranks:
+def start_ranks(world: int, jobs: list, extra=()) -> Ranks:
     """Start ``world`` gloo processes that run each (shape, specs) job of
     ``jobs`` (its specs stepped on a (data x points) mesh of that shape),
-    then ``extra(mesh)`` (a module-level function) on the last mesh."""
-    return Ranks(world, jobs, extra)
+    then ``fn(mesh)`` for ``extra`` (a module-level function), or for each
+    function of a tuple of them, on the last mesh."""
+    return Ranks(world, jobs, (extra,) if callable(extra) else tuple(extra))
 
 
 def points_max_ties(mesh) -> dict:
@@ -270,3 +308,72 @@ def distance_cases(mesh) -> dict:
                                                             torch.from_numpy(t), mesh, 64),
             "sdf_mesh": distance.sdf_feature(pts_i, pts_b, zone, mesh),
             "sdf": distance.sdf_feature(pts_i, pts_b, zone)}
+
+
+# the collectives' derivative cases: each points rank's rows (uneven), and
+# the exact path's winners: the manufactured PIPN on 2 cases of 24 / 16 rows
+DERIV_ROWS = (7, 5)
+EXACT_WINNERS = dict(family="manufactured", sizes=(2, 24, 16, 0))
+
+
+def _deriv_x() -> torch.Tensor:
+    return torch.rand((2, sum(DERIV_ROWS), 2), generator=torch.Generator().manual_seed(3),
+                      dtype=torch.float64) * 2 - 1
+
+
+def _collective_scalar(kind: str, x: torch.Tensor, placement) -> torch.Tensor:
+    """A scalar of the rows ``x`` (B, n, 2), summed over them, that reads
+    the whole cloud: through the pool ``points_max`` of tanh(x W) ("max"),
+    or through every row's coordinates, ``points_gather`` ("gather")."""
+    gen = torch.Generator().manual_seed(4)
+    w, v = (torch.randn((2, 6), generator=gen, dtype=x.dtype) for _ in range(2))
+    if kind == "max":
+        g, rows = torch.max(torch.tanh(x @ w), dim=-2, keepdim=True)
+        return (torch.tanh(x @ v) * points_max(g, rows, None, placement)).sum()
+    whole = points_gather(x, placement)
+    d2 = ((x[:, :, None] - whole[:, None]) ** 2).sum(-1)
+    return (torch.exp(-d2) * (1.0 + whole[:, None, :, 0])).sum()
+
+
+def collective_derivatives(x: torch.Tensor, placement) -> dict:
+    """Per kind of ``_collective_scalar``: its first derivative in ``x``,
+    and the second and third as products with fixed weights of the rows'
+    global indices, (B, n, 2) each; on a points share every rank calls this
+    at once, and each gets its rows' part of the whole cloud's."""
+    rows = placement.global_rows(torch.arange(x.shape[-2]))
+    c1 = torch.cos(rows + 1.0)[:, None] * torch.tensor([1.0, -0.5], dtype=x.dtype)
+    c2 = torch.sin(rows + 2.0)[:, None] * torch.tensor([0.3, 1.0], dtype=x.dtype)
+    out = {}
+    for kind in ("max", "gather"):
+        xr = x.detach().clone().requires_grad_()
+        d1 = torch.autograd.grad(_collective_scalar(kind, xr, placement), xr,
+                                 create_graph=True)[0]
+        d2 = torch.autograd.grad((d1 * c1).sum(), xr, create_graph=True)[0]
+        d3 = torch.autograd.grad((d2 * c2).sum(), xr)[0]
+        out[kind] = [d1.detach(), d2.detach(), d3.detach()]
+    return out
+
+
+def collective_cases(mesh) -> dict:
+    """``collective_derivatives`` on this rank's rows of ``_deriv_x`` over a
+    (1 x 2) mesh's points group, every row internal."""
+    k = mesh.index("points")
+    i0, n = sum(DERIV_ROWS[:k]), DERIV_ROWS[k]
+    x = _deriv_x()
+    pl = dropout.Placement(0, i0, x.shape[-2], mesh, n)
+    return collective_derivatives(x[:, i0:i0 + n], pl)
+
+
+def exact_derivatives(mesh=None) -> dict:
+    """The manufactured PIPN's exact path on ``EXACT_WINNERS`` (this rank's
+    points share with a mesh): out, J and H of the share's rows, and every
+    parameter's gradient of a loss of J and H alone (sum J^2 + H^2),
+    summed over the ranks (0 where the loss reads none)."""
+    model, batch = build(EXACT_WINNERS)
+    part, sh = batch_share(batch, mesh, mesh is not None)
+    out, jac, lap = model_derivatives(model, part, True, None, sh.placement)
+    ((jac ** 2).sum() + (lap ** 2).sum()).backward()
+    reduce_grads(model.module, mesh)
+    return {"out": out.detach(), "jac": jac.detach(), "lap": lap.detach(),
+            "grads": {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                      for n, p in model.module.named_parameters()}}
