@@ -248,11 +248,28 @@ Phases, in order; any failure exits non-zero:
      (1 x 2), held to one process's step on the card: each rank's launches,
      the rows of its (v, J, H) calls (the share's), its metrics, gradients
      and updated parameters, its ms a step and peak memory.
+ 42. the measurement tools (``porous_cfd_tpu_torch/tools/``) in process at
+     the full-width bench envelope, few repetitions: ``profile_step
+     --family pipn``, ``profile_pp`` (pipn_pp), ``roofline --families
+     pipn,pipn_pp`` (with the two profiles' steps/s as its measured rates),
+     ``mfu --families pipn,pi_gano``, ``profile_gano``, ``profile_delta``
+     for pipn, pipn_pp and pi_gano, ``measure_full_rates --steps 2``,
+     ``torch_baseline --steps 2``, ``samehost_ratio --torch-steps 2`` (its
+     baseline in a subprocess of its own), ``make_mesh_assets`` into a
+     temporary directory and ``render_smoke``. Each tool's printed line
+     parses, every number in it finite and positive, its card label
+     ``nvidia-smi``'s; each profile tool launched its family's kernels;
+     each piece's device ms is at most its CUDA-event wall ms plus 5%;
+     every MFU lies in (0, 1] and every percentage of a peak in (0, 100];
+     roofline's pipn decoder forward FLOPs equal, within 0.5%, what phase 3
+     counts for the same decoder_prop launch; the eleven OBJ files equal
+     the checked-in ones; render_smoke exits 0 with its two SKIP lines
+     (neither PyVista nor bpy is installed on the card's machine).
 Each of phases 4-14, 16-17, 20-21, 24-27 and 30-35 sets every launch count to 0 just
 before it and reads them just after (phases 18, 22 and 36 around each
 in-process training command, 38 and 39 around each training command,
 23 and 28 around their steps, 40 around each in-process compare, 41 in
-each rank around its step and around the CLI); every
+each rank around its step and around the CLI, 42 around each tool); every
 training phase also counts the synchronizing calls of one step, which must
 be none. Each phase logs the second it starts at (``[clock]`` lines). The
 second-to-last lines are the
@@ -4485,6 +4502,141 @@ def multi_rank_phase(name, smi, counters):
     return report
 
 
+# phase 42: the kernels each tool's run must launch (FPS runs in
+# attach_neighbors)
+TOOL_KERNELS = {
+    "pipn": ("pointnet_global", "decoder_prop"),
+    "pipn_pp": ("sa_neighborhood", "farthest_point_sampling"),
+    "pi_gano": ("neural_ops_prop", "pointnet_global"),
+}
+TOOL_DEVICE_SLACK = 1.05       # a piece's device ms against its wall ms
+TOOL_FLOP_RTOL = 5e-3          # roofline's decoder FLOPs against phase 3's
+
+
+def _numbers(obj, path=""):
+    """(path, value) of every number in a parsed JSON line (not bools)."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from _numbers(v, f"{path}/{k}")
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            yield from _numbers(v, f"{path}/{i}")
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        yield path, obj
+
+
+def tools_phase(name, smi, counters, decoder_flop):
+    """Phase 42 (module docstring): every measurement tool in process on the
+    card; ``decoder_flop`` is phase 3's FLOP count of pipn's decoder_prop
+    forward."""
+    import contextlib
+    import io
+    import torch
+    from porous_cfd_tpu_torch.tools import (make_mesh_assets, measure_full_rates, mfu,
+                                            profile_delta, profile_gano, profile_pp,
+                                            profile_step, render_smoke, roofline,
+                                            samehost_ratio, torch_baseline)
+    t_phase = time.perf_counter()
+    report = {}
+
+    def run_tool(label, fn, want=()):
+        """Run one tool with every launch count at 0; its printed line parsed
+        and checked; the kernels ``want`` launched."""
+        for c in counters.values():
+            c.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn()
+        seconds = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        printed = buf.getvalue().strip().splitlines()
+        try:
+            line = json.loads(printed[-1])
+        except (IndexError, json.JSONDecodeError) as e:
+            fail(f"tools: {label} printed no JSON line ({e}): {printed[-3:]}")
+        bad = [(p, v) for p, v in _numbers(line) if not (math.isfinite(v) and v > 0)]
+        if bad:
+            fail(f"tools: {label}: numbers not finite and positive: {bad[:5]}")
+        if line.get("card") != smi:
+            fail(f"tools: {label}: card {line.get('card')!r} is not {smi!r}")
+        missing = [k for k in want if not launches.get(k)]
+        if missing:
+            fail(f"tools: {label} launched no {missing} (launches {launches})")
+        for piece, t in line.get("pieces", {}).items():
+            if not t["device_ms"] <= TOOL_DEVICE_SLACK * t["wall_ms"]:
+                fail(f"tools: {label} {piece}: device {t['device_ms']:.4f} ms > wall "
+                     f"{t['wall_ms']:.4f} ms + 5%")
+        retried = [p for p, t in line.get("pieces", {}).items() if t["profiled_windows"] > 1]
+        log(f"tools: {label}: {seconds:.1f} s, launches {launches}"
+            + (f"; profiled again (a window without device time): {retried}" if retried else ""))
+        log(json.dumps({f"tool_{label}": line}))
+        report[label] = {"s": seconds, "launches": launches, "line": line}
+        torch.cuda.empty_cache()
+        return line
+
+    step_line = run_tool("profile_step", lambda: profile_step.run(["--family", "pipn"]),
+                         TOOL_KERNELS["pipn"])
+    pp_line = run_tool("profile_pp", lambda: profile_pp.run(["--family", "pipn_pp"]),
+                       TOOL_KERNELS["pipn_pp"])
+    measured = {"pipn": step_line["train_steps_per_sec"],
+                "pipn_pp": pp_line["train_steps_per_sec"]}
+    roof = run_tool("roofline", lambda: roofline.run(["--families", "pipn,pipn_pp",
+                                                      "--measured", json.dumps(measured)]))
+    mfu_line = run_tool("mfu", lambda: mfu.run(["--families", "pipn,pi_gano"]),
+                        TOOL_KERNELS["pipn"] + TOOL_KERNELS["pi_gano"])
+    run_tool("profile_gano", lambda: profile_gano.run([]), TOOL_KERNELS["pi_gano"])
+    for family in ("pipn", "pipn_pp", "pi_gano"):
+        run_tool(f"profile_delta_{family}", lambda f=family: profile_delta.run(["--family", f]),
+                 TOOL_KERNELS[family])
+    run_tool("measure_full_rates", lambda: measure_full_rates.run(["--steps", "2"]),
+             ("sa_neighborhood", "pointnet_global", "farthest_point_sampling"))
+    run_tool("torch_baseline", lambda: torch_baseline.run(["--steps", "2"]))
+    run_tool("samehost_ratio", lambda: samehost_ratio.run(["--torch-steps", "2"]),
+             TOOL_KERNELS["pipn"])
+
+    # the shares of a peak
+    shares = [(f"mfu {f} {k}", r[k], 1.0) for f, r in mfu_line["families"].items()
+              for k in ("mfu_vs_f32_peak", "mfu_vs_bf16_peak")]
+    shares += [(f"profile_step {k}", step_line[k], 100.0)
+               for k in ("mfu_vs_f32_peak_pct", "mfu_vs_tf32_peak_pct")]
+    shares += [(f"roofline {f} pct_of_matmul_peak", e["pct_of_matmul_peak"], 100.0)
+               for f, e in roof["per_family"].items()]
+    for label, value, top in shares:
+        if not 0 < value <= top:
+            fail(f"tools: {label} = {value} is not in (0, {top:g}]")
+    # roofline's pipn decoder forward against phase 3's count for the same launch
+    flop = roof["per_family"]["pipn"]["decoder_fwd_gflops"] * 1e9
+    if abs(flop / decoder_flop - 1) > TOOL_FLOP_RTOL:
+        fail(f"tools: roofline's pipn decoder forward {flop:.6e} FLOP is not phase 3's "
+             f"{decoder_flop:.6e} within {TOOL_FLOP_RTOL}")
+    log(f"tools: roofline's pipn decoder forward {flop / 1e9:.3f} GFLOP, phase 3's "
+        f"{decoder_flop / 1e9:.3f}")
+
+    # the mesh assets and the render smoke, into a temporary directory
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            paths = make_mesh_assets.main([f"{tmp}/meshes"])
+        standard = ROOT / "examples/duct_fixed_boundary/assets/meshes/standard"
+        checked_in = sorted(standard.glob("*.obj"))
+        if (len(paths) != 11 or sorted(p.name for p in paths) != [p.name for p in checked_in]
+                or any(p.read_bytes() != (standard / p.name).read_bytes() for p in paths)):
+            fail("tools: make_mesh_assets did not write the 11 checked-in OBJ files")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = render_smoke.main(["--out", f"{tmp}/render"])
+        lines = buf.getvalue().strip().splitlines()
+        if rc != 0 or [line.split(":")[0] for line in lines] != ["pyvista", "bpy"] or not all(
+                ": SKIP" in line for line in lines):
+            fail(f"tools: render_smoke rc {rc}, lines {lines}")
+    log("tools: make_mesh_assets wrote the 11 checked-in OBJ files; render_smoke: "
+        + "; ".join(lines))
+    report["render_smoke"] = lines
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"tools phase: {report['phase_s']:.1f} s ({name}; {smi})")
+    return report
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper's launch count (and each engine mode's), by the
     key the kernels line uses."""
@@ -5169,6 +5321,11 @@ def main() -> int:
     multi_rank_report = multi_rank_phase(name, smi, counters)
     torch.cuda.empty_cache()
 
+    # ---- 42. the measurement tools -------------------------------------------------
+    clock("42")
+    tools_report = tools_phase(name, smi, counters, kernels["decoder_prop"]["flop"])
+    torch.cuda.empty_cache()
+
     # launches on each kernel's main path (per training step; FPS per
     # attach_neighbors, the only place it runs), and per path; the ctx_width
     # mode and the trunk's single modes are on no path (the coupled path
@@ -5247,6 +5404,8 @@ def main() -> int:
     log(json.dumps({"grid": grid_report}))
     log(json.dumps({"compare": compare_report}))
     log(json.dumps({"multi_rank": multi_rank_report}))
+    log(json.dumps({"tools": {k: v for k, v in tools_report.items()
+                              if k in ("phase_s", "render_smoke")}}))
     clock("end")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(nvidia_smi())

@@ -23,9 +23,13 @@ from porous_cfd_tpu_torch.parallel.mesh import make_mesh
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "porous_cfd_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "porous_cfd_tpu")
-# the JAX package's example and tool scripts, which the port keeps its own
-# counterparts of
-FORBIDDEN_SCRIPTS = ("examples", "tools")
+# the JAX package's example and tool scripts and its bench, which the port
+# keeps its own counterparts of
+FORBIDDEN_SCRIPTS = ("examples", "tools", "bench")
+# the port's measurement tools (porous_cfd_tpu_torch/tools/)
+MEASUREMENT_TOOLS = ("pieces", "roofline", "mfu", "profile_step", "profile_pp", "profile_gano",
+                     "profile_delta", "measure_full_rates", "torch_baseline", "samehost_ratio",
+                     "make_mesh_assets", "render_smoke")
 # the drawing and table libraries the card's machine lacks
 PLOTTING = ("matplotlib", "pandas")
 EXPERIMENTS = ("duct_fixed_boundary", "duct_fixed_boundary_hard",
@@ -164,6 +168,15 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
     for experiment in EXPERIMENTS:
         mod = importlib.import_module(f"porous_cfd_tpu_torch.examples.{experiment}.compare")
         later.append((mod.run, missing + ["--checkpoint-other", "no/other.ckpt"]))
+    # the measurement tools (make_mesh_assets and render_smoke run no device)
+    from porous_cfd_tpu_torch.tools import (measure_full_rates, mfu, profile_delta,
+                                            profile_gano, profile_pp, profile_step, roofline,
+                                            samehost_ratio, torch_baseline)
+    from porous_cfd_tpu_torch.utils import profiling
+    for tool in (roofline, mfu, profile_step, profile_pp, profile_gano, profile_delta,
+                 measure_full_rates, torch_baseline, samehost_ratio):
+        later.append((tool.run, []))
+    later.append((lambda argv: profiling.device_ms(lambda: None), []))
     for entry, argv in later:
         with pytest.raises(RuntimeError, match="CUDA"):
             entry(argv)
@@ -310,13 +323,51 @@ def test_no_jax_import_anywhere_in_the_port():
                 # the numpy datagen helpers
                 "parallel/mesh.py", "ops/distance.py", "dryrun.py",
                 "datagen/momentum_error.py", "datagen/mesh_filter.py",
-                "datagen/mesh_ops.py"):
+                "datagen/mesh_ops.py", "utils/profiling.py",
+                # the measurement tools
+                *(f"tools/{t}.py" for t in MEASUREMENT_TOOLS)):
         assert PORT / rel in files, rel
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in FORBIDDEN + FORBIDDEN_SCRIPTS, \
                 f"{path.relative_to(ROOT)} imports {name}"
+
+
+def _snapshot(paths):
+    return {p: (p.stat().st_mtime_ns, p.stat().st_size) for root in paths
+            for p in ([root] if root.is_file() else sorted(root.rglob("*"))) if p.is_file()}
+
+
+def test_port_tools_write_only_where_they_are_told(tmp_path, monkeypatch, capsys):
+    """No port tool writes PARITY.md, PERF.md or under examples/ unless
+    given that path; each writes where its arguments say and nowhere else
+    (nothing in the working directory)."""
+    from porous_cfd_tpu_torch.tools import make_mesh_assets, mfu, render_smoke, roofline
+    watched = [ROOT / "PARITY.md", ROOT / "PERF.md",
+               ROOT / "examples/duct_fixed_boundary/assets/meshes/standard"]
+    before = _snapshot(watched)
+    cwd = tmp_path / "cwd"
+    cwd.mkdir()
+    monkeypatch.chdir(cwd)
+    monkeypatch.setattr(roofline, "measure_dot_rate", lambda m, k, n, device: 1e12)
+    monkeypatch.setattr(mfu, "measure_matmul_peak", lambda device: {"f32": 1e12,
+                                                                    "bf16": 2e12})
+    monkeypatch.setattr(mfu, "measure_family", lambda family, device, env: {
+        "steps_per_sec": 1.0, "flops_per_step": 1e9, "achieved_flops_per_sec": 1e9})
+    out = tmp_path / "out"
+    roofline.run(["--families", "pipn", "--peak-tflops", "1", "--update",
+                  str(out / "PERF.md")], device="cpu")
+    mfu.run(["--families", "pipn", "--update", str(out / "PERF.md")], device="cpu")
+    make_mesh_assets.main([str(out / "meshes")])
+    assert render_smoke.main(["--out", str(out / "render")]) == 0
+    capsys.readouterr()
+    assert _snapshot(watched) == before
+    assert list(cwd.iterdir()) == []
+    assert sorted(p.name for p in out.iterdir()) == ["PERF.md", "meshes", "render"]
+    for name in MEASUREMENT_TOOLS:
+        text = (PORT / "tools" / f"{name}.py").read_text()
+        assert "PARITY.md" not in text, name
 
 
 def test_port_imports_with_jax_blocked():
