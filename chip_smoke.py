@@ -133,7 +133,8 @@ Phases, in order; any failure exits non-zero:
      levels and two global ones on one boundary chain: 3 sa_neighborhood, 2
      pointnet_global and 2 decoder_prop launches each way a step);
  18. the duct_fixed_boundary CLIs: the port's FVM solver writes FIX_TRAIN +
-     FIX_VAL golden-duct cases at the golden grid; the training CLI trains
+     FIX_VAL golden-duct cases at the golden grid (on the host, in a thread
+     beside phase 2's build, joined before phase 3); the training CLI trains
      ``pipn`` (decoupled), ``pipn-pp-mrg`` and ``pipn-pp-full`` (the U-Net)
      for FIX_EPOCHS epochs at the
      golden points, the loss without dropout falling by FIX_MIN_FALL of
@@ -252,8 +253,8 @@ Phases, in order; any failure exits non-zero:
      the full-width bench envelope, few repetitions: ``profile_step
      --family pipn``, ``profile_pp`` (pipn_pp), ``roofline --families
      pipn,pipn_pp`` (with the two profiles' steps/s as its measured rates),
-     ``mfu --families pipn,pi_gano``, ``profile_gano``, ``profile_delta``
-     for pipn, pipn_pp and pi_gano, ``measure_full_rates --steps 2``,
+     ``mfu --families pipn,pi_gano``, ``profile_gano``, ``profile_delta
+     --n 5`` for pipn, pipn_pp and pi_gano, ``measure_full_rates --steps 2``,
      ``torch_baseline --steps 2``, ``samehost_ratio --torch-steps 2`` (its
      baseline in a subprocess of its own), ``make_mesh_assets`` into a
      temporary directory and ``render_smoke``. Each tool's printed line
@@ -265,11 +266,30 @@ Phases, in order; any failure exits non-zero:
      counts for the same decoder_prop launch; the eleven OBJ files equal
      the checked-in ones; render_smoke exits 0 with its two SKIP lines
      (neither PyVista nor bpy is installed on the card's machine).
+ 43. data generation (``datagen/generator.py``) on the card's machine, which
+     has no OpenFOAM, Blender or matplotlib: a stand-in engine (a bash
+     script given as ``openfoam_bin``; a snappyHexMesh Run succeeds, a
+     simpleFoam Run gets one of phase 18's solved cases with the gradient
+     fields OpenFOAM's function objects write, ``write_gradient_fields``);
+     the port's ``Generator2DFixed.generate`` over a copy of the
+     duct_fixed_boundary assets, whole, plots off (these two steps run in
+     a process of their own at a lower priority, started after phase 3,
+     beside phases 4-42; the phase waits for it): GEN_MESHES meshes, the
+     splits GEN_SPLITS (the remainder in test), every Run and
+     decomposeParDict set for GEN_PROCS processors, each case collapsed
+     with its momentError, each split's meta and data_config.json, the
+     root's min-points, the seconds of each stage; the generate_data CLI
+     with ``--meta-only`` over a copy of phase 18's data rewrites its meta
+     files byte for byte; the fixed training CLI trains one epoch of
+     ``pipn`` at full width and FIX_POINTS from the generated splits
+     (pointnet_global and decoder_prop launched both ways), and a step on
+     the generated held-out split makes no synchronizing call.
 Each of phases 4-14, 16-17, 20-21, 24-27 and 30-35 sets every launch count to 0 just
 before it and reads them just after (phases 18, 22 and 36 around each
 in-process training command, 38 and 39 around each training command,
 23 and 28 around their steps, 40 around each in-process compare, 41 in
-each rank around its step and around the CLI, 42 around each tool); every
+each rank around its step and around the CLI, 42 around each tool, 43
+around its training command); every
 training phase also counts the synchronizing calls of one step, which must
 be none. Each phase logs the second it starts at (``[clock]`` lines). The
 second-to-last lines are the
@@ -281,6 +301,7 @@ bandwidth; ``bound_f32_core_ms`` keeps the f32 CUDA-core bound beside it.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import json
 import math
@@ -2329,10 +2350,23 @@ def check_mrg(model, batch, gen, pk):
     return out
 
 
-def fixed_cli_phase(name, smi, counters, keep):
+def solve_fixed_cases(keep: Path) -> dict:
+    """Phase 18's data: FIX_TRAIN + FIX_VAL golden-duct cases solved by the
+    port's FVM solver (host numpy) and written at FIX_GRID with their meta
+    under ``keep/data`` (``train_golden_duct.generate``); the seconds."""
+    from porous_cfd_tpu_torch.tools.train_golden_duct import TRAIN_CASES, VAL_CASES, generate
+    t0 = time.perf_counter()
+    per_split = generate(Path(keep) / "data", *FIX_GRID, TRAIN_CASES[:FIX_TRAIN],
+                         VAL_CASES[:FIX_VAL])
+    return {"solve_s_per_split": per_split, "solve_s": time.perf_counter() - t0}
+
+
+def fixed_cli_phase(name, smi, counters, keep, solved):
     """The port's duct_fixed_boundary experiment on the card, through the
-    entry points a user calls: the port's FVM solver writes FIX_TRAIN +
-    FIX_VAL golden-duct cases at FIX_GRID with their meta; for each of
+    entry points a user calls: the port's FVM solver has written FIX_TRAIN +
+    FIX_VAL golden-duct cases at FIX_GRID with their meta under ``keep``
+    (``solve_fixed_cases``, beside the kernel build; ``solved`` its
+    seconds); for each of
     FIX_MODELS the training CLI (``examples/duct_fixed_boundary/train.py``,
     ``run``) trains FIX_EPOCHS epochs at the golden points, bf16-mixed
     validation; checks model.ckpt, best.ckpt and model_meta.json, the launch
@@ -2351,7 +2385,6 @@ def fixed_cli_phase(name, smi, counters, keep):
     import torch
     from porous_cfd_tpu_torch.data.dataset import FoamDataset
     from porous_cfd_tpu_torch.examples.duct_fixed_boundary import evaluate, inference, train
-    from porous_cfd_tpu_torch.tools.train_golden_duct import TRAIN_CASES, VAL_CASES, generate
     from porous_cfd_tpu_torch.train.engine import (compute_losses, gather_cases,
                                                    make_predict_functions)
     dev = torch.device("cuda", 0)
@@ -2362,12 +2395,10 @@ def fixed_cli_phase(name, smi, counters, keep):
               "points": list(FIX_POINTS), "epochs": FIX_EPOCHS}
     keep = Path(keep)
     root = keep / "data"
-    t0 = time.perf_counter()
-    report["solve_s_per_split"] = generate(root, *FIX_GRID, TRAIN_CASES[:FIX_TRAIN],
-                                           VAL_CASES[:FIX_VAL])
-    report["solve_s"] = time.perf_counter() - t0
+    report.update(solved)
     log(f"fixed cli: {FIX_TRAIN} + {FIX_VAL} golden-duct cases solved by the port's FVM "
         f"solver and written at {FIX_GRID[0]}x{FIX_GRID[1]} in {report['solve_s']:.1f} s "
+        f"beside the kernel build "
         f"(cut from the golden run's 13 + 4 cases for this script's time; grid, points "
         f"and model widths are the golden run's)")
     split_args = ["--train-dir", str(root / "train"), "--val-dir", str(root / "val")]
@@ -4511,6 +4542,7 @@ TOOL_KERNELS = {
 }
 TOOL_DEVICE_SLACK = 1.05       # a piece's device ms against its wall ms
 TOOL_FLOP_RTOL = 5e-3          # roofline's decoder FLOPs against phase 3's
+TOOL_DELTA_N = 5               # profile_delta's calls a timed piece (its default 10)
 
 
 def _numbers(obj, path=""):
@@ -4587,7 +4619,8 @@ def tools_phase(name, smi, counters, decoder_flop):
                         TOOL_KERNELS["pipn"] + TOOL_KERNELS["pi_gano"])
     run_tool("profile_gano", lambda: profile_gano.run([]), TOOL_KERNELS["pi_gano"])
     for family in ("pipn", "pipn_pp", "pi_gano"):
-        run_tool(f"profile_delta_{family}", lambda f=family: profile_delta.run(["--family", f]),
+        run_tool(f"profile_delta_{family}",
+                 lambda f=family: profile_delta.run(["--family", f, "--n", str(TOOL_DELTA_N)]),
                  TOOL_KERNELS[family])
     run_tool("measure_full_rates", lambda: measure_full_rates.run(["--steps", "2"]),
              ("sa_neighborhood", "pointnet_global", "farthest_point_sampling"))
@@ -4634,6 +4667,262 @@ def tools_phase(name, smi, counters, decoder_flop):
     report["render_smoke"] = lines
     report["phase_s"] = time.perf_counter() - t_phase
     log(f"tools phase: {report['phase_s']:.1f} s ({name}; {smi})")
+    return report
+
+
+# phase 43: data generation through the port's generator with a stand-in
+# engine: the duct_fixed_boundary assets whole (152 meshes), split 0.6 / 0.2
+# / 0.2 with the remainder in test (the first split by name)
+GEN_MESHES = 152
+GEN_SPLITS = {"test": 31, "train": 91, "val": 30}
+GEN_PROCS = 8                      # --openfoam-procs: a 4 x 2 decomposition
+GEN_BATCH = 13
+GEN_WAIT_S = 600                   # the longest phase 43 waits for generate_cases
+# the stand-in for the OpenFOAM shell wrapper: it reads a Run script's path
+# on standard input, as the wrapper does; a snappyHexMesh stage succeeds, a
+# simpleFoam stage gets one of phase 18's solved cases (with the gradient
+# fields OpenFOAM's function objects write), picked by its name's length, as
+# hard links (the card machine's file system takes milliseconds a file; no
+# step of the generator writes into a solved file: momentError is new)
+GEN_ENGINE = """#!/bin/bash
+read -r run
+stage=${{run%/*}}
+[ "${{stage##*/}}" = snappyHexMesh ] && exit 0
+case_name=${{stage%/*}}
+case_name=${{case_name##*/}}
+cp -rlf "{solved}/$(( ${{#case_name}} % {n} ))/." "$stage/"
+"""
+
+
+def write_gradient_fields(case: Path, nx: int, ny: int) -> None:
+    """Add to a solved golden-duct case the fields ``write_momentum_error``
+    reads and OpenFOAM's function objects would have written (grad(p),
+    grad(U)ij, grad(grad(U)ij)): central differences on its nx x ny cell
+    grid; each boundary face takes its nearest cell's values. The case's
+    momentError files are removed: the generator writes them."""
+    import numpy as np
+    from porous_cfd_tpu_torch.data import foam_io, parser
+    internal = parser.parse_internal_fields(str(case), "C", "U", "p", max_dim=3)
+    xy = internal["C"][:, :2].reshape(nx, ny, 2)
+    x, y = xy[:, 0, 0], xy[0, :, 1]
+
+    def grad(q):
+        gx, gy = np.gradient(q, x, y)
+        return np.stack([gx, gy, np.zeros_like(gx)], -1)
+
+    u, p = internal["U"].reshape(nx, ny, 3), internal["p"].reshape(nx, ny)
+    fields = {"grad(p)": grad(p)}
+    for i, ci in enumerate("xyz"):
+        g = grad(u[..., i])
+        for j, cj in enumerate("xyz"):
+            fields[f"grad(U){ci}{cj}"] = g[..., j]
+            fields[f"grad(grad(U){ci}{cj})"] = grad(g[..., j])
+    last = Path(case) / foam_io.latest_time(str(case))
+    for path in [last / "momentError",
+                 *Path(case).glob("postProcessing/*/surface/*/*/vectorField/momentError")]:
+        path.unlink()
+    for fname, v in fields.items():
+        vec = v.ndim == 3
+        foam_io.write_field_file(last / fname, "volVectorField" if vec else "volScalarField",
+                                 fname, v.reshape(nx * ny, 3) if vec else v.reshape(-1))
+    for patch_dir in sorted(Path(case).glob("postProcessing/*/surface/*/*/")):
+        faces = foam_io.read_list_file(patch_dir / "faceCentres")
+        i = np.clip(np.rint((faces[:, 0] - x[0]) / (x[1] - x[0])), 0, nx - 1).astype(int)
+        j = np.clip(np.rint((faces[:, 1] - y[0]) / (y[1] - y[0])), 0, ny - 1).astype(int)
+        for fname, v in fields.items():
+            vals = v[i, j]
+            foam_io.write_postprocess_field(
+                patch_dir / ("vectorField" if vals.ndim == 2 else "scalarField") / fname, vals)
+
+
+def generate_cases(golden, out) -> None:
+    """Phase 43's steps 1 and 2, in a process of its own (``start_generation``)
+    at a lower priority: the stand-in engine over the solved cases in
+    ``golden`` (phase 18's), then ``Generator2DFixed.generate`` over a copy
+    of the duct_fixed_boundary assets into ``out/data``, each stage timed;
+    the seconds go to ``out/report.json``."""
+    import os
+    import shutil
+    from porous_cfd_tpu_torch.datagen.generator import example_assets
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary.generator_2d_fixed import \
+        Generator2DFixed
+    os.nice(10)
+    out = Path(out)
+    report = {}
+    # 1. the stand-in engine over phase 18's solved cases
+    t0 = time.perf_counter()
+    solved = sorted(Path(golden).glob("*/case_*"))
+    for k, case in enumerate(solved):
+        shutil.copytree(case, out / "solved" / str(k))
+        write_gradient_fields(out / "solved" / str(k), *FIX_GRID)
+    engine = out / "engine"
+    engine.write_text(GEN_ENGINE.format(n=len(solved), solved=out / "solved"))
+    engine.chmod(0o755)
+    report["engine_setup_s"] = time.perf_counter() - t0
+
+    # 2. generate() over a copy of the assets, each stage timed
+    assets = out / "assets"
+    shutil.copytree(example_assets("duct_fixed_boundary"), assets)
+    gen = Generator2DFixed(str(assets), str(engine), GEN_PROCS)
+    stage_s = {}
+
+    def timed(stage):
+        fn = getattr(gen, stage)
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            stage_s[stage] = stage_s.get(stage, 0.0) + time.perf_counter() - t0
+            return result
+        setattr(gen, stage, run)
+
+    for stage in ("generate_transformed_meshes", "generate_openfoam_cases",
+                  "generate_split", "generate_data"):
+        timed(stage)
+    t0 = time.perf_counter()
+    gen.generate(out / "data")
+    report["generate_s"] = time.perf_counter() - t0
+    stage_s["meta, data_config and min-points"] = report["generate_s"] - sum(stage_s.values())
+    report["stage_s"] = stage_s
+    (out / "report.json").write_text(json.dumps(report))
+
+
+def start_generation(fixed_keep, out) -> subprocess.Popen:
+    """Start ``generate_cases`` over phase 18's solved cases in a process of
+    its own, its output in ``out/generate.log``; it is killed if the script
+    ends first."""
+    import atexit
+    with open(Path(out) / "generate.log", "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.generate_cases("
+             f"{str(Path(fixed_keep) / 'data')!r}, {str(out)!r})"],
+            cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc
+
+
+def generation_phase(fixed_keep, gen_dir, proc, name, smi, counters):
+    """Phase 43 (module docstring): the port's data generation driven end to
+    end on the card's machine, which has no OpenFOAM, Blender or
+    matplotlib. ``fixed_keep`` is phase 18's directory (its solved cases in
+    ``data/``); ``proc`` is ``start_generation``'s process, which writes
+    into ``gen_dir``."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    from porous_cfd_tpu_torch.data.dataset import FoamDataset
+    from porous_cfd_tpu_torch.examples.duct_fixed_boundary import generate_data, train
+    from porous_cfd_tpu_torch.profile_predict import sync_sites
+    from porous_cfd_tpu_torch.train.engine import (gather_cases, make_optimizer,
+                                                   make_train_functions)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    golden = Path(fixed_keep) / "data"
+    gen_dir = Path(gen_dir)
+    report = {"meshes": GEN_MESHES, "splits": GEN_SPLITS, "openfoam_procs": GEN_PROCS}
+    rc = proc.wait(timeout=GEN_WAIT_S)
+    report["waited_s"] = time.perf_counter() - t_phase
+    if rc != 0:
+        fail(f"generation: generate_cases exited {rc}: "
+             f"{(gen_dir / 'generate.log').read_text()[-3000:]}")
+    report.update(json.loads((gen_dir / "report.json").read_text()))
+    stage_s = report["stage_s"]
+    data = gen_dir / "data"
+    n_meshes = len(list((gen_dir / "assets" / "generated_meshes" / "standard").glob("*.obj")))
+    splits = {s.name: sorted(c.name for c in s.iterdir() if c.is_dir())
+              for s in sorted(data.iterdir()) if s.is_dir()}
+    sizes = {s: len(v) for s, v in splits.items()}
+    if n_meshes != GEN_MESHES or sizes != GEN_SPLITS:
+        fail(f"generation: {n_meshes} meshes, splits {sizes}; want {GEN_MESHES}, "
+             f"{GEN_SPLITS}")
+    if not (data / "min_points.json").exists():
+        fail("generation: no min_points.json at the data root")
+    for split, cases in splits.items():
+        for fname in ("meta.json", "data_config.json"):
+            if not (data / split / fname).exists():
+                fail(f"generation: {split} has no {fname}")
+        for case in cases:
+            root = data / split / case
+            decompose = (root / "system" / "decomposeParDict").read_text()
+            if ("$n_proc" in (root / "Run").read_text()
+                    or f"numberOfSubdomains {GEN_PROCS};" not in decompose
+                    or not (root / "1000" / "momentError").exists()
+                    or (root / "snappyHexMesh").exists()):
+                fail(f"generation: case {split}/{case} is not a collapsed, decomposed "
+                     f"case with its momentError")
+    log(f"generation: generate() of the duct_fixed_boundary assets through the stand-in "
+        f"engine, in a process of its own beside phases 4-42 (waited "
+        f"{report['waited_s']:.1f} s for it): {n_meshes} meshes, splits {sizes}, every Run "
+        f"and decomposeParDict set for {GEN_PROCS} processors, momentError in every case; "
+        f"{report['generate_s']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in stage_s.items())
+        + f" (engine set-up {report['engine_setup_s']:.1f} s; {name}; {smi})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 3. --meta-only over a copy of phase 18's data: train_golden_duct's bytes
+        meta_copy = tmp / "meta_only"
+        shutil.copytree(golden, meta_copy)
+        written = {}
+        for path in [meta_copy / "min_points.json", *sorted(meta_copy.glob("*/meta.json"))]:
+            written[str(path.relative_to(meta_copy))] = path.read_bytes()
+            path.unlink()
+        t0 = time.perf_counter()
+        generate_data.run(["--meta-only", "--data-root-dir", str(meta_copy)])
+        report["meta_only_s"] = time.perf_counter() - t0
+        for rel, content in written.items():
+            if (meta_copy / rel).read_bytes() != content:
+                fail(f"generation: --meta-only wrote another {rel} than train_golden_duct")
+        log(f"generation: the generate_data CLI with --meta-only rewrote {sorted(written)} "
+            f"byte for byte as train_golden_duct.generate wrote them, in "
+            f"{report['meta_only_s']:.1f} s")
+
+        # 4. one epoch of pipn at full width from the generated splits
+        n_int, n_bnd, n_obs = FIX_POINTS
+        argv = ["--model", "pipn", "--epochs", "1", "--batch-size", str(GEN_BATCH),
+                "--n-internal", str(n_int), "--n-boundary", str(n_bnd),
+                "--n-observations", str(n_obs), "--train-dir", str(data / "train"),
+                "--val-dir", str(data / "val"), "--logs-dir", str(tmp / "logs"),
+                "--name", "pipn-generated"]
+        for c in counters.values():
+            c.launches = 0
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            model = train.run(argv)
+        torch.cuda.synchronize()
+        report["train_s"] = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        for line in printed.getvalue().splitlines():
+            log(f"  | {line}")
+        want = ("pointnet_global", "pointnet_global_bwd", "decoder_prop", "decoder_prop_bwd")
+        if not all(launches.get(k) for k in want):
+            fail(f"generation: training from the generated splits launched {launches}; want "
+                 f"each of {want}")
+        # no synchronizing call in a step (after one warm step), on the
+        # generated held-out split
+        args = train.build_arg_parser().parse_args(argv)
+        val = FoamDataset(str(data / "val"), n_int, n_bnd, n_obs,
+                          rng=np.random.default_rng(train.SEED), meta_dir=str(data / "train"))
+        fns = make_train_functions(model, make_optimizer(model, len(val) // GEN_BATCH),
+                                   train.get_loss_scaler(args))
+        state = fns.init_state(seed=SEED)
+        batch = gather_cases(model.attach_neighbors(val.stacked().to(dev)),
+                             torch.arange(GEN_BATCH, device=dev))
+        state, _ = fns.train_step(state, batch)
+        sites = sync_sites(lambda: fns.train_step(state, batch))
+        if sites:
+            fail(f"generation: {len(sites)} synchronizing calls in one training step: {sites}")
+        report["launches"] = launches
+        log(f"generation: one epoch of pipn at {n_int}/{n_bnd}/{n_obs} points, batch "
+            f"{GEN_BATCH}, from the generated {sizes['train']} + {sizes['val']} cases in "
+            f"{report['train_s']:.1f} s for the whole command (loading included), launches "
+            f"{launches}; no synchronizing call in a step ({name}; {smi})")
+        del model
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"generation phase: {report['phase_s']:.1f} s ({name}; {smi})")
     return report
 
 
@@ -4713,10 +5002,20 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     clock("2")
-    t0 = time.perf_counter()
-    seconds = build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s wall; per source "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    # phase 18's golden-duct cases are solved on the host (numpy) beside the
+    # build, which only waits on its nvcc processes; the solve is joined
+    # before phase 3, so no measured phase runs beside it
+    fixed_keep = tempfile.TemporaryDirectory()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        fixed_solve = pool.submit(solve_fixed_cases, Path(fixed_keep.name))
+        t0 = time.perf_counter()
+        seconds = build.build_all()
+        log(f"build: {time.perf_counter() - t0:.1f} s wall; per source "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+        t0 = time.perf_counter()
+        fixed_solved = fixed_solve.result()
+    log(f"phase 18's golden-duct solve beside the build: {fixed_solved['solve_s']:.1f} s; "
+        f"waited {time.perf_counter() - t0:.1f} s for it after the build")
     for src in build.SOURCES:
         report = build.library_path(src).with_suffix(".log")
         if report.exists():
@@ -5031,6 +5330,11 @@ def main() -> int:
         log(json.dumps({"kernel_timing": kern}))
     torch.cuda.empty_cache()
 
+    # phase 43's generate() over phase 18's solved cases starts here, in a
+    # process of its own at a lower priority, after phase 3's kernel timings
+    gen_keep = tempfile.TemporaryDirectory(ignore_cleanup_errors=True)
+    gen_proc = start_generation(fixed_keep.name, gen_keep.name)
+
     # ---- 4, 5. pipn: verbose prediction, then training -------------------------
     clock("4, 5")
     pipn_pred = prediction_phase("pipn", pipn_model(dev), pipn_model("cpu"), data, scalers,
@@ -5162,8 +5466,7 @@ def main() -> int:
 
     # ---- 18. the duct_fixed_boundary CLIs on golden-duct data ----------------------
     clock("18")
-    fixed_keep = tempfile.TemporaryDirectory()
-    fixed_report = fixed_cli_phase(name, smi, counters, Path(fixed_keep.name))
+    fixed_report = fixed_cli_phase(name, smi, counters, Path(fixed_keep.name), fixed_solved)
     torch.cuda.empty_cache()
 
     # ---- 19. the port's bench ------------------------------------------------------
@@ -5312,7 +5615,6 @@ def main() -> int:
     # ---- 40. compare on phase 18's and phase 15's checkpoints, the error table ----------
     clock("40")
     compare_report = compare_phase(fixed_keep.name, cli_keep.name, counters, name, smi)
-    fixed_keep.cleanup()
     cli_keep.cleanup()
     torch.cuda.empty_cache()
 
@@ -5324,6 +5626,14 @@ def main() -> int:
     # ---- 42. the measurement tools -------------------------------------------------
     clock("42")
     tools_report = tools_phase(name, smi, counters, kernels["decoder_prop"]["flop"])
+    torch.cuda.empty_cache()
+
+    # ---- 43. data generation: generate(), --meta-only, training from its splits ------
+    clock("43")
+    generation_report = generation_phase(fixed_keep.name, gen_keep.name, gen_proc, name, smi,
+                                         counters)
+    fixed_keep.cleanup()
+    gen_keep.cleanup()
     torch.cuda.empty_cache()
 
     # launches on each kernel's main path (per training step; FPS per
@@ -5406,6 +5716,7 @@ def main() -> int:
     log(json.dumps({"multi_rank": multi_rank_report}))
     log(json.dumps({"tools": {k: v for k, v in tools_report.items()
                               if k in ("phase_s", "render_smoke")}}))
+    log(json.dumps({"generation": generation_report}))
     clock("end")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(nvidia_smi())

@@ -130,19 +130,21 @@ def _parse_numeric_block(body: str) -> np.ndarray:
 
 
 def _extract_list(text: str, keyword_pos: int) -> np.ndarray:
-    """From a position in text, find the next balanced (...) block."""
+    """From a position in text, find the next balanced (...) block: the
+    first character at which the running parenthesis depth, counted from
+    the block's "(", returns to 0 (one numpy pass over one byte a character,
+    not a Python loop over the characters)."""
     start = text.index("(", keyword_pos)
-    depth, i = 0, start
-    while True:
-        c = text[i]
-        if c == "(":
-            depth += 1
-        elif c == ")":
-            depth -= 1
-            if depth == 0:
-                break
-        i += 1
-    return _parse_numeric_block(text[start:i + 1])
+    # latin-1 with "replace" keeps one byte per character, so byte and
+    # character positions agree (OpenFOAM's files are ASCII)
+    chars = np.frombuffer(text[start:].encode("latin-1", "replace"), dtype=np.uint8)
+    depth = (chars == ord("(")).astype(np.int32)
+    depth -= chars == ord(")")
+    np.cumsum(depth, out=depth)
+    end = int(np.argmax(depth == 0))
+    if depth[end] != 0:
+        raise ValueError(f"unbalanced ( ... ) list at character {start}")
+    return _parse_numeric_block(text[start:start + end + 1])
 
 
 def read_field_file(path: str | Path) -> dict:

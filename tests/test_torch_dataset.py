@@ -130,3 +130,28 @@ def test_native_library_builds_once_under_its_lock(tmp_path, monkeypatch):
     assert native.available()
     np.testing.assert_array_equal(native.parse_floats(body), pure)
     np.testing.assert_array_equal(foam_io._parse_numeric_block(body), pure.reshape(3, 3))
+
+
+LIST_TEXTS = {
+    "scalars": "internalField nonuniform List<scalar>\n3\n(\n1.5\n-2e-3\n4\n)\n;\nboundaryField\n{}\n",
+    "vectors": "internalField nonuniform List<vector>\n2\n(\n(1 2 3)\n(4.5 -5 6e1)\n)\n;\n",
+    "trailing": "value nonuniform List<vector> 2((0 1 0) (1 0 0));\n}\nnext (7 8 9);\n",
+}
+
+
+@pytest.mark.parametrize("kind", list(LIST_TEXTS))
+def test_list_blocks_read_as_the_jax_packages(kind):
+    """``foam_io._extract_list`` finds the balanced block with one numpy
+    pass; the arrays equal the JAX package's character loop's."""
+    from porous_cfd_tpu.data import foam_io as jax_foam_io
+    text = LIST_TEXTS[kind]
+    got = foam_io._extract_list(text, text.index("List"))
+    np.testing.assert_array_equal(got, jax_foam_io._extract_list(text, text.index("List")))
+    assert got.shape == {"scalars": (3,), "vectors": (2, 3), "trailing": (2, 3)}[kind]
+    # without the ")" that closes the block, it never closes
+    depth, i = 0, text.index("(", text.index("List"))
+    while depth != 1 or text[i] != ")":
+        depth += {"(": 1, ")": -1}.get(text[i], 0)
+        i += 1
+    with pytest.raises(ValueError, match="unbalanced"):
+        foam_io._extract_list(text[:i] + text[i + 1:], text.index("List"))

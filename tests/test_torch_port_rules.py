@@ -2,6 +2,8 @@
 fall back to the CPU without being asked, nothing in the port imports JAX or
 the JAX package, and the kernel modules import without nvcc or a GPU."""
 import ast
+import importlib
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -35,6 +37,8 @@ PLOTTING = ("matplotlib", "pandas")
 EXPERIMENTS = ("duct_fixed_boundary", "duct_fixed_boundary_hard",
                "vertical_duct_fixed_boundary", "duct_variable_boundary",
                "manufactured_solutions", "abc", "windbreaks")
+# the experiments whose generate_data drives OpenFOAM (datagen/generator.py)
+GENERATED = tuple(e for e in EXPERIMENTS if e != "manufactured_solutions")
 SMALL = dict(fe_local_layers=[2, 8, 8], fe_global_layers=[13, 8, 16],
              seg_layers=[24, 8, 3])
 PI_GANO_SMALL = dict(out_features=3, branch_layers=[8, 16], geometry_layers=[7, 8],
@@ -325,7 +329,15 @@ def test_no_jax_import_anywhere_in_the_port():
                 "datagen/momentum_error.py", "datagen/mesh_filter.py",
                 "datagen/mesh_ops.py", "utils/profiling.py",
                 # the measurement tools
-                *(f"tools/{t}.py" for t in MEASUREMENT_TOOLS)):
+                *(f"tools/{t}.py" for t in MEASUREMENT_TOOLS),
+                # data generation: the generator, the experiments' generators
+                # and CLIs, abc's preprocess, the stage runner
+                "datagen/generator.py", "run_experiment.py", "examples/abc/data_preprocess.py",
+                *(f"examples/{e}/generate_data.py" for e in GENERATED),
+                "examples/duct_fixed_boundary/generator_2d_fixed.py",
+                "examples/duct_fixed_boundary_hard/generator_2d_fixed.py",
+                "examples/duct_variable_boundary/generator_2d_variable.py",
+                "examples/abc/abc_generator.py", "examples/windbreaks/windbreak_generator.py"):
         assert PORT / rel in files, rel
     for path in files:
         for name in _imports(path):
@@ -393,6 +405,10 @@ def test_port_imports_with_jax_blocked():
         "import porous_cfd_tpu_torch.ops.distance\n"
         "import porous_cfd_tpu_torch.datagen.mesh_ops\n"
         "import porous_cfd_tpu_torch.datagen.momentum_error\n"
+        "import porous_cfd_tpu_torch.datagen.generator\n"
+        "import porous_cfd_tpu_torch.examples.windbreaks.generate_data\n"
+        "import porous_cfd_tpu_torch.examples.abc.data_preprocess\n"
+        "import porous_cfd_tpu_torch.run_experiment\n"
         "for info in pkgutil.walk_packages(porous_cfd_tpu_torch.__path__,"
         " 'porous_cfd_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
@@ -543,6 +559,8 @@ def test_port_imports_with_matplotlib_and_pandas_blocked():
         "    importlib.import_module(name)\n"
         "assert 'porous_cfd_tpu_torch.viz.viz3d' in names\n"
         "assert 'porous_cfd_tpu_torch.examples.windbreaks.compare' in names\n"
+        "assert 'porous_cfd_tpu_torch.datagen.generator' in names\n"
+        "assert 'porous_cfd_tpu_torch.examples.windbreaks.generate_data' in names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -579,10 +597,12 @@ def fixed_checkpoints(tmp_path_factory):
 
 
 def test_clis_run_without_matplotlib_and_save_plots_refuses_first(fixed_checkpoints,
-                                                                   monkeypatch, capsys):
+                                                                   monkeypatch, capsys,
+                                                                   tmp_path):
     """With matplotlib and pandas blocked, as on the card's machine, the
-    evaluate and compare CLIs run without ``--save-plots``; with it, every
-    CLI raises the ImportError that names matplotlib before it predicts."""
+    evaluate and compare CLIs and the six generate_data CLIs (``--meta-only``)
+    run without ``--save-plots``; with it, every CLI raises the ImportError
+    that names matplotlib before it predicts or writes anything."""
     from porous_cfd_tpu_torch.examples.duct_fixed_boundary import compare, evaluate, inference
     from porous_cfd_tpu_torch.pipelines import evaluation
     from porous_cfd_tpu_torch.pipelines import inference as inference_pipeline
@@ -608,3 +628,23 @@ def test_clis_run_without_matplotlib_and_save_plots_refuses_first(fixed_checkpoi
         with pytest.raises(ImportError, match="--save-plots needs matplotlib"):
             cli.run(argv + extra + ["--save-plots"], device="cpu")
     assert not (logs / "pipn-a" / "plots").exists()
+
+    for experiment in GENERATED:
+        cli = importlib.import_module(f"porous_cfd_tpu_torch.examples.{experiment}.generate_data")
+        assets = ROOT / "examples" / experiment / "assets"
+        assets_before = _snapshot([assets])
+        root = tmp_path / experiment
+        shutil.copytree(data, root)
+        gen = cli.run(["--meta-only", "--data-root-dir", str(root)])
+        assert gen.meta_only and not gen.save_plots, experiment
+        assert (root / "min_points.json").exists() and not (root / "plots").exists()
+        for split in ("train", "val"):
+            assert (root / split / "data_config.json").read_bytes() == \
+                (assets / "data_config.json").read_bytes()
+        before = _snapshot([root])
+        fresh = tmp_path / f"{experiment}_fresh"
+        for extra, dest in ((["--meta-only"], root), ([], fresh)):
+            with pytest.raises(ImportError, match="--save-plots needs matplotlib"):
+                cli.run(extra + ["--save-plots", "--data-root-dir", str(dest)])
+        assert _snapshot([root]) == before and not fresh.exists()
+        assert _snapshot([assets]) == assets_before, experiment
