@@ -1,0 +1,2 @@
+"""The plain float32 reference that decides ``correct``: imports nothing of
+the program."""
